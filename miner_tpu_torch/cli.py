@@ -1,0 +1,33 @@
+"""CLI entry point of the port.
+
+``python -m miner_tpu_torch serve @config/serve_miner.txt`` (HTTP scoring
+server over the news-embedding cache) and ``python -m miner_tpu_torch
+recommend ...`` (one-shot ranking), on ``--device`` (default ``cuda``).
+"""
+from __future__ import annotations
+
+import sys
+
+from miner_tpu_torch.config import make_parser
+
+
+def main(argv=None):
+    parser = make_parser()
+    args = parser.parse_args(argv)
+    if args.mode is None:
+        parser.print_help()
+        return 1
+
+    from miner_tpu_torch.training.trainer import Trainer
+
+    if args.mode == "recommend":
+        Trainer(args).recommend()
+    elif args.mode == "serve":
+        from miner_tpu_torch.serving import serve
+
+        serve(Trainer(args), args.host, args.port)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,161 @@
+"""Config / flag system of the port.
+
+The JAX package's argparse surface (``miner_tpu/config.py``) for the
+subcommands the port has: ``serve`` (HTTP scoring server) and ``recommend``
+(one-shot ranking). ``@config/file.txt`` argument files with ``#`` comments
+parse unchanged (``config/serve_miner.txt`` included). Flags that only the
+JAX package's training or TPU mesh read are left out; flags of the serving
+path that the port cannot honour yet are accepted and refused by the
+``Trainer`` with the ROADMAP item that brings them.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses as dc
+from typing import Optional
+
+from miner_tpu_torch.models.plm import PLMConfig
+
+
+def convert_arg_line_to_args(arg_line: str):
+    """@file lines -> args; blank lines and ``#`` comments skipped."""
+    arg_line = arg_line.strip()
+    if not arg_line or arg_line.startswith("#"):
+        return []
+    return arg_line.split()
+
+
+class _JoinWords(argparse.Action):
+    """Collect ``nargs='*'`` words back into one space-joined string."""
+
+    def __call__(self, parser, namespace, values, option_string=None):
+        setattr(namespace, self.dest, " ".join(values) if values else None)
+
+
+def _subparser(sub, name: str) -> argparse.ArgumentParser:
+    p = sub.add_parser(name, fromfile_prefix_chars="@", allow_abbrev=False)
+    p.convert_arg_line_to_args = convert_arg_line_to_args
+    add_eval_arguments(p)
+    p.add_argument("--serve_cache_path", type=str, default=None,
+                   help="persist the corpus news-embedding cache (not ported "
+                        "yet: ignored without a checkpoint to fingerprint)")
+    p.add_argument("--serve_cache_int8", action="store_true",
+                   help="int8 corpus cache (not ported yet: refused)")
+    return p
+
+
+def make_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        description="miner_tpu_torch — MINER serving in PyTorch on a CUDA card",
+        fromfile_prefix_chars="@",
+        allow_abbrev=False,
+    )
+    parser.convert_arg_line_to_args = convert_arg_line_to_args
+    sub = parser.add_subparsers(dest="mode")
+    p = _subparser(sub, "recommend")
+    p.add_argument("--user_history", nargs="+", required=True,
+                   help="clicked news ids, oldest first")
+    p.add_argument("--candidates", nargs="*", default=None,
+                   help="candidate news ids (default: whole corpus)")
+    p.add_argument("--topk", type=int, default=10)
+    p = _subparser(sub, "serve")
+    p.add_argument("--host", type=str, default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8400,
+                   help="HTTP port (0: pick a free port)")
+    p.add_argument("--serve_max_batch", type=int, default=32,
+                   help="max concurrent requests coalesced into one device "
+                        "call (1 disables micro-batching)")
+    p.add_argument("--serve_batch_wait_ms", type=float, default=None,
+                   help="how long the batcher waits after the first request "
+                        "of a drain window for more to coalesce. Default: "
+                        "ADAPTIVE — ~10%% of the rolling device-call "
+                        "duration (capped 20ms). A number (including 0) is "
+                        "honored verbatim")
+    p.add_argument("--serve_http_impl", type=str, default="async",
+                   choices=["async", "threaded"],
+                   help="HTTP front-end: single-threaded asyncio event loop "
+                        "(default) or the stdlib ThreadingHTTPServer")
+    p.add_argument("--serve_warmup_slates", type=int, nargs="*", default=[],
+                   help="run the scoring path once for these slate sizes "
+                        "(every batch bucket each, plus the corpus top-k) "
+                        "before accepting traffic")
+    p.add_argument("--serve_warmup_topk", type=int, default=16,
+                   help="warm the corpus top-k path for this k bucket "
+                        "(every batch bucket; 0 disables)")
+    return parser
+
+
+def add_eval_arguments(p: argparse.ArgumentParser):
+    p.add_argument("--model_name", type=str, default="Miner")
+    p.add_argument("--pretrained_tokenizer", type=str, default="hash:30522",
+                   help="local HF tokenizer directory, or hash[:vocab_size]")
+    p.add_argument("--user2id_path", type=str)
+    p.add_argument("--category2id_path", type=str)
+    p.add_argument("--category_embed_path", type=str, default=None)
+    p.add_argument("--max_title_length", type=int, default=32)
+    p.add_argument("--max_sapo_length", type=int, default=128)
+    p.add_argument("--his_length", type=int, default=50)
+    p.add_argument("--seed", type=int, default=36)
+    p.add_argument("--save_eval_result", action="store_true")
+    p.add_argument("--metrics", type=str, nargs="+",
+                   default=["auc", "group_auc", "mrr", "ndcg@5", "ndcg@10"])
+    p.add_argument("--device", type=str, default=None,
+                   help="cuda (default) or cpu; cuda without a card raises")
+    p.add_argument("--compute_dtype", type=str, default="bfloat16",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--plm_preset", type=str, default="tiny",
+                   choices=["roberta_base", "bert_base", "tiny", "small"],
+                   help="PLM tower architecture preset")
+    p.add_argument("--legacy_poly_mask", action="store_true",
+                   help="the reference's 1e-30 poly-attention mask fill "
+                        "(not ported yet: refused)")
+    p.add_argument("--legacy_history_layout", action="store_true",
+                   help="pads-FIRST history rows, as a model trained under "
+                        "the reference's layout expects")
+    p.add_argument("--fused_kernels", action=argparse.BooleanOptionalAction,
+                   default=None,
+                   help="the hand-written kernels; on the card they always "
+                        "run (--no-fused_kernels is refused there)")
+    p.add_argument("--gelu_approx", action=argparse.BooleanOptionalAction,
+                   default=None,
+                   help="tanh-approximate gelu (default: auto — on for bf16 "
+                        "compute, off for fp32)")
+    p.add_argument("--saved_model_path", type=str,
+                   help="checkpoint to serve (not ported yet: refused)")
+    p.add_argument("--data_name", nargs="*", default=None, action=_JoinWords,
+                   type=str, metavar="WORD")
+    p.add_argument("--eval_behaviors_path", type=str)
+    p.add_argument("--eval_news_path", type=str)
+    p.add_argument("--eval_batch_size", type=int, default=64)
+    p.add_argument("--apply_reduce_dim", action="store_true")
+    p.add_argument("--use_sapo", action="store_true")
+    p.add_argument("--word_embed_dim", type=int, default=256)
+    p.add_argument("--category_embed_dim", type=int, default=100)
+    p.add_argument("--combine_type", type=str, default="linear",
+                   choices=["linear", "lstm", "pre-concat"])
+    p.add_argument("--use_category_bias", action="store_true")
+    p.add_argument("--num_context_codes", type=int, default=32)
+    p.add_argument("--context_code_dim", type=int, default=200)
+    p.add_argument("--score_type", type=str, default="weighted",
+                   choices=["mean", "max", "weighted"])
+    p.add_argument("--dropout", type=float, default=0.2)
+
+
+def plm_config(preset: str, vocab_size: Optional[int] = None,
+               gelu_approx: Optional[bool] = None) -> PLMConfig:
+    if preset == "roberta_base":
+        cfg = PLMConfig.roberta_base()
+    elif preset == "bert_base":
+        cfg = PLMConfig.bert_base()
+    elif preset == "small":
+        cfg = dc.replace(PLMConfig.bert_base(), hidden_size=256, num_layers=4,
+                         num_heads=8, intermediate_size=1024)
+    elif preset == "tiny":
+        cfg = PLMConfig.tiny()
+    else:
+        raise ValueError(f"unknown plm preset {preset!r}")
+    if vocab_size is not None:
+        cfg = dc.replace(cfg, vocab_size=vocab_size)
+    if gelu_approx is not None:
+        cfg = dc.replace(cfg, gelu_approx=gelu_approx)
+    return cfg

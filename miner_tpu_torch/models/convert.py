@@ -1,0 +1,49 @@
+"""Carrying weights over from the JAX package (the role of its hf_import.py).
+
+``miner_params_from_jax`` takes the JAX package's Miner parameter tree as
+nested dicts of numpy arrays, as ``jax.device_get(params)`` gives them, and
+returns a state dict for the port's ``Miner`` (or, given a subtree, for the
+matching sub-module: ``params["news_encoder"]["plm"]`` for a
+``TransformerPLM``). The layouts differ in three ways:
+
+  * a flax ``Dense`` stores ``kernel`` as (in, out); ``nn.Linear`` stores
+    ``weight`` as (out, in). The fused ``qkv`` kernel (D, 3D) becomes a
+    (3D, D) weight whose rows stay in q|k|v order;
+  * flax ``Embed`` tables (``embedding``) and LayerNorm ``scale`` become
+    ``weight``;
+  * the unrolled layer stack ``layer_{i}`` becomes ``layers.{i}``.
+
+Other leaves (LayerNorm and Dense ``bias``, poly-attention's
+``proj_kernel`` and ``context_codes``) keep their names and layouts. Load
+the result with ``load_state_dict(strict=True)``.
+"""
+from __future__ import annotations
+
+import re
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+_LAYER = re.compile(r"layer_(\d+)$")
+
+
+def miner_params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    state: Dict[str, torch.Tensor] = {}
+
+    def walk(tree: Mapping, prefix: str) -> None:
+        for name, value in tree.items():
+            if isinstance(value, Mapping):
+                m = _LAYER.match(name)
+                sub = f"layers.{m.group(1)}" if m else name
+                walk(value, f"{prefix}{sub}.")
+                continue
+            arr = np.asarray(value, dtype=np.float32)
+            if name == "kernel":
+                name, arr = "weight", arr.T
+            elif name in ("embedding", "scale"):
+                name = "weight"
+            state[prefix + name] = torch.tensor(arr)  # a contiguous copy
+
+    walk(params, "")
+    return state

@@ -1,0 +1,78 @@
+"""Poly-attention multi-interest extraction and target-aware aggregation.
+
+Counterpart of ``miner_tpu/models/poly_attention.py``:
+
+  * ``PolyAttention``: K learned context codes attend over the clicked-news
+    history; ``tanh(e_h W)`` projected onto the codes gives per-code logits,
+    shifted by the category bias (its mean over candidates,
+    poly_attention.py:94-96); masked slots get -1e9; softmax over history;
+    weighted sum of history representations -> (B, K, D). It runs through
+    the poly-attention op (the port's kernel on the card).
+  * ``TargetAwareAttention``: ``softmax(key @ gelu(W q)^T)`` weights over the
+    K interest scores, summed -> (B, C), with exact GELU.
+
+The reference's ``legacy_mask`` (1e-30 fill) is not ported yet.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from miner_tpu_torch.models.plm import lecun_normal_
+from miner_tpu_torch.ops.poly_attention import poly_attention_fused
+
+
+class PolyAttention(nn.Module):
+    def __init__(self, embed_dim: int, num_context_codes: int,
+                 context_code_dim: int, legacy_mask: bool = False):
+        super().__init__()
+        if legacy_mask:
+            raise NotImplementedError(
+                "--legacy_poly_mask (the reference's 1e-30 fill) is not "
+                "ported yet (ROADMAP Queue 1, item 4)")
+        self.proj_kernel = nn.Parameter(torch.empty(embed_dim, context_code_dim))
+        self.context_codes = nn.Parameter(
+            torch.empty(num_context_codes, context_code_dim))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        D, P = self.proj_kernel.shape
+        K = self.context_codes.shape[0]
+        lecun_normal_(self.proj_kernel.data, D, generator)
+        # Xavier-uniform with tanh gain (5/3), as the reference inits the codes
+        bound = (5.0 / 3.0) * math.sqrt(6.0 / (K + P))
+        nn.init.uniform_(self.context_codes, -bound, bound, generator=generator)
+
+    def forward(self, embeddings: torch.Tensor, attn_mask: torch.Tensor,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """embeddings (B, H, D), attn_mask (B, H), bias (B, H, C) or None."""
+        if bias is not None:
+            bias = bias.mean(dim=-1).float().contiguous()
+        dt = embeddings.dtype
+        return poly_attention_fused(
+            embeddings.contiguous(), self.proj_kernel.to(dt),
+            self.context_codes.to(dt), attn_mask.to(torch.int32).contiguous(),
+            bias)
+
+
+class TargetAwareAttention(nn.Module):
+    """Candidate-aware aggregation of the K per-interest matching scores."""
+
+    def __init__(self, embed_dim: int):
+        super().__init__()
+        self.proj = nn.Linear(embed_dim, embed_dim, bias=False)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        lecun_normal_(self.proj.weight.data, self.proj.in_features, generator)
+
+    def forward(self, query: torch.Tensor, key: torch.Tensor,
+                value: torch.Tensor) -> torch.Tensor:
+        """query (B, K, D) interests, key (B, C, D) candidates, value
+        (B, C, K) per-interest scores -> (B, C)."""
+        proj = F.gelu(self.proj(query))
+        logits = torch.einsum("bcd,bkd->bck", key, proj).float()
+        weights = torch.softmax(logits, dim=-1).to(proj.dtype)
+        return torch.sum(weights * value, dim=-1)
