@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""The PyTorch port's serving path on one CUDA card, end to end.
+"""The PyTorch port's training and serving paths on one CUDA card, end to end.
 
     python3 chip_smoke.py
 
@@ -7,21 +7,31 @@ Phases, each of which makes the script exit non-zero when it fails:
 
 1. build: every CUDA kernel of ``miner_tpu_torch/csrc`` is compiled with
    ``nvcc`` (one process per source, all started together); the Triton
-   kernel compiles at its first launch.
-2. kernels: each of the four kernels on the serving path runs at the shapes
-   the path gives it, in bfloat16 and float32, against its plain PyTorch
-   version on the same inputs (the tolerance is printed beside the error),
-   and is timed with CUDA events beside the plain version, the one PyTorch
-   call computing the same function where there is one, and its bound on
-   an H100 SXM (3.35 TB/s; 989 TFLOP/s bf16, 67 TFLOP/s fp32).
-3. serve: the launch counts are set to 0, a synthetic MIND corpus of a few
-   thousand news is encoded by the full-width ``config/serve_miner.txt``
-   model (roberta-base towers, random weights from a seed, bfloat16) into
-   the news-embedding cache, and the HTTP server answers concurrent slate
-   and whole-corpus top-k requests. Every kernel must have launched.
-4. parity: the same full-width model in float32 over 64 news, on the card
+   kernels compile at their first launch.
+2. kernels: each of the six kernels runs at the shapes its paths give it
+   (serving: the cache fill's chunks and request batches; training: a
+   ``train_miner.txt`` micro-batch, with dropout on) against its plain
+   PyTorch version on the same inputs (the tolerance is printed beside the
+   error; with dropout the kernel's mask must equal the plain version's bit
+   for bit), and is timed with CUDA events beside the plain version, the
+   one PyTorch call computing the same function where there is one, and its
+   bound on an H100 SXM (3.35 TB/s; 989 TFLOP/s bf16, 67 TFLOP/s fp32).
+3. train: the launch counts are set to 0 and ``Trainer.train()`` runs the
+   full-width ``config/train_miner.txt`` (roberta-base towers, random
+   weights from the seed, bf16 compute, dropout, --remat, accumulation 8)
+   for one epoch of a synthetic MIND corpus: 16 micro-batches, 2 optimizer
+   updates, the cached eval, the checkpoints. Every kernel must have
+   launched.
+4. serve: the counts are set to 0, ``config/serve_miner.txt`` restores the
+   train phase's ``finalModel`` (``--saved_model_path``), encodes the corpus
+   into the news-embedding cache, and the HTTP server answers concurrent
+   slate and whole-corpus top-k requests. Every serving kernel must have
+   launched.
+5. parity: the full-width model in float32 over 64 news, on the card
    through the kernels and on the CPU through the plain versions; the cache
    rows and the scores of one request batch must agree.
+6. train parity: one micro-batch of one impression in float32, dropout off,
+   on the card and on the CPU: the loss and every gradient must agree.
 
 Prints the card's name and power limit, one JSON line of kernel results,
 and last ``{"ok": true, "device": {...}}``.
@@ -48,6 +58,11 @@ CHUNK = 512  # CacheFiller's chunk of news
 HIS, DIM, CODES, CODE_DIM = 50, 256, 32, 200  # config/serve_miner.txt
 MAX_BATCH = 32  # --serve_max_batch default
 NUM_NEWS = 4096
+# config/train_miner.txt: batch 16 of 1 positive + 4 negatives and 50 history
+# news, 55 news per impression -> 880 sequences per field per micro-batch
+TRAIN_N, TRAIN_TITLE, TRAIN_SAPO = 16 * 55, 32, 128
+TRAIN_RATE = 0.1  # hidden_dropout and attention_dropout of the PLM
+SERVE_KERNELS = ("mha_fwd", "add_ln_fwd", "poly_attention_fwd", "lookup_score_fwd")
 
 
 def log(msg: str) -> None:
@@ -85,14 +100,54 @@ def _nbytes(*tensors) -> int:
 
 
 # ---------------------------------------------------------------- kernels
+def _outputs(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def _mha_inputs(dev, g, N, L, dtype):
+    qkv = torch.randn(N, L, 3 * HIDDEN, device=dev, generator=g).to(dtype)
+    lengths = torch.randint(1, L + 1, (N,), device=dev, generator=g)
+    mask = (torch.arange(L, device=dev)[None] < lengths[:, None]).to(torch.int32)
+    return qkv, mask
+
+
+def _sdpa_leaves(qkv):
+    """q, k, v (N, heads, L, Dh) as leaf tensors, for the SDPA yardstick."""
+    N, L, _ = qkv.shape
+    return [t.contiguous().requires_grad_()
+            for t in qkv.view(N, L, 3, HEADS, -1).permute(2, 0, 3, 1, 4)]
+
+
+def mha_dropout_mask_check(qkv, mask, seed):
+    """The forward kernel's dropout zeros against the plain Philox mask, bit
+    for bit: with V set to one-hot rows (one launch per block of Dh keys)
+    each output row is a row of dropped probabilities, zero exactly where
+    the key is dropped or masked."""
+    from miner_tpu_torch.ops import mha, philox
+
+    N, L, _ = qkv.shape
+    Dh = HIDDEN // HEADS
+    keep = philox.keep_mask(philox.mha_bits(seed, N, HEADS, L, qkv.device), TRAIN_RATE)
+    want_zero = ~(keep & mask.bool()[:, None, None, :])  # (N, heads, L, L)
+    mismatches = 0
+    for k0 in range(0, L, Dh):
+        nb = min(Dh, L - k0)
+        probe = qkv.clone().view(N, L, 3, HEADS, Dh)
+        probe[:, :, 2] = 0
+        j = torch.arange(nb, device=qkv.device)
+        probe[:, k0 + j, 2, :, j] = 1
+        out = mha.fused_mha(probe.view(N, L, -1), mask, HEADS, TRAIN_RATE, 1, seed)
+        got_zero = out.view(N, L, HEADS, Dh)[..., :nb] == 0
+        mismatches += int((got_zero != want_zero[..., k0:k0 + nb].permute(0, 2, 1, 3)).sum())
+    return mismatches == 0, f"mask mismatches {mismatches}"
+
+
 def mha_cases(dev, g):
     from miner_tpu_torch.ops import mha
 
     for dtype in (torch.bfloat16, torch.float32):
-        for L in (32, 128):  # titles, sapo
-            qkv = torch.randn(CHUNK, L, 3 * HIDDEN, device=dev, generator=g).to(dtype)
-            lengths = torch.randint(1, L + 1, (CHUNK,), device=dev, generator=g)
-            mask = (torch.arange(L, device=dev)[None] < lengths[:, None]).to(torch.int32)
+        for L in (32, 128):  # titles, sapo: the serving path's cache fill
+            qkv, mask = _mha_inputs(dev, g, CHUNK, L, dtype)
             mask[0] = 0  # a fully masked row comes out as the mean of V
             q, k, v = qkv.view(CHUNK, L, 3, HEADS, -1).permute(2, 0, 3, 1, 4)
             bool_mask = mask.bool()[:, None, None, :]
@@ -104,8 +159,56 @@ def mha_cases(dev, g):
                 plain=lambda: mha.mha_reference(qkv, mask, HEADS),
                 library=lambda: torch.nn.functional.scaled_dot_product_attention(
                     q, k, v, attn_mask=bool_mask),
-                bound=bound_ms(_nbytes(qkv, mask, out), flops, dtype),
-                main=dtype == torch.bfloat16 and L == 128)
+                bound=bound_ms(_nbytes(qkv, mask, out), flops, dtype))
+    for L in (TRAIN_SAPO, TRAIN_TITLE):  # the training path, dropout on
+        dtype, seed = torch.bfloat16, 2 ** 40 + L
+        qkv, mask = _mha_inputs(dev, g, TRAIN_N, L, dtype)
+        q, k, v = qkv.view(TRAIN_N, L, 3, HEADS, -1).permute(2, 0, 3, 1, 4)
+        bool_mask = mask.bool()[:, None, None, :]
+        out = torch.empty(TRAIN_N, L, HIDDEN, dtype=dtype, device=dev)
+        flops = 4 * TRAIN_N * HEADS * L * L * (HIDDEN // HEADS)
+        yield dict(
+            case=f"bf16 N={TRAIN_N} L={L} dropout {TRAIN_RATE}", dtype=dtype,
+            kernel=lambda: mha.fused_mha(qkv, mask, HEADS, TRAIN_RATE, 1, seed),
+            plain=lambda: mha.mha_reference(qkv, mask, HEADS, 1, TRAIN_RATE, seed),
+            library=lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=bool_mask, dropout_p=TRAIN_RATE),
+            check=lambda: mha_dropout_mask_check(qkv, mask, seed),
+            bound=bound_ms(_nbytes(qkv, mask, out), flops, dtype),
+            main=L == TRAIN_SAPO)
+
+
+def mha_bwd_cases(dev, g):
+    from miner_tpu_torch.ops import mha
+
+    for L in (TRAIN_SAPO, TRAIN_TITLE):
+        dtype, seed = torch.bfloat16, 2 ** 41 + L
+        qkv, mask = _mha_inputs(dev, g, TRAIN_N, L, dtype)
+        dout = torch.randn(TRAIN_N, L, HIDDEN, device=dev, generator=g).to(dtype)
+        out, stats = mha._launch_fwd(qkv, mask, HEADS, 1, TRAIN_RATE, seed, True)
+        leaves = _sdpa_leaves(qkv)
+        sdpa_out = torch.nn.functional.scaled_dot_product_attention(
+            *leaves, attn_mask=mask.bool()[:, None, None, :], dropout_p=TRAIN_RATE)
+        sdpa_dout = dout.view(TRAIN_N, L, HEADS, -1).transpose(1, 2)
+        flops = 5 * 2 * TRAIN_N * HEADS * L * L * (HIDDEN // HEADS)
+        yield dict(
+            case=f"bf16 N={TRAIN_N} L={L} dropout {TRAIN_RATE}", dtype=dtype,
+            kernel=lambda: mha.mha_backward(qkv, mask, dout, HEADS, TRAIN_RATE,
+                                            seed, 1, out, stats),
+            plain=lambda: mha.mha_backward_reference(qkv, mask, dout, HEADS, 1,
+                                                     TRAIN_RATE, seed),
+            library=lambda: torch.autograd.grad(sdpa_out, leaves, sdpa_dout,
+                                                retain_graph=True),
+            bound=bound_ms(_nbytes(qkv, dout, qkv), flops, dtype),
+            main=L == TRAIN_SAPO)
+
+
+def _ln_inputs(dev, g, T, dtype):
+    x = torch.randn(T, HIDDEN, device=dev, generator=g).to(dtype)
+    h = torch.randn(T, HIDDEN, device=dev, generator=g).to(dtype)
+    scale = 1 + 0.1 * torch.randn(HIDDEN, device=dev, generator=g)
+    bias = 0.1 * torch.randn(HIDDEN, device=dev, generator=g)
+    return x, h, scale, bias
 
 
 def add_ln_cases(dev, g):
@@ -114,10 +217,7 @@ def add_ln_cases(dev, g):
     for dtype in (torch.bfloat16, torch.float32):
         for L in (32, 128):
             T = CHUNK * L
-            x = torch.randn(T, HIDDEN, device=dev, generator=g).to(dtype)
-            h = torch.randn(T, HIDDEN, device=dev, generator=g).to(dtype)
-            scale = 1 + 0.1 * torch.randn(HIDDEN, device=dev, generator=g)
-            bias = 0.1 * torch.randn(HIDDEN, device=dev, generator=g)
+            x, h, scale, bias = _ln_inputs(dev, g, T, dtype)
             scale_t, bias_t = scale.to(dtype), bias.to(dtype)
             yield dict(
                 case=f"{str(dtype)[6:]} T={T}", dtype=dtype,
@@ -126,8 +226,53 @@ def add_ln_cases(dev, g):
                 library=lambda: torch.nn.functional.layer_norm(
                     x + h, (HIDDEN,), scale_t, bias_t, 1e-5),
                 bound=bound_ms(_nbytes(x, h, scale, bias, x), 8 * T * HIDDEN,
-                               torch.float32),
-                main=dtype == torch.bfloat16 and L == 128)
+                               torch.float32))
+    for L in (TRAIN_SAPO, TRAIN_TITLE):
+        T, dtype, seed = TRAIN_N * L, torch.bfloat16, 2 ** 42 + L
+        x, h, scale, bias = _ln_inputs(dev, g, T, dtype)
+        scale_t, bias_t = scale.to(dtype), bias.to(dtype)
+        yield dict(
+            case=f"bf16 T={T} dropout {TRAIN_RATE}", dtype=dtype,
+            kernel=lambda: add_ln.fused_dropout_add_ln(x, h, scale, bias, TRAIN_RATE,
+                                                       1e-5, seed),
+            plain=lambda: add_ln.add_ln_reference(x, h, scale, bias, 1e-5,
+                                                  TRAIN_RATE, seed),
+            library=lambda: torch.nn.functional.layer_norm(
+                x + torch.nn.functional.dropout(h, TRAIN_RATE), (HIDDEN,), scale_t,
+                bias_t, 1e-5),
+            bound=bound_ms(_nbytes(x, h, scale, bias, x), 9 * T * HIDDEN,
+                           torch.float32),
+            main=L == TRAIN_SAPO)
+
+
+def add_ln_bwd_cases(dev, g):
+    from miner_tpu_torch.ops import add_ln, philox
+
+    for L in (TRAIN_SAPO, TRAIN_TITLE):
+        T, dtype, seed = TRAIN_N * L, torch.bfloat16, 2 ** 43 + L
+        x, h, scale, bias = _ln_inputs(dev, g, T, dtype)
+        dy = torch.randn(T, HIDDEN, device=dev, generator=g).to(dtype)
+        leaves = [t.detach().clone().requires_grad_() for t in (x, h, scale, bias)]
+        y = torch.nn.functional.layer_norm(leaves[0] + leaves[1], (HIDDEN,),
+                                           leaves[2].to(dtype), leaves[3].to(dtype),
+                                           1e-5)
+
+        def mask_check():
+            keep = philox.keep_mask(philox.add_ln_bits(seed, T, HIDDEN, dev), TRAIN_RATE)
+            dh = add_ln.add_ln_backward(x, h, scale, dy, 1e-5, TRAIN_RATE, seed)[1]
+            mismatches = int(((dh != 0) != keep).sum())
+            return mismatches == 0, f"mask mismatches {mismatches}"
+
+        yield dict(
+            case=f"bf16 T={T} dropout {TRAIN_RATE}", dtype=dtype,
+            kernel=lambda: add_ln.add_ln_backward(x, h, scale, dy, 1e-5, TRAIN_RATE,
+                                                  seed),
+            plain=lambda: add_ln.add_ln_backward_reference(x, h, scale, dy, 1e-5,
+                                                           TRAIN_RATE, seed),
+            library=lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True),
+            check=mask_check,
+            bound=bound_ms(_nbytes(x, h, dy, x, h), 20 * T * HIDDEN, torch.float32),
+            main=L == TRAIN_SAPO)
 
 
 def poly_cases(dev, g):
@@ -180,8 +325,12 @@ KERNELS = [
     # name, route, source, replaces, cases
     ("mha_fwd", "cuda", "miner_tpu_torch/csrc/mha_fwd.cu",
      "miner_tpu/ops/mha.py:208", mha_cases),
+    ("mha_bwd", "cuda", "miner_tpu_torch/csrc/mha_bwd.cu",
+     "miner_tpu/ops/mha.py:232", mha_bwd_cases),
     ("add_ln_fwd", "triton", "miner_tpu_torch/ops/add_ln.py",
      "miner_tpu/ops/add_ln.py:122", add_ln_cases),
+    ("add_ln_bwd", "triton", "miner_tpu_torch/ops/add_ln.py",
+     "miner_tpu/ops/add_ln.py:144", add_ln_bwd_cases),
     ("poly_attention_fwd", "cuda", "miner_tpu_torch/csrc/poly_attention_fwd.cu",
      "miner_tpu/ops/poly_attention.py:91", poly_cases),
     ("lookup_score_fwd", "cuda", "miner_tpu_torch/csrc/lookup_score_fwd.cu",
@@ -191,35 +340,47 @@ KERNELS = [
 
 def kernel_phase(dev):
     """Every kernel against its plain version, and timed. Returns the rows
-    of the ``kernels`` line (launches are filled in by the serving phase)."""
+    of the ``kernels`` line (launches are filled in by the main paths)."""
     g = torch.Generator(device=dev)
     g.manual_seed(0)
     rows, failures = [], []
     for name, route, source, replaces, cases in KERNELS:
         row = None
         for c in cases(dev, g):
-            got, want = c["kernel"](), c["plain"]()
+            got, want = _outputs(c["kernel"]()), _outputs(c["plain"]())
             torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            tol = REL_TOL[c["dtype"]] * max(1.0, want.float().abs().max().item())
-            finite = bool(torch.isfinite(got).all())
+            # per output: error against REL_TOL of that output's scale
+            errs = [((a.float() - b.float()).abs().max().item(),
+                     REL_TOL[c["dtype"]] * max(1.0, b.float().abs().max().item()))
+                    for a, b in zip(got, want)]
+            err, tol = max(errs, key=lambda e: e[0] / e[1])
+            finite = all(bool(torch.isfinite(a).all()) for a in got)
+            ok = finite and all(e <= t for e, t in errs)
+            note = ""
+            if "check" in c:
+                passed, note = c["check"]()
+                ok = ok and passed
+                note = f"  {note}"
             ms = device_ms(c["kernel"])
             plain_ms = device_ms(c["plain"])
             library_ms = device_ms(c["library"]) if c["library"] else None
             b_ms, b_by = c["bound"]
-            ok = finite and err <= tol
-            log(f"  {name:20s} {c['case']:24s} err {err:.3g} (tol {tol:.3g}) "
-                f"{'ok' if ok else 'FAIL'}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-                f"library {'-' if library_ms is None else f'{library_ms:.4f} ms'}  "
+            log(f"  {name:18s} {c['case']:30s} err {err:.3g} (tol {tol:.3g}) "
+                f"{'ok' if ok else 'FAIL'}{note}  kernel {ms:.4f} ms  plain "
+                f"{plain_ms:.4f} ms  library "
+                f"{'-' if library_ms is None else f'{library_ms:.4f} ms'}  "
                 f"bound {b_ms:.4f} ms ({b_by})")
             if not ok:
-                failures.append(f"{name} {c['case']}: err {err} tol {tol} finite {finite}")
-            if c["main"]:
+                failures.append(f"{name} {c['case']}: err {err} tol {tol} "
+                                f"finite {finite}{note}")
+            if c.get("main"):
                 row = {"name": name, "route": route, "source": source,
                        "replaces": replaces, "case": c["case"], "launches": 0,
                        "max_abs_err": err, "tol": tol, "ms": ms,
                        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                        "library_ms": library_ms}
+            del got, want
+            torch.cuda.empty_cache()
         rows.append(row)
     if failures:
         raise SystemExit("kernel phase failed:\n  " + "\n  ".join(failures))
@@ -255,8 +416,9 @@ def write_corpus(root: str, num_news: int, seed: int) -> None:
 def serve_args(corpus: str, *extra: str):
     """``config/serve_miner.txt`` as it stands, on the synthetic corpus, with
     the hash tokenizer over roberta-base's vocabulary size (no tokenizer
-    files here) and random weights: port checkpoints come with training, so
-    the checkpoint and the cache persisted against it are dropped."""
+    files here). Its checkpoint and persisted cache are dropped: the caller
+    names a checkpoint of the train phase in ``extra``, or none for random
+    weights from the seed (the cache persistence is not ported yet)."""
     from miner_tpu_torch.config import convert_arg_line_to_args, make_parser
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -286,10 +448,12 @@ def _post(url: str, payload: dict):
         return r.status, body, time.perf_counter() - t0
 
 
-def serve_phase(corpus: str, n_slate: int = 64, n_topk: int = 8) -> dict:
-    """The main path: ``serve``'s own pieces (service with its corpus cache,
-    warm-up, HTTP server) answering concurrent slate and top-k requests.
-    Returns the launch counts of the run."""
+def serve_phase(corpus: str, checkpoint: str, n_slate: int = 64,
+                n_topk: int = 8) -> dict:
+    """The serving path: ``serve``'s own pieces (service with its corpus
+    cache, warm-up, HTTP server) on the train phase's ``finalModel``
+    (``--saved_model_path``, loaded strictly), answering concurrent slate and
+    top-k requests. Returns the launch counts of the run."""
     import threading
     from concurrent.futures import ThreadPoolExecutor
 
@@ -300,7 +464,7 @@ def serve_phase(corpus: str, n_slate: int = 64, n_topk: int = 8) -> dict:
     from miner_tpu_torch.serving import ScoringService, make_http_server
     from miner_tpu_torch.training.trainer import Trainer
 
-    args = serve_args(corpus)
+    args = serve_args(corpus, "--saved_model_path", checkpoint)
     reset_launch_counts()
     t0 = time.perf_counter()
     service = ScoringService(Trainer(args))
@@ -345,20 +509,192 @@ def serve_phase(corpus: str, n_slate: int = 64, n_topk: int = 8) -> dict:
     CacheFiller(ctx.model.encode_news).fill(ctx.table)
     torch.cuda.synchronize()
     fill_s = time.perf_counter() - t0
-    log(f"serve: {ctx.store.num_news - 1} news, {args.plm_preset} towers, "
+    log(f"serve: {ctx.store.num_news - 1} news, {args.plm_preset} towers "
+        f"restored from {os.path.relpath(checkpoint, corpus)}, "
         f"{ctx.cache.embeddings.dtype}; startup {startup_s:.2f} s (tokenize, "
         f"init, corpus cache), warm cache refill {fill_s:.2f} s; {warmed} warm-up "
         f"calls {warmup_s:.2f} s")
     log(f"serve: {len(reqs)} requests ({n_slate} slates of 10, {n_topk} corpus "
         f"top-10), 16 clients: {len(reqs) / wall_s:.1f} req/s, p50 "
-        f"{1e3 * lat[len(lat) // 2]:.1f} ms, p99 {1e3 * lat[-1]:.1f} ms, "
+        f"{1e3 * lat[len(lat) // 2]:.1f} ms, max {1e3 * lat[-1]:.1f} ms "
+        f"({len(lat)} samples, too few for a p99), "
         f"{service.batcher.stats()['mean_batch']} requests per device call "
         f"on {torch.cuda.get_device_name(0)}")
     log(f"serve: kernel launches on the path {counts}")
-    missing = [k for k, n in counts.items() if n == 0]
+    missing = [k for k in SERVE_KERNELS if counts[k] == 0]
     if missing:
         raise SystemExit(f"serve phase: the path never launched {missing}")
     return counts
+
+
+# ------------------------------------------------------------------ train
+TRAIN_IMPRESSIONS, EVAL_IMPRESSIONS, IMPRESSION_SIZE = 256, 128, 20
+
+
+def write_behaviors(root: str, num_news: int, seed: int) -> None:
+    """MIND-format behaviors over the corpus of ``write_corpus``: 256 train
+    impressions of 50 clicks and 20 entries with one positive (so one epoch
+    of ``train_miner.txt`` is 16 micro-batches of 16), and 128 eval
+    impressions of 50 clicks and 20 entries with two positives."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    for split, n, positives in (("train", TRAIN_IMPRESSIONS, 1),
+                                ("valid", EVAL_IMPRESSIONS, 2)):
+        os.makedirs(os.path.join(root, split), exist_ok=True)
+        with open(os.path.join(root, split, "behaviors.tsv"), "w") as f:
+            for line in range(n):
+                news = rng.choice(num_news, HIS + IMPRESSION_SIZE, replace=False)
+                his = " ".join(f"N{i}" for i in news[:HIS])
+                beh = " ".join(f"N{i}-{int(j < positives)}"
+                               for j, i in enumerate(news[HIS:]))
+                f.write(f"{line}\tU{line % 97}\t11/11/2019 9:05:58 AM\t{his}\t{beh}\n")
+
+
+def train_args(corpus: str, out: str, *extra: str):
+    """``config/train_miner.txt`` as it stands, on the synthetic corpus and
+    behaviors, with the hash tokenizer over roberta-base's vocabulary (no
+    tokenizer files here), random init, and one epoch."""
+    from miner_tpu_torch.config import convert_arg_line_to_args, make_parser
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    words = []
+    with open(os.path.join(here, "config", "train_miner.txt")) as f:
+        for line in f:
+            words += convert_arg_line_to_args(line)
+    for flag, value in (
+            ("--pretrained_tokenizer", "hash:50265"),
+            ("--user2id_path", os.path.join(corpus, "user2id.json")),
+            ("--category2id_path", os.path.join(corpus, "category2id.json")),
+            ("--train_behaviors_path", os.path.join(corpus, "train", "behaviors.tsv")),
+            ("--train_news_path", os.path.join(corpus, "news.tsv")),
+            ("--eval_behaviors_path", os.path.join(corpus, "valid", "behaviors.tsv")),
+            ("--eval_news_path", os.path.join(corpus, "news.tsv")),
+            ("--num_train_epochs", "1")):
+        words[words.index(flag) + 1] = value
+    return make_parser().parse_args(["train", *words, "--train_path",
+                                     os.path.join(out, "train"), *extra])
+
+
+def train_phase(corpus: str, out: str):
+    """The training path: ``Trainer(args).train()`` of the full-width
+    ``train_miner.txt`` configuration (roberta-base towers, bf16 compute,
+    fp32 masters, dropout 0.1 in the PLM and 0.2 elsewhere, --remat,
+    accumulation 8) for one epoch of 16 micro-batches, i.e. 2 optimizer
+    updates, then its end-of-epoch cached eval and checkpoints. Returns the
+    launch counts and the finalModel checkpoint."""
+    import csv
+
+    from miner_tpu_torch.ops import launch_counts, reset_launch_counts
+    from miner_tpu_torch.training.trainer import Trainer
+
+    args = train_args(corpus, out)
+    trainer = Trainer(args)
+    step_s, step_loss, eval_s, before_eval = [], [], [], {}
+    train_step, run_eval = trainer.train_step, trainer._run_eval
+
+    def timed_step(*a, **k):
+        t0 = time.perf_counter()
+        loss = train_step(*a, **k)
+        step_loss.append(float(loss))  # synchronises
+        step_s.append(time.perf_counter() - t0)
+        return loss
+
+    def timed_eval(*a, **k):
+        before_eval.update(launch_counts())
+        t0 = time.perf_counter()
+        out = run_eval(*a, **k)
+        torch.cuda.synchronize()
+        eval_s.append(time.perf_counter() - t0)
+        return out
+
+    trainer.train_step, trainer._run_eval = timed_step, timed_eval
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    run = trainer.train()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = launch_counts()
+    with open(os.path.join(run.run_dir, "eval.csv")) as f:
+        evals = list(csv.DictReader(f))
+    # the loss column is empty under train_miner.txt's --evaluation_info metrics
+    metrics = {k: float(v) for k, v in evals[-1].items()
+               if k not in ("epoch", "step") and v != ""}
+    steady = sorted(step_s[1:])
+    mid = steady[len(steady) // 2]
+    log(f"train: {len(step_s)} micro-batches of {args.train_batch_size} "
+        f"({args.train_batch_size * (args.npratio + 1 + args.his_length)} news "
+        f"per micro-batch), {run.optimizer.updates} optimizer updates at "
+        f"accumulation {args.gradient_accumulation_steps}, {args.compute_dtype}, "
+        f"--remat {args.remat}, dropout {args.dropout} / {TRAIN_RATE}")
+    log(f"train: micro-batch {1e3 * mid:.1f} ms median of {len(steady)} "
+        f"(first {1e3 * step_s[0]:.1f} ms, with kernel compiles), "
+        f"{args.train_batch_size / mid:.2f} examples/s, "
+        f"{1 / (mid * args.gradient_accumulation_steps):.3f} updates/s; "
+        f"eval {eval_s[0]:.2f} s; whole train() {wall_s:.2f} s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB on "
+        f"{torch.cuda.get_device_name(0)}")
+    log(f"train: losses {[round(x, 4) for x in step_loss]}")
+    log(f"train: eval {metrics}")
+    per_batch = {k: before_eval[k] / len(step_s) for k in before_eval}
+    log(f"train: kernel launches per micro-batch {per_batch}; on the phase "
+        f"(eval included) {counts}")
+    bad = [x for x in step_loss + list(metrics.values()) if not math.isfinite(x)]
+    if bad or run.optimizer.updates != 2 or len(step_s) != 16:
+        raise SystemExit(f"train phase: non-finite {bad}, {run.optimizer.updates} "
+                         f"updates, {len(step_s)} micro-batches")
+    missing = [k for k, n in counts.items() if n == 0]
+    if missing:
+        raise SystemExit(f"train phase: the path never launched {missing}")
+    return counts, os.path.join(run.run_dir, "ckpt", "finalModel")
+
+
+def train_parity_phase(corpus: str, out: str) -> None:
+    """One micro-batch of one impression (55 news) through the full-width
+    model in float32 with dropout off, on the card (kernels, their autograd
+    Functions) and on the CPU (plain versions), same weights from the seed:
+    the loss and every parameter's gradient must agree. Tolerance: 1e-3 of
+    each gradient's largest magnitude plus 1e-5 of the largest over all
+    gradients, since float32 sums through 12 layers forward and back are
+    taken in other orders by the kernels and cuBLAS than by the plain
+    versions and the CPU's BLAS, and a gradient that is a small difference
+    of large terms (the target-aware projection's, 1e-7 at random init)
+    carries the absolute rounding of those terms."""
+    from miner_tpu_torch.data.samplers import OnlineSampler
+    from miner_tpu_torch.training import losses
+    from miner_tpu_torch.training.trainer import Trainer
+
+    result = {}
+    for device in ("cuda", "cpu"):
+        trainer = Trainer(train_args(corpus, out, "--compute_dtype", "float32",
+                                     "--device", device))
+        a = trainer.args
+        store = trainer._load_store(a.train_news_path)
+        block = OnlineSampler(trainer._load_log(a.train_behaviors_path, store),
+                              store, a.npratio, seed=a.seed).sample_epoch(0)
+        batch = {"cand_idx": block.cand[:1], "his_idx": block.his[:1],
+                 "label": block.label[:1]}
+        model = trainer.build_model().to(trainer.device).eval()
+        loss, _ = trainer._apply_and_loss(model, trainer._make_table(store), batch, True)
+        loss.backward()
+        result[device] = (float(loss.detach()), {n: p.grad.float().cpu()
+                                        for n, p in model.named_parameters()})
+    (loss_gpu, grads_gpu), (loss_cpu, grads_cpu) = result["cuda"], result["cpu"]
+    overall = max(g.abs().max().item() for g in grads_cpu.values())
+    worst, failed = (0.0, ""), []
+    for name, want in grads_cpu.items():
+        err = (grads_gpu[name] - want).abs().max().item()
+        tol = 1e-3 * want.abs().max().item() + 1e-5 * overall
+        if err > tol:
+            failed.append(f"{name}: err {err:.3g} tol {tol:.3g}")
+        if err / tol > worst[0]:
+            worst = (err / tol, name)
+    log(f"train parity: loss card {loss_gpu:.6f} CPU {loss_cpu:.6f}; largest "
+        f"gradient magnitude {overall:.3g}; worst err / tol {worst[0]:.3g} "
+        f"({worst[1]}) over {len(grads_cpu)} tensors")
+    if failed or abs(loss_gpu - loss_cpu) > 1e-4 * max(1.0, abs(loss_cpu)):
+        raise SystemExit("train parity phase failed:\n  " + "\n  ".join(failed))
 
 
 # ----------------------------------------------------------------- parity
@@ -424,12 +760,18 @@ def main() -> int:
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
-        write_corpus(os.path.join(tmp, "serve"), NUM_NEWS, seed=0)
-        counts = serve_phase(os.path.join(tmp, "serve"))
+        corpus = os.path.join(tmp, "corpus")
+        write_corpus(corpus, NUM_NEWS, seed=0)
+        write_behaviors(corpus, NUM_NEWS, seed=3)
+        train_counts, final_model = train_phase(corpus, tmp)
+        serve_counts = serve_phase(corpus, final_model)
         write_corpus(os.path.join(tmp, "parity"), 64, seed=1)
         parity_phase(os.path.join(tmp, "parity"))
+        train_parity_phase(corpus, tmp)
     for row in rows:
-        row["launches"] = counts[row["name"]]
+        row["launches_train"] = train_counts[row["name"]]
+        row["launches_serve"] = serve_counts[row["name"]]
+        row["launches"] = row["launches_train"] + row["launches_serve"]
 
     print(smi)
     print(json.dumps({"kernels": rows}))

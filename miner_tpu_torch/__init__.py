@@ -11,7 +11,9 @@ Every Pallas kernel on a ported path has a hand-written Hopper kernel under
 beside it in ``ops/``. A kernel wrapper takes the plain version only for a
 tensor on the CPU; on a CUDA tensor it launches the kernel or raises.
 
-This slice ports the serving path: ``python -m miner_tpu_torch serve``.
+Ported so far: training and evaluation of the Miner family (``python -m
+miner_tpu_torch train`` / ``eval``) and serving from the news-embedding
+cache (``serve`` / ``recommend``).
 """
 
 __version__ = "0.1.0"

@@ -1,8 +1,10 @@
 """CLI entry point of the port.
 
-``python -m miner_tpu_torch serve @config/serve_miner.txt`` (HTTP scoring
-server over the news-embedding cache) and ``python -m miner_tpu_torch
-recommend ...`` (one-shot ranking), on ``--device`` (default ``cuda``).
+``python -m miner_tpu_torch train @config/train_miner.txt``, ``eval
+@config/eval_miner.txt`` (a port checkpoint), ``serve
+@config/serve_miner.txt`` (HTTP scoring server over the news-embedding
+cache) and ``recommend ...`` (one-shot ranking), on ``--device`` (default
+``cuda``).
 """
 from __future__ import annotations
 
@@ -20,7 +22,11 @@ def main(argv=None):
 
     from miner_tpu_torch.training.trainer import Trainer
 
-    if args.mode == "recommend":
+    if args.mode == "train":
+        Trainer(args).train()
+    elif args.mode == "eval":
+        Trainer(args).eval()
+    elif args.mode == "recommend":
         Trainer(args).recommend()
     elif args.mode == "serve":
         from miner_tpu_torch.serving import serve

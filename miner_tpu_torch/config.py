@@ -1,12 +1,15 @@
 """Config / flag system of the port.
 
 The JAX package's argparse surface (``miner_tpu/config.py``) for the
-subcommands the port has: ``serve`` (HTTP scoring server) and ``recommend``
-(one-shot ranking). ``@config/file.txt`` argument files with ``#`` comments
-parse unchanged (``config/serve_miner.txt`` included). Flags that only the
-JAX package's training or TPU mesh read are left out; flags of the serving
-path that the port cannot honour yet are accepted and refused by the
-``Trainer`` with the ROADMAP item that brings them.
+subcommands the port has: ``train``, ``eval``, ``serve`` (HTTP scoring
+server) and ``recommend`` (one-shot ranking), with the same flags.
+``@config/file.txt`` argument files with ``#`` comments parse unchanged
+(``config/train_miner.txt``, ``eval_miner.txt`` and ``serve_miner.txt``
+included). The JAX package's TPU settings (mesh shape, compilation cache,
+PRNG implementation, layer scan, remat policy, matmul precision) are
+accepted and ignored, each saying so in ``--help``. Flags of a path the
+port has not reached yet are accepted and refused by the ``Trainer``,
+naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -15,6 +18,8 @@ import dataclasses as dc
 from typing import Optional
 
 from miner_tpu_torch.models.plm import PLMConfig
+
+_TPU_ONLY = "a TPU setting of the JAX package: accepted and ignored by the port"
 
 
 def convert_arg_line_to_args(arg_line: str):
@@ -32,13 +37,18 @@ class _JoinWords(argparse.Action):
         setattr(namespace, self.dest, " ".join(values) if values else None)
 
 
-def _subparser(sub, name: str) -> argparse.ArgumentParser:
+def _sub(sub, name: str) -> argparse.ArgumentParser:
     p = sub.add_parser(name, fromfile_prefix_chars="@", allow_abbrev=False)
     p.convert_arg_line_to_args = convert_arg_line_to_args
+    return p
+
+
+def _serving_parser(sub, name: str) -> argparse.ArgumentParser:
+    p = _sub(sub, name)
     add_eval_arguments(p)
     p.add_argument("--serve_cache_path", type=str, default=None,
                    help="persist the corpus news-embedding cache (not ported "
-                        "yet: ignored without a checkpoint to fingerprint)")
+                        "yet: ignored, ROADMAP Queue 1, item 3)")
     p.add_argument("--serve_cache_int8", action="store_true",
                    help="int8 corpus cache (not ported yet: refused)")
     return p
@@ -46,19 +56,21 @@ def _subparser(sub, name: str) -> argparse.ArgumentParser:
 
 def make_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
-        description="miner_tpu_torch — MINER serving in PyTorch on a CUDA card",
+        description="miner_tpu_torch — MINER in PyTorch on a CUDA card",
         fromfile_prefix_chars="@",
         allow_abbrev=False,
     )
     parser.convert_arg_line_to_args = convert_arg_line_to_args
     sub = parser.add_subparsers(dest="mode")
-    p = _subparser(sub, "recommend")
+    add_train_arguments(_sub(sub, "train"))
+    add_eval_arguments(_sub(sub, "eval"))
+    p = _serving_parser(sub, "recommend")
     p.add_argument("--user_history", nargs="+", required=True,
                    help="clicked news ids, oldest first")
     p.add_argument("--candidates", nargs="*", default=None,
                    help="candidate news ids (default: whole corpus)")
     p.add_argument("--topk", type=int, default=10)
-    p = _subparser(sub, "serve")
+    p = _serving_parser(sub, "serve")
     p.add_argument("--host", type=str, default="127.0.0.1")
     p.add_argument("--port", type=int, default=8400,
                    help="HTTP port (0: pick a free port)")
@@ -85,7 +97,7 @@ def make_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def add_eval_arguments(p: argparse.ArgumentParser):
+def _add_common(p: argparse.ArgumentParser):
     p.add_argument("--model_name", type=str, default="Miner")
     p.add_argument("--pretrained_tokenizer", type=str, default="hash:30522",
                    help="local HF tokenizer directory, or hash[:vocab_size]")
@@ -97,38 +109,79 @@ def add_eval_arguments(p: argparse.ArgumentParser):
     p.add_argument("--his_length", type=int, default=50)
     p.add_argument("--seed", type=int, default=36)
     p.add_argument("--save_eval_result", action="store_true")
+    p.add_argument("--save_ranking", action="store_true",
+                   help="write the MIND-leaderboard prediction.txt")
     p.add_argument("--metrics", type=str, nargs="+",
                    default=["auc", "group_auc", "mrr", "ndcg@5", "ndcg@10"])
+    p.add_argument("--evaluation_info", type=str, nargs="+",
+                   default=["metrics", "loss"], choices=["loss", "metrics"],
+                   help="'loss': eval loss and bestLossModel; 'metrics': the "
+                        "ranking evaluator and bestAucModel")
     p.add_argument("--device", type=str, default=None,
                    help="cuda (default) or cpu; cuda without a card raises")
+    p.add_argument("--mesh_data", type=int, default=-1, help=_TPU_ONLY)
+    p.add_argument("--mesh_table", type=int, default=1, help=_TPU_ONLY)
+    p.add_argument("--mesh_model", type=int, default=1, help=_TPU_ONLY)
+    p.add_argument("--param_dtype", type=str, default="float32",
+                   help="float32 only: fp32 master weights")
+    p.add_argument("--matmul_precision", type=str, default=None,
+                   choices=["default", "bfloat16", "bfloat16_3x", "float32"],
+                   help=_TPU_ONLY + " (float32 matmuls on the card are full "
+                        "float32)")
     p.add_argument("--compute_dtype", type=str, default="bfloat16",
                    choices=["float32", "bfloat16"])
+    p.add_argument("--remat", action="store_true",
+                   help="rematerialise each PLM layer in the backward "
+                        "(torch.utils.checkpoint) to save device memory")
+    p.add_argument("--remat_policy", type=str, default="", choices=["", "dots"],
+                   help=_TPU_ONLY + " (--remat recomputes whole layers)")
+    p.add_argument("--scan_layers", action=argparse.BooleanOptionalAction,
+                   default=False, help=_TPU_ONLY)
     p.add_argument("--plm_preset", type=str, default="tiny",
                    choices=["roberta_base", "bert_base", "tiny", "small"],
                    help="PLM tower architecture preset")
+    p.add_argument("--hf_checkpoint", type=str, default=None,
+                   help="HF checkpoint dir to import PLM weights from (not "
+                        "ported yet: refused)")
     p.add_argument("--legacy_poly_mask", action="store_true",
                    help="the reference's 1e-30 poly-attention mask fill "
                         "(not ported yet: refused)")
     p.add_argument("--legacy_history_layout", action="store_true",
                    help="pads-FIRST history rows, as a model trained under "
                         "the reference's layout expects")
+    p.add_argument("--force_layout_mismatch", action="store_true",
+                   help="(UniSRec pretrained artifacts; not ported yet)")
+    p.add_argument("--cached_eval", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="evaluate from the news-embedding cache (one PLM pass "
+                        "over the corpus instead of per-impression re-encoding)")
+    p.add_argument("--his_cache_refresh", type=int, default=0,
+                   help="cached-history training (not ported yet: a value "
+                        "above 0 is refused)")
+    p.add_argument("--his_cache_warmup_steps", type=int, default=0,
+                   help="with --his_cache_refresh (not ported yet)")
     p.add_argument("--fused_kernels", action=argparse.BooleanOptionalAction,
                    default=None,
                    help="the hand-written kernels; on the card they always "
                         "run (--no-fused_kernels is refused there)")
+    p.add_argument("--attn_fp32", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help=_TPU_ONLY + " (the port's mha kernels keep the "
+                        "softmax in fp32)")
     p.add_argument("--gelu_approx", action=argparse.BooleanOptionalAction,
                    default=None,
                    help="tanh-approximate gelu (default: auto — on for bf16 "
                         "compute, off for fp32)")
-    p.add_argument("--saved_model_path", type=str,
-                   help="checkpoint to serve (not ported yet: refused)")
-    p.add_argument("--data_name", nargs="*", default=None, action=_JoinWords,
-                   type=str, metavar="WORD")
-    p.add_argument("--eval_behaviors_path", type=str)
-    p.add_argument("--eval_news_path", type=str)
-    p.add_argument("--eval_batch_size", type=int, default=64)
+    p.add_argument("--compilation_cache_dir", type=str, default=None,
+                   help=_TPU_ONLY)
+    p.add_argument("--rng_impl", type=str, default=None,
+                   choices=["threefry2x32", "rbg"], help=_TPU_ONLY)
+
+
+def _add_model(p: argparse.ArgumentParser):
     p.add_argument("--apply_reduce_dim", action="store_true")
     p.add_argument("--use_sapo", action="store_true")
+    p.add_argument("--freeze_transformer", action="store_true")
     p.add_argument("--word_embed_dim", type=int, default=256)
     p.add_argument("--category_embed_dim", type=int, default=100)
     p.add_argument("--combine_type", type=str, default="linear",
@@ -139,10 +192,93 @@ def add_eval_arguments(p: argparse.ArgumentParser):
     p.add_argument("--score_type", type=str, default="weighted",
                    choices=["mean", "max", "weighted"])
     p.add_argument("--dropout", type=float, default=0.2)
+    p.add_argument("--pretrained_embedding", type=str, default=None,
+                   help="PLM weights: a local HF directory (not ported yet: "
+                        "refused); a hub name trains from random init")
+
+
+def add_train_arguments(p: argparse.ArgumentParser):
+    _add_common(p)
+    _add_model(p)
+    p.add_argument("--data_name", nargs="*", default=None, action=_JoinWords,
+                   type=str, metavar="WORD")
+    p.add_argument("--train_behaviors_path", type=str)
+    p.add_argument("--train_news_path", type=str)
+    p.add_argument("--eval_behaviors_path", type=str)
+    p.add_argument("--eval_news_path", type=str)
+    p.add_argument("--augmentations", nargs="*", default=None,
+                   help="augmented news variants (not ported yet: refused)")
+    p.add_argument("--augmentation_mode", type=str, default="base",
+                   choices=["base", "hard", "unbert"])
+    p.add_argument("--online", type=int, default=0, choices=[0, 1])
+    p.add_argument("--fast_eval", action="store_true")
+    p.add_argument("--lstm_num_layers", type=int, default=1)
+    p.add_argument("--lstm_dropout", type=float, default=0.0)
+    p.add_argument("--pretrained_model_path", type=str, default=None,
+                   help="warm start from a checkpoint (not ported yet: "
+                        "refused)")
+    p.add_argument("--unbert_news_layers", type=int, default=None,
+                   help="(UnBERT; not ported yet)")
+    p.add_argument("--unbert_news_mode", type=str, default="nseg",
+                   choices=["nseg", "mean", "attention"],
+                   help="(UnBERT; not ported yet)")
+    p.add_argument("--unisrec_train_all", action="store_true",
+                   help="(UniSRec; not ported yet)")
+    p.add_argument("--unisrec_pretrained_path", type=str, default=None,
+                   help="(UniSRec; not ported yet)")
+    p.add_argument("--train_path", type=str, default="train")
+    p.add_argument("--tensorboard_path", type=str, default="runs")
+    p.add_argument("--npratio", type=int, default=4)
+    p.add_argument("--train_batch_size", type=int, default=8)
+    p.add_argument("--eval_batch_size", type=int, default=64)
+    p.add_argument("--dataloader_drop_last", action="store_true",
+                   help="accepted for config compatibility: batches are "
+                        "fixed-shape index arrays")
+    p.add_argument("--dataloader_num_workers", type=int, default=0,
+                   help="accepted for config compatibility; ignored")
+    p.add_argument("--dataloader_pin_memory", action="store_true",
+                   help="accepted for config compatibility; ignored")
+    p.add_argument("--max_steps", type=int, default=None,
+                   help="the schedule's total updates (does not stop the loop)")
+    p.add_argument("--fp16", action="store_true",
+                   help="ignored: mixed precision is --compute_dtype bfloat16")
+    p.add_argument("--gradient_accumulation_steps", type=int, default=1)
+    p.add_argument("--num_train_epochs", type=int, default=1)
+    p.add_argument("--learning_rate", type=float, default=2e-5)
+    p.add_argument("--warmup_ratio", type=float, default=0.1)
+    p.add_argument("--warmup_steps", type=int, default=None)
+    p.add_argument("--max_grad_norm", type=float, default=1.0)
+    p.add_argument("--weight_decay", type=float, default=0.01)
+    p.add_argument("--logging_steps", type=int, default=200)
+    p.add_argument("--eval_steps", type=int, default=100000)
+    p.add_argument("--resume_from", type=str, default=None,
+                   help="port checkpoint to fully resume (params, optimizer, "
+                        "step)")
+
+
+def add_eval_arguments(p: argparse.ArgumentParser):
+    _add_common(p)
+    _add_model(p)
+    p.add_argument("--saved_model_path", type=str,
+                   help="port checkpoint (<run_dir>/ckpt/<name>) to evaluate "
+                        "or serve")
+    p.add_argument("--data_name", nargs="*", default=None, action=_JoinWords,
+                   type=str, metavar="WORD")
+    p.add_argument("--eval_behaviors_path", type=str)
+    p.add_argument("--eval_news_path", type=str)
+    p.add_argument("--fast_eval", action="store_true")
+    p.add_argument("--eval_batch_size", type=int, default=64)
+    p.add_argument("--dataloader_num_workers", type=int, default=0,
+                   help="accepted for config compatibility; ignored")
+    p.add_argument("--dataloader_pin_memory", action="store_true",
+                   help="accepted for config compatibility; ignored")
+    p.add_argument("--eval_path", type=str, default="eval")
+    p.add_argument("--npratio", type=int, default=4)
 
 
 def plm_config(preset: str, vocab_size: Optional[int] = None,
-               gelu_approx: Optional[bool] = None) -> PLMConfig:
+               gelu_approx: Optional[bool] = None,
+               remat: bool = False) -> PLMConfig:
     if preset == "roberta_base":
         cfg = PLMConfig.roberta_base()
     elif preset == "bert_base":
@@ -158,4 +294,6 @@ def plm_config(preset: str, vocab_size: Optional[int] = None,
         cfg = dc.replace(cfg, vocab_size=vocab_size)
     if gelu_approx is not None:
         cfg = dc.replace(cfg, gelu_approx=gelu_approx)
+    if remat:
+        cfg = dc.replace(cfg, remat=True)
     return cfg

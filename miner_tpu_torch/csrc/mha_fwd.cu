@@ -2,10 +2,22 @@
 //
 // Replaces the TPU kernel miner_tpu/ops/mha.py:_fwd_kernel (pallas_call at
 // mha.py:208, reached through fused_mha). Per (sequence n, head h):
-//   out[n, i, h] = softmax_j(q_i . k_j / sqrt(Dh), masked keys -> -1e9) . v_j
+//   P = softmax_j(q_i . k_j / sqrt(Dh), masked keys -> -1e9)
+//   out[n, i, h] = sum_j dropout(P)_ij v_j
 // read straight from the fused (N, L, 3D) QKV projection by stride, with an
 // optional block-diagonal band (seqs > 1: query i and key j attend only when
-// i / (L/seqs) == j / (L/seqs)). Dropout is not here yet (rate 0 only).
+// i / (L/seqs) == j / (L/seqs)). Dropout on P keeps element (n, h, i, j) iff
+// its Philox4x32-10 bits (csrc/philox.cuh, counter (j/4, i, h, n), word j%4)
+// are >= thresh, and scales it by 1/(1-rate): the TPU kernel's rule with a
+// counter-based generator instead of the TPU's, so the backward kernel and
+// the plain version (ops/mha.py) regenerate the same mask.
+//
+// When a backward follows, the kernel also writes each row's softmax
+// statistics (running max m and 1/l, as float2 into an (N, H, L) buffer,
+// 10.8 MB at the sapo shape) so the backward rebuilds P without a second
+// pass over the keys. The TPU kernel stores nothing and recomputes. Two
+// values, not one log-sum-exp: with the finite -1e9 fill, a fully masked
+// row has m = -1e9 and in fp32 m + log(l) rounds back to -1e9.
 //
 // What bounds it: at L = 128 and Dh = 64 a (sequence, head) pair reads
 // 3 * L * Dh values and does 4 * L * L * Dh flops, 64 flops per bf16 byte:
@@ -22,18 +34,28 @@
 // Masked keys get the finite fill -1e9 (as mha.py:36,102 does): the running
 // max starts at -inf but every tile holds at least one existing key, so the
 // first rescale is exp(-inf) = 0 and never inf - inf; a row whose keys are
-// all masked comes out as the mean of V, not NaN.
+// all masked comes out as the mean of V, not NaN. The normaliser l sums the
+// undropped probabilities; dropout applies to what enters the PV sum.
 #include "common.cuh"
+#include "philox.cuh"
 
 namespace {
 
 constexpr int MAX_BQ = 64;  // query rows (threads) per block
 constexpr int BK = 32;      // keys per shared-memory tile
 
+struct Dropout {
+  unsigned long long seed;
+  unsigned int thresh;
+  float inv_keep;
+  int on;
+};
+
 template <typename T, int DH>
 __global__ void __launch_bounds__(MAX_BQ)
 mha_fwd_kernel(const T* __restrict__ qkv, const int* __restrict__ mask,
-               T* __restrict__ out, int L, int H, int seqs) {
+               T* __restrict__ out, float2* __restrict__ stats, int L, int H,
+               int seqs, Dropout drop) {
   const int n = blockIdx.x, h = blockIdx.y;
   const int bq = blockDim.x;
   const int q0 = blockIdx.z * bq;
@@ -107,19 +129,25 @@ mha_fwd_kernel(const T* __restrict__ qkv, const int* __restrict__ mask,
     l *= alpha;
 #pragma unroll
     for (int d = 0; d < DH; ++d) o[d] *= alpha;
+    Philox4 bits;
 #pragma unroll
     for (int r = 0; r < BK; ++r) {
+      if (drop.on && (r & 3) == 0)
+        bits = philox4x32_10((unsigned)(k0 + r) >> 2, (unsigned)i, (unsigned)h,
+                             (unsigned)n, drop.seed);
       if (r < nk) {
         const float p = expf(s[r] - m_new);
         l += p;
+        float pv = p;
+        if (drop.on) pv = bits.w[r & 3] >= drop.thresh ? p * drop.inv_keep : 0.f;
         const float4* vr = reinterpret_cast<const float4*>(&sV[r][0]);
 #pragma unroll
         for (int d4 = 0; d4 < DH / 4; ++d4) {
           const float4 vv = vr[d4];
-          o[4 * d4] += p * vv.x;
-          o[4 * d4 + 1] += p * vv.y;
-          o[4 * d4 + 2] += p * vv.z;
-          o[4 * d4 + 3] += p * vv.w;
+          o[4 * d4] += pv * vv.x;
+          o[4 * d4 + 1] += pv * vv.y;
+          o[4 * d4 + 2] += pv * vv.z;
+          o[4 * d4 + 3] += pv * vv.w;
         }
       }
     }
@@ -128,6 +156,7 @@ mha_fwd_kernel(const T* __restrict__ qkv, const int* __restrict__ mask,
 
   __syncthreads();  // everyone is done reading sQO as Q
   const float inv = 1.f / l;  // l >= 1: the row's max contributes exp(0)
+  if (stats != nullptr && i < L) stats[((long)n * H + h) * L + i] = make_float2(m, inv);
 #pragma unroll
   for (int d = 0; d < DH; ++d) sQO[tid][d] = o[d] * inv;
   __syncthreads();
@@ -139,24 +168,25 @@ mha_fwd_kernel(const T* __restrict__ qkv, const int* __restrict__ mask,
 }
 
 template <typename T, int DH>
-cudaError_t launch_mha(const void* qkv, const void* mask, void* out, int N,
-                       int L, int H, int seqs, cudaStream_t stream) {
+cudaError_t launch_mha(const void* qkv, const void* mask, void* out,
+                       void* stats, int N, int L, int H, int seqs,
+                       Dropout drop, cudaStream_t stream) {
   const int bq = L <= 32 ? 32 : MAX_BQ;
   const dim3 grid(N, H, (L + bq - 1) / bq);
   mha_fwd_kernel<T, DH><<<grid, bq, 0, stream>>>(
       static_cast<const T*>(qkv), static_cast<const int*>(mask),
-      static_cast<T*>(out), L, H, seqs);
+      static_cast<T*>(out), static_cast<float2*>(stats), L, H, seqs, drop);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_head_dim(const void* qkv, const void* mask, void* out,
-                              int N, int L, int H, int Dh, int seqs,
-                              cudaStream_t stream) {
+                              void* stats, int N, int L, int H, int Dh,
+                              int seqs, Dropout drop, cudaStream_t stream) {
   switch (Dh) {
-    case 16: return launch_mha<T, 16>(qkv, mask, out, N, L, H, seqs, stream);
-    case 32: return launch_mha<T, 32>(qkv, mask, out, N, L, H, seqs, stream);
-    case 64: return launch_mha<T, 64>(qkv, mask, out, N, L, H, seqs, stream);
+    case 16: return launch_mha<T, 16>(qkv, mask, out, stats, N, L, H, seqs, drop, stream);
+    case 32: return launch_mha<T, 32>(qkv, mask, out, stats, N, L, H, seqs, drop, stream);
+    case 64: return launch_mha<T, 64>(qkv, mask, out, stats, N, L, H, seqs, drop, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -164,20 +194,26 @@ cudaError_t dispatch_head_dim(const void* qkv, const void* mask, void* out,
 }  // namespace
 
 // qkv (N, L, 3*H*Dh) and out (N, L, H*Dh) of one dtype, mask (N, L) int32,
-// all contiguous; Dh in {16, 32, 64}; L % seqs == 0.
-extern "C" int mha_fwd(const void* qkv, const void* mask, void* out, int N,
-                       int L, int H, int Dh, int seqs, int dtype, int device,
+// all contiguous; Dh in {16, 32, 64}; L % seqs == 0. stats: (N, H, L) float2
+// (row max, 1/row sum) or null. Dropout is on when `dropping` is non-zero:
+// keep iff bits >= thresh, kept values scaled by inv_keep.
+extern "C" int mha_fwd(const void* qkv, const void* mask, void* out,
+                       void* stats, int N, int L, int H, int Dh, int seqs,
+                       unsigned long long seed, unsigned int thresh,
+                       float inv_keep, int dropping, int dtype, int device,
                        void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (N <= 0 || L <= 0 || H <= 0 || H > 65535 || seqs <= 0 || L % seqs != 0)
     return cudaErrorInvalidValue;
+  const Dropout drop{seed, thresh, inv_keep, dropping != 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case DTYPE_F32:
-      return dispatch_head_dim<float>(qkv, mask, out, N, L, H, Dh, seqs, s);
+      return dispatch_head_dim<float>(qkv, mask, out, stats, N, L, H, Dh, seqs, drop, s);
     case DTYPE_BF16:
-      return dispatch_head_dim<__nv_bfloat16>(qkv, mask, out, N, L, H, Dh, seqs, s);
+      return dispatch_head_dim<__nv_bfloat16>(qkv, mask, out, stats, N, L, H, Dh,
+                                              seqs, drop, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -1,0 +1,144 @@
+"""Samplers: behaviors log -> fixed-shape index samples, fully seeded.
+
+These replace the reference's Dataset/DatasetOnline ``__getitem__`` logic
+(reference: src/entities.py:181-348) with vectorized, reproducible numpy —
+each epoch's randomness comes from an explicit ``np.random.Generator`` so
+multi-host shards can derive identical sample streams from (seed, epoch).
+
+Modes (behavioral contracts):
+
+  * offline base (reference: src/reader.py:135-183): one sample per positive;
+    candidates = positive (random augmentation variant if augmentations are
+    loaded) + npratio sampled negatives, shuffled; label one-hot.
+  * online base (reference: src/entities.py:256-272): same, but re-sampled
+    every epoch.
+  * eval (reference: src/reader.py:351-379): one row per candidate of every
+    impression containing both classes.
+
+All emitted indices are *global* NewsStore indices (variant*N + row); pad
+news = 0.
+
+The port's own copy of ``miner_tpu/data/samplers.py``, numpy path only: the
+JAX package's native C++ sampler (``native/miner_data.cpp``) keeps the same
+invariants but not the same draws, and is not ported yet (ROADMAP Queue 1,
+item 11); the ``hard`` mode comes with the augmentations (item 14) and
+``PretrainSampler`` with the pretraining slice (item 6). The tests hold these
+samplers equal to the JAX package's with ``backend="numpy"``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from miner_tpu_torch.data.behaviors import BehaviorsLog
+from miner_tpu_torch.data.news_store import NewsStore
+
+
+@dataclasses.dataclass
+class SampleBlock:
+    """A fixed-shape block of samples (one epoch or the eval set)."""
+
+    cand: np.ndarray  # (E, C) int32 global indices
+    his: np.ndarray  # (E, H) int32 global indices (vanilla variant)
+    label: np.ndarray  # (E, C) float32 one-hot / binary
+    impression_id: np.ndarray  # (E,) int32
+
+    def __len__(self) -> int:
+        return len(self.cand)
+
+
+def _sample_negatives(
+    negs: np.ndarray, k: int, rng: np.random.Generator
+) -> np.ndarray:
+    """k negatives: without replacement when enough, else all + pad(0)
+    (reference: src/reader.py:437-441)."""
+    if len(negs) >= k:
+        return rng.choice(negs, size=k, replace=False)
+    out = np.zeros(k, dtype=np.int64)
+    out[: len(negs)] = negs
+    return out
+
+
+class _BaseTrainSampler:
+    def __init__(
+        self,
+        log: BehaviorsLog,
+        store: NewsStore,
+        npratio: int,
+        seed: int = 0,
+    ):
+        self.log = log
+        self.store = store
+        self.npratio = npratio
+        self.seed = seed
+        self.num_variants = store.num_variants
+
+    def _history_gidx(self) -> np.ndarray:
+        # variant 0 -> global index == row
+        return self.log.history[self.log.hist_ptr]
+
+    def sample_epoch(self, epoch: int) -> SampleBlock:
+        rng = np.random.default_rng((self.seed, epoch))
+        E = self.log.num_events
+        C = self.npratio + 1
+        N = self.store.num_news
+        V = self.num_variants
+
+        cand = np.zeros((E, C), dtype=np.int64)
+        label = np.zeros((E, C), dtype=np.float32)
+
+        for e in range(E):
+            negs = self.log.negatives(e)
+            pos = int(self.log.pos_row[e])
+            variant = int(rng.integers(0, V)) if V > 1 else 0
+            row = np.empty(C, dtype=np.int64)
+            row[0] = variant * N + pos
+            row[1:] = _sample_negatives(negs, self.npratio, rng)
+            lab = np.zeros(C, dtype=np.float32)
+            lab[0] = 1.0
+            perm = rng.permutation(C)
+            cand[e] = row[perm]
+            label[e] = lab[perm]
+
+        return SampleBlock(
+            cand=cand.astype(np.int32),
+            his=self._history_gidx().astype(np.int32),
+            label=label,
+            impression_id=self.log.impression_id.copy(),
+        )
+
+
+class OfflineSampler(_BaseTrainSampler):
+    """Sampled once at construction; every epoch reuses the same block."""
+
+    def __init__(self, log, store, npratio, seed=0):
+        super().__init__(log, store, npratio, seed)
+        self._block = super().sample_epoch(0)
+
+    def sample_epoch(self, epoch: int) -> SampleBlock:
+        return self._block
+
+
+class OnlineSampler(_BaseTrainSampler):
+    """Re-samples every epoch (reference's DatasetOnline)."""
+
+
+class EvalSampler:
+    """One row per candidate (the reference's slow-eval layout)."""
+
+    def __init__(self, log: BehaviorsLog):
+        self.log = log
+
+    def sample_all(self) -> SampleBlock:
+        log = self.log
+        # bulk expansion: one row per candidate, history/impression repeated
+        # per group (no per-impression Python loop — at MIND-large scale the
+        # eval set is millions of candidate rows)
+        counts = np.diff(log.eval_offsets)
+        return SampleBlock(
+            cand=log.eval_cand_flat.reshape(-1, 1).astype(np.int32),
+            his=log.history[np.repeat(log.eval_hist_ptr, counts)].astype(np.int32),
+            label=log.eval_label_flat.reshape(-1, 1).astype(np.float32),
+            impression_id=np.repeat(log.eval_impression_id, counts).astype(np.int32),
+        )

@@ -6,17 +6,23 @@ category embeddings), poly-attention extracting K interest vectors, and
 candidate-interest dot-product scores aggregated by ``max``, ``mean`` or
 ``weighted`` (target-aware attention). The serving path uses the granular
 methods so the candidate gather and per-interest scoring can run in the
-lookup+score op directly against the news-embedding cache.
+lookup+score op directly against the news-embedding cache; training calls
+the model on a batch (``forward``), which encodes candidates and history
+in one PLM call per field (``encode_all_news``, miner.py:112-136) and runs
+the tail. In training mode the category embeddings take dropout at
+``dropout`` (``--dropout``, miner.py:91,145-150), with masks from the step's
+``DropoutRNG``; the model computes in ``dtype`` with fp32 parameters.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from miner_tpu_torch.models.dropout import DropoutRNG, dropout_active
 from miner_tpu_torch.models.news_encoder import NewsEncoder
 from miner_tpu_torch.models.plm import normal_init_
 from miner_tpu_torch.models.poly_attention import PolyAttention, TargetAwareAttention
@@ -28,9 +34,11 @@ class CategoryEmbedding(nn.Module):
     ``pretrained`` (a (num_categories, embed_dim) array) seeds the table."""
 
     def __init__(self, num_categories: int, embed_dim: int, pad_id: int,
-                 pretrained: Optional[np.ndarray] = None):
+                 pretrained: Optional[np.ndarray] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.pad_id = pad_id
+        self.dtype = dtype
         self.pretrained = pretrained
         self.weight = nn.Parameter(torch.empty(num_categories, embed_dim))
 
@@ -41,7 +49,7 @@ class CategoryEmbedding(nn.Module):
             nn.init.normal_(self.weight, 0.0, 1.0, generator=generator)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        out = F.embedding(ids, self.weight)
+        out = F.embedding(ids, self.weight).to(self.dtype)
         return torch.where((ids != self.pad_id)[..., None], out, 0.0)
 
 
@@ -51,19 +59,21 @@ class Miner(nn.Module):
                  score_type: str = "weighted", num_categories: int = 0,
                  category_embed_dim: int = 100, category_pad_id: int = 0,
                  category_embed: Optional[np.ndarray] = None,
-                 legacy_mask: bool = False):
+                 legacy_mask: bool = False, dropout: float = 0.2,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if score_type not in ("max", "mean", "weighted"):
             raise ValueError(f"invalid score_type {score_type!r}")
         self.news_encoder = news_encoder
         self.use_category_bias = use_category_bias
         self.score_type = score_type
+        self.dropout = dropout
         embed_dim = news_encoder.embed_dim
         if use_category_bias:
             cat_dim = (category_embed.shape[1] if category_embed is not None
                        else category_embed_dim)
             self.category_embedding = CategoryEmbedding(
-                num_categories, cat_dim, category_pad_id, category_embed)
+                num_categories, cat_dim, category_pad_id, category_embed, dtype)
         self.poly_attn = PolyAttention(embed_dim, num_context_codes,
                                        context_code_dim, legacy_mask)
         if score_type == "weighted":
@@ -80,15 +90,39 @@ class Miner(nn.Module):
         if self.score_type == "weighted":
             self.target_aware_attn.reset_parameters(generator)
 
-    def encode_news(self, title_ids, title_mask, sapo_ids=None, sapo_mask=None):
+    def encode_news(self, title_ids, title_mask, sapo_ids=None, sapo_mask=None,
+                    rng: Optional[DropoutRNG] = None):
         """Encode a flat (N, L) batch of news: the cache-fill entry point."""
-        return self.news_encoder(title_ids, title_mask, sapo_ids, sapo_mask)
+        return self.news_encoder(title_ids, title_mask, sapo_ids, sapo_mask, rng)
+
+    def encode_all_news(self, batch: Dict[str, torch.Tensor],
+                        rng: Optional[DropoutRNG] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One PLM call per field over candidates and history concatenated:
+        (cand_repr (B, C, D), his_repr (B, H, D))."""
+        B, C = batch["cand_title"].shape[:2]
+        H = batch["his_title"].shape[1]
+
+        def both(name):  # (B, C, L) and (B, H, L) -> (B*(C+H), L)
+            return torch.cat([batch[f"cand_{name}"].flatten(0, 1),
+                              batch[f"his_{name}"].flatten(0, 1)])
+
+        sapo = sapo_mask = None
+        if self.news_encoder.use_sapo and "cand_sapo" in batch:
+            sapo, sapo_mask = both("sapo"), both("sapo_mask")
+        reprs = self.news_encoder(both("title"), both("title_mask"), sapo,
+                                  sapo_mask, rng)
+        return (reprs[:B * C].reshape(B, C, -1), reprs[B * C:].reshape(B, H, -1))
 
     def category_bias_from_ids(self, his_category: torch.Tensor,
-                               cand_category: torch.Tensor) -> torch.Tensor:
+                               cand_category: torch.Tensor,
+                               rng: Optional[DropoutRNG] = None) -> torch.Tensor:
         """(B, H, C) pairwise category cosine."""
-        return pairwise_cosine_similarity(self.category_embedding(his_category),
-                                          self.category_embedding(cand_category))
+        his = self.category_embedding(his_category)
+        cand = self.category_embedding(cand_category)
+        if dropout_active(self, rng, self.dropout):
+            his, cand = rng.dropout(his, self.dropout), rng.dropout(cand, self.dropout)
+        return pairwise_cosine_similarity(his, cand)
 
     def interests_from_history(self, his_repr: torch.Tensor,
                                his_mask: torch.Tensor,
@@ -107,12 +141,22 @@ class Miner(nn.Module):
 
     def tail(self, cand_repr: torch.Tensor, his_repr: torch.Tensor,
              cand_category: torch.Tensor, his_category: torch.Tensor,
-             his_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+             his_mask: torch.Tensor, rng: Optional[DropoutRNG] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Everything after the news towers: category bias, poly-attention
         and scoring. Returns (interests (B, K, D), matching (B, C))."""
         bias = None
         if self.use_category_bias:
-            bias = self.category_bias_from_ids(his_category, cand_category)
+            bias = self.category_bias_from_ids(his_category, cand_category, rng)
         interests = self.interests_from_history(his_repr, his_mask, bias)
         scores = torch.einsum("bcd,bkd->bck", cand_repr, interests)
         return interests, self.aggregate_matching(interests, scores, cand_repr)
+
+    def forward(self, batch: Dict[str, torch.Tensor],
+                rng: Optional[DropoutRNG] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(interests (B, K, D), matching scores (B, C)) for a model batch
+        (``NewsTable.lookup``)."""
+        cand_repr, his_repr = self.encode_all_news(batch, rng)
+        return self.tail(cand_repr, his_repr, batch["cand_category"],
+                         batch["his_category"], batch["his_mask"], rng)

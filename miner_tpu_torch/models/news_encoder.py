@@ -3,8 +3,11 @@
 Counterpart of ``miner_tpu/models/news_encoder.py:NewsEncoder``: title (and
 sapo) token ids run through the shared PLM, the CLS representation is taken,
 an optional ``reduce_dim`` linear maps it to ``word_embed_dim``, and the
-``linear`` combine maps [title, sapo] to one vector. The ``lstm`` and
-``pre-concat`` combines are not ported yet (ROADMAP Queue 1, item 4).
+``linear`` combine maps [title, sapo] to one vector. In training mode
+``reduce_dim``'s output takes dropout at ``dropout`` (``--dropout``,
+news_encoder.py:95,122), its mask drawn from the step's ``DropoutRNG``. The
+``lstm`` and ``pre-concat`` combines are not ported yet (ROADMAP Queue 1,
+item 4).
 """
 from __future__ import annotations
 
@@ -13,13 +16,15 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from miner_tpu_torch.models.plm import PLMConfig, TransformerPLM
+from miner_tpu_torch.models.dropout import DropoutRNG, dropout_active
+from miner_tpu_torch.models.plm import Dense, PLMConfig, TransformerPLM
 
 
 class NewsEncoder(nn.Module):
     def __init__(self, plm_cfg: PLMConfig, apply_reduce_dim: bool = True,
                  word_embed_dim: int = 256, use_sapo: bool = True,
-                 combine_type: str = "linear"):
+                 combine_type: str = "linear", dropout: float = 0.2,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if use_sapo and combine_type != "linear":
             raise NotImplementedError(
@@ -27,24 +32,29 @@ class NewsEncoder(nn.Module):
                 "the port has the linear title/sapo combine")
         self.plm_cfg = plm_cfg
         self.use_sapo = use_sapo
-        self.plm = TransformerPLM(plm_cfg)
+        self.dropout = dropout
+        self.plm = TransformerPLM(plm_cfg, dtype)
         base = word_embed_dim if apply_reduce_dim else plm_cfg.hidden_size
-        self.reduce_dim = (nn.Linear(plm_cfg.hidden_size, word_embed_dim)
+        self.reduce_dim = (Dense(plm_cfg.hidden_size, word_embed_dim)
                            if apply_reduce_dim else None)
-        self.linear_combine = nn.Linear(2 * base, base) if use_sapo else None
+        self.linear_combine = Dense(2 * base, base) if use_sapo else None
         self.embed_dim = base
 
-    def _field_repr(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        repr_ = self.plm(ids, mask)[:, 0, :]
+    def _field_repr(self, ids: torch.Tensor, mask: torch.Tensor,
+                    rng: Optional[DropoutRNG]) -> torch.Tensor:
+        repr_ = self.plm(ids, mask, rng=rng)[:, 0, :]
         if self.reduce_dim is not None:
             repr_ = self.reduce_dim(repr_)
+            if dropout_active(self, rng, self.dropout):
+                repr_ = rng.dropout(repr_, self.dropout)
         return repr_
 
     def forward(self, title_ids: torch.Tensor, title_mask: torch.Tensor,
                 sapo_ids: Optional[torch.Tensor] = None,
-                sapo_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        title_repr = self._field_repr(title_ids, title_mask)
+                sapo_mask: Optional[torch.Tensor] = None,
+                rng: Optional[DropoutRNG] = None) -> torch.Tensor:
+        title_repr = self._field_repr(title_ids, title_mask, rng)
         if not self.use_sapo:
             return title_repr
-        sapo_repr = self._field_repr(sapo_ids, sapo_mask)
+        sapo_repr = self._field_repr(sapo_ids, sapo_mask, rng)
         return self.linear_combine(torch.cat([title_repr, sapo_repr], dim=-1))

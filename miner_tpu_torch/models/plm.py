@@ -7,21 +7,36 @@ through the mha op and every post-LN site (``attention_ln``, ``ffn_ln``)
 through the add_ln op, so on the card the tower runs the port's kernels.
 
 Parameter names follow the JAX tree (``layer_{i}`` becomes ``layers.{i}``)
-so ``models.convert.miner_params_from_jax`` can carry weights over. LayerNorm
-parameters stay fp32 when the rest of the model is cast to the compute type
-(:func:`cast_to_compute_`), as the JAX package keeps fp32 masters and fp32
-LayerNorm statistics. This slice is inference only: dropout comes with the
-training slice.
+so ``models.convert.miner_params_from_jax`` can carry weights over.
+
+Mixed precision as flax does it: parameters stay fp32 masters, and the
+tower computes in its ``dtype`` (``--compute_dtype``): embedding rows are
+cast to it after the lookup and every ``Dense`` casts its weight to its
+input's type at use. LayerNorm parameters and statistics stay fp32. Serving
+may also cast the parameters once (:func:`cast_to_compute_`): casting once
+or at each use gives the same values.
+
+Dropout, in training mode only (``train()``; ``eval()`` is the JAX
+package's ``deterministic=True``): ``hidden_dropout`` after the embedding
+LayerNorm (plm.py:400) and on the residual branch of both add_ln sites of
+every layer (in the add_ln kernel), ``attention_dropout`` on the attention
+probabilities (in the mha kernel). ``remat`` rematerialises each layer in
+the backward with ``torch.utils.checkpoint`` (JAX: ``nn.remat``,
+plm.py:430-452); the layer's kernel seeds are drawn before it and passed
+in, so the recompute draws the same masks.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from miner_tpu_torch.models.dropout import DropoutRNG, dropout_active
 from miner_tpu_torch.ops.add_ln import fused_dropout_add_ln
 from miner_tpu_torch.ops.mha import fused_mha
 
@@ -42,9 +57,13 @@ class PLMConfig:
     max_position_embeddings: int = 514
     type_vocab_size: int = 1
     layer_norm_eps: float = 1e-5
+    hidden_dropout: float = 0.1
+    attention_dropout: float = 0.1
     pad_token_id: int = 1
     position_offset: int = 2
     initializer_range: float = 0.02
+    # rematerialise every layer in the backward (--remat)
+    remat: bool = False
     # tanh-approximate gelu; the trainer turns it on for bf16 compute
     gelu_approx: bool = False
 
@@ -86,13 +105,23 @@ class LayerNorm(nn.Module):
                             self.bias.float(), self.eps).to(x.dtype)
 
 
-class AddLN(LayerNorm):
-    """``LN(x + h)`` through the fused add_ln op (a post-LN site)."""
+class Dense(nn.Linear):
+    """``nn.Linear`` computing in its input's type: the fp32 master weight
+    is cast at use, as flax's ``Dense(dtype=...)`` does."""
 
-    def forward(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
+
+
+class AddLN(LayerNorm):
+    """``LN(x + dropout(h))`` through the fused add_ln op (a post-LN site)."""
+
+    def forward(self, x: torch.Tensor, h: torch.Tensor, rate: float = 0.0,
+                seed: int = 0) -> torch.Tensor:
         n = self.weight.shape[0]
         y = fused_dropout_add_ln(x.reshape(-1, n), h.reshape(-1, n),
-                                 self.weight, self.bias, 0.0, self.eps)
+                                 self.weight, self.bias, rate, self.eps, seed)
         return y.reshape(x.shape)
 
 
@@ -102,34 +131,49 @@ class SelfAttention(nn.Module):
     def __init__(self, cfg: PLMConfig):
         super().__init__()
         self.num_heads = cfg.num_heads
-        self.qkv = nn.Linear(cfg.hidden_size, 3 * cfg.hidden_size)
-        self.out = nn.Linear(cfg.hidden_size, cfg.hidden_size)
+        self.qkv = Dense(cfg.hidden_size, 3 * cfg.hidden_size)
+        self.out = Dense(cfg.hidden_size, cfg.hidden_size)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        return self.out(fused_mha(self.qkv(x), mask, self.num_heads))
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, rate: float = 0.0,
+                seed: int = 0) -> torch.Tensor:
+        return self.out(fused_mha(self.qkv(x), mask, self.num_heads, rate, 1, seed))
 
 
 class TransformerLayer(nn.Module):
     """Post-LN block (BERT layout: attn -> add&LN -> FFN -> add&LN)."""
 
+    SEEDS = 3  # kernel dropout seeds per layer: attention, attention_ln, ffn_ln
+
     def __init__(self, cfg: PLMConfig):
         super().__init__()
+        self.attention_dropout = cfg.attention_dropout
+        self.hidden_dropout = cfg.hidden_dropout
         self.attention = SelfAttention(cfg)
         self.attention_ln = AddLN(cfg.hidden_size, cfg.layer_norm_eps)
-        self.ffn_in = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
-        self.ffn_out = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
+        self.ffn_in = Dense(cfg.hidden_size, cfg.intermediate_size)
+        self.ffn_out = Dense(cfg.intermediate_size, cfg.hidden_size)
         self.ffn_ln = AddLN(cfg.hidden_size, cfg.layer_norm_eps)
         self.gelu = "tanh" if cfg.gelu_approx else "none"
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        x = self.attention_ln(x, self.attention(x, mask))
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                seeds: Optional[Sequence[int]] = None) -> torch.Tensor:
+        """``seeds`` (three kernel seeds) turns dropout on; None is
+        deterministic."""
+        p_attn = p_hid = 0.0
+        s_attn = s_ln1 = s_ln2 = 0
+        if seeds is not None:
+            p_attn, p_hid = self.attention_dropout, self.hidden_dropout
+            s_attn, s_ln1, s_ln2 = seeds
+        x = self.attention_ln(x, self.attention(x, mask, p_attn, s_attn), p_hid, s_ln1)
         h = self.ffn_out(F.gelu(self.ffn_in(x), approximate=self.gelu))
-        return self.ffn_ln(x, h)
+        return self.ffn_ln(x, h, p_hid, s_ln2)
 
 
 class Embeddings(nn.Module):
-    def __init__(self, cfg: PLMConfig):
+    def __init__(self, cfg: PLMConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
+        self.hidden_dropout = cfg.hidden_dropout
         self.position_offset = cfg.position_offset
         self.word_embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
         self.position_embeddings = nn.Embedding(cfg.max_position_embeddings,
@@ -138,34 +182,51 @@ class Embeddings(nn.Module):
                                                   cfg.hidden_size)
         self.ln = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
 
-    def forward(self, input_ids: torch.Tensor,
-                token_type_ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor, token_type_ids: torch.Tensor,
+                rng: Optional[DropoutRNG] = None) -> torch.Tensor:
         L = input_ids.shape[1]
+        dt = self.dtype
         position_ids = torch.arange(L, device=input_ids.device) + self.position_offset
-        x = (self.word_embeddings(input_ids)
-             + self.position_embeddings(position_ids)[None]
-             + self.token_type_embeddings(token_type_ids))
-        return self.ln(x)
+        x = (self.word_embeddings(input_ids).to(dt)
+             + self.position_embeddings(position_ids)[None].to(dt)
+             + self.token_type_embeddings(token_type_ids).to(dt))
+        x = self.ln(x)
+        if dropout_active(self, rng, self.hidden_dropout):
+            x = rng.dropout(x, self.hidden_dropout)
+        return x
 
 
 class TransformerPLM(nn.Module):
-    """The full encoder tower. Returns the last hidden states (B, L, D)."""
+    """The full encoder tower. Returns the last hidden states (B, L, D) in
+    ``dtype``."""
 
-    def __init__(self, cfg: PLMConfig):
+    def __init__(self, cfg: PLMConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
-        self.embeddings = Embeddings(cfg)
+        self.embeddings = Embeddings(cfg, dtype)
         self.layers = nn.ModuleList(TransformerLayer(cfg)
                                     for _ in range(cfg.num_layers))
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
-                token_type_ids: torch.Tensor = None) -> torch.Tensor:
+                token_type_ids: torch.Tensor = None,
+                rng: Optional[DropoutRNG] = None) -> torch.Tensor:
+        cfg = self.cfg
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
-        x = self.embeddings(input_ids, token_type_ids)
+        x = self.embeddings(input_ids, token_type_ids, rng)
         mask = attention_mask.to(torch.int32).contiguous()
+        dropping = dropout_active(self, rng, max(cfg.hidden_dropout,
+                                                 cfg.attention_dropout))
+        remat = cfg.remat and self.training and torch.is_grad_enabled()
         for layer in self.layers:
-            x = layer(x, mask)
+            seeds = rng.kernel_seeds(layer.SEEDS) if dropping else None
+            if remat:
+                # the seeds are arguments, so the recompute drops the same
+                # elements; no global RNG state is read inside the layer
+                x = checkpoint(layer, x, mask, seeds, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = layer(x, mask, seeds)
         return x
 
 

@@ -22,7 +22,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from miner_tpu_torch.models.plm import lecun_normal_
+from miner_tpu_torch.models.plm import Dense, lecun_normal_
 from miner_tpu_torch.ops.poly_attention import poly_attention_fused
 
 
@@ -63,7 +63,7 @@ class TargetAwareAttention(nn.Module):
 
     def __init__(self, embed_dim: int):
         super().__init__()
-        self.proj = nn.Linear(embed_dim, embed_dim, bias=False)
+        self.proj = Dense(embed_dim, embed_dim, bias=False)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         lecun_normal_(self.proj.weight.data, self.proj.in_features, generator)

@@ -29,7 +29,7 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
-CUDA_SOURCES = ("mha_fwd", "poly_attention_fwd", "lookup_score_fwd")
+CUDA_SOURCES = ("mha_fwd", "mha_bwd", "poly_attention_fwd", "lookup_score_fwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -54,7 +54,7 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` lives once built."""
     h = hashlib.sha256()
-    for src in (CSRC_DIR / f"{name}.cu", CSRC_DIR / "common.cuh"):
+    for src in (CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))):
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}.{h.hexdigest()[:12]}.so"

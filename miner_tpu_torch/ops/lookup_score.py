@@ -7,7 +7,9 @@ the per-interest scores (B, C, K), without building the (B, C, D) gather.
 The kernel is ``csrc/lookup_score_fwd.cu``. It reads the cache in its own
 type (float32 or bfloat16), accumulates in fp32 and writes the interests'
 type, as the TPU kernel's fp32 route does. The int8 cache (``Int8Rows``) is
-not ported yet.
+not ported yet. The op has no gradient, in the JAX package either: on the
+card it raises when an input requires grad under grad mode, so a gradient
+is never dropped quietly.
 """
 from __future__ import annotations
 
@@ -47,6 +49,9 @@ def lookup_score_fused(cache: torch.Tensor, cand_idx: torch.Tensor,
     if cache.device.type == "cpu":
         return lookup_score_reference(cache, cand_idx, interests)
     common.require_cuda(cache, "lookup_score_fused")
+    if torch.is_grad_enabled() and (cache.requires_grad or interests.requires_grad):
+        raise RuntimeError("lookup_score_fused has no backward: call it under "
+                           "torch.no_grad() or on tensors that need no gradient")
     dev = cache.device
     common.check_tensor("cache", cache, dev, tuple(common.DTYPE_CODES))
     common.check_tensor("cand_idx", cand_idx, dev, (torch.int32,))

@@ -10,6 +10,14 @@ Counterpart of ``miner_tpu/ops/poly_attention.py:poly_attention_fused``:
 The kernel is ``csrc/poly_attention_fwd.cu``; it keeps every intermediate in
 shared memory. W and codes must be in emb's type (the TPU kernel casts them
 to it). The bias is the (B, H) mean over candidates, computed by the caller.
+
+Under autograd (grad mode on and an input requiring grad) a CUDA tensor
+goes through a ``torch.autograd.Function``: the forward is the kernel, the
+backward recomputes through the plain version under ``enable_grad`` and
+differentiates it, as the JAX package does (``miner_tpu/ops/
+poly_attention.py:109-141``: the kernel forward, the XLA reference's VJP).
+It returns the bias gradient too: the category embedding trains through
+it. A CPU tensor takes the plain version, differentiable as it stands.
 """
 from __future__ import annotations
 
@@ -59,7 +67,16 @@ def poly_attention_fused(emb: torch.Tensor, w: torch.Tensor, codes: torch.Tensor
         raise ValueError(f"bias has shape {tuple(bias.shape)}, expected {(B, H)}")
     if emb.device.type == "cpu":
         return poly_attention_reference(emb, w, codes, mask, bias)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (emb, w, codes, bias)):
+        return _PolyAttention.apply(emb, w, codes, mask, bias)
+    return _launch(emb, w, codes, mask, bias)
+
+
+def _launch(emb, w, codes, mask, bias) -> torch.Tensor:
     common.require_cuda(emb, "poly_attention_fused")
+    B, H, D = emb.shape
+    K, P = codes.shape
     dev = emb.device
     common.check_tensor("emb", emb, dev, tuple(common.DTYPE_CODES))
     common.check_tensor("w", w, dev, (emb.dtype,))
@@ -81,6 +98,25 @@ def poly_attention_fused(emb: torch.Tensor, w: torch.Tensor, codes: torch.Tensor
                   dev.index, common.stream_of(emb))
     poly_attention_fused.launches += 1
     return out
+
+
+class _PolyAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, emb, w, codes, mask, bias):
+        ctx.save_for_backward(emb, w, codes, mask, bias)
+        return _launch(emb, w, codes, mask, bias)
+
+    @staticmethod
+    def backward(ctx, grad):
+        emb, w, codes, mask, bias = ctx.saved_tensors
+        inputs = [t.detach().requires_grad_() for t in (emb, w, codes)]
+        if bias is not None:
+            inputs.append(bias.detach().requires_grad_())
+        with torch.enable_grad():
+            out = poly_attention_reference(*inputs[:3], mask,
+                                           inputs[3] if bias is not None else None)
+        grads = torch.autograd.grad(out, inputs, grad)
+        return (*grads[:3], None, grads[3] if bias is not None else None)
 
 
 poly_attention_fused.launches = 0

@@ -1,0 +1,129 @@
+"""Optimizer: global-norm clip, AdamW with decay groups, linear warmup,
+gradient accumulation.
+
+Counterpart of ``miner_tpu/training/optim.py:make_optimizer``, which chains
+``optax.clip_by_global_norm``, ``optax.adamw`` with ``default_decay_mask``
+and ``linear_warmup_schedule``, inside ``optax.MultiSteps``. The port keeps
+each semantic:
+
+  * the decay mask as two parameter groups: no decay for rank < 2, or for a
+    name ending in bias / LayerNorm (so embedding tables decay, as in the
+    reference);
+  * ``torch.optim.AdamW`` (b1 0.9, b2 0.999, eps 1e-8), whose decoupled
+    decay ``p * (1 - lr * wd)`` equals optax's ``-lr * wd * p`` term;
+  * optax's clip, ``g`` when the global norm is below ``max_norm``, else
+    ``g / norm * max_norm`` (not ``clip_grad_norm_``, whose ``+1e-6``
+    differs);
+  * MultiSteps' accumulation: the mean of k micro-batch gradients, clipped
+    once, one AdamW update. The schedule counts updates, not micro-batches,
+    and the first update runs at the schedule's value for 0 (lr 0 under
+    warmup), as optax's count starts at 0.
+
+Frozen parameters (``requires_grad`` False, ``--freeze_transformer``) are
+left out, as optax's ``set_to_zero`` leaves them out of the clipped norm.
+"""
+from __future__ import annotations
+
+import math
+import re
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
+
+import torch
+
+_NO_DECAY = re.compile(r"(bias|scale|\bln\b|layer_norm|layernorm)", re.IGNORECASE)
+
+
+def linear_warmup_schedule(learning_rate: float, warmup_steps: int,
+                           total_steps: int) -> Callable[[int], float]:
+    """Linear 0 -> lr over warmup, then linear lr -> 0 at total_steps."""
+    return lambda step: scheduled_lr_value(learning_rate, warmup_steps,
+                                           total_steps, step)
+
+
+def scheduled_lr_value(learning_rate: float, warmup_steps: int,
+                       total_steps: int, step: int) -> float:
+    """The learning rate of optimizer update ``step`` (0-based)."""
+    if step < warmup_steps:
+        return learning_rate * min(step / max(warmup_steps, 1), 1.0)
+    return learning_rate * max(
+        (total_steps - step) / max(total_steps - warmup_steps, 1), 0.0)
+
+
+def warmup_steps_from_ratio(total_steps: int, warmup_ratio: float,
+                            warmup_steps: Optional[int] = None) -> int:
+    if warmup_steps is not None:
+        return warmup_steps
+    return math.ceil(total_steps * warmup_ratio)
+
+
+def decays(name: str, p: torch.Tensor) -> bool:
+    """``default_decay_mask``: decay everything but rank-<2 leaves, biases
+    and LayerNorm parameters."""
+    return p.dim() >= 2 and not _NO_DECAY.search(name.rsplit(".", 1)[-1])
+
+
+def decay_groups(named: Iterable[Tuple[str, torch.nn.Parameter]],
+                 weight_decay: float) -> List[Dict]:
+    decay, no_decay = [], []
+    for name, p in named:
+        if p.requires_grad:
+            (decay if decays(name, p) else no_decay).append(p)
+    return [{"params": decay, "weight_decay": weight_decay},
+            {"params": no_decay, "weight_decay": 0.0}]
+
+
+class Optimizer:
+    """Call :meth:`step` after every micro-batch's ``backward()``: every
+    ``accum_steps``-th call applies one update from the mean gradient."""
+
+    def __init__(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]],
+                 learning_rate: float, total_steps: int, warmup_steps: int,
+                 weight_decay: float = 0.01, max_grad_norm: float = 1.0,
+                 accum_steps: int = 1, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8):
+        groups = decay_groups(named_params, weight_decay)
+        self.params = [p for g in groups for p in g["params"]]
+        self.adamw = torch.optim.AdamW(groups, lr=0.0, betas=(b1, b2), eps=eps)
+        self.schedule = linear_warmup_schedule(learning_rate, warmup_steps,
+                                               total_steps)
+        self.max_grad_norm = max_grad_norm
+        self.accum_steps = max(1, accum_steps)
+        self.mini_step = 0  # micro-batches accumulated towards the next update
+        self.updates = 0
+
+    def lr(self) -> float:
+        """The learning rate of the next update."""
+        return self.schedule(self.updates)
+
+    def step(self) -> bool:
+        """Count one micro-batch; on the k-th, update. True if it updated."""
+        self.mini_step += 1
+        if self.mini_step < self.accum_steps:
+            return False
+        grads = [p.grad for p in self.params if p.grad is not None]
+        with torch.no_grad():
+            if self.accum_steps > 1:
+                for g in grads:
+                    g.div_(self.accum_steps)
+            norm = torch.linalg.vector_norm(
+                torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+            below = norm < self.max_grad_norm
+            for g in grads:
+                g.copy_(torch.where(below, g, g / norm * self.max_grad_norm))
+        lr = self.lr()
+        for group in self.adamw.param_groups:
+            group["lr"] = lr
+        self.adamw.step()
+        self.adamw.zero_grad(set_to_none=True)
+        self.mini_step = 0
+        self.updates += 1
+        return True
+
+    def state_dict(self) -> Dict:
+        return {"adamw": self.adamw.state_dict(), "mini_step": self.mini_step,
+                "updates": self.updates}
+
+    def load_state_dict(self, state: Dict) -> None:
+        self.adamw.load_state_dict(state["adamw"])
+        self.mini_step = int(state["mini_step"])
+        self.updates = int(state["updates"])

@@ -1,21 +1,38 @@
-"""The serving half of the JAX package's ``Trainer``, in PyTorch.
+"""The trainer of the port: ``train``, ``eval``, ``serve`` and ``recommend``.
 
-Counterpart of ``miner_tpu/training/trainer.py`` for what ``serve`` and
-``recommend`` run: ``build_model`` for ``Miner``, ``_make_table``,
-``serving_context`` (news store, model, and the corpus news-embedding cache,
-encoded once), ``_make_cached_scores_fn`` (category bias, poly-attention
-interests, the lookup+score op, target-aware aggregation), ``serve_scores``
-for slates and ``serve_topk`` for whole-corpus ranking with ``torch.topk``.
+Counterpart of ``miner_tpu/training/trainer.py`` for the Miner family:
+
+  * ``train`` (trainer.py:558-799): ``BehaviorsLog``, the numpy samplers and
+    the shuffled ``Batcher``; every micro-batch gathers its token rows from
+    the ``NewsTable`` on the device, runs the model with dropout (one PLM
+    call per field over candidates and history), ``miner_loss`` and its
+    backward, and the optimizer (clip, AdamW, warmup schedule, accumulation)
+    updates every ``--gradient_accumulation_steps`` micro-batches; an eval
+    at every ``--eval_steps`` and at each epoch's end, best and final
+    checkpoints, ``--resume_from``;
+  * ``eval`` (trainer.py:1081-1130): the model restored from
+    ``--saved_model_path`` over the eval behaviors, by default from the
+    news-embedding cache (``--cached_eval``);
+  * the serving half: ``serving_context`` (news store, model, and the corpus
+    news-embedding cache, encoded once), ``_cached_scores`` (category bias,
+    poly-attention interests, the lookup+score op, target-aware
+    aggregation), ``serve_scores`` for slates and ``serve_topk`` for
+    whole-corpus ranking with ``torch.topk``.
 
 The model runs on ``--device`` (default ``cuda``; asking for a card that is
 not there raises). On the card every op of the path launches its kernel; on
 the CPU the ops run their plain versions, which is what the tests use.
-Training, checkpoints and the int8 cache come with later slices of the port
-(ROADMAP, Queue 1): the flags that need them are refused here.
+Parameters are fp32 masters and the model computes in ``--compute_dtype``.
+A micro-step's dropout is a pure function of (``--seed`` + 1, micro-step)
+(``models/dropout.py``), so a resumed run draws what the interrupted one
+would have. Flags whose paths come in later slices are refused, naming the
+ROADMAP item (Queue 1) that brings them.
 """
 from __future__ import annotations
 
 import json
+import os
+import time
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -23,11 +40,17 @@ import torch
 
 from miner_tpu_torch import constants
 from miner_tpu_torch.config import plm_config
+from miner_tpu_torch.data.batcher import Batcher, block_size
+from miner_tpu_torch.data.behaviors import BehaviorsLog
 from miner_tpu_torch.data.device_table import NewsTable
 from miner_tpu_torch.data.news_store import NewsStore
+from miner_tpu_torch.data.samplers import EvalSampler, OfflineSampler, OnlineSampler
 from miner_tpu_torch.data.tokenization import load_tokenizer
+from miner_tpu_torch.evaluation.evaluator import FastEvaluator, ImpressionEvaluator
 from miner_tpu_torch.models import Miner, NewsEncoder
+from miner_tpu_torch.models.dropout import DropoutRNG
 from miner_tpu_torch.models.plm import cast_to_compute_
+from miner_tpu_torch.observability.logging import RunLogger
 from miner_tpu_torch.ops.lookup_score import lookup_score_fused
 from miner_tpu_torch.parallel.news_cache import (
     CacheFiller,
@@ -35,6 +58,12 @@ from miner_tpu_torch.parallel.news_cache import (
     gather_rows,
 )
 from miner_tpu_torch.serving import history_row
+from miner_tpu_torch.training import checkpoint, losses
+from miner_tpu_torch.training.optim import (
+    Optimizer,
+    scheduled_lr_value,
+    warmup_steps_from_ratio,
+)
 from miner_tpu_torch.utils import candidate_bucket, resolve_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -49,29 +78,63 @@ class ServingContext(NamedTuple):
     cache: NewsEmbeddingCache
 
 
+class TrainRun(NamedTuple):
+    """What ``train`` returns: the trained model and optimizer, the number
+    of micro-steps taken since the run began (resumed steps included), and
+    the run directory."""
+
+    model: Miner
+    optimizer: Optimizer
+    step: int
+    run_dir: str
+
+
 def _refuse_unported(args, device: torch.device) -> None:
     """Raise for a flag whose meaning this slice of the port cannot honour,
-    naming the ROADMAP item that brings it, instead of serving something
+    naming the ROADMAP item that brings it, instead of running something
     else than was asked for."""
     if (args.model_name or "Miner").lower() != "miner":
         raise NotImplementedError(
-            f"--model_name {args.model_name!r}: the port serves Miner only "
+            f"--model_name {args.model_name!r}: the port runs Miner only "
             "so far (ROADMAP Queue 1, items 7-9: the Fastformer, UnBERT "
             "and UniSRec families)")
-    if args.saved_model_path:
-        raise NotImplementedError(
-            "--saved_model_path: the JAX package's Orbax checkpoints cannot "
-            "be read without its JAX stack; port-format checkpoints come "
-            "with the training slice (ROADMAP Queue 1, item 1)")
-    if args.serve_cache_int8:
+    if getattr(args, "serve_cache_int8", False):
         raise NotImplementedError(
             "--serve_cache_int8: the int8 cache (Int8Rows) is not ported "
             "yet (ROADMAP Queue 1, item 3)")
     if args.fused_kernels is False and device.type == "cuda":
         raise ValueError(
-            "--no-fused_kernels with a CUDA device: on the card the serving "
-            "path always runs the port's kernels (the plain versions run "
-            "on --device cpu)")
+            "--no-fused_kernels with a CUDA device: on the card every path "
+            "always runs the port's kernels (the plain versions run on "
+            "--device cpu)")
+    if args.use_sapo and args.combine_type != "linear":
+        raise NotImplementedError(
+            f"--combine_type {args.combine_type!r} is not ported yet "
+            "(ROADMAP Queue 1, item 4); the port has the linear title/sapo "
+            "combine")
+    if args.param_dtype != "float32":
+        raise NotImplementedError(
+            "--param_dtype only supports float32 (fp32 master weights); "
+            "use --compute_dtype bfloat16 for mixed precision")
+    if args.hf_checkpoint or (args.pretrained_embedding
+                              and os.path.isdir(args.pretrained_embedding)):
+        raise NotImplementedError(
+            "--hf_checkpoint / a local --pretrained_embedding: importing HF "
+            "weights is not ported yet (ROADMAP Queue 1, item 12)")
+    if getattr(args, "mode", None) != "train":
+        return
+    if args.his_cache_refresh > 0:
+        raise NotImplementedError(
+            "--his_cache_refresh: cached-history training is not ported yet "
+            "(ROADMAP Queue 1, item 5)")
+    if args.pretrained_model_path:
+        raise NotImplementedError(
+            "--pretrained_model_path: warm starts are not ported yet "
+            "(ROADMAP Queue 1, item 13)")
+    if args.augmentations or args.augmentation_mode == "hard":
+        raise NotImplementedError(
+            "--augmentations / --augmentation_mode hard: augmented news "
+            "variants are not ported yet (ROADMAP Queue 1, item 14)")
 
 
 class Trainer:
@@ -80,10 +143,17 @@ class Trainer:
         self.device = resolve_device(getattr(args, "device", None))
         _refuse_unported(args, self.device)
         self.tokenizer = load_tokenizer(args.pretrained_tokenizer)
+        self.user2id: Dict[str, int] = {}
+        if args.user2id_path:
+            with open(args.user2id_path) as f:
+                self.user2id = json.load(f)
         with open(args.category2id_path) as f:
             self.category2id = json.load(f)
         self.compute_dtype = _DTYPES[args.compute_dtype]
         self._legacy_layout = bool(args.legacy_history_layout)
+        # 'loss': eval loss and bestLossModel; 'metrics': the ranking
+        # evaluator and bestAucModel (reference: src/trainer.py:181-206)
+        self.eval_info = frozenset(args.evaluation_info or ("metrics", "loss"))
 
     # ------------------------------------------------------------------ data
     def _load_store(self, news_path: str) -> NewsStore:
@@ -96,19 +166,29 @@ class Trainer:
                                     combine_type=self.args.combine_type,
                                     device=self.device)
 
+    def _load_log(self, behaviors_path: str, store: NewsStore) -> BehaviorsLog:
+        return BehaviorsLog.from_tsv(behaviors_path, store, self.user2id,
+                                     self.args.his_length,
+                                     legacy_layout=self._legacy_layout)
+
+    def _index(self, idx: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(idx, np.int32), device=self.device)
+
     # ----------------------------------------------------------------- model
     def build_model(self) -> Miner:
         """The Miner with fresh weights from ``--seed``, fp32, on the CPU
-        (so the same seed gives the same weights on any device)."""
+        (so the same seed gives the same weights on any device), computing
+        in ``--compute_dtype``."""
         a = self.args
         gelu_approx = a.gelu_approx
         if gelu_approx is None:
             gelu_approx = self.compute_dtype == torch.bfloat16
         plm = plm_config(a.plm_preset, vocab_size=self.tokenizer.vocab_size,
-                         gelu_approx=gelu_approx)
+                         gelu_approx=gelu_approx, remat=a.remat)
         encoder = NewsEncoder(plm, apply_reduce_dim=a.apply_reduce_dim,
                               word_embed_dim=a.word_embed_dim,
-                              use_sapo=a.use_sapo, combine_type=a.combine_type)
+                              use_sapo=a.use_sapo, combine_type=a.combine_type,
+                              dropout=a.dropout, dtype=self.compute_dtype)
         category_embed = None
         if a.category_embed_path:
             category_embed = np.load(a.category_embed_path)
@@ -123,8 +203,19 @@ class Trainer:
             category_pad_id=self.category2id[constants.PAD_TOKEN],
             category_embed=category_embed,
             legacy_mask=a.legacy_poly_mask,
+            dropout=a.dropout,
+            dtype=self.compute_dtype,
         )
         model.reset_parameters(torch.Generator().manual_seed(a.seed))
+        return model
+
+    def restored_model(self) -> Miner:
+        """``build_model``, with the parameters of ``--saved_model_path``
+        (a port checkpoint) loaded strictly when it is given."""
+        model = self.build_model()
+        if self.args.saved_model_path:
+            payload = checkpoint.load(self.args.saved_model_path)
+            model.load_state_dict(payload["params"], strict=True)
         return model
 
     def serving_context(self, state_dict: Optional[Dict[str, torch.Tensor]] = None
@@ -132,21 +223,23 @@ class Trainer:
         """Everything a scoring endpoint needs, built once: the news store,
         the device table, the model on the device in the compute type, and
         the corpus news-embedding cache (one PLM pass; zero PLM calls per
-        request afterwards). ``state_dict`` (for example from
-        ``models.convert.miner_params_from_jax``) replaces the random
-        weights, loaded strictly."""
+        request afterwards). The weights are ``state_dict`` (for example
+        from ``models.convert.miner_params_from_jax``) when given, else
+        those of ``--saved_model_path``, else random from ``--seed``;
+        loaded strictly."""
         a = self.args
         store = self._load_store(a.eval_news_path)
         table = self._make_table(store)
-        model = self.build_model()
         if state_dict is not None:
+            model = self.build_model()
             model.load_state_dict(state_dict, strict=True)
+        else:
+            model = self.restored_model()
+        # one cast for serving; the same bf16 values as casting at each use
         model = cast_to_compute_(model, self.compute_dtype).to(self.device).eval()
         if getattr(a, "serve_cache_path", None):
-            # as in the JAX package: random-init weights have no stable
-            # identity to fingerprint a persisted cache against
-            print("--serve_cache_path ignored: no checkpoint "
-                  "(--saved_model_path) to fingerprint against")
+            print("--serve_cache_path ignored: persisting the cache is not "
+                  "ported yet (ROADMAP Queue 1, item 3)")
         cache = CacheFiller(model.encode_news).fill(table)
         return ServingContext(store=store, table=table, model=model, cache=cache)
 
@@ -172,9 +265,6 @@ class Trainer:
         if model.score_type == "weighted":
             cand_repr = gather_rows(cache.embeddings, cand_idx)
         return interests, model.aggregate_matching(interests, pscores, cand_repr)
-
-    def _index(self, idx: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(idx, np.int32), device=self.device)
 
     def serve_scores(self, model: Miner, cache: NewsEmbeddingCache,
                      cand_idx: np.ndarray, his_idx: np.ndarray) -> np.ndarray:
@@ -233,3 +323,245 @@ class Trainer:
         for nid, sc in results:
             print(f"{nid}\t{sc:.4f}")
         return results
+
+    # ----------------------------------------------------------------- train
+    def make_optimizer(self, model: Miner, total_updates: int,
+                       warmup: int) -> Optimizer:
+        a = self.args
+        if a.freeze_transformer:
+            model.news_encoder.plm.requires_grad_(False)
+        return Optimizer(model.named_parameters(), learning_rate=a.learning_rate,
+                         total_steps=total_updates, warmup_steps=warmup,
+                         weight_decay=a.weight_decay,
+                         max_grad_norm=a.max_grad_norm,
+                         accum_steps=a.gradient_accumulation_steps)
+
+    def _apply_and_loss(self, model: Miner, table: NewsTable,
+                        batch: Dict[str, np.ndarray], train: bool,
+                        rng: Optional[DropoutRNG] = None,
+                        row_mask: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(loss, logits) of a batch of index rows (``_apply_and_loss``, the
+        Miner branch, trainer.py:390-400)."""
+        model_batch = table.lookup(self._index(batch["cand_idx"]),
+                                   self._index(batch["his_idx"]))
+        label = torch.as_tensor(batch["label"], device=self.device)
+        interests, logits = model(model_batch, rng)
+        if train:
+            return losses.miner_loss(interests, logits, label), logits
+        return losses.miner_eval_loss(interests, logits, label, row_mask), logits
+
+    def train_step(self, model: Miner, table: NewsTable,
+                   batch: Dict[str, np.ndarray], optimizer: Optimizer,
+                   micro_step: int) -> torch.Tensor:
+        """One micro-batch (trainer.py:410-425): forward with the dropout of
+        ``micro_step``, backward into the accumulated gradients, and the
+        optimizer's update when one is due. Returns the loss, on the
+        device."""
+        rng = DropoutRNG(self.args.seed + 1, micro_step, self.device)
+        loss, _ = self._apply_and_loss(model, table, batch, True, rng)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    def _payload(self, model: Miner, optimizer: Optimizer, micro_step: int) -> Dict:
+        grad_acc = None
+        if optimizer.mini_step:  # mid-accumulation: keep the partial sum
+            grad_acc = {n: p.grad.detach() for n, p in model.named_parameters()
+                        if p.grad is not None}
+        return {"params": model.state_dict(), "optimizer": optimizer.state_dict(),
+                "micro_step": micro_step, "rng_seed": self.args.seed + 1,
+                "grad_acc": grad_acc, "args": _plain(vars(self.args))}
+
+    def _resume(self, path: str, model: Miner, optimizer: Optimizer) -> int:
+        payload = checkpoint.load(path)
+        model.load_state_dict(payload["params"], strict=True)
+        optimizer.load_state_dict(payload["optimizer"])
+        for name, p in model.named_parameters():
+            grad = (payload["grad_acc"] or {}).get(name)
+            p.grad = None if grad is None else grad.to(p.device)
+        return int(payload["micro_step"])
+
+    def train(self) -> TrainRun:
+        a = self.args
+        logger = RunLogger(a.train_path, "train", vars(a))
+        logger.enable_tensorboard(os.path.join(logger.run_dir,
+                                               a.tensorboard_path or "tb"))
+        log = self._log = logger.logger
+        log.info("device: %s", self.device)
+
+        store = self._load_store(a.train_news_path)
+        train_log = self._load_log(a.train_behaviors_path, store)
+        sampler_cls = OnlineSampler if a.online else OfflineSampler
+        sampler = sampler_cls(train_log, store, a.npratio, seed=a.seed)
+        table = self._make_table(store)
+        eval_store, eval_table, eval_log = store, table, None
+        if a.eval_news_path and a.eval_news_path != a.train_news_path:
+            eval_store = self._load_store(a.eval_news_path)
+            eval_table = self._make_table(eval_store)
+        if a.eval_behaviors_path:
+            eval_log = self._load_log(a.eval_behaviors_path, eval_store)
+
+        batcher = Batcher(a.train_batch_size, drop_last=True, shuffle=True,
+                          seed=a.seed)
+        steps_per_epoch = batcher.num_batches(block_size(sampler.sample_epoch(0)))
+        if steps_per_epoch == 0:
+            raise ValueError("no training batches — dataset smaller than batch")
+        accum = max(1, a.gradient_accumulation_steps)
+        updates_per_epoch = max(1, steps_per_epoch // accum)
+        total_updates = a.max_steps or updates_per_epoch * a.num_train_epochs
+        warmup = warmup_steps_from_ratio(total_updates, a.warmup_ratio, a.warmup_steps)
+
+        model = self.build_model().to(self.device).train()
+        if a.pretrained_embedding:
+            log.warning("--pretrained_embedding %r is not a local checkpoint "
+                        "directory; training from random init",
+                        a.pretrained_embedding)
+        log.info("parameters: %.2fM",
+                 sum(p.numel() for p in model.parameters()) / 1e6)
+        optimizer = self.make_optimizer(model, total_updates, warmup)
+        ckpt_dir = os.path.join(logger.run_dir, "ckpt")
+        global_step = 0
+        if a.resume_from:
+            global_step = self._resume(a.resume_from, model, optimizer)
+            log.info("resumed from %s at step %d", a.resume_from, global_step)
+        # resume is exact: a step's data and dropout are pure functions of
+        # (seed, epoch) and (seed, step), so completed epochs are skipped and
+        # the partial epoch's consumed batches fast-forwarded
+        start_epoch = min(global_step // steps_per_epoch, a.num_train_epochs)
+        skip_batches = global_step % steps_per_epoch
+
+        best_loss, best_auc = float("inf"), -float("inf")
+        ex_counter, t_last = 0, time.time()
+        for epoch in range(start_epoch, a.num_train_epochs):
+            t_epoch = time.time()
+            block = sampler.sample_epoch(epoch)
+            epoch_losses = []
+            for i, batch in enumerate(batcher.batches(block, epoch)):
+                if epoch == start_epoch and i < skip_batches:
+                    continue
+                loss = self.train_step(model, table, batch, optimizer, global_step)
+                global_step += 1
+                ex_counter += a.train_batch_size
+                epoch_losses.append(loss)
+                if global_step % a.logging_steps == 0:
+                    loss_v = float(loss)
+                    dt = time.time() - t_last
+                    eps = ex_counter / dt if dt > 0 else 0.0
+                    ex_counter, t_last = 0, time.time()
+                    logger.log_train(epoch, global_step, loss_v,
+                                     scheduled_lr_value(a.learning_rate, warmup,
+                                                        total_updates,
+                                                        global_step // accum),
+                                     eps)
+                if eval_log is not None and global_step % a.eval_steps == 0:
+                    scores, eval_loss = self._run_eval(model, eval_table, eval_store,
+                                                       eval_log, logger, epoch,
+                                                       global_step)
+                    best_loss, best_auc = self._maybe_checkpoint(
+                        ckpt_dir, model, optimizer, global_step, scores,
+                        eval_loss, best_loss, best_auc, log)
+            mean_loss = float(torch.stack(epoch_losses).mean()) if epoch_losses else float("nan")
+            if eval_log is not None:
+                scores, eval_loss = self._run_eval(model, eval_table, eval_store,
+                                                   eval_log, logger, epoch,
+                                                   global_step)
+                best_loss, best_auc = self._maybe_checkpoint(
+                    ckpt_dir, model, optimizer, global_step, scores, eval_loss,
+                    best_loss, best_auc, log)
+            logger.log_epoch(epoch, mean_loss, time.time() - t_epoch)
+        checkpoint.save(os.path.join(ckpt_dir, "finalModel"),
+                        self._payload(model, optimizer, global_step))
+        log.info("training complete: %d steps", global_step)
+        return TrainRun(model, optimizer, global_step, logger.run_dir)
+
+    def _maybe_checkpoint(self, ckpt_dir, model, optimizer, step, scores,
+                          eval_loss, best_loss, best_auc, log):
+        # best-loss / best-auc selection is gated by --evaluation_info
+        # (_run_eval returns eval_loss None / scores {} for the halves off)
+        if eval_loss is not None and eval_loss < best_loss:
+            best_loss = eval_loss
+            checkpoint.save(os.path.join(ckpt_dir, "bestLossModel"),
+                            self._payload(model, optimizer, step))
+            log.info("new best loss %.5f -> bestLossModel", eval_loss)
+        auc = scores.get("auc", scores.get("group_auc"))
+        if auc is not None and auc > best_auc:
+            best_auc = auc
+            checkpoint.save(os.path.join(ckpt_dir, "bestAucModel"),
+                            self._payload(model, optimizer, step))
+            log.info("new best auc %.5f -> bestAucModel", auc)
+        return best_loss, best_auc
+
+    # ------------------------------------------------------------------ eval
+    def _run_eval(self, model: Miner, table: NewsTable, store: NewsStore,
+                  eval_log: BehaviorsLog, logger: RunLogger, epoch: int,
+                  step: int) -> Tuple[Dict[str, float], Optional[float]]:
+        """One pass over the eval behaviors (trainer.py:982-1063): by default
+        from the news-embedding cache of the current weights (zero PLM calls
+        per batch, the same scores as re-encoding, since the encoder is
+        deterministic at eval); ``--fast_eval`` scores train-format
+        (1+npratio) rows with softmax probabilities. Returns (scores,
+        summed eval loss)."""
+        a = self.args
+        if a.fast_eval:
+            block = OfflineSampler(eval_log, store, a.npratio, seed=a.seed).sample_epoch(0)
+            evaluator = FastEvaluator([row.tolist() for row in block.label.astype(int)])
+        else:
+            block = EvalSampler(eval_log).sample_all()
+            evaluator = ImpressionEvaluator(eval_log.eval_targets_by_impression())
+        batcher = Batcher(a.eval_batch_size, drop_last=False, shuffle=False)
+        was_training = model.training
+        model.eval()
+        cache = None
+        if a.cached_eval and not a.fast_eval:
+            cache = CacheFiller(model.encode_news).fill(table)
+        total_loss = 0.0
+        with torch.inference_mode():
+            for batch in batcher.batches(block):
+                valid = int(batch.pop("valid"))
+                B = len(batch["cand_idx"])
+                row_mask = torch.arange(B, device=self.device) < valid
+                if cache is not None:
+                    interests, logits = self._cached_scores(
+                        model, cache, self._index(batch["cand_idx"]),
+                        self._index(batch["his_idx"]))
+                    label = torch.as_tensor(batch["label"], device=self.device)
+                    loss = losses.miner_eval_loss(interests, logits, label, row_mask)
+                else:
+                    loss, logits = self._apply_and_loss(model, table, batch, False,
+                                                        row_mask=row_mask)
+                total_loss += float(loss)
+                if "metrics" in self.eval_info:
+                    evaluator.eval_batch(logits.float().cpu().numpy(),
+                                         batch["impression_id"], valid=valid)
+        model.train(was_training)
+        scores = {}
+        if "metrics" in self.eval_info:
+            scores = evaluator.compute_scores(a.metrics, save_result=a.save_eval_result,
+                                              path=logger.run_dir)
+        eval_loss = total_loss if "loss" in self.eval_info else None
+        logger.log_eval(epoch, step, scores, eval_loss)
+        if "metrics" in self.eval_info:
+            if a.save_eval_result and hasattr(evaluator, "save_predictions"):
+                evaluator.save_predictions(logger.run_dir)
+            if a.save_ranking and hasattr(evaluator, "save_ranking"):
+                evaluator.save_ranking(logger.run_dir)
+        return scores, eval_loss
+
+    def eval(self) -> Dict[str, float]:
+        """Standalone evaluation of ``--saved_model_path``."""
+        a = self.args
+        logger = RunLogger(a.eval_path, "eval", vars(a))
+        self._log = logger.logger
+        store = self._load_store(a.eval_news_path)
+        eval_log = self._load_log(a.eval_behaviors_path, store)
+        table = self._make_table(store)
+        model = self.restored_model().to(self.device).eval()
+        scores, _ = self._run_eval(model, table, store, eval_log, logger, 0, 0)
+        return scores
+
+
+def _plain(args: Dict) -> Dict:
+    """The run's arguments as plain values (what a checkpoint stores)."""
+    return {k: v if isinstance(v, (str, int, float, bool, type(None), list)) else str(v)
+            for k, v in args.items()}

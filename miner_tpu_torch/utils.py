@@ -20,15 +20,24 @@ def round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-def pairwise_cosine_similarity(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Batched pairwise cosine similarity: (B, M, D), (B, N, D) -> (B, M, N).
+def pairwise_cosine_similarity(x: torch.Tensor, y: torch.Tensor,
+                               zero_diagonal: bool = False) -> torch.Tensor:
+    """Batched pairwise cosine similarity: (B, M, D), (B, N, D) -> (B, M, N);
+    with ``zero_diagonal`` (M == N) the diagonal is 0 (the disagreement
+    regularizer).
 
     The norm is clamped at 1e-12, as in the JAX package: the category pad
     row is exactly zero, and an unclamped division would turn every padded
     history slot into NaN."""
     x = x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True), min=1e-12)
     y = y / torch.clamp(torch.linalg.vector_norm(y, dim=-1, keepdim=True), min=1e-12)
-    return torch.einsum("bmd,bnd->bmn", x, y)
+    sim = torch.einsum("bmd,bnd->bmn", x, y)
+    if zero_diagonal:
+        if x.shape[1] != y.shape[1]:
+            raise ValueError("zero_diagonal requires M == N")
+        eye = torch.eye(x.shape[1], dtype=torch.bool, device=sim.device)
+        sim = torch.where(eye, 0.0, sim)
+    return sim
 
 
 def resolve_device(name: Optional[str]) -> torch.device:

@@ -24,6 +24,7 @@ from miner_tpu_torch.ops import (
     launch_counts,
     lookup_score,
     mha,
+    philox,
     poly_attention,
 )
 
@@ -50,16 +51,73 @@ def test_cpu_tensors_never_count_as_kernel_launches(rng):
     assert launch_counts() == before
 
 
+def test_philox_known_answers():
+    """Philox4x32-10 against the published known-answer vectors
+    (Random123's kat_vectors)."""
+    cases = [((0, 0, 0, 0), (0, 0),
+              (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+             ((0xFFFFFFFF,) * 4, (0xFFFFFFFF, 0xFFFFFFFF),
+              (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+             ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344),
+              (0xA4093822, 0x299F31D0),
+              (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1))]
+    for ctr, key, want in cases:
+        words = philox.philox4x32(*(torch.tensor([c]) for c in ctr),
+                                  key[0] | key[1] << 32)
+        assert tuple(int(w) for w in words) == want
+
+
+@pytest.mark.parametrize("site", ["mha", "add_ln"])
+def test_dropout_keep_rate_is_one_minus_rate(site):
+    """10**6 draws: the keep rate lies within 4 sigma of 1 - rate."""
+    rate, n = 0.1, 10 ** 6
+    if site == "mha":
+        bits = philox.mha_bits(7, 61, 4, 64, "cpu")  # 999,424 draws
+    else:
+        bits = philox.add_ln_bits(7, 1000, 1000, "cpu")
+    keep = philox.keep_mask(bits, rate).double()
+    sigma = (rate * (1 - rate) / keep.numel()) ** 0.5
+    assert abs(keep.mean().item() - (1 - rate)) < 4 * sigma
+    assert keep.numel() >= 0.99 * n
+
+
+@pytest.mark.parametrize("site", ["mha", "add_ln"])
+def test_dropout_mask_is_a_function_of_the_seed(site):
+    draw = ((lambda s: philox.mha_bits(s, 3, 2, 16, "cpu")) if site == "mha"
+            else (lambda s: philox.add_ln_bits(s, 40, 24, "cpu")))
+    assert torch.equal(draw(11), draw(11))
+    assert not torch.equal(philox.keep_mask(draw(11), 0.5),
+                           philox.keep_mask(draw(2 ** 40 + 11), 0.5))
+
+
 @pytest.mark.parametrize("op", ["mha", "add_ln"])
-def test_dropout_is_refused_until_the_training_slice(rng, op):
-    with pytest.raises(NotImplementedError, match="training slice"):
-        if op == "mha":
-            qkv, mask, H = _mha_inputs(rng)
-            fused_mha(torch.from_numpy(qkv), torch.from_numpy(mask), H,
-                      dropout_rate=0.1)
-        else:
-            x = torch.zeros(8, 16)
-            fused_dropout_add_ln(x, x, torch.ones(16), torch.zeros(16), rate=0.1)
+def test_plain_backward_with_dropout_is_autograd_of_plain_forward(rng, op):
+    """At rate 0.2 the backward formulas equal autograd of the plain
+    forward under the same seed's mask (float32 rounding, 1e-6). The
+    attention rows here all hold a key: for a fully masked row the formulas
+    give Q and K a gradient from the uniform P, as the TPU kernel does,
+    where the forward does not depend on them."""
+    if op == "mha":
+        qkv, mask, H = _mha_inputs(rng)
+        mask[2, :3] = 1
+        dout = rng.normal(size=(qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3))
+        dout = torch.from_numpy(dout.astype(np.float32))
+        t = torch.from_numpy(qkv).requires_grad_()
+        mha.mha_reference(t, torch.from_numpy(mask), H, 1, 0.2, 99).backward(dout)
+        got = [mha.mha_backward_reference(torch.from_numpy(qkv),
+                                          torch.from_numpy(mask), dout, H, 1,
+                                          0.2, 99)]
+        want = [t.grad]
+    else:
+        x, h, dy = (torch.from_numpy(rng.normal(size=(13, 40)).astype(np.float32))
+                    for _ in range(3))
+        g = torch.from_numpy((1 + 0.1 * rng.normal(size=40)).astype(np.float32))
+        leaves = [a.clone().requires_grad_() for a in (x, h, g, torch.zeros(40))]
+        add_ln.add_ln_reference(*leaves, 1e-5, 0.2, 99).backward(dy)
+        got = add_ln.add_ln_backward_reference(x, h, g, dy, 1e-5, 0.2, 99)
+        want = [leaf.grad for leaf in leaves]
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("bad, match", [
@@ -139,3 +197,126 @@ def test_kernels_refuse_what_they_do_not_take():
         mha.fused_mha(qkv, torch.ones(2, 8, dtype=torch.int32, device=dev), 2)
     with pytest.raises(TypeError, match="dtype"):
         mha.fused_mha(qkv, torch.ones(2, 8, dtype=torch.int64, device=dev), 3)
+
+
+def _tol(dtype, want):
+    scale = max(1.0, want.float().abs().max().item())
+    return (1e-4 if dtype == torch.float32 else 2.0 ** -6) * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op", ["mha", "mha_seqs4", "mha_3_query_tiles", "add_ln"])
+def test_backward_kernel_matches_plain_on_card(rng, op, dtype, rate):
+    """The backward kernels against the plain backward formulas (mha: the
+    one-tile path at L=40, the partial-sum path at L=160)."""
+    dev = _card()
+    before = launch_counts()
+    if op.startswith("mha"):
+        seqs = 4 if op == "mha_seqs4" else 1
+        L = 160 if op == "mha_3_query_tiles" else 40
+        qkv, mask, H = _mha_inputs(rng, N=4, L=L, H=2, Dh=64)
+        qkv = torch.as_tensor(qkv, device=dev).to(dtype)
+        mask = torch.as_tensor(mask, device=dev)
+        dout = torch.as_tensor(rng.normal(size=(4, L, 128)), device=dev).to(dtype)
+        out, stats = mha._launch_fwd(qkv, mask, H, seqs, rate, 5, True)
+        got = [mha.mha_backward(qkv, mask, dout, H, rate, 5, seqs, out, stats)]
+        want = [mha.mha_backward_reference(qkv, mask, dout, H, seqs, rate, 5)]
+        name = "mha_bwd"
+    else:
+        x, h, dy = (torch.as_tensor(rng.normal(size=(37, 96)), device=dev).to(dtype)
+                    for _ in range(3))
+        g = torch.as_tensor(1 + 0.1 * rng.normal(size=96), device=dev).float()
+        got = add_ln.add_ln_backward(x, h, g, dy, 1e-5, rate, 5)
+        want = add_ln.add_ln_backward_reference(x, h, g, dy, 1e-5, rate, 5)
+        name = "add_ln_bwd"
+    torch.cuda.synchronize()
+    assert launch_counts()[name] == before[name] + 1
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.isfinite(a).all()
+        assert (a.float() - b.float()).abs().max().item() <= _tol(dtype, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op", ["mha", "add_ln"])
+def test_dropout_mask_matches_plain_on_card(rng, op, dtype):
+    """The kernels' dropout zeros lie exactly where the plain version's
+    Philox mask drops: for mha V is the identity, so each output row is the
+    row of dropped probabilities; for add_ln dh is zero where h was
+    dropped."""
+    dev = _card()
+    rate, seed = 0.3, 2 ** 33 + 17
+    if op == "mha":
+        N, L, H = 3, 32, 2
+        qkv = rng.normal(size=(N, L, 3, H, L)) * 0.5
+        qkv[:, :, 2] = np.eye(L)[None, :, None, :]
+        qkv = torch.as_tensor(qkv.reshape(N, L, 3 * H * L), device=dev).to(dtype)
+        mask = torch.ones((N, L), dtype=torch.int32, device=dev)
+        got = mha.fused_mha(qkv, mask, H, rate, 1, seed).reshape(N, L, H, L)
+        keep = philox.keep_mask(philox.mha_bits(seed, N, H, L, dev), rate)
+        assert torch.equal(got != 0, keep.permute(0, 2, 1, 3))
+        want = mha.mha_reference(qkv, mask, H, 1, rate, seed).reshape(N, L, H, L)
+    else:
+        x, h, dy = (torch.as_tensor(rng.normal(size=(37, 96)), device=dev).to(dtype)
+                    for _ in range(3))
+        g, b = torch.ones(96, device=dev), torch.zeros(96, device=dev)
+        keep = philox.keep_mask(philox.add_ln_bits(seed, 37, 96, dev), rate)
+        _, dh, _, _ = add_ln.add_ln_backward(x, h, g, dy, 1e-5, rate, seed)
+        assert torch.equal(dh != 0, keep)
+        got = add_ln.fused_dropout_add_ln(x, h, g, b, rate, 1e-5, seed)
+        want = add_ln.add_ln_reference(x, h, g, b, 1e-5, rate, seed)
+    assert (got.float() - want.float()).abs().max().item() <= _tol(dtype, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["mha", "add_ln", "poly"])
+def test_gradients_through_functions_match_plain_on_card(rng, op):
+    """A loss through each op's autograd Function on the card has the
+    gradients of the same loss through the plain version (float32, 1e-4 of
+    the gradients' scale): no gradient is cut."""
+    dev = _card()
+    put = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    if op == "mha":
+        qkv, mask, H = _mha_inputs(rng, N=3, L=40, H=2, Dh=32)
+        mask[2, :4] = 1
+        inputs, mask = [put(qkv)], put(mask).to(torch.int32)
+        kernel = lambda q: mha.fused_mha(q, mask, H, 0.1, 1, 3)
+        plain = lambda q: mha.mha_reference(q, mask, H, 1, 0.1, 3)
+    elif op == "add_ln":
+        inputs = [put(rng.normal(size=(37, 96))), put(rng.normal(size=(37, 96))),
+                  put(1 + 0.1 * rng.normal(size=96)), put(0.1 * rng.normal(size=96))]
+        kernel = lambda *a: add_ln.fused_dropout_add_ln(*a, 0.1, 1e-5, 3)
+        plain = lambda *a: add_ln.add_ln_reference(*a, 1e-5, 0.1, 3)
+    else:
+        mask = put(rng.random((3, 10)) > 0.3).to(torch.int32)
+        inputs = [put(rng.normal(size=(3, 10, 32))), put(rng.normal(size=(32, 24)) * 0.1),
+                  put(rng.normal(size=(6, 24)) * 0.1), put(rng.normal(size=(3, 10)))]
+        kernel = lambda e, w, c, b: poly_attention.poly_attention_fused(e, w, c, mask, b)
+        plain = lambda e, w, c, b: poly_attention.poly_attention_reference(e, w, c, mask, b)
+    weight = None
+    grads = []
+    for fn in (kernel, plain):
+        leaves = [t.clone().requires_grad_() for t in inputs]
+        out = fn(*leaves)
+        assert out.grad_fn is not None
+        if weight is None:
+            weight = torch.randn(out.shape, device=dev, generator=torch.Generator(
+                device=dev).manual_seed(0))
+        (out * weight).sum().backward()
+        grads.append([leaf.grad for leaf in leaves])
+    for got, want in zip(*grads):
+        assert (got - want).abs().max().item() <= _tol(torch.float32, want)
+
+
+@pytest.mark.gpu
+def test_lookup_score_refuses_gradients_on_card():
+    dev = _card()
+    cache = torch.randn(10, 16, device=dev, requires_grad=True)
+    idx = torch.zeros((2, 3), dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="no backward"):
+        lookup_score.lookup_score_fused(cache, idx, torch.randn(2, 4, 16, device=dev))
+    with torch.no_grad():
+        assert lookup_score.lookup_score_fused(
+            cache, idx, torch.randn(2, 4, 16, device=dev)).shape == (2, 3, 4)

@@ -149,7 +149,9 @@ def test_http_round_trip_ranks_as_jax(pair):
 
 def test_port_imports_no_jax():
     code = ("import sys, miner_tpu_torch, miner_tpu_torch.serving, "
-            "miner_tpu_torch.training.trainer, miner_tpu_torch.cli; "
+            "miner_tpu_torch.training.trainer, miner_tpu_torch.cli, "
+            "miner_tpu_torch.evaluation, miner_tpu_torch.training.optim, "
+            "miner_tpu_torch.training.checkpoint, miner_tpu_torch.ops.philox; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'miner_tpu' or m.startswith('miner_tpu.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -181,7 +183,7 @@ def test_cuda_without_a_card_raises(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra, match", [
-    (["--saved_model_path", "ckpt/bestAucModel"], "training slice"),
+    (["--combine_type", "lstm"], "combine_type"),
     (["--serve_cache_int8"], "int8"),
     (["--model_name", "fastformer"], "Miner only"),
 ])
