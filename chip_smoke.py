@@ -8,30 +8,42 @@ Phases, each of which makes the script exit non-zero when it fails:
 1. build: every CUDA kernel of ``miner_tpu_torch/csrc`` is compiled with
    ``nvcc`` (one process per source, all started together); the Triton
    kernels compile at their first launch.
-2. kernels: each of the six kernels runs at the shapes its paths give it
+2. kernels: each of the seven kernels runs at the shapes its paths give it
    (serving: the cache fill's chunks and request batches; training: a
-   ``train_miner.txt`` micro-batch, with dropout on) against its plain
-   PyTorch version on the same inputs (the tolerance is printed beside the
-   error; with dropout the kernel's mask must equal the plain version's bit
-   for bit), and is timed with CUDA events beside the plain version, the
-   one PyTorch call computing the same function where there is one, and its
-   bound on an H100 SXM (3.35 TB/s; 989 TFLOP/s bf16, 67 TFLOP/s fp32).
+   ``train_miner.txt`` micro-batch, with dropout on; Fastformer attention at
+   the train, eval and serve batches, in fp32 as those paths give it, and
+   in bf16) against its plain PyTorch version on the same inputs (the
+   tolerance is printed beside the error; with dropout the kernel's mask
+   must equal the plain version's bit for bit), and is timed with CUDA
+   events beside the plain version, the one PyTorch call computing the
+   same function where there is one, and its bound on an H100 SXM
+   (3.35 TB/s; 989 TFLOP/s bf16, 67 TFLOP/s fp32).
 3. train: the launch counts are set to 0 and ``Trainer.train()`` runs the
    full-width ``config/train_miner.txt`` (roberta-base towers, random
    weights from the seed, bf16 compute, dropout, --remat, accumulation 8)
    for one epoch of a synthetic MIND corpus: 16 micro-batches, 2 optimizer
-   updates, the cached eval, the checkpoints. Every kernel must have
-   launched.
+   updates, the cached eval, the checkpoints. The micro-batches must have
+   launched every Miner kernel but lookup+score, the eval every serving one.
 4. serve: the counts are set to 0, ``config/serve_miner.txt`` restores the
    train phase's ``finalModel`` (``--saved_model_path``), encodes the corpus
    into the news-embedding cache, and the HTTP server answers concurrent
    slate and whole-corpus top-k requests. Every serving kernel must have
    launched.
-5. parity: the full-width model in float32 over 64 news, on the card
+5. Fastformer train: the same for ``config/train_fastformer.txt`` (the
+   Fastformer user encoder over the same towers, frozen with
+   ``--freeze_transformer``). The micro-batches and the eval must launch
+   mha_fwd, add_ln_fwd and fastformer_attn_fwd, the backward kernels never
+   (nothing differentiates through the frozen PLM), and every PLM parameter
+   of the ``finalModel`` must equal its initial value bit for bit.
+6. Fastformer serve: ``serve_miner.txt`` with ``--model_name fastformer``
+   restores that ``finalModel`` and answers over HTTP, launching mha_fwd,
+   add_ln_fwd (cache fill) and fastformer_attn_fwd.
+7. parity: the full-width Miner in float32 over 64 news, on the card
    through the kernels and on the CPU through the plain versions; the cache
    rows and the scores of one request batch must agree.
-6. train parity: one micro-batch of one impression in float32, dropout off,
-   on the card and on the CPU: the loss and every gradient must agree.
+8. train parity, Miner and Fastformer: one micro-batch of one impression in
+   float32, dropout off, on the card and on the CPU: the loss and every
+   trainable parameter's gradient must agree.
 
 Prints the card's name and power limit, one JSON line of kernel results,
 and last ``{"ok": true, "device": {...}}``.
@@ -62,7 +74,21 @@ NUM_NEWS = 4096
 # news, 55 news per impression -> 880 sequences per field per micro-batch
 TRAIN_N, TRAIN_TITLE, TRAIN_SAPO = 16 * 55, 32, 128
 TRAIN_RATE = 0.1  # hidden_dropout and attention_dropout of the PLM
-SERVE_KERNELS = ("mha_fwd", "add_ln_fwd", "poly_attention_fwd", "lookup_score_fwd")
+FF_HEADS = 16  # the Fastformer of word_embed_dim 256 (trainer: 16 if D % 16 == 0)
+TRAIN_B, EVAL_B = 16, 64  # train_fastformer.txt's train and eval batches
+# the kernels each phase of the main path must launch (and, for the frozen
+# Fastformer training, must not)
+MINER_KERNELS = ("mha_fwd", "add_ln_fwd", "poly_attention_fwd")
+FF_KERNELS = ("mha_fwd", "add_ln_fwd", "fastformer_attn_fwd")
+REQUIRED = {
+    "train": MINER_KERNELS + ("mha_bwd", "add_ln_bwd"),
+    "eval": MINER_KERNELS + ("lookup_score_fwd",),
+    "serve": MINER_KERNELS + ("lookup_score_fwd",),
+    "fastformer_train": FF_KERNELS,
+    "fastformer_eval": FF_KERNELS,
+    "fastformer_serve": FF_KERNELS,
+}
+FORBIDDEN = {"fastformer_train": ("mha_bwd", "add_ln_bwd")}
 
 
 def log(msg: str) -> None:
@@ -321,6 +347,43 @@ def lookup_cases(dev, g):
                 main=dtype == torch.bfloat16 and C > 16)
 
 
+def ff_cases(dev, g):
+    """Fastformer attention at the shapes its paths give it: q, k (B, 50,
+    256), 16 heads, float32 (the user encoder computes in fp32 whatever
+    --compute_dtype says), B = 16 (a training micro-batch), 64 (an eval
+    batch), 32 (a full serving request batch); the training shape in bf16;
+    and one with a quarter of its rows fully masked (users with no clicks)."""
+    from miner_tpu_torch.ops import fastformer_attn
+
+    h = FF_HEADS
+    for B, dtype, what in ((TRAIN_B, torch.float32, "train"),
+                           (EVAL_B, torch.float32, "eval"),
+                           (MAX_BATCH, torch.float32, "serve"),
+                           (TRAIN_B, torch.bfloat16, "train"),
+                           (TRAIN_B, torch.float32, "train, 4 rows fully masked")):
+        q, k = (torch.randn(B, HIS, DIM, device=dev, generator=g).to(dtype)
+                for _ in range(2))
+        wqa, wka = (torch.randn(DIM, h, device=dev, generator=g) * 0.1
+                    for _ in range(2))
+        bqa, bka = (torch.randn(h, device=dev, generator=g) * 0.1 for _ in range(2))
+        lengths = torch.randint(1, HIS + 1, (B,), device=dev, generator=g)
+        if "masked" in what:
+            lengths[:4] = 0
+        mask = (torch.arange(HIS, device=dev)[None] < lengths[:, None]).to(torch.int32)
+        args = (q, k, wqa, bqa, wka, bka, mask, h)
+        # two score passes (2 L D h each), two poolings, u, the output gate
+        # and two softmaxes over (L, h)
+        flops = B * (4 * HIS * DIM * h + 4 * HIS * DIM + 2 * HIS * DIM + 10 * HIS * h)
+        nbytes = _nbytes(q, k, q, mask) + 2 * (DIM + 1) * h * q.element_size()
+        yield dict(
+            case=f"{str(dtype)[6:]} B={B} L={HIS} D={DIM} h={h} {what}", dtype=dtype,
+            kernel=lambda: fastformer_attn.fastformer_attention_fused(*args),
+            plain=lambda: fastformer_attn.fastformer_attention_reference(*args),
+            library=None,
+            bound=bound_ms(nbytes, flops, dtype),
+            main=dtype == torch.float32 and what == "train")
+
+
 KERNELS = [
     # name, route, source, replaces, cases
     ("mha_fwd", "cuda", "miner_tpu_torch/csrc/mha_fwd.cu",
@@ -335,6 +398,8 @@ KERNELS = [
      "miner_tpu/ops/poly_attention.py:91", poly_cases),
     ("lookup_score_fwd", "cuda", "miner_tpu_torch/csrc/lookup_score_fwd.cu",
      "miner_tpu/ops/lookup_score.py:134", lookup_cases),
+    ("fastformer_attn_fwd", "cuda", "miner_tpu_torch/csrc/fastformer_attn_fwd.cu",
+     "miner_tpu/ops/fastformer_attn.py:114", ff_cases),
 ]
 
 
@@ -448,12 +513,23 @@ def _post(url: str, payload: dict):
         return r.status, body, time.perf_counter() - t0
 
 
-def serve_phase(corpus: str, checkpoint: str, n_slate: int = 64,
-                n_topk: int = 8) -> dict:
+def _check_launches(phase: str, counts: dict) -> None:
+    """Fail the phase unless it launched every kernel it must (and none it
+    must not)."""
+    missing = [k for k in REQUIRED[phase] if counts[k] == 0]
+    extra = [k for k in FORBIDDEN.get(phase, ()) if counts[k] != 0]
+    if missing or extra:
+        raise SystemExit(f"{phase} phase: the path never launched {missing}; "
+                         f"launched what it must not {extra}")
+
+
+def serve_phase(corpus: str, checkpoint: str, phase: str = "serve",
+                n_slate: int = 64, n_topk: int = 8) -> dict:
     """The serving path: ``serve``'s own pieces (service with its corpus
-    cache, warm-up, HTTP server) on the train phase's ``finalModel``
+    cache, warm-up, HTTP server) on a train phase's ``finalModel``
     (``--saved_model_path``, loaded strictly), answering concurrent slate and
-    top-k requests. Returns the launch counts of the run."""
+    top-k requests; ``phase`` "fastformer_serve" serves the Fastformer
+    (``--model_name fastformer``). Returns the launch counts of the run."""
     import threading
     from concurrent.futures import ThreadPoolExecutor
 
@@ -464,7 +540,8 @@ def serve_phase(corpus: str, checkpoint: str, n_slate: int = 64,
     from miner_tpu_torch.serving import ScoringService, make_http_server
     from miner_tpu_torch.training.trainer import Trainer
 
-    args = serve_args(corpus, "--saved_model_path", checkpoint)
+    family = ("--model_name", "fastformer") if phase == "fastformer_serve" else ()
+    args = serve_args(corpus, "--saved_model_path", checkpoint, *family)
     reset_launch_counts()
     t0 = time.perf_counter()
     service = ScoringService(Trainer(args))
@@ -502,28 +579,28 @@ def serve_phase(corpus: str, checkpoint: str, n_slate: int = 64,
         want = len(req["candidates"]) if req["candidates"] else req["topk"]
         if (status != 200 or len(scores) != want or not all(map(math.isfinite, scores))
                 or scores != sorted(scores, reverse=True)):
-            raise SystemExit(f"serve phase: bad reply {status} {body}")
+            raise SystemExit(f"{phase} phase: bad reply {status} {body}")
     lat = sorted(t for _, _, t in replies)
     t0 = time.perf_counter()
     ctx = service.ctx
     CacheFiller(ctx.model.encode_news).fill(ctx.table)
     torch.cuda.synchronize()
     fill_s = time.perf_counter() - t0
-    log(f"serve: {ctx.store.num_news - 1} news, {args.plm_preset} towers "
-        f"restored from {os.path.relpath(checkpoint, corpus)}, "
-        f"{ctx.cache.embeddings.dtype}; startup {startup_s:.2f} s (tokenize, "
+    distinct = torch.unique(ctx.cache.embeddings.float(), dim=0).shape[0]
+    log(f"{phase}: {args.model_name}, {ctx.store.num_news - 1} news, "
+        f"{args.plm_preset} towers restored from "
+        f"{os.path.relpath(checkpoint, corpus)}, {ctx.cache.embeddings.dtype} "
+        f"cache of {distinct} distinct rows; startup {startup_s:.2f} s (tokenize, "
         f"init, corpus cache), warm cache refill {fill_s:.2f} s; {warmed} warm-up "
         f"calls {warmup_s:.2f} s")
-    log(f"serve: {len(reqs)} requests ({n_slate} slates of 10, {n_topk} corpus "
+    log(f"{phase}: {len(reqs)} requests ({n_slate} slates of 10, {n_topk} corpus "
         f"top-10), 16 clients: {len(reqs) / wall_s:.1f} req/s, p50 "
         f"{1e3 * lat[len(lat) // 2]:.1f} ms, max {1e3 * lat[-1]:.1f} ms "
         f"({len(lat)} samples, too few for a p99), "
         f"{service.batcher.stats()['mean_batch']} requests per device call "
         f"on {torch.cuda.get_device_name(0)}")
-    log(f"serve: kernel launches on the path {counts}")
-    missing = [k for k in SERVE_KERNELS if counts[k] == 0]
-    if missing:
-        raise SystemExit(f"serve phase: the path never launched {missing}")
+    log(f"{phase}: kernel launches on the path {counts}")
+    _check_launches(phase, counts)
     return counts
 
 
@@ -551,15 +628,23 @@ def write_behaviors(root: str, num_news: int, seed: int) -> None:
                 f.write(f"{line}\tU{line % 97}\t11/11/2019 9:05:58 AM\t{his}\t{beh}\n")
 
 
-def train_args(corpus: str, out: str, *extra: str):
-    """``config/train_miner.txt`` as it stands, on the synthetic corpus and
-    behaviors, with the hash tokenizer over roberta-base's vocabulary (no
-    tokenizer files here), random init, and one epoch."""
+# the training configurations as their files name their subcommands
+TRAIN_CONFIGS = {"miner": ("train", "train_miner.txt"),
+                 "fastformer": ("train_fastformer", "train_fastformer.txt")}
+
+
+def train_args(corpus: str, out: str, *extra: str, family: str = "miner"):
+    """``config/train_miner.txt`` (or, for ``family`` "fastformer",
+    ``config/train_fastformer.txt`` under ``train_fastformer``) as it
+    stands, on the synthetic corpus and behaviors, with the hash tokenizer
+    over roberta-base's vocabulary (no tokenizer files here), random init,
+    and one epoch."""
     from miner_tpu_torch.config import convert_arg_line_to_args, make_parser
 
+    mode, config = TRAIN_CONFIGS[family]
     here = os.path.dirname(os.path.abspath(__file__))
     words = []
-    with open(os.path.join(here, "config", "train_miner.txt")) as f:
+    with open(os.path.join(here, "config", config)) as f:
         for line in f:
             words += convert_arg_line_to_args(line)
     for flag, value in (
@@ -572,23 +657,28 @@ def train_args(corpus: str, out: str, *extra: str):
             ("--eval_news_path", os.path.join(corpus, "news.tsv")),
             ("--num_train_epochs", "1")):
         words[words.index(flag) + 1] = value
-    return make_parser().parse_args(["train", *words, "--train_path",
-                                     os.path.join(out, "train"), *extra])
+    return make_parser().parse_args([mode, *words, "--train_path",
+                                     os.path.join(out, family), *extra])
 
 
-def train_phase(corpus: str, out: str):
-    """The training path: ``Trainer(args).train()`` of the full-width
-    ``train_miner.txt`` configuration (roberta-base towers, bf16 compute,
-    fp32 masters, dropout 0.1 in the PLM and 0.2 elsewhere, --remat,
-    accumulation 8) for one epoch of 16 micro-batches, i.e. 2 optimizer
-    updates, then its end-of-epoch cached eval and checkpoints. Returns the
-    launch counts and the finalModel checkpoint."""
+def train_phase(corpus: str, out: str, family: str = "miner"):
+    """The training path: ``Trainer(args).train()`` of a full-width
+    configuration for one epoch of 16 micro-batches, i.e. 2 optimizer
+    updates, then its end-of-epoch cached eval and checkpoints.
+    ``train_miner.txt``: roberta-base towers, bf16 compute, fp32 masters,
+    dropout 0.1 in the PLM and 0.2 elsewhere, --remat, accumulation 8.
+    ``train_fastformer.txt``: the same towers frozen (--freeze_transformer)
+    under a 2-layer Fastformer user encoder in fp32; its PLM parameters must
+    come out bit-identical. Returns the launch counts of the micro-batches
+    and of the eval, and the finalModel checkpoint."""
     import csv
 
     from miner_tpu_torch.ops import launch_counts, reset_launch_counts
+    from miner_tpu_torch.training import checkpoint
     from miner_tpu_torch.training.trainer import Trainer
 
-    args = train_args(corpus, out)
+    phase = "train" if family == "miner" else f"{family}_train"
+    args = train_args(corpus, out, family=family)
     trainer = Trainer(args)
     step_s, step_loss, eval_s, before_eval = [], [], [], {}
     train_step, run_eval = trainer.train_step, trainer._run_eval
@@ -616,6 +706,7 @@ def train_phase(corpus: str, out: str):
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     counts = launch_counts()
+    eval_counts = {k: counts[k] - before_eval[k] for k in counts}
     with open(os.path.join(run.run_dir, "eval.csv")) as f:
         evals = list(csv.DictReader(f))
     # the loss column is empty under train_miner.txt's --evaluation_info metrics
@@ -623,52 +714,65 @@ def train_phase(corpus: str, out: str):
                if k not in ("epoch", "step") and v != ""}
     steady = sorted(step_s[1:])
     mid = steady[len(steady) // 2]
-    log(f"train: {len(step_s)} micro-batches of {args.train_batch_size} "
+    log(f"{phase}: {args.model_name}, {len(step_s)} micro-batches of "
+        f"{args.train_batch_size} "
         f"({args.train_batch_size * (args.npratio + 1 + args.his_length)} news "
         f"per micro-batch), {run.optimizer.updates} optimizer updates at "
         f"accumulation {args.gradient_accumulation_steps}, {args.compute_dtype}, "
-        f"--remat {args.remat}, dropout {args.dropout} / {TRAIN_RATE}")
-    log(f"train: micro-batch {1e3 * mid:.1f} ms median of {len(steady)} "
+        f"--remat {args.remat}, --freeze_transformer {args.freeze_transformer}, "
+        f"dropout {args.dropout} / {TRAIN_RATE}")
+    log(f"{phase}: micro-batch {1e3 * mid:.1f} ms median of {len(steady)} "
         f"(first {1e3 * step_s[0]:.1f} ms, with kernel compiles), "
         f"{args.train_batch_size / mid:.2f} examples/s, "
         f"{1 / (mid * args.gradient_accumulation_steps):.3f} updates/s; "
         f"eval {eval_s[0]:.2f} s; whole train() {wall_s:.2f} s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB on "
         f"{torch.cuda.get_device_name(0)}")
-    log(f"train: losses {[round(x, 4) for x in step_loss]}")
-    log(f"train: eval {metrics}")
+    log(f"{phase}: losses {[round(x, 4) for x in step_loss]}")
+    log(f"{phase}: eval {metrics}")
     per_batch = {k: before_eval[k] / len(step_s) for k in before_eval}
-    log(f"train: kernel launches per micro-batch {per_batch}; on the phase "
-        f"(eval included) {counts}")
+    log(f"{phase}: kernel launches per micro-batch {per_batch}; in the eval "
+        f"{eval_counts}")
     bad = [x for x in step_loss + list(metrics.values()) if not math.isfinite(x)]
     if bad or run.optimizer.updates != 2 or len(step_s) != 16:
-        raise SystemExit(f"train phase: non-finite {bad}, {run.optimizer.updates} "
+        raise SystemExit(f"{phase} phase: non-finite {bad}, {run.optimizer.updates} "
                          f"updates, {len(step_s)} micro-batches")
-    missing = [k for k, n in counts.items() if n == 0]
-    if missing:
-        raise SystemExit(f"train phase: the path never launched {missing}")
-    return counts, os.path.join(run.run_dir, "ckpt", "finalModel")
+    _check_launches(phase, before_eval)
+    eval_phase = phase.replace("train", "eval")
+    _check_launches(eval_phase, eval_counts)
+    final = os.path.join(run.run_dir, "ckpt", "finalModel")
+    if args.freeze_transformer:
+        initial = trainer.build_model().state_dict()
+        saved = checkpoint.load(final)["params"]
+        plm = [k for k in initial if k.startswith("news_encoder.plm.")]
+        moved = [k for k in plm if not torch.equal(saved[k].cpu(), initial[k])]
+        log(f"{phase}: {len(plm) - len(moved)} of {len(plm)} PLM tensors of the "
+            "finalModel bit-identical to their initial values (frozen)")
+        if moved or not plm:
+            raise SystemExit(f"{phase} phase: frozen PLM parameters moved: {moved[:5]}")
+    return {phase: before_eval, eval_phase: eval_counts}, final
 
 
-def train_parity_phase(corpus: str, out: str) -> None:
+def train_parity_phase(corpus: str, out: str, family: str = "miner") -> None:
     """One micro-batch of one impression (55 news) through the full-width
     model in float32 with dropout off, on the card (kernels, their autograd
     Functions) and on the CPU (plain versions), same weights from the seed:
-    the loss and every parameter's gradient must agree. Tolerance: 1e-3 of
-    each gradient's largest magnitude plus 1e-5 of the largest over all
-    gradients, since float32 sums through 12 layers forward and back are
-    taken in other orders by the kernels and cuBLAS than by the plain
-    versions and the CPU's BLAS, and a gradient that is a small difference
-    of large terms (the target-aware projection's, 1e-7 at random init)
-    carries the absolute rounding of those terms."""
+    the loss and every trainable parameter's gradient must agree (the
+    Fastformer's PLM is frozen, as ``--freeze_transformer`` makes it in
+    training). Tolerance: 1e-3 of each gradient's largest magnitude plus
+    1e-5 of the largest over all gradients, since float32 sums through 12
+    layers forward and back are taken in other orders by the kernels and
+    cuBLAS than by the plain versions and the CPU's BLAS, and a gradient
+    that is a small difference of large terms (the target-aware
+    projection's, 1e-7 at random init) carries the absolute rounding of
+    those terms."""
     from miner_tpu_torch.data.samplers import OnlineSampler
-    from miner_tpu_torch.training import losses
     from miner_tpu_torch.training.trainer import Trainer
 
     result = {}
     for device in ("cuda", "cpu"):
         trainer = Trainer(train_args(corpus, out, "--compute_dtype", "float32",
-                                     "--device", device))
+                                     "--device", device, family=family))
         a = trainer.args
         store = trainer._load_store(a.train_news_path)
         block = OnlineSampler(trainer._load_log(a.train_behaviors_path, store),
@@ -676,10 +780,13 @@ def train_parity_phase(corpus: str, out: str) -> None:
         batch = {"cand_idx": block.cand[:1], "his_idx": block.his[:1],
                  "label": block.label[:1]}
         model = trainer.build_model().to(trainer.device).eval()
+        if a.freeze_transformer:
+            model.news_encoder.plm.requires_grad_(False)
         loss, _ = trainer._apply_and_loss(model, trainer._make_table(store), batch, True)
         loss.backward()
         result[device] = (float(loss.detach()), {n: p.grad.float().cpu()
-                                        for n, p in model.named_parameters()})
+                                        for n, p in model.named_parameters()
+                                        if p.requires_grad})
     (loss_gpu, grads_gpu), (loss_cpu, grads_cpu) = result["cuda"], result["cpu"]
     overall = max(g.abs().max().item() for g in grads_cpu.values())
     worst, failed = (0.0, ""), []
@@ -690,11 +797,12 @@ def train_parity_phase(corpus: str, out: str) -> None:
             failed.append(f"{name}: err {err:.3g} tol {tol:.3g}")
         if err / tol > worst[0]:
             worst = (err / tol, name)
-    log(f"train parity: loss card {loss_gpu:.6f} CPU {loss_cpu:.6f}; largest "
-        f"gradient magnitude {overall:.3g}; worst err / tol {worst[0]:.3g} "
-        f"({worst[1]}) over {len(grads_cpu)} tensors")
+    log(f"train parity ({family}): loss card {loss_gpu:.6f} CPU {loss_cpu:.6f}; "
+        f"largest gradient magnitude {overall:.3g}; worst err / tol "
+        f"{worst[0]:.3g} ({worst[1]}) over {len(grads_cpu)} tensors")
     if failed or abs(loss_gpu - loss_cpu) > 1e-4 * max(1.0, abs(loss_cpu)):
-        raise SystemExit("train parity phase failed:\n  " + "\n  ".join(failed))
+        raise SystemExit(f"train parity phase ({family}) failed:\n  "
+                         + "\n  ".join(failed))
 
 
 # ----------------------------------------------------------------- parity
@@ -763,15 +871,18 @@ def main() -> int:
         corpus = os.path.join(tmp, "corpus")
         write_corpus(corpus, NUM_NEWS, seed=0)
         write_behaviors(corpus, NUM_NEWS, seed=3)
-        train_counts, final_model = train_phase(corpus, tmp)
-        serve_counts = serve_phase(corpus, final_model)
+        counts, final_model = train_phase(corpus, tmp)
+        counts["serve"] = serve_phase(corpus, final_model)
+        ff_counts, ff_model = train_phase(corpus, tmp, "fastformer")
+        counts.update(ff_counts)
+        counts["fastformer_serve"] = serve_phase(corpus, ff_model, "fastformer_serve")
         write_corpus(os.path.join(tmp, "parity"), 64, seed=1)
         parity_phase(os.path.join(tmp, "parity"))
-        train_parity_phase(corpus, tmp)
+        for family in TRAIN_CONFIGS:
+            train_parity_phase(corpus, tmp, family)
     for row in rows:
-        row["launches_train"] = train_counts[row["name"]]
-        row["launches_serve"] = serve_counts[row["name"]]
-        row["launches"] = row["launches_train"] + row["launches_serve"]
+        row["launches_by_phase"] = {phase: c[row["name"]] for phase, c in counts.items()}
+        row["launches"] = sum(row["launches_by_phase"].values())
 
     print(smi)
     print(json.dumps({"kernels": rows}))

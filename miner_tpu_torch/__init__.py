@@ -11,9 +11,11 @@ Every Pallas kernel on a ported path has a hand-written Hopper kernel under
 beside it in ``ops/``. A kernel wrapper takes the plain version only for a
 tensor on the CPU; on a CUDA tensor it launches the kernel or raises.
 
-Ported so far: training and evaluation of the Miner family (``python -m
-miner_tpu_torch train`` / ``eval``) and serving from the news-embedding
-cache (``serve`` / ``recommend``).
+Ported so far: training and evaluation of the Miner and Fastformer
+families (``python -m miner_tpu_torch train`` / ``eval``, and
+``train_fastformer`` / ``eval_fastformer``) and serving both from the
+news-embedding cache (``serve`` / ``recommend``). Every Pallas kernel of
+the JAX package now has its Hopper counterpart.
 """
 
 __version__ = "0.1.0"

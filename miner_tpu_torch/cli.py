@@ -1,10 +1,12 @@
 """CLI entry point of the port.
 
-``python -m miner_tpu_torch train @config/train_miner.txt``, ``eval
-@config/eval_miner.txt`` (a port checkpoint), ``serve
-@config/serve_miner.txt`` (HTTP scoring server over the news-embedding
-cache) and ``recommend ...`` (one-shot ranking), on ``--device`` (default
-``cuda``).
+``python -m miner_tpu_torch train @config/train_miner.txt``,
+``train_fastformer @config/train_fastformer.txt`` (``train`` by another
+name, as in JAX; ``--model_name`` picks the family), ``eval
+@config/eval_miner.txt`` or ``eval_fastformer`` (a port checkpoint),
+``serve @config/serve_miner.txt`` (HTTP scoring server over the
+news-embedding cache) and ``recommend ...`` (one-shot ranking), on
+``--device`` (default ``cuda``).
 """
 from __future__ import annotations
 
@@ -22,9 +24,9 @@ def main(argv=None):
 
     from miner_tpu_torch.training.trainer import Trainer
 
-    if args.mode == "train":
+    if args.mode in ("train", "train_fastformer"):
         Trainer(args).train()
-    elif args.mode == "eval":
+    elif args.mode in ("eval", "eval_fastformer"):
         Trainer(args).eval()
     elif args.mode == "recommend":
         Trainer(args).recommend()

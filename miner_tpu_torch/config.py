@@ -1,13 +1,14 @@
 """Config / flag system of the port.
 
 The JAX package's argparse surface (``miner_tpu/config.py``) for the
-subcommands the port has: ``train``, ``eval``, ``serve`` (HTTP scoring
-server) and ``recommend`` (one-shot ranking), with the same flags.
+subcommands the port has: ``train`` and ``train_fastformer``, ``eval`` and
+``eval_fastformer`` (each pair with the same flags, as in JAX), ``serve``
+(HTTP scoring server) and ``recommend`` (one-shot ranking).
 ``@config/file.txt`` argument files with ``#`` comments parse unchanged
-(``config/train_miner.txt``, ``eval_miner.txt`` and ``serve_miner.txt``
-included). The JAX package's TPU settings (mesh shape, compilation cache,
-PRNG implementation, layer scan, remat policy, matmul precision) are
-accepted and ignored, each saying so in ``--help``. Flags of a path the
+(``config/train_miner.txt``, ``train_fastformer.txt``, ``eval_miner.txt``
+and ``serve_miner.txt`` included). The JAX package's TPU settings (mesh
+shape, compilation cache, PRNG implementation, layer scan, remat policy,
+matmul precision) are accepted and ignored, each saying so in ``--help``. Flags of a path the
 port has not reached yet are accepted and refused by the ``Trainer``,
 naming the ROADMAP item that brings them.
 """
@@ -56,14 +57,16 @@ def _serving_parser(sub, name: str) -> argparse.ArgumentParser:
 
 def make_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
-        description="miner_tpu_torch — MINER in PyTorch on a CUDA card",
+        description="miner_tpu_torch — MINER and Fastformer in PyTorch on a CUDA card",
         fromfile_prefix_chars="@",
         allow_abbrev=False,
     )
     parser.convert_arg_line_to_args = convert_arg_line_to_args
     sub = parser.add_subparsers(dest="mode")
-    add_train_arguments(_sub(sub, "train"))
-    add_eval_arguments(_sub(sub, "eval"))
+    for name in ("train", "train_fastformer"):
+        add_train_arguments(_sub(sub, name))
+    for name in ("eval", "eval_fastformer"):
+        add_eval_arguments(_sub(sub, name))
     p = _serving_parser(sub, "recommend")
     p.add_argument("--user_history", nargs="+", required=True,
                    help="clicked news ids, oldest first")

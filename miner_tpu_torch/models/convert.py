@@ -1,9 +1,10 @@
 """Carrying weights over from the JAX package (the role of its hf_import.py).
 
-``miner_params_from_jax`` takes the JAX package's Miner parameter tree as
-nested dicts of numpy arrays, as ``jax.device_get(params)`` gives them, and
-returns a state dict for the port's ``Miner`` (or, given a subtree, for the
-matching sub-module: ``params["news_encoder"]["plm"]`` for a
+``params_from_jax`` takes a JAX parameter tree as nested dicts of numpy
+arrays, as ``jax.device_get(params)`` gives them, and returns a state dict
+for the matching module of the port: the Miner's or the
+``FastformerUserModel``'s tree for those models, or a subtree for the
+matching sub-module (``params["news_encoder"]["plm"]`` for a
 ``TransformerPLM``). The layouts differ in three ways:
 
   * a flax ``Dense`` stores ``kernel`` as (in, out); ``nn.Linear`` stores
@@ -11,11 +12,14 @@ matching sub-module: ``params["news_encoder"]["plm"]`` for a
     (3D, D) weight whose rows stay in q|k|v order;
   * flax ``Embed`` tables (``embedding``) and LayerNorm ``scale`` become
     ``weight``;
-  * the unrolled layer stack ``layer_{i}`` becomes ``layers.{i}``.
+  * an unrolled layer stack ``layer_{i}`` becomes ``layers.{i}``.
 
 Other leaves (LayerNorm and Dense ``bias``, poly-attention's
-``proj_kernel`` and ``context_codes``) keep their names and layouts. Load
-the result with ``load_state_dict(strict=True)``.
+``proj_kernel`` and ``context_codes``, the Fastformer's
+``query_att_kernel`` / ``key_att_kernel`` (D, h) and their biases) keep
+their names and layouts. Load the result with
+``load_state_dict(strict=True)``. ``miner_params_from_jax`` is the same
+function under its first name.
 """
 from __future__ import annotations
 
@@ -28,7 +32,7 @@ import torch
 _LAYER = re.compile(r"layer_(\d+)$")
 
 
-def miner_params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+def params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     state: Dict[str, torch.Tensor] = {}
 
     def walk(tree: Mapping, prefix: str) -> None:
@@ -47,3 +51,6 @@ def miner_params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
 
     walk(params, "")
     return state
+
+
+miner_params_from_jax = params_from_jax

@@ -8,10 +8,11 @@ candidate-interest dot-product scores aggregated by ``max``, ``mean`` or
 methods so the candidate gather and per-interest scoring can run in the
 lookup+score op directly against the news-embedding cache; training calls
 the model on a batch (``forward``), which encodes candidates and history
-in one PLM call per field (``encode_all_news``, miner.py:112-136) and runs
-the tail. In training mode the category embeddings take dropout at
-``dropout`` (``--dropout``, miner.py:91,145-150), with masks from the step's
-``DropoutRNG``; the model computes in ``dtype`` with fp32 parameters.
+in one PLM call per field (``NewsEncoder.encode_batch``; JAX
+``encode_all_news``, miner.py:112-136) and runs the tail. In training mode
+the category embeddings take dropout at ``dropout`` (``--dropout``,
+miner.py:91,145-150), with masks from the step's ``DropoutRNG``; the model
+computes in ``dtype`` with fp32 parameters.
 """
 from __future__ import annotations
 
@@ -95,25 +96,6 @@ class Miner(nn.Module):
         """Encode a flat (N, L) batch of news: the cache-fill entry point."""
         return self.news_encoder(title_ids, title_mask, sapo_ids, sapo_mask, rng)
 
-    def encode_all_news(self, batch: Dict[str, torch.Tensor],
-                        rng: Optional[DropoutRNG] = None
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One PLM call per field over candidates and history concatenated:
-        (cand_repr (B, C, D), his_repr (B, H, D))."""
-        B, C = batch["cand_title"].shape[:2]
-        H = batch["his_title"].shape[1]
-
-        def both(name):  # (B, C, L) and (B, H, L) -> (B*(C+H), L)
-            return torch.cat([batch[f"cand_{name}"].flatten(0, 1),
-                              batch[f"his_{name}"].flatten(0, 1)])
-
-        sapo = sapo_mask = None
-        if self.news_encoder.use_sapo and "cand_sapo" in batch:
-            sapo, sapo_mask = both("sapo"), both("sapo_mask")
-        reprs = self.news_encoder(both("title"), both("title_mask"), sapo,
-                                  sapo_mask, rng)
-        return (reprs[:B * C].reshape(B, C, -1), reprs[B * C:].reshape(B, H, -1))
-
     def category_bias_from_ids(self, his_category: torch.Tensor,
                                cand_category: torch.Tensor,
                                rng: Optional[DropoutRNG] = None) -> torch.Tensor:
@@ -157,6 +139,6 @@ class Miner(nn.Module):
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(interests (B, K, D), matching scores (B, C)) for a model batch
         (``NewsTable.lookup``)."""
-        cand_repr, his_repr = self.encode_all_news(batch, rng)
+        cand_repr, his_repr = self.news_encoder.encode_batch(batch, rng)
         return self.tail(cand_repr, his_repr, batch["cand_category"],
                          batch["his_category"], batch["his_mask"], rng)

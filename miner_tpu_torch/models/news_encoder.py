@@ -11,7 +11,7 @@ item 4).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -58,3 +58,22 @@ class NewsEncoder(nn.Module):
             return title_repr
         sapo_repr = self._field_repr(sapo_ids, sapo_mask, rng)
         return self.linear_combine(torch.cat([title_repr, sapo_repr], dim=-1))
+
+    def encode_batch(self, batch: Dict[str, torch.Tensor],
+                     rng: Optional[DropoutRNG] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One PLM call per field over a model batch's candidates and
+        history concatenated (``encode_all_news``, miner.py:112-136):
+        (cand_repr (B, C, D), his_repr (B, H, D))."""
+        B, C = batch["cand_title"].shape[:2]
+        H = batch["his_title"].shape[1]
+
+        def both(name):  # (B, C, L) and (B, H, L) -> (B*(C+H), L)
+            return torch.cat([batch[f"cand_{name}"].flatten(0, 1),
+                              batch[f"his_{name}"].flatten(0, 1)])
+
+        sapo = sapo_mask = None
+        if self.use_sapo and "cand_sapo" in batch:
+            sapo, sapo_mask = both("sapo"), both("sapo_mask")
+        reprs = self(both("title"), both("title_mask"), sapo, sapo_mask, rng)
+        return (reprs[:B * C].reshape(B, C, -1), reprs[B * C:].reshape(B, H, -1))

@@ -7,7 +7,7 @@ through the mha op and every post-LN site (``attention_ln``, ``ffn_ln``)
 through the add_ln op, so on the card the tower runs the port's kernels.
 
 Parameter names follow the JAX tree (``layer_{i}`` becomes ``layers.{i}``)
-so ``models.convert.miner_params_from_jax`` can carry weights over.
+so ``models.convert.params_from_jax`` can carry weights over.
 
 Mixed precision as flax does it: parameters stay fp32 masters, and the
 tower computes in its ``dtype`` (``--compute_dtype``): embedding rows are

@@ -7,6 +7,7 @@ that its main path went through the kernels.
 from typing import Dict
 
 from miner_tpu_torch.ops.add_ln import add_ln_backward, fused_dropout_add_ln
+from miner_tpu_torch.ops.fastformer_attn import fastformer_attention_fused
 from miner_tpu_torch.ops.lookup_score import lookup_score_fused
 from miner_tpu_torch.ops.mha import fused_mha, mha_backward
 from miner_tpu_torch.ops.poly_attention import poly_attention_fused
@@ -18,6 +19,7 @@ KERNEL_WRAPPERS = {
     "add_ln_bwd": add_ln_backward,
     "poly_attention_fwd": poly_attention_fused,
     "lookup_score_fwd": lookup_score_fused,
+    "fastformer_attn_fwd": fastformer_attention_fused,
 }
 
 

@@ -1,13 +1,16 @@
 """HTTP scoring server over the news-embedding cache.
 
-The port's copy of ``miner_tpu/serving.py`` for the Miner family.
+The port's copy of ``miner_tpu/serving.py`` for the two-tower families the
+port has, Miner and Fastformer (``--model_name``).
 ``python -m miner_tpu_torch serve @config.txt --port 8400`` starts an HTTP
 server that ranks candidate news for a click history with ZERO PLM calls per
 request: the corpus is encoded once into the news-embedding cache at startup
-(``Trainer.serving_context``) and every request runs only the cached tail —
-category bias, poly-attention interests, the lookup+score op and target-aware
-aggregation (``Trainer.serve_scores`` / ``Trainer.serve_topk``), through the
-port's kernels on the card.
+(``Trainer.serving_context``) and every request runs only the cached tail
+through ``Trainer.serve_scores`` / ``Trainer.serve_topk``, which return the
+model's scores whatever its kind: for the Miner the category bias,
+poly-attention interests, the lookup+score op and target-aware aggregation;
+for Fastformer the user encoder over the history rows and a dot product
+with the candidate rows; through the port's kernels on the card.
 
 Concurrent requests coalesce through a :class:`MicroBatcher` into ONE
 device call per drain window (``--serve_max_batch``,

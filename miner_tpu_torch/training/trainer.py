@@ -1,11 +1,14 @@
 """The trainer of the port: ``train``, ``eval``, ``serve`` and ``recommend``.
 
-Counterpart of ``miner_tpu/training/trainer.py`` for the Miner family:
+Counterpart of ``miner_tpu/training/trainer.py`` for two model kinds, as
+``--model_name`` picks them (trainer.py:272-292): ``miner`` (the Miner) and
+``vanilla`` (``fastformer``: the news encoder under a Fastformer user
+encoder, logits only):
 
   * ``train`` (trainer.py:558-799): ``BehaviorsLog``, the numpy samplers and
     the shuffled ``Batcher``; every micro-batch gathers its token rows from
     the ``NewsTable`` on the device, runs the model with dropout (one PLM
-    call per field over candidates and history), ``miner_loss`` and its
+    call per field over candidates and history), the kind's loss and its
     backward, and the optimizer (clip, AdamW, warmup schedule, accumulation)
     updates every ``--gradient_accumulation_steps`` micro-batches; an eval
     at every ``--eval_steps`` and at each epoch's end, best and final
@@ -14,10 +17,15 @@ Counterpart of ``miner_tpu/training/trainer.py`` for the Miner family:
     ``--saved_model_path`` over the eval behaviors, by default from the
     news-embedding cache (``--cached_eval``);
   * the serving half: ``serving_context`` (news store, model, and the corpus
-    news-embedding cache, encoded once), ``_cached_scores`` (category bias,
-    poly-attention interests, the lookup+score op, target-aware
-    aggregation), ``serve_scores`` for slates and ``serve_topk`` for
-    whole-corpus ranking with ``torch.topk``.
+    news-embedding cache, encoded once), ``_cached_scores`` (Miner: category
+    bias, poly-attention interests, the lookup+score op, target-aware
+    aggregation; Fastformer: the user encoder over the gathered history
+    rows, dotted with the gathered candidate rows), ``serve_scores`` for
+    slates and ``serve_topk`` for whole-corpus ranking with ``torch.topk``.
+
+The Miner trains on ``miner_loss`` and evaluates on ``miner_eval_loss``; the
+vanilla kind trains on ``vanilla_loss`` and evaluates on
+``logsigmoid_eval_loss`` (trainer.py:401-408, 947-953).
 
 The model runs on ``--device`` (default ``cuda``; asking for a card that is
 not there raises). On the card every op of the path launches its kernel; on
@@ -37,6 +45,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 from miner_tpu_torch import constants
 from miner_tpu_torch.config import plm_config
@@ -47,7 +56,12 @@ from miner_tpu_torch.data.news_store import NewsStore
 from miner_tpu_torch.data.samplers import EvalSampler, OfflineSampler, OnlineSampler
 from miner_tpu_torch.data.tokenization import load_tokenizer
 from miner_tpu_torch.evaluation.evaluator import FastEvaluator, ImpressionEvaluator
-from miner_tpu_torch.models import Miner, NewsEncoder
+from miner_tpu_torch.models import (
+    FastformerConfig,
+    FastformerUserModel,
+    Miner,
+    NewsEncoder,
+)
 from miner_tpu_torch.models.dropout import DropoutRNG
 from miner_tpu_torch.models.plm import cast_to_compute_
 from miner_tpu_torch.observability.logging import RunLogger
@@ -67,6 +81,8 @@ from miner_tpu_torch.training.optim import (
 from miner_tpu_torch.utils import candidate_bucket, resolve_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# --model_name (lower case) -> model kind; UnBERT and UniSRec come later
+_KINDS = {"miner": "miner", "fastformer": "vanilla"}
 
 
 class ServingContext(NamedTuple):
@@ -74,7 +90,7 @@ class ServingContext(NamedTuple):
 
     store: NewsStore
     table: NewsTable
-    model: Miner
+    model: nn.Module
     cache: NewsEmbeddingCache
 
 
@@ -83,7 +99,7 @@ class TrainRun(NamedTuple):
     of micro-steps taken since the run began (resumed steps included), and
     the run directory."""
 
-    model: Miner
+    model: nn.Module
     optimizer: Optimizer
     step: int
     run_dir: str
@@ -93,11 +109,14 @@ def _refuse_unported(args, device: torch.device) -> None:
     """Raise for a flag whose meaning this slice of the port cannot honour,
     naming the ROADMAP item that brings it, instead of running something
     else than was asked for."""
-    if (args.model_name or "Miner").lower() != "miner":
+    name = (args.model_name or "Miner").lower()
+    if name in ("unbert", "unisrec"):
         raise NotImplementedError(
-            f"--model_name {args.model_name!r}: the port runs Miner only "
-            "so far (ROADMAP Queue 1, items 7-9: the Fastformer, UnBERT "
-            "and UniSRec families)")
+            f"--model_name {args.model_name!r}: the port runs the Miner and "
+            "Fastformer families so far (ROADMAP Queue 1, items 8-9: the "
+            "UnBERT and UniSRec families)")
+    if name not in _KINDS:
+        raise ValueError(f"unknown --model_name {args.model_name!r}")
     if getattr(args, "serve_cache_int8", False):
         raise NotImplementedError(
             "--serve_cache_int8: the int8 cache (Int8Rows) is not ported "
@@ -121,7 +140,7 @@ def _refuse_unported(args, device: torch.device) -> None:
         raise NotImplementedError(
             "--hf_checkpoint / a local --pretrained_embedding: importing HF "
             "weights is not ported yet (ROADMAP Queue 1, item 12)")
-    if getattr(args, "mode", None) != "train":
+    if getattr(args, "mode", None) not in ("train", "train_fastformer"):
         return
     if args.his_cache_refresh > 0:
         raise NotImplementedError(
@@ -142,6 +161,7 @@ class Trainer:
         self.args = args
         self.device = resolve_device(getattr(args, "device", None))
         _refuse_unported(args, self.device)
+        self.kind = _KINDS[(args.model_name or "Miner").lower()]
         self.tokenizer = load_tokenizer(args.pretrained_tokenizer)
         self.user2id: Dict[str, int] = {}
         if args.user2id_path:
@@ -175,10 +195,12 @@ class Trainer:
         return torch.as_tensor(np.asarray(idx, np.int32), device=self.device)
 
     # ----------------------------------------------------------------- model
-    def build_model(self) -> Miner:
-        """The Miner with fresh weights from ``--seed``, fp32, on the CPU
-        (so the same seed gives the same weights on any device), computing
-        in ``--compute_dtype``."""
+    def build_model(self) -> nn.Module:
+        """The model of ``--model_name`` with fresh weights from ``--seed``,
+        fp32, on the CPU (so the same seed gives the same weights on any
+        device). The news encoder, and all of the Miner, compute in
+        ``--compute_dtype``; the Fastformer user encoder computes in fp32,
+        since the JAX package builds it without a dtype (trainer.py:291)."""
         a = self.args
         gelu_approx = a.gelu_approx
         if gelu_approx is None:
@@ -189,6 +211,15 @@ class Trainer:
                               word_embed_dim=a.word_embed_dim,
                               use_sapo=a.use_sapo, combine_type=a.combine_type,
                               dropout=a.dropout, dtype=self.compute_dtype)
+        if self.kind == "vanilla":
+            D = encoder.embed_dim
+            cfg = FastformerConfig(hidden_size=D,
+                                   num_heads=16 if D % 16 == 0 else 4,
+                                   intermediate_size=D, hidden_dropout=a.dropout,
+                                   max_position_embeddings=max(256, a.his_length))
+            model = FastformerUserModel(encoder, cfg)
+            model.reset_parameters(torch.Generator().manual_seed(a.seed))
+            return model
         category_embed = None
         if a.category_embed_path:
             category_embed = np.load(a.category_embed_path)
@@ -209,7 +240,7 @@ class Trainer:
         model.reset_parameters(torch.Generator().manual_seed(a.seed))
         return model
 
-    def restored_model(self) -> Miner:
+    def restored_model(self) -> nn.Module:
         """``build_model``, with the parameters of ``--saved_model_path``
         (a port checkpoint) loaded strictly when it is given."""
         model = self.build_model()
@@ -224,7 +255,7 @@ class Trainer:
         the device table, the model on the device in the compute type, and
         the corpus news-embedding cache (one PLM pass; zero PLM calls per
         request afterwards). The weights are ``state_dict`` (for example
-        from ``models.convert.miner_params_from_jax``) when given, else
+        from ``models.convert.params_from_jax``) when given, else
         those of ``--saved_model_path``, else random from ``--seed``;
         loaded strictly."""
         a = self.args
@@ -235,8 +266,11 @@ class Trainer:
             model.load_state_dict(state_dict, strict=True)
         else:
             model = self.restored_model()
-        # one cast for serving; the same bf16 values as casting at each use
-        model = cast_to_compute_(model, self.compute_dtype).to(self.device).eval()
+        # one cast for serving; the same bf16 values as casting at each use.
+        # The Fastformer user encoder stays fp32: only its news tower casts
+        cast_to_compute_(model.news_encoder if self.kind == "vanilla" else model,
+                         self.compute_dtype)
+        model = model.to(self.device).eval()
         if getattr(a, "serve_cache_path", None):
             print("--serve_cache_path ignored: persisting the cache is not "
                   "ported yet (ROADMAP Queue 1, item 3)")
@@ -244,17 +278,20 @@ class Trainer:
         return ServingContext(store=store, table=table, model=model, cache=cache)
 
     # --------------------------------------------------------------- scoring
-    @staticmethod
-    def _cached_scores(model: Miner, cache: NewsEmbeddingCache,
+    def _cached_scores(self, model: nn.Module, cache: NewsEmbeddingCache,
                        cand_idx: torch.Tensor, his_idx: torch.Tensor
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+                       ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
         """Scoring from the news-embedding cache (zero PLM calls):
-        (interests (B, K, D), matching (B, C)). The candidate gather and
-        per-interest scoring run in the lookup+score op straight against
-        the cache."""
+        (interests (B, K, D) or None, matching (B, C)). For the Miner the
+        candidate gather and per-interest scoring run in the lookup+score op
+        straight against the cache; the vanilla kind gathers the candidate
+        and history rows and runs its tail (trainer.py:917-923)."""
         his_repr = gather_rows(cache.embeddings, his_idx)
         his_cat = gather_rows(cache.category, his_idx)
         his_mask = (his_cat != cache.category_pad_id).to(torch.int32)
+        if self.kind == "vanilla":
+            cand_repr = gather_rows(cache.embeddings, cand_idx)
+            return None, model.tail(cand_repr, his_repr, his_mask)
         bias = None
         if model.use_category_bias:
             cand_cat = gather_rows(cache.category, cand_idx)
@@ -266,7 +303,19 @@ class Trainer:
             cand_repr = gather_rows(cache.embeddings, cand_idx)
         return interests, model.aggregate_matching(interests, pscores, cand_repr)
 
-    def serve_scores(self, model: Miner, cache: NewsEmbeddingCache,
+    def _loss(self, interests: Optional[torch.Tensor], logits: torch.Tensor,
+              label: torch.Tensor, train: bool,
+              row_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The kind's training or eval loss (trainer.py:391-408, 947-953)."""
+        if self.kind == "vanilla":
+            if train:
+                return losses.vanilla_loss(logits, label)
+            return losses.logsigmoid_eval_loss(logits, label, row_mask)
+        if train:
+            return losses.miner_loss(interests, logits, label)
+        return losses.miner_eval_loss(interests, logits, label, row_mask)
+
+    def serve_scores(self, model: nn.Module, cache: NewsEmbeddingCache,
                      cand_idx: np.ndarray, his_idx: np.ndarray) -> np.ndarray:
         """Batched multi-user serving: (B, C) candidate rows + (B, H) history
         rows -> (B, C) matching scores, straight from the cache."""
@@ -275,7 +324,7 @@ class Trainer:
                                             self._index(his_idx))
             return logits.float().cpu().numpy()
 
-    def serve_topk(self, model: Miner, cache: NewsEmbeddingCache,
+    def serve_topk(self, model: nn.Module, cache: NewsEmbeddingCache,
                    his_idx: np.ndarray, k: int):
         """Whole-corpus top-k on the device: (B, H) history rows ->
         (scores (B, k), news rows (B, k)). The corpus candidate list (every
@@ -325,7 +374,7 @@ class Trainer:
         return results
 
     # ----------------------------------------------------------------- train
-    def make_optimizer(self, model: Miner, total_updates: int,
+    def make_optimizer(self, model: nn.Module, total_updates: int,
                        warmup: int) -> Optimizer:
         a = self.args
         if a.freeze_transformer:
@@ -336,22 +385,21 @@ class Trainer:
                          max_grad_norm=a.max_grad_norm,
                          accum_steps=a.gradient_accumulation_steps)
 
-    def _apply_and_loss(self, model: Miner, table: NewsTable,
+    def _apply_and_loss(self, model: nn.Module, table: NewsTable,
                         batch: Dict[str, np.ndarray], train: bool,
                         rng: Optional[DropoutRNG] = None,
                         row_mask: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(loss, logits) of a batch of index rows (``_apply_and_loss``, the
-        Miner branch, trainer.py:390-400)."""
+        Miner and vanilla branches, trainer.py:390-408)."""
         model_batch = table.lookup(self._index(batch["cand_idx"]),
                                    self._index(batch["his_idx"]))
         label = torch.as_tensor(batch["label"], device=self.device)
-        interests, logits = model(model_batch, rng)
-        if train:
-            return losses.miner_loss(interests, logits, label), logits
-        return losses.miner_eval_loss(interests, logits, label, row_mask), logits
+        out = model(model_batch, rng)
+        interests, logits = out if self.kind == "miner" else (None, out)
+        return self._loss(interests, logits, label, train, row_mask), logits
 
-    def train_step(self, model: Miner, table: NewsTable,
+    def train_step(self, model: nn.Module, table: NewsTable,
                    batch: Dict[str, np.ndarray], optimizer: Optimizer,
                    micro_step: int) -> torch.Tensor:
         """One micro-batch (trainer.py:410-425): forward with the dropout of
@@ -364,7 +412,7 @@ class Trainer:
         optimizer.step()
         return loss.detach()
 
-    def _payload(self, model: Miner, optimizer: Optimizer, micro_step: int) -> Dict:
+    def _payload(self, model: nn.Module, optimizer: Optimizer, micro_step: int) -> Dict:
         grad_acc = None
         if optimizer.mini_step:  # mid-accumulation: keep the partial sum
             grad_acc = {n: p.grad.detach() for n, p in model.named_parameters()
@@ -373,7 +421,7 @@ class Trainer:
                 "micro_step": micro_step, "rng_seed": self.args.seed + 1,
                 "grad_acc": grad_acc, "args": _plain(vars(self.args))}
 
-    def _resume(self, path: str, model: Miner, optimizer: Optimizer) -> int:
+    def _resume(self, path: str, model: nn.Module, optimizer: Optimizer) -> int:
         payload = checkpoint.load(path)
         model.load_state_dict(payload["params"], strict=True)
         optimizer.load_state_dict(payload["optimizer"])
@@ -493,7 +541,7 @@ class Trainer:
         return best_loss, best_auc
 
     # ------------------------------------------------------------------ eval
-    def _run_eval(self, model: Miner, table: NewsTable, store: NewsStore,
+    def _run_eval(self, model: nn.Module, table: NewsTable, store: NewsStore,
                   eval_log: BehaviorsLog, logger: RunLogger, epoch: int,
                   step: int) -> Tuple[Dict[str, float], Optional[float]]:
         """One pass over the eval behaviors (trainer.py:982-1063): by default
@@ -526,7 +574,7 @@ class Trainer:
                         model, cache, self._index(batch["cand_idx"]),
                         self._index(batch["his_idx"]))
                     label = torch.as_tensor(batch["label"], device=self.device)
-                    loss = losses.miner_eval_loss(interests, logits, label, row_mask)
+                    loss = self._loss(interests, logits, label, False, row_mask)
                 else:
                     loss, logits = self._apply_and_loss(model, table, batch, False,
                                                         row_mask=row_mask)

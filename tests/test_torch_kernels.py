@@ -19,6 +19,7 @@ import torch
 from miner_tpu_torch.ops import (
     add_ln,
     common,
+    fastformer_attn,
     fused_dropout_add_ln,
     fused_mha,
     launch_counts,
@@ -189,6 +190,40 @@ def test_kernel_matches_plain_on_card(rng, op, dtype):
     assert (got.float() - want.float()).abs().max().item() <= tol
 
 
+def _ff_inputs(rng, B, L, D, h):
+    """Fastformer attention inputs with a padded row and a fully masked
+    one."""
+    q, k = (rng.normal(size=(B, L, D)) for _ in range(2))
+    wqa, wka = (rng.normal(size=(D, h)) * 0.3 for _ in range(2))
+    bqa, bka = (rng.normal(size=(h,)) * 0.1 for _ in range(2))
+    mask = np.ones((B, L), np.int32)
+    mask[0, L // 2:] = 0
+    mask[-1, :] = 0
+    return [q, k, wqa, bqa, wka, bka], mask
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B, L, D, h", [(16, 50, 256, 16), (3, 5, 32, 16),
+                                        (2, 256, 256, 16)])
+def test_fastformer_kernel_matches_plain_on_card(rng, B, L, D, h, dtype):
+    """The training shape, head dim 2 (the tiny CPU-test geometry) and the
+    longest history the shared memory is sized for, with fully masked
+    rows; fp32 weights are cast to q's type by the wrapper."""
+    dev = _card()
+    xs, mask = _ff_inputs(rng, B, L, D, h)
+    q, k = (torch.as_tensor(x, device=dev).to(dtype) for x in xs[:2])
+    weights = [torch.as_tensor(x, device=dev).float() for x in xs[2:]]
+    mask = torch.as_tensor(mask, device=dev)
+    before = launch_counts()
+    got = fastformer_attn.fastformer_attention_fused(q, k, *weights, mask, h)
+    want = fastformer_attn.fastformer_attention_reference(q, k, *weights, mask, h)
+    torch.cuda.synchronize()
+    assert launch_counts()["fastformer_attn_fwd"] == before["fastformer_attn_fwd"] + 1
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= _tol(dtype, want)
+
+
 @pytest.mark.gpu
 def test_kernels_refuse_what_they_do_not_take():
     dev = _card()
@@ -197,6 +232,23 @@ def test_kernels_refuse_what_they_do_not_take():
         mha.fused_mha(qkv, torch.ones(2, 8, dtype=torch.int32, device=dev), 2)
     with pytest.raises(TypeError, match="dtype"):
         mha.fused_mha(qkv, torch.ones(2, 8, dtype=torch.int64, device=dev), 3)
+    ff = fastformer_attn.fastformer_attention_fused
+    q = torch.zeros(2, 6, 32, device=dev)
+    w, b = torch.zeros(32, 4, device=dev), torch.zeros(4, device=dev)
+    mask = torch.ones(2, 6, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError, match="dtype"):  # float16 q
+        ff(q.half(), q.half(), w, b, w, b, mask, 4)
+    with pytest.raises(TypeError, match="dtype"):  # k of another type than q
+        ff(q, q.bfloat16(), w, b, w, b, mask, 4)
+    with pytest.raises(TypeError, match="dtype"):
+        ff(q, q, w, b, w, b, mask.long(), 4)
+    with pytest.raises(ValueError, match="shape"):
+        ff(q, q, w[:16], b, w, b, mask, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        ff(q, q.transpose(0, 1).contiguous().transpose(0, 1), w, b, w, b, mask, 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        long = torch.zeros(1, 16384, 32, device=dev)  # (L, h) scores: 256 KB
+        ff(long, long, w, b, w, b, torch.ones(1, 16384, dtype=torch.int32, device=dev), 4)
 
 
 def _tol(dtype, want):
@@ -271,7 +323,7 @@ def test_dropout_mask_matches_plain_on_card(rng, op, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("op", ["mha", "add_ln", "poly"])
+@pytest.mark.parametrize("op", ["mha", "add_ln", "poly", "ff"])
 def test_gradients_through_functions_match_plain_on_card(rng, op):
     """A loss through each op's autograd Function on the card has the
     gradients of the same loss through the plain version (float32, 1e-4 of
@@ -289,12 +341,17 @@ def test_gradients_through_functions_match_plain_on_card(rng, op):
                   put(1 + 0.1 * rng.normal(size=96)), put(0.1 * rng.normal(size=96))]
         kernel = lambda *a: add_ln.fused_dropout_add_ln(*a, 0.1, 1e-5, 3)
         plain = lambda *a: add_ln.add_ln_reference(*a, 1e-5, 0.1, 3)
-    else:
+    elif op == "poly":
         mask = put(rng.random((3, 10)) > 0.3).to(torch.int32)
         inputs = [put(rng.normal(size=(3, 10, 32))), put(rng.normal(size=(32, 24)) * 0.1),
                   put(rng.normal(size=(6, 24)) * 0.1), put(rng.normal(size=(3, 10)))]
         kernel = lambda e, w, c, b: poly_attention.poly_attention_fused(e, w, c, mask, b)
         plain = lambda e, w, c, b: poly_attention.poly_attention_reference(e, w, c, mask, b)
+    else:  # Fastformer attention: q, k and the four attention weights
+        xs, mask = _ff_inputs(rng, 3, 12, 64, 16)
+        inputs, mask = [put(x) for x in xs], put(mask).to(torch.int32)
+        kernel = lambda *a: fastformer_attn.fastformer_attention_fused(*a, mask, 16)
+        plain = lambda *a: fastformer_attn.fastformer_attention_reference(*a, mask, 16)
     weight = None
     grads = []
     for fn in (kernel, plain):

@@ -185,7 +185,7 @@ def test_cuda_without_a_card_raises(tmp_path, monkeypatch):
 @pytest.mark.parametrize("extra, match", [
     (["--combine_type", "lstm"], "combine_type"),
     (["--serve_cache_int8"], "int8"),
-    (["--model_name", "fastformer"], "Miner only"),
+    (["--model_name", "unisrec"], "items 8-9"),
 ])
 def test_unported_flags_are_refused(tmp_path, extra, match):
     with pytest.raises(NotImplementedError, match=match):

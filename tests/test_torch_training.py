@@ -51,6 +51,18 @@ from tests.fixture_data import make_fixture
 T = torch.from_numpy
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One intra-op thread while this module runs: the tier-1 suite
+    (ROADMAP.md) runs six xdist workers on one CPU, where each worker's
+    intra-op threads oversubscribe it and the many small ops of the plain Philox dropout
+    (the PLM in training mode) slow by two orders of magnitude."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _flags(fixture, out=None, *extra):
     """tests/test_e2e.py's flag set, float32."""
     flags = [
