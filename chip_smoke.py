@@ -10,11 +10,14 @@ Phases, each of which makes the script exit non-zero when it fails:
    kernels compile at their first launch.
 2. kernels: each of the seven kernels runs at the shapes its paths give it
    (serving: the cache fill's chunks and request batches; training: a
-   ``train_miner.txt`` micro-batch, with dropout on; Fastformer attention at
-   the train, eval and serve batches, in fp32 as those paths give it, and
-   in bf16) against its plain PyTorch version on the same inputs (the
-   tolerance is printed beside the error; with dropout the kernel's mask
-   must equal the plain version's bit for bit), and is timed with CUDA
+   ``train_miner.txt`` micro-batch, with dropout on, and for mha also off,
+   so that the dropout's share of the time shows, and in fp32; Fastformer
+   attention at the train, eval and serve batches, in fp32 as those paths
+   give it, and in bf16) against its plain PyTorch version on the same
+   inputs (the tolerance is printed beside the error; the mha backward's
+   dq, dk and dv each at the scale of its (sequence, head)'s gradient;
+   with dropout the kernel's mask must equal the plain version's bit for
+   bit), and is timed with CUDA
    events beside the plain version, the one PyTorch call computing the
    same function where there is one, and its bound on an H100 SXM
    (3.35 TB/s; 989 TFLOP/s bf16, 67 TFLOP/s fp32).
@@ -74,6 +77,12 @@ NUM_NEWS = 4096
 # news, 55 news per impression -> 880 sequences per field per micro-batch
 TRAIN_N, TRAIN_TITLE, TRAIN_SAPO = 16 * 55, 32, 128
 TRAIN_RATE = 0.1  # hidden_dropout and attention_dropout of the PLM
+# the mha kernels' training cases (L, dropout rate, dtype): the sapo shape
+# with dropout (the main path's), without it (Philox's share), in fp32
+# (--compute_dtype float32, the CUDA-core kernels); the title shape
+TRAIN_MHA_CASES = ((TRAIN_SAPO, TRAIN_RATE, torch.bfloat16), (TRAIN_SAPO, 0.0, torch.bfloat16),
+                   (TRAIN_SAPO, TRAIN_RATE, torch.float32),
+                   (TRAIN_TITLE, TRAIN_RATE, torch.bfloat16))
 FF_HEADS = 16  # the Fastformer of word_embed_dim 256 (trainer: 16 if D % 16 == 0)
 TRAIN_B, EVAL_B = 16, 64  # train_fastformer.txt's train and eval batches
 # the kernels each phase of the main path must launch (and, for the frozen
@@ -128,6 +137,16 @@ def _nbytes(*tensors) -> int:
 # ---------------------------------------------------------------- kernels
 def _outputs(x):
     return x if isinstance(x, tuple) else (x,)
+
+
+def output_errors(got, want, rel):
+    """Per output: its largest error against ``rel`` of its own scale."""
+    errs = []
+    for a, b in zip(got, want):
+        err = (a.float() - b.float()).abs().max().item()
+        errs.append(dict(err=err, tol=rel * max(1.0, b.float().abs().max().item()),
+                         max_err=err))
+    return errs
 
 
 def _mha_inputs(dev, g, N, L, dtype):
@@ -186,47 +205,82 @@ def mha_cases(dev, g):
                 library=lambda: torch.nn.functional.scaled_dot_product_attention(
                     q, k, v, attn_mask=bool_mask),
                 bound=bound_ms(_nbytes(qkv, mask, out), flops, dtype))
-    for L in (TRAIN_SAPO, TRAIN_TITLE):  # the training path, dropout on
-        dtype, seed = torch.bfloat16, 2 ** 40 + L
+    # the training path: dropout on (and, at the sapo shape, off, so that
+    # Philox's share shows), bf16 and, as --compute_dtype float32 gives it,
+    # fp32; under autograd the forward also writes the softmax statistics,
+    # as here
+    for L, rate, dtype in TRAIN_MHA_CASES:
+        seed = 2 ** 40 + L
         qkv, mask = _mha_inputs(dev, g, TRAIN_N, L, dtype)
         q, k, v = qkv.view(TRAIN_N, L, 3, HEADS, -1).permute(2, 0, 3, 1, 4)
         bool_mask = mask.bool()[:, None, None, :]
         out = torch.empty(TRAIN_N, L, HIDDEN, dtype=dtype, device=dev)
+        stats = torch.empty(TRAIN_N, HEADS, L, 2, device=dev)
         flops = 4 * TRAIN_N * HEADS * L * L * (HIDDEN // HEADS)
         yield dict(
-            case=f"bf16 N={TRAIN_N} L={L} dropout {TRAIN_RATE}", dtype=dtype,
-            kernel=lambda: mha.fused_mha(qkv, mask, HEADS, TRAIN_RATE, 1, seed),
-            plain=lambda: mha.mha_reference(qkv, mask, HEADS, 1, TRAIN_RATE, seed),
+            case=f"{str(dtype)[6:]} N={TRAIN_N} L={L} dropout {rate}", dtype=dtype,
+            kernel=lambda: mha._launch_fwd(qkv, mask, HEADS, 1, rate, seed, True)[0],
+            plain=lambda: mha.mha_reference(qkv, mask, HEADS, 1, rate, seed),
             library=lambda: torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, attn_mask=bool_mask, dropout_p=TRAIN_RATE),
-            check=lambda: mha_dropout_mask_check(qkv, mask, seed),
-            bound=bound_ms(_nbytes(qkv, mask, out), flops, dtype),
-            main=L == TRAIN_SAPO)
+                q, k, v, attn_mask=bool_mask, dropout_p=rate),
+            check=(lambda: mha_dropout_mask_check(qkv, mask, seed)) if rate else None,
+            bound=bound_ms(_nbytes(qkv, mask, out, stats), flops, dtype),
+            main=L == TRAIN_SAPO and rate > 0 and dtype == torch.bfloat16)
+
+
+def mha_grad_errors(got, want, rel):
+    """The mha backward's dqkv as its dq, dk and dv parts, each element held
+    at ``rel`` of the largest |dq|, |dk| or |dv| of its (sequence, head).
+
+    The scale is per head, not one over the batch: lengths run from 1 to L,
+    and the dv of a one-key sequence (the dO of all L rows sent to one key)
+    is ~100x the typical gradient, so a batch-wide tolerance would pass a dq
+    or dk of a long sequence that misses a key tile. Nor is it per part
+    within a head: with one valid key, dq and dk are exactly 0 (dS =
+    P (dP - D_i) cancels), and the kernel's D_i, taken from the bf16
+    output, leaves rounding noise there on the scale of that head's dv.
+    Returns, per part, err and tol at the (sequence, head) where err / tol
+    is worst, the part's largest error and its RMS."""
+    (a,), (b,) = got, want
+    N, L, D3 = b.shape
+    shape = (N, L, 3, HEADS, D3 // 3 // HEADS)
+    err = (a.float() - b.float()).abs().view(shape).amax(dim=(1, 4))  # (N, 3, heads)
+    w = b.float().view(shape)
+    tol = rel * w.abs().amax(dim=(1, 2, 4)).clamp_min(1e-30)  # (N, heads)
+    parts = []
+    for c, part in enumerate(("dq", "dk", "dv")):
+        worst = (err[:, c] / tol).flatten().argmax()
+        parts.append(dict(part=part, err=err[:, c].flatten()[worst].item(),
+                          tol=tol.flatten()[worst].item(), max_err=err[:, c].max().item(),
+                          rms=w[:, :, c].pow(2).mean().sqrt().item()))
+    return parts
 
 
 def mha_bwd_cases(dev, g):
     from miner_tpu_torch.ops import mha
 
-    for L in (TRAIN_SAPO, TRAIN_TITLE):
-        dtype, seed = torch.bfloat16, 2 ** 41 + L
+    for L, rate, dtype in TRAIN_MHA_CASES:
+        seed = 2 ** 41 + L
         qkv, mask = _mha_inputs(dev, g, TRAIN_N, L, dtype)
         dout = torch.randn(TRAIN_N, L, HIDDEN, device=dev, generator=g).to(dtype)
-        out, stats = mha._launch_fwd(qkv, mask, HEADS, 1, TRAIN_RATE, seed, True)
+        out, stats = mha._launch_fwd(qkv, mask, HEADS, 1, rate, seed, True)
         leaves = _sdpa_leaves(qkv)
         sdpa_out = torch.nn.functional.scaled_dot_product_attention(
-            *leaves, attn_mask=mask.bool()[:, None, None, :], dropout_p=TRAIN_RATE)
+            *leaves, attn_mask=mask.bool()[:, None, None, :], dropout_p=rate)
         sdpa_dout = dout.view(TRAIN_N, L, HEADS, -1).transpose(1, 2)
         flops = 5 * 2 * TRAIN_N * HEADS * L * L * (HIDDEN // HEADS)
         yield dict(
-            case=f"bf16 N={TRAIN_N} L={L} dropout {TRAIN_RATE}", dtype=dtype,
-            kernel=lambda: mha.mha_backward(qkv, mask, dout, HEADS, TRAIN_RATE,
-                                            seed, 1, out, stats),
+            case=f"{str(dtype)[6:]} N={TRAIN_N} L={L} dropout {rate}", dtype=dtype,
+            kernel=lambda: mha.mha_backward(qkv, mask, dout, HEADS, rate, seed, 1,
+                                            out, stats),
             plain=lambda: mha.mha_backward_reference(qkv, mask, dout, HEADS, 1,
-                                                     TRAIN_RATE, seed),
+                                                     rate, seed),
             library=lambda: torch.autograd.grad(sdpa_out, leaves, sdpa_dout,
                                                 retain_graph=True),
-            bound=bound_ms(_nbytes(qkv, dout, qkv), flops, dtype),
-            main=L == TRAIN_SAPO)
+            errors=mha_grad_errors,
+            # reads qkv, out, dout, stats and mask; writes dqkv
+            bound=bound_ms(_nbytes(qkv, out, dout, stats, mask, qkv), flops, dtype),
+            main=L == TRAIN_SAPO and rate > 0 and dtype == torch.bfloat16)
 
 
 def _ln_inputs(dev, g, T, dtype):
@@ -414,15 +468,13 @@ def kernel_phase(dev):
         for c in cases(dev, g):
             got, want = _outputs(c["kernel"]()), _outputs(c["plain"]())
             torch.cuda.synchronize()
-            # per output: error against REL_TOL of that output's scale
-            errs = [((a.float() - b.float()).abs().max().item(),
-                     REL_TOL[c["dtype"]] * max(1.0, b.float().abs().max().item()))
-                    for a, b in zip(got, want)]
-            err, tol = max(errs, key=lambda e: e[0] / e[1])
+            errs = c.get("errors", output_errors)(got, want, REL_TOL[c["dtype"]])
+            worst = max(errs, key=lambda e: e["err"] / e["tol"])
+            err, tol = worst["err"], worst["tol"]
             finite = all(bool(torch.isfinite(a).all()) for a in got)
-            ok = finite and all(e <= t for e, t in errs)
+            ok = finite and all(e["err"] <= e["tol"] for e in errs)
             note = ""
-            if "check" in c:
+            if c.get("check"):
                 passed, note = c["check"]()
                 ok = ok and passed
                 note = f"  {note}"
@@ -435,13 +487,19 @@ def kernel_phase(dev):
                 f"{plain_ms:.4f} ms  library "
                 f"{'-' if library_ms is None else f'{library_ms:.4f} ms'}  "
                 f"bound {b_ms:.4f} ms ({b_by})")
+            for e in errs:
+                if "part" in e:
+                    log(f"    {e['part']}: err {e['err']:.3g} (tol {e['tol']:.3g}) at its "
+                        f"worst (sequence, head); largest err {e['max_err']:.3g}, "
+                        f"RMS {e['rms']:.3g}")
             if not ok:
                 failures.append(f"{name} {c['case']}: err {err} tol {tol} "
                                 f"finite {finite}{note}")
             if c.get("main"):
                 row = {"name": name, "route": route, "source": source,
                        "replaces": replaces, "case": c["case"], "launches": 0,
-                       "max_abs_err": err, "tol": tol, "ms": ms,
+                       "max_abs_err": max(e["max_err"] for e in errs),
+                       "worst_err_over_tol": err / tol, "ms": ms,
                        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                        "library_ms": library_ms}
             del got, want
@@ -681,9 +739,17 @@ def train_phase(corpus: str, out: str, family: str = "miner"):
     args = train_args(corpus, out, family=family)
     trainer = Trainer(args)
     step_s, step_loss, eval_s, before_eval = [], [], [], {}
+    held, after_fwd = [], []  # GiB allocated at each micro-batch's start, after its forward
     train_step, run_eval = trainer.train_step, trainer._run_eval
+    apply_and_loss = trainer._apply_and_loss
+
+    def measured_forward(*a, **k):
+        out = apply_and_loss(*a, **k)
+        after_fwd.append(torch.cuda.memory_allocated() / 2 ** 30)
+        return out
 
     def timed_step(*a, **k):
+        held.append(torch.cuda.memory_allocated() / 2 ** 30)
         t0 = time.perf_counter()
         loss = train_step(*a, **k)
         step_loss.append(float(loss))  # synchronises
@@ -699,6 +765,7 @@ def train_phase(corpus: str, out: str, family: str = "miner"):
         return out
 
     trainer.train_step, trainer._run_eval = timed_step, timed_eval
+    trainer._apply_and_loss = measured_forward
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -728,6 +795,10 @@ def train_phase(corpus: str, out: str, family: str = "miner"):
         f"eval {eval_s[0]:.2f} s; whole train() {wall_s:.2f} s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB on "
         f"{torch.cuda.get_device_name(0)}")
+    log(f"{phase}: device memory of the last micro-batch: {held[-1]:.2f} GiB held "
+        f"at its start (weights, optimizer state, gradient sums), "
+        f"{after_fwd[len(held) - 1]:.2f} GiB after its forward (the forwards "
+        f"of the eval, if any, come later)")
     log(f"{phase}: losses {[round(x, 4) for x in step_loss]}")
     log(f"{phase}: eval {metrics}")
     per_batch = {k: before_eval[k] / len(step_s) for k in before_eval}
@@ -858,8 +929,11 @@ def main() -> int:
     reports = common.build()
     log(f"build: {len(reports)} CUDA libraries in {time.perf_counter() - t0:.1f} s")
     for name, report in reports.items():
+        # each kernel's registers, spills and shared memory; for the mha
+        # kernels also the entry each line belongs to
+        keys = ("registers", "spill") + (("Compiling entry",) if name.startswith("mha") else ())
         for line in report.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(k in line for k in keys):
                 log(f"  {name}: {line.strip()}")
 
     log("kernels (kernel vs plain version on the same inputs):")

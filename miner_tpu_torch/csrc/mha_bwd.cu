@@ -8,39 +8,59 @@
 //   dS = P * (dP - rowsum(dP * P)) / sqrt(Dh),  dQ = dS K,  dK = dS^T Q,
 // written by stride into one (N, L, 3D) gradient in the q|k|v layout of the
 // fused projection, so the qkv Linear takes it with no split or concat.
-// rowsum(dP * P) equals rowsum(dO * O) (O the forward's output), which is
-// what the kernel computes: one Dh-long dot per query row instead of a
-// second pass over the keys. P is rebuilt from the forward's softmax
-// statistics (row max and 1/row sum, see mha_fwd.cu) and the dropout mask
-// is regenerated from the same Philox counters (csrc/philox.cuh), so nothing
-// random and no (L, L) tensor is stored.
+// rowsum(dP * P) equals D_i = rowsum(dO * O) (O the forward's output), which
+// is what the kernel computes, in fp32: one Dh-long dot per query row
+// instead of a second pass over the keys. P is rebuilt from the forward's
+// softmax statistics (row max and 1/row sum, see mha_fwd.cu) and the
+// dropout mask is regenerated from the same Philox counters
+// (csrc/philox.cuh), so nothing random and no (L, L) tensor is stored. A
+// fully masked row (all keys at -1e9) has a uniform P over all L keys, and
+// its gradient reaches V of the masked keys, as in the TPU kernel.
 //
-// What bounds it: 5 products of 2 * L * L * Dh flops per (sequence, head)
-// (QK^T, dO V^T, dV, dQ, dK) against reading qkv, out, dout and writing
-// dqkv: ~110 flops per bf16 byte at L = 128, under the ridge, so memory in
-// principle; this first kernel does its arithmetic in fp32 on the CUDA
-// cores, so in practice fp32 FMA issue and shared-memory reads bound it.
+// What bounds it: at the sapo training shape (N = 880, L = 128, 12 heads of
+// Dh = 64) five products of 2 N H L^2 Dh flops each (QK^T, dO V^T, dV, dK,
+// dQ) = 110.7 GFLOP against ~1.40 GB that must move (qkv, out, dout, stats
+// and mask read, dqkv written), ~79 FLOP per byte: under the bf16 ridge of
+// ~295, so the bound is the bytes (~0.42 ms at 3.35 TB/s). With dropout,
+// Philox's integer work (N H L^2 / 4 calls, as in the forward) comes next.
 //
-// Design: one block per (sequence, head, tile of up to 64 query rows), one
-// thread per query row holding q, dO and its dQ accumulator in registers.
-// K and V stream through shared memory in tiles of 32 keys. For each key
-// tile a thread computes its row of dS and Pd into shared memory; then the
-// block reduces over its query rows to the tile's dK and dV (thread per
-// (key, column)). Blocks of one (n, h) run in no order on Hopper, so dK and
-// dV cannot be summed across query tiles in place: with one query tile
-// (L <= 64) the block writes them straight into dqkv; otherwise each tile
-// writes fp32 partials to a scratch buffer the wrapper allocates, and a
-// second kernel sums them in a fixed order and casts them into dqkv
-// (deterministic: no atomics). A fully masked row (all keys at -1e9) has a
-// uniform P over all L keys, and its gradient reaches V of the masked keys,
-// as in the TPU kernel.
+// bf16 design, on the tensor cores, with no cross-block sum. One block per
+// (sequence, head) owns that head's whole gradient: up to 8 warps, each
+// owning 16 keys, so a key tile is min(L, 128) keys (16 * warps); longer
+// sequences loop over key tiles of 128. K and V of the tile are copied
+// into shared memory once by 16-byte cp.async; queries go through in steps
+// of 32 rows (Q, dO and O, double-buffered, padded rows for ldmatrix). Per
+// step every warp computes, for its 16 keys and the 32 queries,
+//   S^T = K Q^T and dP^T = V dO^T (mma.sync m16n8k16, bf16 -> fp32), keys
+//     as the rows so that P^T and dS^T come out in the A layout of
+//   dV += Pd^T dO and dK += dS^T Q, accumulated in fp32 registers over all
+//     query steps and written once;
+// P = exp(s - m) / l from the statistics, keep from one Philox call per
+// lane and 16 x 16 block (keys g, g+8 x queries 2t+e, 2t+e+8: the same
+// counters as the forward's lanes, transposed). Pd and dS are rounded to
+// bf16 before their products, as the TPU kernel rounds them (mha.py:157,
+// 171). dS^T goes to shared memory, and after a barrier the warps compute
+// dQ of the step's 32 rows = dS K over the tile's keys (dS through
+// ldmatrix.trans, K through ldmatrix.trans). With one key tile (L <= 128)
+// that dQ is final and is written at once; with more, each dQ element is
+// summed over the key tiles by the one lane that owns it, in a global fp32
+// scratch row of this (sequence, head) that no other block touches. No
+// atomics, no second kernel, deterministic.
+//
+// fp32 stays on the CUDA cores (below): one block per (sequence, head,
+// tile of up to 64 query rows), one thread per query row holding q, dO and
+// its dQ in registers, and with more than one query tile, fp32 partials of
+// dK and dV summed by a second kernel in a fixed order; its dropout draws
+// keys j and j + 8 of its row from one Philox call, as the fp32 forward.
+// On the tensor cores fp32 would run as TF32 and fail the 1e-4 tolerance
+// and the card-vs-CPU gradient parity. Each type has exactly one kernel.
 #include "common.cuh"
 #include "philox.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
-constexpr int MAX_BQ = 64;  // query rows (threads) per block
-constexpr int BK = 32;      // keys per shared-memory tile
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct Dropout {
   unsigned long long seed;
@@ -49,18 +69,27 @@ struct Dropout {
   int on;
 };
 
+// ---------------------------------------------------------------- float32
+constexpr int MAX_BQ = 64;  // query rows (threads) per block
+constexpr int BK = 32;      // keys per shared-memory tile
+
 template <int DH>
-constexpr int smem_floats() {
+constexpr int fp32_smem_floats() {
   return 2 * BK * DH + 2 * MAX_BQ * (DH + 1) + 2 * MAX_BQ * (BK + 1);
 }
 
-template <typename T, int DH>
+int fp32_query_tiles(int L) {
+  const int bq = L <= 32 ? 32 : MAX_BQ;
+  return (L + bq - 1) / bq;
+}
+
+template <int DH>
 __global__ void __launch_bounds__(MAX_BQ)
-mha_bwd_kernel(const T* __restrict__ qkv, const int* __restrict__ mask,
-               const T* __restrict__ out, const T* __restrict__ dout,
-               const float2* __restrict__ stats, T* __restrict__ dqkv,
-               float* __restrict__ partial, int N, int L, int H, int seqs,
-               Dropout drop) {
+mha_bwd_fp32(const float* __restrict__ qkv, const int* __restrict__ mask,
+             const float* __restrict__ out, const float* __restrict__ dout,
+             const float2* __restrict__ stats, float* __restrict__ dqkv,
+             float* __restrict__ partial, int N, int L, int H, int seqs,
+             Dropout drop) {
   extern __shared__ __align__(16) float smem[];
   float* sK = smem;                     // (BK, DH)
   float* sV = sK + BK * DH;             // (BK, DH)
@@ -75,15 +104,15 @@ mha_bwd_kernel(const T* __restrict__ qkv, const int* __restrict__ mask,
   const int tid = threadIdx.x;
   const int D = H * DH;
   const long row_stride = 3L * D;
-  const T* base = qkv + (long)n * L * row_stride + h * DH;
-  const T* dobase = dout + (long)n * L * D + h * DH;
+  const float* base = qkv + (long)n * L * row_stride + h * DH;
+  const float* dobase = dout + (long)n * L * D + h * DH;
   const int* row_mask = mask + (long)n * L;
   const int sub = L / seqs;
 
   for (int idx = tid; idx < bq * DH; idx += bq) {
     const int r = idx / DH, d = idx % DH, i = q0 + r;
-    sQ[r * (DH + 1) + d] = i < L ? to_float(base[(long)i * row_stride + d]) : 0.f;
-    sdO[r * (DH + 1) + d] = i < L ? to_float(dobase[(long)i * D + d]) : 0.f;
+    sQ[r * (DH + 1) + d] = i < L ? base[(long)i * row_stride + d] : 0.f;
+    sdO[r * (DH + 1) + d] = i < L ? dobase[(long)i * D + d] : 0.f;
   }
   __syncthreads();
 
@@ -93,13 +122,13 @@ mha_bwd_kernel(const T* __restrict__ qkv, const int* __restrict__ mask,
   const float scale = 1.0f / sqrtf((float)DH);
   float q[DH], dO[DH], dq[DH];
   float Di = 0.f;
-  const T* obase = out + (long)n * L * D + h * DH + (long)i * D;
+  const float* obase = out + (long)n * L * D + h * DH + (long)i * D;
 #pragma unroll
   for (int d = 0; d < DH; ++d) {
     q[d] = sQ[tid * (DH + 1) + d];
     dO[d] = sdO[tid * (DH + 1) + d];
     dq[d] = 0.f;
-    if (row_ok) Di += dO[d] * to_float(obase[d]);
+    if (row_ok) Di += dO[d] * obase[d];
   }
   float2 st = make_float2(0.f, 0.f);
   if (row_ok) st = stats[((long)n * H + h) * L + i];
@@ -111,9 +140,9 @@ mha_bwd_kernel(const T* __restrict__ qkv, const int* __restrict__ mask,
       const int r = idx / DH, d = idx % DH, j = k0 + r;
       float kv = 0.f, vv = 0.f;
       if (j < L) {
-        const T* row = base + (long)j * row_stride + d;
-        kv = to_float(row[D]);
-        vv = to_float(row[2 * D]);
+        const float* row = base + (long)j * row_stride + d;
+        kv = row[D];
+        vv = row[2 * D];
       }
       sK[r * DH + d] = kv;
       sV[r * DH + d] = vv;
@@ -121,49 +150,58 @@ mha_bwd_kernel(const T* __restrict__ qkv, const int* __restrict__ mask,
     __syncthreads();
     const int nk = min(BK, L - k0);
 
-    Philox4 bits;
+    // Keys r0 + r8 and r0 + r8 + 8 share one Philox call: take them
+    // together. (Keeping 8 words for later, as the forward does, spills
+    // this kernel's registers.)
 #pragma unroll
-    for (int r = 0; r < BK; ++r) {
-      if (drop.on && (r & 3) == 0)
-        bits = philox4x32_10((unsigned)(k0 + r) >> 2, (unsigned)i, (unsigned)h,
-                             (unsigned)n, drop.seed);
-      float ds = 0.f, pd = 0.f;
-      if (r < nk && row_ok) {
-        const float4* kr = reinterpret_cast<const float4*>(sK + r * DH);
-        const float4* vr = reinterpret_cast<const float4*>(sV + r * DH);
-        float s = 0.f, dpd = 0.f;
+    for (int r0 = 0; r0 < BK; r0 += 16) {
 #pragma unroll
-        for (int d4 = 0; d4 < DH / 4; ++d4) {
-          const float4 kk = kr[d4], vv = vr[d4];
-          s += q[4 * d4] * kk.x + q[4 * d4 + 1] * kk.y +
-               q[4 * d4 + 2] * kk.z + q[4 * d4 + 3] * kk.w;
-          dpd += dO[4 * d4] * vv.x + dO[4 * d4 + 1] * vv.y +
-                 dO[4 * d4 + 2] * vv.z + dO[4 * d4 + 3] * vv.w;
-        }
-        s *= scale;
-        const int j = k0 + r;
-        const bool valid = row_mask[j] != 0 && (seqs == 1 || j / sub == my_seg);
-        s = valid ? s : MASK_FILL;
-        const float p = expf(s - st.x) * st.y;
-        float dp = dpd;
-        pd = p;
-        if (drop.on) {
-          const bool keep = bits.w[r & 3] >= drop.thresh;
-          pd = keep ? p * drop.inv_keep : 0.f;
-          dp = keep ? dpd * drop.inv_keep : 0.f;
-        }
-        ds = p * (dp - Di) * scale;
+      for (int r8 = 0; r8 < 8; ++r8) {
+        uint2 bits = make_uint2(0u, 0u);
+        if (drop.on && r0 + r8 < nk && row_ok)
+          bits = mha_row_pair_bits(i, (k0 + r0) >> 4, r8, h, n, drop.seed);
 #pragma unroll
-        for (int d4 = 0; d4 < DH / 4; ++d4) {
-          const float4 kk = kr[d4];
-          dq[4 * d4] += ds * kk.x;
-          dq[4 * d4 + 1] += ds * kk.y;
-          dq[4 * d4 + 2] += ds * kk.z;
-          dq[4 * d4 + 3] += ds * kk.w;
+        for (int e = 0; e < 2; ++e) {
+          const int r = r0 + r8 + 8 * e;
+          float ds = 0.f, pd = 0.f;
+          if (r < nk && row_ok) {
+            const float4* kr = reinterpret_cast<const float4*>(sK + r * DH);
+            const float4* vr = reinterpret_cast<const float4*>(sV + r * DH);
+            float s = 0.f, dpd = 0.f;
+#pragma unroll
+            for (int d4 = 0; d4 < DH / 4; ++d4) {
+              const float4 kk = kr[d4], vv = vr[d4];
+              s += q[4 * d4] * kk.x + q[4 * d4 + 1] * kk.y +
+                   q[4 * d4 + 2] * kk.z + q[4 * d4 + 3] * kk.w;
+              dpd += dO[4 * d4] * vv.x + dO[4 * d4 + 1] * vv.y +
+                     dO[4 * d4 + 2] * vv.z + dO[4 * d4 + 3] * vv.w;
+            }
+            s *= scale;
+            const int j = k0 + r;
+            const bool valid = row_mask[j] != 0 && (seqs == 1 || j / sub == my_seg);
+            s = valid ? s : MASK_FILL;
+            const float p = expf(s - st.x) * st.y;
+            float dp = dpd;
+            pd = p;
+            if (drop.on) {
+              const bool keep = (e ? bits.y : bits.x) >= drop.thresh;
+              pd = keep ? p * drop.inv_keep : 0.f;
+              dp = keep ? dpd * drop.inv_keep : 0.f;
+            }
+            ds = p * (dp - Di) * scale;
+#pragma unroll
+            for (int d4 = 0; d4 < DH / 4; ++d4) {
+              const float4 kk = kr[d4];
+              dq[4 * d4] += ds * kk.x;
+              dq[4 * d4 + 1] += ds * kk.y;
+              dq[4 * d4 + 2] += ds * kk.z;
+              dq[4 * d4 + 3] += ds * kk.w;
+            }
+          }
+          sDS[tid * (BK + 1) + r] = ds;
+          sPD[tid * (BK + 1) + r] = pd;
         }
       }
-      sDS[tid * (BK + 1) + r] = ds;
-      sPD[tid * (BK + 1) + r] = pd;
     }
     __syncthreads();
 
@@ -176,9 +214,9 @@ mha_bwd_kernel(const T* __restrict__ qkv, const int* __restrict__ mask,
         dv += sPD[t * (BK + 1) + r] * sdO[t * (DH + 1) + d];
       }
       if (direct) {
-        T* drow = dqkv + ((long)n * L + j) * row_stride + h * DH + d;
-        drow[D] = from_float<T>(dk);
-        drow[2 * D] = from_float<T>(dv);
+        float* drow = dqkv + ((long)n * L + j) * row_stride + h * DH + d;
+        drow[D] = dk;
+        drow[2 * D] = dv;
       } else {
         float* prow = partial + (((long)blockIdx.z * N + n) * L + j) * (2L * D) + h * DH + d;
         prow[0] = dk;
@@ -194,16 +232,14 @@ mha_bwd_kernel(const T* __restrict__ qkv, const int* __restrict__ mask,
   for (int idx = tid; idx < bq * DH; idx += bq) {
     const int r = idx / DH, d = idx % DH, ii = q0 + r;
     if (ii < L)
-      dqkv[((long)n * L + ii) * row_stride + h * DH + d] =
-          from_float<T>(sQ[r * (DH + 1) + d]);
+      dqkv[((long)n * L + ii) * row_stride + h * DH + d] = sQ[r * (DH + 1) + d];
   }
 }
 
 // dqkv[n, j, D + c] = sum over query tiles z of partial[z, n, j, c], c < 2D
-template <typename T>
-__global__ void mha_bwd_reduce_kernel(const float* __restrict__ partial,
-                                      T* __restrict__ dqkv, long rows, int D,
-                                      int tiles) {
+__global__ void mha_bwd_reduce_fp32(const float* __restrict__ partial,
+                                    float* __restrict__ dqkv, long rows, int D,
+                                    int tiles) {
   const long total = rows * 2L * D;
   for (long e = blockIdx.x * (long)blockDim.x + threadIdx.x; e < total;
        e += (long)gridDim.x * blockDim.x) {
@@ -211,64 +247,374 @@ __global__ void mha_bwd_reduce_kernel(const float* __restrict__ partial,
     for (int z = 0; z < tiles; ++z) acc += partial[z * total + e];
     const long row = e / (2L * D);
     const int c = (int)(e % (2L * D));
-    dqkv[row * 3L * D + D + c] = from_float<T>(acc);
+    dqkv[row * 3L * D + D + c] = acc;
   }
 }
 
-template <typename T, int DH>
-cudaError_t launch_bwd(const void* qkv, const void* mask, const void* out,
-                       const void* dout, const void* stats, void* dqkv,
-                       void* partial, int N, int L, int H, int seqs,
-                       Dropout drop, cudaStream_t stream) {
+template <int DH>
+cudaError_t launch_fp32(const void* qkv, const void* mask, const void* out,
+                        const void* dout, const void* stats, void* dqkv,
+                        void* partial, int N, int L, int H, int seqs,
+                        Dropout drop, cudaStream_t stream) {
   const int bq = L <= 32 ? 32 : MAX_BQ;
-  const int tiles = (L + bq - 1) / bq;
+  const int tiles = fp32_query_tiles(L);
   if (tiles > 1 && partial == nullptr) return cudaErrorInvalidValue;
-  const size_t smem = smem_floats<DH>() * sizeof(float);
+  const size_t smem = fp32_smem_floats<DH>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      mha_bwd_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      mha_bwd_fp32<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(N, H, tiles);
-  mha_bwd_kernel<T, DH><<<grid, bq, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const int*>(mask),
-      static_cast<const T*>(out), static_cast<const T*>(dout),
-      static_cast<const float2*>(stats), static_cast<T*>(dqkv),
+  mha_bwd_fp32<DH><<<grid, bq, smem, stream>>>(
+      static_cast<const float*>(qkv), static_cast<const int*>(mask),
+      static_cast<const float*>(out), static_cast<const float*>(dout),
+      static_cast<const float2*>(stats), static_cast<float*>(dqkv),
       static_cast<float*>(partial), N, L, H, seqs, drop);
   err = cudaGetLastError();
   if (err != cudaSuccess || tiles == 1) return err;
-  mha_bwd_reduce_kernel<T><<<132 * 8, 256, 0, stream>>>(
-      static_cast<const float*>(partial), static_cast<T*>(dqkv), (long)N * L,
+  mha_bwd_reduce_fp32<<<132 * 8, 256, 0, stream>>>(
+      static_cast<const float*>(partial), static_cast<float*>(dqkv), (long)N * L,
       H * DH, tiles);
   return cudaGetLastError();
 }
 
-template <typename T>
+// --------------------------------------------------------------- bfloat16
+typedef __nv_bfloat16 bf16;
+
+constexpr int TC_WARPS = 8;
+constexpr int TC_KEYS = 16 * TC_WARPS;  // keys per tile at most
+constexpr int BQ = 32;                  // query rows per step
+constexpr int LDS = BQ + 8;             // dS^T row pitch (bf16)
+
+int tc_warps(int L) { return L >= TC_KEYS ? TC_WARPS : (L + 15) / 16; }
+
+template <int DH>
+constexpr int tc_smem_bytes(int keys) {
+  // K, V (keys rows); Q, dO, O (2 x BQ rows each); dS^T; m, 1/l, D_i
+  return (2 * keys * (DH + 8) + 6 * BQ * (DH + 8) + keys * LDS) * 2 + 3 * BQ * 4;
+}
+
+// grid (N, H), blockDim 32 * tc_warps(L). dq_acc: (N, H, L, DH) fp32
+// scratch when L > 128, else null.
+template <int DH>
+__global__ void __launch_bounds__(32 * TC_WARPS, 2)
+mha_bwd_bf16(const bf16* __restrict__ qkv, const int* __restrict__ mask,
+             const bf16* __restrict__ out, const bf16* __restrict__ dout,
+             const float2* __restrict__ stats, bf16* __restrict__ dqkv,
+             float* __restrict__ dq_acc, int L, int H, int seqs, Dropout drop) {
+  constexpr int LD = DH + 8, CH = DH / 8;
+  const int nw = blockDim.x >> 5, KT = 16 * nw;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* sK = reinterpret_cast<bf16*>(tc_smem);
+  bf16* sV = sK + KT * LD;
+  bf16* sQ = sV + KT * LD;         // 2 buffers of BQ rows
+  bf16* sdO = sQ + 2 * BQ * LD;
+  bf16* sO = sdO + 2 * BQ * LD;
+  bf16* sdS = sO + 2 * BQ * LD;    // (KT, LDS): dS^T, keys x queries
+  float* sM = reinterpret_cast<float*>(sdS + KT * LDS);
+  float* sIL = sM + BQ;
+  float* sD = sIL + BQ;
+
+  const int n = blockIdx.x, h = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int D = H * DH;
+  const long rs = 3L * D;
+  const bf16* seq = qkv + (long)n * L * rs;
+  bf16* dseq = dqkv + (long)n * L * rs;
+  const bf16* oseq = out + (long)n * L * D + h * DH;
+  const bf16* doseq = dout + (long)n * L * D + h * DH;
+  const int* mrow = mask + (long)n * L;
+  const float2* srow = stats + ((long)n * H + h) * L;
+  float* dq_row = dq_acc == nullptr ? nullptr : dq_acc + ((long)n * H + h) * L * DH;
+  const int sub = L / seqs;
+  const float scale = 1.0f / sqrtf((float)DH);
+  const float ik = drop.on ? drop.inv_keep : 1.f;
+
+  // rows r0.. of a (row stride `stride`) matrix, rows past L zero-filled
+  auto load_rows = [&](bf16* dst, const bf16* src, long stride, int r0, int rows) {
+    for (int c = threadIdx.x; c < rows * CH; c += blockDim.x) {
+      const int r = c / CH, ch = c % CH, j = r0 + r;
+      cp_async16(dst + r * LD + ch * 8, src + (long)min(j, L - 1) * stride + ch * 8,
+                 j < L ? 16 : 0);
+    }
+  };
+  auto load_queries = [&](int buf, int q0) {
+    load_rows(sQ + buf * BQ * LD, seq + h * DH, rs, q0, BQ);
+    load_rows(sdO + buf * BQ * LD, doseq, D, q0, BQ);
+    load_rows(sO + buf * BQ * LD, oseq, D, q0, BQ);
+  };
+
+  for (int k0 = 0; k0 < L; k0 += KT) {
+    if (k0 > 0) __syncthreads();  // the last tile's dQ products have read sK
+    load_rows(sK, seq + D + h * DH, rs, k0, KT);
+    load_rows(sV, seq + 2 * D + h * DH, rs, k0, KT);
+    load_queries(0, 0);
+    cp_async_commit();
+    const int kw = k0 + warp * 16;  // this warp's first key
+    const bool active = kw < L;     // warp-uniform
+    int kok[2];                     // keys g, g + 8: 1 valid, 0 masked, -1 none
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int j = kw + g + 8 * r;
+      kok[r] = j < L ? (mrow[j] != 0) : -1;
+    }
+    const int nkb = (min(KT, L - k0) + 15) / 16;  // 16-key blocks holding keys
+    float dv[DH / 8][4], dk[DH / 8][4];
+#pragma unroll
+    for (int dt = 0; dt < DH / 8; ++dt)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) dv[dt][x] = dk[dt][x] = 0.f;
+
+    int buf = 0;
+    for (int q0 = 0; q0 < L; q0 += BQ, buf ^= 1) {
+      if (q0 + BQ < L) {
+        load_queries(buf ^ 1, q0 + BQ);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      // rows past L: 1/l = 0, so their P is 0 and they add nothing
+      for (int r = threadIdx.x; r < BQ; r += blockDim.x) {
+        const float2 s2 = q0 + r < L ? srow[q0 + r] : make_float2(0.f, 0.f);
+        sM[r] = s2.x;
+        sIL[r] = s2.y;
+      }
+      __syncthreads();  // A: the step's rows and statistics have landed
+      const bf16* q_s = sQ + buf * BQ * LD;
+      const bf16* do_s = sdO + buf * BQ * LD;
+      const bf16* o_s = sO + buf * BQ * LD;
+      // D_i = rowsum(dO * O) in fp32: CH consecutive lanes per row
+      for (int c = threadIdx.x; c < BQ * CH; c += blockDim.x) {
+        const int r = c / CH, ch = c % CH;
+        float acc = dot8_bf16(*reinterpret_cast<const uint4*>(do_s + r * LD + ch * 8),
+                              *reinterpret_cast<const uint4*>(o_s + r * LD + ch * 8));
+#pragma unroll
+        for (int off = CH / 2; off > 0; off >>= 1)
+          acc += __shfl_xor_sync(0xffffffffu, acc, off);
+        if (ch == 0) sD[r] = acc;
+      }
+      __syncthreads();  // B: D_i
+
+      if (active) {
+        float s[BQ / 8][4], dp[BQ / 8][4];
+#pragma unroll
+        for (int nt = 0; nt < BQ / 8; ++nt)
+#pragma unroll
+          for (int x = 0; x < 4; ++x) s[nt][x] = dp[nt][x] = 0.f;
+#pragma unroll
+        for (int kc = 0; kc < DH / 16; ++kc) {
+          uint32_t ka[4], va[4];  // the warp's 16 keys as A
+          ldsm_x4(ka, sK + (warp * 16 + (lane & 15)) * LD + kc * 16 + (lane >> 4) * 8);
+          ldsm_x4(va, sV + (warp * 16 + (lane & 15)) * LD + kc * 16 + (lane >> 4) * 8);
+#pragma unroll
+          for (int qb = 0; qb < BQ / 16; ++qb) {
+            const int off = (qb * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD + kc * 16 +
+                            ((lane >> 3) & 1) * 8;
+            uint32_t b[4];  // queries qb*16.. as B = Q^T, dO^T: two n8 tiles
+            ldsm_x4(b, q_s + off);
+            mma_bf16(s[2 * qb], ka, b[0], b[1]);
+            mma_bf16(s[2 * qb + 1], ka, b[2], b[3]);
+            ldsm_x4(b, do_s + off);
+            mma_bf16(dp[2 * qb], va, b[0], b[1]);
+            mma_bf16(dp[2 * qb + 1], va, b[2], b[3]);
+          }
+        }
+        // P from the statistics; s[nt][x] is (key g + 8 (x >> 1), query
+        // q0 + nt * 8 + 2t + (x & 1))
+#pragma unroll
+        for (int nt = 0; nt < BQ / 8; ++nt) {
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            const int r = x >> 1, ql = nt * 8 + 2 * t + (x & 1);
+            const int i = q0 + ql, j = kw + g + 8 * r;
+            float v = s[nt][x] * scale;
+            if (kok[r] == 0 || (seqs > 1 && j / sub != i / sub)) v = MASK_FILL;
+            s[nt][x] = kok[r] < 0 ? 0.f : exp2f((v - sM[ql]) * LOG2E) * sIL[ql];
+          }
+        }
+        // keep multipliers (inv_keep or 0; 1 without dropout) into kp
+        float kp[BQ / 8][4];
+#pragma unroll
+        for (int nt = 0; nt < BQ / 8; ++nt)
+#pragma unroll
+          for (int x = 0; x < 4; ++x) kp[nt][x] = ik;
+        if (drop.on) {
+#pragma unroll
+          for (int qb = 0; qb < BQ / 16; ++qb) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              // words: (key g, query 2t+e), (g+8, 2t+e), (g, 2t+e+8), (g+8, 2t+e+8)
+              const Philox4 bits = mha_block_bits((q0 >> 4) + qb, 2 * t + e, kw >> 4, g, h,
+                                                  n, drop.seed);
+              const unsigned th = drop.thresh;
+              if (bits.w[0] < th) kp[2 * qb][e] = 0.f;
+              if (bits.w[1] < th) kp[2 * qb][2 + e] = 0.f;
+              if (bits.w[2] < th) kp[2 * qb + 1][e] = 0.f;
+              if (bits.w[3] < th) kp[2 * qb + 1][2 + e] = 0.f;
+            }
+          }
+        }
+        // s <- Pd, dp <- dS = P (keep dP / (1 - rate) - D_i) / sqrt(Dh)
+#pragma unroll
+        for (int nt = 0; nt < BQ / 8; ++nt) {
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            const float p = s[nt][x];
+            const float Di = sD[nt * 8 + 2 * t + (x & 1)];
+            s[nt][x] = p * kp[nt][x];
+            dp[nt][x] = p * (dp[nt][x] * kp[nt][x] - Di) * scale;
+          }
+        }
+#pragma unroll
+        for (int qb = 0; qb < BQ / 16; ++qb) {
+          const uint32_t pa[4] = {pack_bf16(s[2 * qb][0], s[2 * qb][1]),
+                                  pack_bf16(s[2 * qb][2], s[2 * qb][3]),
+                                  pack_bf16(s[2 * qb + 1][0], s[2 * qb + 1][1]),
+                                  pack_bf16(s[2 * qb + 1][2], s[2 * qb + 1][3])};
+          const uint32_t da[4] = {pack_bf16(dp[2 * qb][0], dp[2 * qb][1]),
+                                  pack_bf16(dp[2 * qb][2], dp[2 * qb][3]),
+                                  pack_bf16(dp[2 * qb + 1][0], dp[2 * qb + 1][1]),
+                                  pack_bf16(dp[2 * qb + 1][2], dp[2 * qb + 1][3])};
+#pragma unroll
+          for (int dpr = 0; dpr < DH / 16; ++dpr) {
+            const int off = (qb * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + dpr * 16 +
+                            (lane >> 4) * 8;
+            uint32_t b[4];  // dO, Q rows qb*16.., columns dpr*16..: two n8 tiles
+            ldsm_x4_t(b, do_s + off);
+            mma_bf16(dv[2 * dpr], pa, b[0], b[1]);
+            mma_bf16(dv[2 * dpr + 1], pa, b[2], b[3]);
+            ldsm_x4_t(b, q_s + off);
+            mma_bf16(dk[2 * dpr], da, b[0], b[1]);
+            mma_bf16(dk[2 * dpr + 1], da, b[2], b[3]);
+          }
+          bf16* row = sdS + (warp * 16 + g) * LDS + qb * 16 + 2 * t;
+          *reinterpret_cast<uint32_t*>(row) = da[0];
+          *reinterpret_cast<uint32_t*>(row + 8 * LDS) = da[1];
+          *reinterpret_cast<uint32_t*>(row + 8) = da[2];
+          *reinterpret_cast<uint32_t*>(row + 8 * LDS + 8) = da[3];
+        }
+      }
+      __syncthreads();  // C: dS^T of every warp
+
+      // dQ of the step's rows = dS K over the tile's keys, one 16 x 16
+      // block per warp at a time
+      for (int blk = warp; blk < (BQ / 16) * (DH / 16); blk += nw) {
+        const int qb = blk / (DH / 16), dpr = blk % (DH / 16);
+        float acc[2][4] = {};
+        for (int kc = 0; kc < nkb; ++kc) {
+          uint32_t a[4], b[4];
+          ldsm_x4_t(a, sdS + (kc * 16 + (lane & 7) + (lane >> 4) * 8) * LDS + qb * 16 +
+                           ((lane >> 3) & 1) * 8);
+          ldsm_x4_t(b, sK + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + dpr * 16 +
+                           (lane >> 4) * 8);
+          mma_bf16(acc[0], a, b[0], b[1]);
+          mma_bf16(acc[1], a, b[2], b[3]);
+        }
+#pragma unroll
+        for (int dt = 0; dt < 2; ++dt) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int i = q0 + qb * 16 + g + 8 * r;
+            if (i >= L) continue;
+            const int d = dpr * 16 + dt * 8 + 2 * t;
+            float v0 = acc[dt][2 * r], v1 = acc[dt][2 * r + 1];
+            if (dq_row != nullptr) {  // summed over key tiles by this lane alone
+              float2* p = reinterpret_cast<float2*>(dq_row + (long)i * DH + d);
+              if (k0 > 0) {
+                const float2 o = *p;
+                v0 += o.x;
+                v1 += o.y;
+              }
+              if (k0 + KT < L) {
+                *p = make_float2(v0, v1);
+                continue;
+              }
+            }
+            *reinterpret_cast<uint32_t*>(dseq + (long)i * rs + h * DH + d) =
+                pack_bf16(v0, v1);
+          }
+        }
+      }
+    }
+
+    if (active) {  // dK, dV of the warp's keys, written once
+#pragma unroll
+      for (int dt = 0; dt < DH / 8; ++dt) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int j = kw + g + 8 * r;
+          if (j >= L) continue;
+          bf16* row = dseq + (long)j * rs + h * DH + dt * 8 + 2 * t;
+          *reinterpret_cast<uint32_t*>(row + D) = pack_bf16(dk[dt][2 * r], dk[dt][2 * r + 1]);
+          *reinterpret_cast<uint32_t*>(row + 2 * D) =
+              pack_bf16(dv[dt][2 * r], dv[dt][2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+template <int DH>
+cudaError_t launch_bf16(const void* qkv, const void* mask, const void* out,
+                        const void* dout, const void* stats, void* dqkv,
+                        void* scratch, int N, int L, int H, int seqs,
+                        Dropout drop, cudaStream_t stream) {
+  const int nw = tc_warps(L);
+  if (L > 16 * nw && scratch == nullptr) return cudaErrorInvalidValue;
+  const int smem = tc_smem_bytes<DH>(16 * nw);
+  cudaError_t err = cudaFuncSetAttribute(
+      mha_bwd_bf16<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(N, H);
+  mha_bwd_bf16<DH><<<grid, 32 * nw, smem, stream>>>(
+      static_cast<const bf16*>(qkv), static_cast<const int*>(mask),
+      static_cast<const bf16*>(out), static_cast<const bf16*>(dout),
+      static_cast<const float2*>(stats), static_cast<bf16*>(dqkv),
+      L > 16 * nw ? static_cast<float*>(scratch) : nullptr, L, H, seqs, drop);
+  return cudaGetLastError();
+}
+
+template <bool BF16>
 cudaError_t dispatch_head_dim(const void* qkv, const void* mask, const void* out,
                               const void* dout, const void* stats, void* dqkv,
-                              void* partial, int N, int L, int H, int Dh,
+                              void* scratch, int N, int L, int H, int Dh,
                               int seqs, Dropout drop, cudaStream_t stream) {
   switch (Dh) {
-    case 16: return launch_bwd<T, 16>(qkv, mask, out, dout, stats, dqkv, partial, N, L, H, seqs, drop, stream);
-    case 32: return launch_bwd<T, 32>(qkv, mask, out, dout, stats, dqkv, partial, N, L, H, seqs, drop, stream);
-    case 64: return launch_bwd<T, 64>(qkv, mask, out, dout, stats, dqkv, partial, N, L, H, seqs, drop, stream);
+#define MHA_CASE(DH)                                                                  \
+  case DH:                                                                            \
+    return BF16 ? launch_bf16<DH>(qkv, mask, out, dout, stats, dqkv, scratch, N, L,   \
+                                  H, seqs, drop, stream)                              \
+                : launch_fp32<DH>(qkv, mask, out, dout, stats, dqkv, scratch, N, L,   \
+                                  H, seqs, drop, stream);
+    MHA_CASE(16)
+    MHA_CASE(32)
+    MHA_CASE(64)
+#undef MHA_CASE
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// The number of query tiles the kernel splits L into: the wrapper allocates
-// partial = (tiles, N, L, 2*H*Dh) fp32 when it is above 1.
-extern "C" int mha_bwd_query_tiles(int L) {
-  const int bq = L <= 32 ? 32 : MAX_BQ;
-  return (L + bq - 1) / bq;
+// fp32 scratch the wrapper allocates for mha_bwd, in floats (0: none):
+// float32, the (tiles, N, L, 2*H*Dh) dK|dV partials when L spans more than
+// one query tile; bfloat16, the (N, H, L, Dh) dQ sums when L spans more
+// than one key tile (L > 128).
+extern "C" long long mha_bwd_scratch_floats(int N, int L, int H, int Dh, int dtype) {
+  const long long rows = (long long)N * L * H * Dh;
+  if (dtype == DTYPE_BF16) return L > 16 * tc_warps(L) ? rows : 0;
+  const int tiles = fp32_query_tiles(L);
+  return tiles > 1 ? tiles * 2 * rows : 0;
 }
 
 // qkv, dqkv (N, L, 3*H*Dh), out, dout (N, L, H*Dh) of one dtype, mask (N, L)
-// int32, stats (N, H, L) float2 from mha_fwd, all contiguous. The dropout
-// arguments must be those of the forward call.
+// int32, stats (N, H, L) float2 from mha_fwd, all contiguous (bf16: 16-byte
+// aligned); scratch as mha_bwd_scratch_floats says. The dropout arguments
+// must be those of the forward call.
 extern "C" int mha_bwd(const void* qkv, const void* mask, const void* out,
                        const void* dout, const void* stats, void* dqkv,
-                       void* partial, int N, int L, int H, int Dh, int seqs,
+                       void* scratch, int N, int L, int H, int Dh, int seqs,
                        unsigned long long seed, unsigned int thresh,
                        float inv_keep, int dropping, int dtype, int device,
                        void* stream) {
@@ -280,11 +626,11 @@ extern "C" int mha_bwd(const void* qkv, const void* mask, const void* out,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case DTYPE_F32:
-      return dispatch_head_dim<float>(qkv, mask, out, dout, stats, dqkv, partial,
-                                      N, L, H, Dh, seqs, drop, s);
+      return dispatch_head_dim<false>(qkv, mask, out, dout, stats, dqkv, scratch, N, L,
+                                      H, Dh, seqs, drop, s);
     case DTYPE_BF16:
-      return dispatch_head_dim<__nv_bfloat16>(qkv, mask, out, dout, stats, dqkv,
-                                              partial, N, L, H, Dh, seqs, drop, s);
+      return dispatch_head_dim<true>(qkv, mask, out, dout, stats, dqkv, scratch, N, L,
+                                     H, Dh, seqs, drop, s);
     default:
       return cudaErrorInvalidValue;
   }

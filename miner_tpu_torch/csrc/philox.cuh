@@ -18,12 +18,13 @@ __device__ __forceinline__ Philox4 philox4x32_10(uint32_t c0, uint32_t c1,
   uint32_t k1 = static_cast<uint32_t>(seed >> 32);
 #pragma unroll
   for (int r = 0; r < 10; ++r) {
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
-    c0 = hi1 ^ c1 ^ k0;
-    c1 = lo1;
-    c2 = hi0 ^ c3 ^ k1;
-    c3 = lo0;
+    // one 32 x 32 -> 64-bit multiply gives both halves
+    const unsigned long long p0 = static_cast<unsigned long long>(0xD2511F53u) * c0;
+    const unsigned long long p1 = static_cast<unsigned long long>(0xCD9E8D57u) * c2;
+    c0 = static_cast<uint32_t>(p1 >> 32) ^ c1 ^ k0;
+    c1 = static_cast<uint32_t>(p1);
+    c2 = static_cast<uint32_t>(p0 >> 32) ^ c3 ^ k1;
+    c3 = static_cast<uint32_t>(p0);
     k0 += 0x9E3779B9u;
     k1 += 0xBB67AE85u;
   }
@@ -33,4 +34,26 @@ __device__ __forceinline__ Philox4 philox4x32_10(uint32_t c0, uint32_t c1,
   out.w[2] = c2;
   out.w[3] = c3;
   return out;
+}
+
+// The mha layout: element (query i, key j) of head h of sequence n is word
+// 2 * bit3(i) + bit3(j) of philox(counter = (j', i', h, n)), where x' is x
+// with bit 3 taken out (x' = (x >> 4) * 8 + x % 8). One call covers
+// {i, i+8} x {j, j+8}: the four values one lane holds of a 16 x 16 block in
+// the mma C layout, whether queries or keys are the rows.
+//
+// The call for queries 16 qb + qr + {0, 8} and keys 16 kb + kr + {0, 8}
+// (qr, kr < 8): word w[2 a + b] is the bits of (query + 8 a, key + 8 b).
+__device__ __forceinline__ Philox4 mha_block_bits(int qb, int qr, int kb, int kr, int h,
+                                                  int n, unsigned long long seed) {
+  return philox4x32_10(static_cast<uint32_t>(kb * 8 + kr), static_cast<uint32_t>(qb * 8 + qr),
+                       static_cast<uint32_t>(h), static_cast<uint32_t>(n), seed);
+}
+
+// Both words of row i's call for keys 16 kb + kr and 16 kb + kr + 8: the
+// pair a thread that owns query row i draws per call.
+__device__ __forceinline__ uint2 mha_row_pair_bits(int i, int kb, int kr, int h, int n,
+                                                   unsigned long long seed) {
+  const Philox4 b = mha_block_bits(i >> 4, i & 7, kb, kr, h, n, seed);
+  return (i & 8) ? make_uint2(b.w[2], b.w[3]) : make_uint2(b.w[0], b.w[1]);
 }

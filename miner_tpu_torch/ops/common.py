@@ -106,13 +106,13 @@ def load(name: str) -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def kernel_function(name: str, symbol: str, argtypes: Tuple):
+def kernel_function(name: str, symbol: str, argtypes: Tuple, restype=ctypes.c_int):
     """``symbol`` of library ``name`` with its ctypes signature set. Every
     pointer and the stream are ``c_void_p``: a bare Python int would be
     passed as a 32-bit int and cut."""
     fn = getattr(load(name), symbol)
     fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
+    fn.restype = restype
     return fn
 
 
@@ -143,6 +143,13 @@ def check_tensor(what: str, t: torch.Tensor, device: torch.device,
         raise ValueError(f"{what} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{what} must be contiguous")
+
+
+def check_aligned(what: str, t: torch.Tensor, nbytes: int = 16) -> None:
+    """Raise unless ``t``'s data starts on an ``nbytes`` boundary: kernels
+    that copy rows with 16-byte loads take no other."""
+    if t.data_ptr() % nbytes:
+        raise ValueError(f"{what} must start on a {nbytes}-byte boundary")
 
 
 def require_cuda(t: torch.Tensor, op: str) -> None:

@@ -13,9 +13,12 @@ The kernels are ``csrc/mha_fwd.cu`` and ``csrc/mha_bwd.cu``. Dropout keeps
 an element by its Philox4x32-10 bits (``ops/philox.py``: a function of the
 seed and (n, head, query, key)), so the forward, the backward and a
 rematerialised forward regenerate one mask and nothing random is stored.
-The softmax probabilities stay fp32 into the PV product and the backward's
-products (the TPU kernels round them to the input type first); in fp32 the
-two agree to rounding.
+In bfloat16 the kernels run on the tensor cores and round P (into PV), Pd
+and dS (into the backward's products) to bf16, as the TPU kernels round
+them to the input type; the plain versions here keep them fp32, and the
+bf16 tolerance covers the difference. In float32 the kernels stay on the
+CUDA cores and the probabilities stay fp32 into every product, so kernel
+and plain version agree to rounding.
 
 Under autograd (grad mode on and ``qkv`` requiring grad) the op is a
 ``torch.autograd.Function``: on the card its forward kernel also saves each
@@ -124,6 +127,8 @@ def _check(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int) -> int:
         raise ValueError(f"head dim {Dh} not supported by the kernel {_HEAD_DIMS}")
     common.check_tensor("qkv", qkv, qkv.device, tuple(common.DTYPE_CODES))
     common.check_tensor("mask", mask, qkv.device, (torch.int32,))
+    if qkv.dtype == torch.bfloat16:  # the tensor-core kernels copy 16 bytes at a time
+        common.check_aligned("qkv", qkv)
     return Dh
 
 
@@ -168,18 +173,23 @@ def mha_backward(qkv: torch.Tensor, mask: torch.Tensor, dout: torch.Tensor,
     common.check_tensor("dout", dout, qkv.device, (qkv.dtype,), (N, L, D3 // 3))
     common.check_tensor("stats", stats, qkv.device, (torch.float32,),
                         (N, num_heads, L, 2))
-    tiles = common.kernel_function("mha_bwd", "mha_bwd_query_tiles",
-                                   (ctypes.c_int,))(L)
+    if qkv.dtype == torch.bfloat16:
+        common.check_aligned("out", out)
+        common.check_aligned("dout", dout)
+    code = common.DTYPE_CODES[qkv.dtype]
+    floats = common.kernel_function("mha_bwd", "mha_bwd_scratch_floats",
+                                    (ctypes.c_int,) * 5, ctypes.c_longlong)(
+        N, L, num_heads, Dh, code)
     dqkv = torch.empty_like(qkv)
-    partial = (torch.empty((tiles, N, L, 2 * D3 // 3), dtype=torch.float32,
-                           device=qkv.device) if tiles > 1 else None)
+    # fp32: dK|dV partials of each query tile; bf16 (L > 128): dQ sums
+    scratch = (torch.empty(floats, dtype=torch.float32, device=qkv.device)
+               if floats else None)
     fn = common.kernel_function("mha_bwd", "mha_bwd", _BWD_ARGTYPES)
     common.launch("mha_bwd", fn, qkv.data_ptr(), mask.data_ptr(), out.data_ptr(),
                   dout.data_ptr(), stats.data_ptr(), dqkv.data_ptr(),
-                  None if partial is None else partial.data_ptr(), N, L,
+                  None if scratch is None else scratch.data_ptr(), N, L,
                   num_heads, Dh, seqs, *_dropout_args(dropout_rate, seed),
-                  common.DTYPE_CODES[qkv.dtype], qkv.device.index,
-                  common.stream_of(qkv))
+                  code, qkv.device.index, common.stream_of(qkv))
     mha_backward.launches += 1
     return dqkv
 

@@ -12,8 +12,12 @@ its counter so that one element's bits depend only on (seed, its
 coordinates): the forward, the backward and a rematerialised forward all
 regenerate the same mask in any order, and nothing random is stored.
 
-  * mha, element (sequence n, head h, query i, key j):
-    word ``j % 4`` of philox(counter = (j // 4, i, h, n));
+  * mha, element (sequence n, head h, query i, key j): word
+    ``2 * bit3(i) + bit3(j)`` of philox(counter = (j', i', h, n)), where
+    ``x' = (x // 16) * 8 + x % 8`` is x with bit 3 taken out. One call
+    covers the four elements {i, i+8} x {j, j+8} that one lane of a
+    tensor-core tile holds (``csrc/philox.cuh``), whether queries or keys
+    are the tile's rows, so no two lanes compute the same call;
   * add_ln, element (row r, column c):
     word ``c % 4`` of philox(counter = (c // 4, r, 0, 0)).
 
@@ -76,15 +80,22 @@ def _select_word(words, lane: torch.Tensor) -> torch.Tensor:
                        torch.where(lane == 2, c2, c3)))
 
 
+def _drop_index(x: torch.Tensor) -> torch.Tensor:
+    """x with bit 3 taken out: (x // 16) * 8 + x % 8."""
+    return ((x >> 4) << 3) | (x & 7)
+
+
 def mha_bits(seed: int, N: int, H: int, L: int, device) -> torch.Tensor:
     """(N, H, L, L) int64 bits of the mha dropout mask, [n, h, i, j]."""
     dev = torch.device(device)
     ar = lambda n: torch.arange(n, dtype=torch.int64, device=dev)
-    j = ar(L)
-    words = philox4x32((j >> 2)[None, None, None, :], ar(L)[None, None, :, None],
+    x = ar(L)
+    words = philox4x32(_drop_index(x)[None, None, None, :],
+                       _drop_index(x)[None, None, :, None],
                        ar(H)[None, :, None, None], ar(N)[:, None, None, None],
                        seed)
-    return _select_word(words, (j & 3)[None, None, None, :])
+    lane = ((x >> 3) & 1)[:, None] * 2 + ((x >> 3) & 1)[None, :]
+    return _select_word(words, lane[None, None])
 
 
 def add_ln_bits(seed: int, T: int, D: int, device) -> torch.Tensor:

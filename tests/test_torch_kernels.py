@@ -82,6 +82,26 @@ def test_dropout_keep_rate_is_one_minus_rate(site):
     assert keep.numel() >= 0.99 * n
 
 
+def test_mha_dropout_layout_gives_one_call_per_lane_block():
+    """One Philox call covers {i, i+8} x {j, j+8} of a 16 x 16 block (the
+    four values one tensor-core lane holds), words in the order (i, j),
+    (i, j+8), (i+8, j), (i+8, j+8); and no two elements share a word."""
+    seed, N, H, L = 2 ** 35 + 3, 2, 3, 48
+    bits = philox.mha_bits(seed, N, H, L, "cpu")
+    for n, h, i, j in [(0, 0, 0, 0), (1, 2, 21, 5), (0, 1, 34, 39), (1, 0, 7, 32)]:
+        i0, j0 = i - (i & 8), j - (j & 8)
+        words = philox.philox4x32(
+            *(torch.tensor([c]) for c in ((j0 >> 4) * 8 + j0 % 8,
+                                          (i0 >> 4) * 8 + i0 % 8, h, n)), seed)
+        got = [bits[n, h, i0, j0], bits[n, h, i0, j0 + 8], bits[n, h, i0 + 8, j0],
+               bits[n, h, i0 + 8, j0 + 8]]
+        assert [int(w) for w in got] == [int(w) for w in words]
+    x = torch.arange(L)
+    c, b = (x >> 4) * 8 + x % 8, (x >> 3) & 1  # x without bit 3, bit 3
+    use = (c[None, :] * 64 + c[:, None]) * 4 + b[:, None] * 2 + b[None, :]
+    assert torch.unique(use).numel() == L * L  # (counter, word) of (i, j)
+
+
 @pytest.mark.parametrize("site", ["mha", "add_ln"])
 def test_dropout_mask_is_a_function_of_the_seed(site):
     draw = ((lambda s: philox.mha_bits(s, 3, 2, 16, "cpu")) if site == "mha"
@@ -130,6 +150,14 @@ def test_check_tensor_refuses_what_kernels_do_not_take(bad, match):
     with pytest.raises((TypeError, ValueError), match=match):
         common.check_tensor("x", bad, torch.device("cpu"),
                             (torch.float32, torch.bfloat16), (4, 8))
+
+
+def test_check_aligned_refuses_a_view_off_a_16_byte_boundary():
+    """The bf16 mha kernels copy rows in 16-byte pieces."""
+    base = torch.zeros(64, dtype=torch.bfloat16)
+    common.check_aligned("x", base)
+    with pytest.raises(ValueError, match="16-byte"):
+        common.check_aligned("x", base[1:])
 
 
 def test_library_name_follows_the_source():
@@ -256,18 +284,32 @@ def _tol(dtype, want):
     return (1e-4 if dtype == torch.float32 else 2.0 ** -6) * scale
 
 
+def _assert_mha_grad_close(got, want, H, dtype):
+    """dqkv's dq, dk and dv, each element within the tolerance of the
+    largest |dq|, |dk| or |dv| of its (sequence, head), as chip_smoke.py
+    holds them: a short sequence's dv outgrows a long one's gradient, so one
+    scale for the batch would hide a wrong dq or dk."""
+    N, L, D3 = want.shape
+    shape = (N, L, 3, H, D3 // 3 // H)
+    err = (got.float() - want.float()).abs().view(shape).amax(dim=(1, 4))  # (N, 3, H)
+    scale = want.float().abs().view(shape).amax(dim=(1, 2, 4))  # (N, H)
+    tol = (1e-4 if dtype == torch.float32 else 2.0 ** -6) * scale[:, None]
+    assert (err <= tol).all(), f"err / tol, [sequence, part, head]: {err / tol}"
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("op", ["mha", "mha_seqs4", "mha_3_query_tiles", "add_ln"])
+@pytest.mark.parametrize("op", ["mha", "mha_seqs4", "mha_2_key_tiles", "add_ln"])
 def test_backward_kernel_matches_plain_on_card(rng, op, dtype, rate):
-    """The backward kernels against the plain backward formulas (mha: the
-    one-tile path at L=40, the partial-sum path at L=160)."""
+    """The backward kernels against the plain backward formulas (mha: one
+    key tile at L=40; at L=160 the bf16 kernel sums dQ over two key tiles
+    and the fp32 one sums dK, dV partials over three query tiles)."""
     dev = _card()
     before = launch_counts()
     if op.startswith("mha"):
         seqs = 4 if op == "mha_seqs4" else 1
-        L = 160 if op == "mha_3_query_tiles" else 40
+        L = 160 if op == "mha_2_key_tiles" else 40
         qkv, mask, H = _mha_inputs(rng, N=4, L=L, H=2, Dh=64)
         qkv = torch.as_tensor(qkv, device=dev).to(dtype)
         mask = torch.as_tensor(mask, device=dev)
@@ -287,29 +329,100 @@ def test_backward_kernel_matches_plain_on_card(rng, op, dtype, rate):
     assert launch_counts()[name] == before[name] + 1
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and torch.isfinite(a).all()
-        assert (a.float() - b.float()).abs().max().item() <= _tol(dtype, b)
+        if name == "mha_bwd":
+            _assert_mha_grad_close(a, b, H, dtype)
+        else:
+            assert (a.float() - b.float()).abs().max().item() <= _tol(dtype, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Dh", [16, 32, 64])
+@pytest.mark.parametrize("L", [32, 40, 128, 160, 300])
+def test_mha_tiling_matches_plain_on_card(rng, L, Dh, dtype, rate):
+    """Forward and backward against the plain versions over the kernels'
+    tilings: one key tile of several heads per block (32, 40: a ragged
+    tile), the sapo shape (128), several key tiles and query passes (160,
+    300); each with a padded row, a fully masked row (the mean of V) and
+    the block-diagonal band (seqs = 4) on a second call."""
+    dev = _card()
+    H = 3
+    qkv, mask, _ = _mha_inputs(rng, N=3, L=L, H=H, Dh=Dh)
+    mask[1, L // 2:] = 0
+    qkv = torch.as_tensor(qkv, device=dev).to(dtype)
+    mask = torch.as_tensor(mask, device=dev)
+    dout = torch.as_tensor(rng.normal(size=(3, L, H * Dh)), device=dev).to(dtype)
+    for seqs in (1, 4):
+        out, stats = mha._launch_fwd(qkv, mask, H, seqs, rate, 9, True)
+        want = mha.mha_reference(qkv, mask, H, seqs, rate, 9)
+        assert out.dtype == dtype and torch.isfinite(out).all()
+        assert (out.float() - want.float()).abs().max().item() <= _tol(dtype, want)
+        got = mha.mha_backward(qkv, mask, dout, H, rate, 9, seqs, out, stats)
+        want = mha.mha_backward_reference(qkv, mask, dout, H, seqs, rate, 9)
+        assert got.dtype == dtype and torch.isfinite(got).all()
+        _assert_mha_grad_close(got, want, H, dtype)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("op", ["mha", "add_ln"])
+def test_mha_alignment_rule_on_card(rng, dtype):
+    """A qkv view 4 bytes off a 16-byte boundary: the fp32 kernels (4-byte
+    loads) take it, the bf16 ones (16-byte copies) refuse it."""
+    dev = _card()
+    qkv, mask, H = _mha_inputs(rng, N=3, L=24, H=2, Dh=16)
+    flat = torch.as_tensor(qkv, device=dev).to(dtype).flatten()
+    view = torch.cat([flat[:4 // flat.element_size()], flat]).narrow(
+        0, 4 // flat.element_size(), flat.numel()).view(qkv.shape)
+    mask = torch.as_tensor(mask, device=dev)
+    if dtype == torch.bfloat16:
+        with pytest.raises(ValueError, match="16-byte"):
+            mha.fused_mha(view, mask, H)
+        return
+    got = mha.fused_mha(view, mask, H)
+    want = mha.mha_reference(view, mask, H)
+    assert (got - want).abs().max().item() <= _tol(dtype, want)
+
+
+def _mha_dropped(qkv, mask, H, rate, seed):
+    """(N, H, L, L) bool: where the forward kernel's output weights are 0.
+    V is set to one-hot rows, one launch per block of Dh keys, so each
+    output row is a row of dropped probabilities."""
+    N, L, D3 = qkv.shape
+    Dh = D3 // 3 // H
+    zero = torch.empty((N, H, L, L), dtype=torch.bool, device=qkv.device)
+    for k0 in range(0, L, Dh):
+        nb = min(Dh, L - k0)
+        probe = qkv.clone().view(N, L, 3, H, Dh)
+        probe[:, :, 2] = 0
+        j = torch.arange(nb, device=qkv.device)
+        probe[:, k0 + j, 2, :, j] = 1
+        out = mha.fused_mha(probe.view(N, L, -1), mask, H, rate, 1, seed)
+        zero[..., k0:k0 + nb] = (out.view(N, L, H, Dh)[..., :nb] == 0).permute(0, 2, 1, 3)
+    return zero
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op", ["mha", "mha_3_key_tiles", "add_ln"])
 def test_dropout_mask_matches_plain_on_card(rng, op, dtype):
     """The kernels' dropout zeros lie exactly where the plain version's
-    Philox mask drops: for mha V is the identity, so each output row is the
-    row of dropped probabilities; for add_ln dh is zero where h was
-    dropped."""
+    Philox mask drops: for mha V is one-hot, so each output row is the row
+    of dropped probabilities (L = 32: one key tile; L = 160: three key
+    tiles and two query passes of the forward); for add_ln dh is zero where
+    h was dropped."""
     dev = _card()
     rate, seed = 0.3, 2 ** 33 + 17
-    if op == "mha":
-        N, L, H = 3, 32, 2
-        qkv = rng.normal(size=(N, L, 3, H, L)) * 0.5
-        qkv[:, :, 2] = np.eye(L)[None, :, None, :]
-        qkv = torch.as_tensor(qkv.reshape(N, L, 3 * H * L), device=dev).to(dtype)
+    if op.startswith("mha"):
+        N, H = 3, 2
+        L, Dh = (160, 64) if op == "mha_3_key_tiles" else (32, 32)
+        qkv = torch.as_tensor(rng.normal(size=(N, L, 3 * H * Dh)) * 0.5,
+                              device=dev).to(dtype)
         mask = torch.ones((N, L), dtype=torch.int32, device=dev)
-        got = mha.fused_mha(qkv, mask, H, rate, 1, seed).reshape(N, L, H, L)
         keep = philox.keep_mask(philox.mha_bits(seed, N, H, L, dev), rate)
-        assert torch.equal(got != 0, keep.permute(0, 2, 1, 3))
-        want = mha.mha_reference(qkv, mask, H, 1, rate, seed).reshape(N, L, H, L)
+        assert torch.equal(_mha_dropped(qkv, mask, H, rate, seed), ~keep)
+        got = mha.fused_mha(qkv, mask, H, rate, 1, seed)
+        want = mha.mha_reference(qkv, mask, H, 1, rate, seed)
     else:
         x, h, dy = (torch.as_tensor(rng.normal(size=(37, 96)), device=dev).to(dtype)
                     for _ in range(3))
