@@ -11,16 +11,21 @@ Phases, each of which makes the script exit non-zero when it fails:
 2. kernels: each of the seven kernels runs at the shapes its paths give it
    (serving: the cache fill's chunks and request batches; training: a
    ``train_miner.txt`` micro-batch, with dropout on, and for mha also off,
-   so that the dropout's share of the time shows, and in fp32; Fastformer
-   attention at the train, eval and serve batches, in fp32 as those paths
-   give it, and in bf16) against its plain PyTorch version on the same
-   inputs (the tolerance is printed beside the error; the mha backward's
-   dq, dk and dv each at the scale of its (sequence, head)'s gradient;
-   with dropout the kernel's mask must equal the plain version's bit for
-   bit), and is timed with CUDA
-   events beside the plain version, the one PyTorch call computing the
-   same function where there is one, and its bound on an H100 SXM
-   (3.35 TB/s; 989 TFLOP/s bf16, 67 TFLOP/s fp32).
+   so that the dropout's share of the time shows, and in fp32; the add_ln
+   backward also in fp32; poly-attention at the train, serve and eval
+   batches, in fp32, and with a quarter of its rows fully masked;
+   lookup+score at a slate, the whole-corpus top-k and an eval batch;
+   Fastformer attention at the train, eval and serve batches, in fp32 as
+   those paths give it, and in bf16) against its plain PyTorch version on
+   the same inputs (the tolerance is printed beside the error; the mha
+   backward's dq, dk and dv each at the scale of its (sequence, head)'s
+   gradient; with dropout the kernel's mask must equal the plain version's
+   bit for bit), and is timed with CUDA events beside the plain version,
+   the one PyTorch call computing the same function where there is one,
+   and its bound on an H100 SXM (3.35 TB/s; 989 TFLOP/s bf16, 67 TFLOP/s
+   fp32). A kernel's time is its device time, from calls captured in a
+   CUDA graph and replayed; the time of a call back to back, host
+   included, is printed beside it.
 3. train: the launch counts are set to 0 and ``Trainer.train()`` runs the
    full-width ``config/train_miner.txt`` (roberta-base towers, random
    weights from the seed, bf16 compute, dropout, --remat, accumulation 8)
@@ -48,8 +53,20 @@ Phases, each of which makes the script exit non-zero when it fails:
    float32, dropout off, on the card and on the CPU: the loss and every
    trainable parameter's gradient must agree.
 
+After the phases, every shape at which the main path launched
+poly-attention or lookup+score (a census of their launches) is timed, and
+each kernel's launch-weighted gap, launches x (time - bound) summed over
+the shapes it was launched at, goes into its row.
+
 Prints the card's name and power limit, one JSON line of kernel results,
 and last ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --kernels add_ln_bwd,poly_attention_fwd [--package DIR]
+
+builds and runs only the kernel phase of the kernels named, from the
+``miner_tpu_torch`` under DIR when given (an unpacked other commit, such as
+the parent: ``git archive <commit> | tar -x -C DIR``), so that two versions
+are timed on one card in one session.
 """
 from __future__ import annotations
 
@@ -98,6 +115,16 @@ REQUIRED = {
     "fastformer_serve": FF_KERNELS,
 }
 FORBIDDEN = {"fastformer_train": ("mha_bwd", "add_ln_bwd")}
+# the libraries whose ptxas report names each entry (kernels built in
+# several variants)
+ENTRY_REPORTS = ("mha_fwd", "mha_bwd", "add_ln_bwd", "poly_attention_fwd")
+# which phases' launches a kernel case stands for, in the launch-weighted
+# gap (launches x (time - bound)): a phase's launches are split evenly over
+# its cases (titles and sapos launch equally often; the cache fill's chunks
+# are taken as full). Poly-attention and lookup+score are counted shape by
+# shape instead (LaunchCensus).
+TRAIN_PHASES = ("train", "fastformer_train")
+FILL_PHASES = ("eval", "serve", "fastformer_eval", "fastformer_serve")
 
 
 def log(msg: str) -> None:
@@ -122,6 +149,26 @@ def device_ms(fn, target_s: float = 0.2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, calls: int = 20) -> float:
+    """Device time of one ``fn()`` in ms: ``calls`` calls captured in a CUDA
+    graph and replayed, so that no host time (the wrapper's checks, the
+    ctypes call) sits between the launches. A kernel of a few microseconds
+    is otherwise timed at the host's pace by :func:`device_ms`."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the default stream, as capture wants
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = device_ms(graph.replay) / calls
+    del graph
+    return ms
 
 
 def bound_ms(nbytes: float, flops: float, dtype: torch.dtype):
@@ -204,7 +251,8 @@ def mha_cases(dev, g):
                 plain=lambda: mha.mha_reference(qkv, mask, HEADS),
                 library=lambda: torch.nn.functional.scaled_dot_product_attention(
                     q, k, v, attn_mask=bool_mask),
-                bound=bound_ms(_nbytes(qkv, mask, out), flops, dtype))
+                bound=bound_ms(_nbytes(qkv, mask, out), flops, dtype),
+                phases=FILL_PHASES if dtype == torch.bfloat16 else ())
     # the training path: dropout on (and, at the sapo shape, off, so that
     # Philox's share shows), bf16 and, as --compute_dtype float32 gives it,
     # fp32; under autograd the forward also writes the softmax statistics,
@@ -225,7 +273,8 @@ def mha_cases(dev, g):
                 q, k, v, attn_mask=bool_mask, dropout_p=rate),
             check=(lambda: mha_dropout_mask_check(qkv, mask, seed)) if rate else None,
             bound=bound_ms(_nbytes(qkv, mask, out, stats), flops, dtype),
-            main=L == TRAIN_SAPO and rate > 0 and dtype == torch.bfloat16)
+            main=L == TRAIN_SAPO and rate > 0 and dtype == torch.bfloat16,
+            phases=TRAIN_PHASES if rate > 0 and dtype == torch.bfloat16 else ())
 
 
 def mha_grad_errors(got, want, rel):
@@ -280,7 +329,8 @@ def mha_bwd_cases(dev, g):
             errors=mha_grad_errors,
             # reads qkv, out, dout, stats and mask; writes dqkv
             bound=bound_ms(_nbytes(qkv, out, dout, stats, mask, qkv), flops, dtype),
-            main=L == TRAIN_SAPO and rate > 0 and dtype == torch.bfloat16)
+            main=L == TRAIN_SAPO and rate > 0 and dtype == torch.bfloat16,
+            phases=("train",) if rate > 0 and dtype == torch.bfloat16 else ())
 
 
 def _ln_inputs(dev, g, T, dtype):
@@ -306,7 +356,8 @@ def add_ln_cases(dev, g):
                 library=lambda: torch.nn.functional.layer_norm(
                     x + h, (HIDDEN,), scale_t, bias_t, 1e-5),
                 bound=bound_ms(_nbytes(x, h, scale, bias, x), 8 * T * HIDDEN,
-                               torch.float32))
+                               torch.float32),
+                phases=FILL_PHASES if dtype == torch.bfloat16 else ())
     for L in (TRAIN_SAPO, TRAIN_TITLE):
         T, dtype, seed = TRAIN_N * L, torch.bfloat16, 2 ** 42 + L
         x, h, scale, bias = _ln_inputs(dev, g, T, dtype)
@@ -322,14 +373,15 @@ def add_ln_cases(dev, g):
                 bias_t, 1e-5),
             bound=bound_ms(_nbytes(x, h, scale, bias, x), 9 * T * HIDDEN,
                            torch.float32),
-            main=L == TRAIN_SAPO)
+            main=L == TRAIN_SAPO, phases=TRAIN_PHASES)
 
 
 def add_ln_bwd_cases(dev, g):
     from miner_tpu_torch.ops import add_ln, philox
 
-    for L in (TRAIN_SAPO, TRAIN_TITLE):
-        T, dtype, seed = TRAIN_N * L, torch.bfloat16, 2 ** 43 + L
+    for L, dtype in ((TRAIN_SAPO, torch.bfloat16), (TRAIN_TITLE, torch.bfloat16),
+                     (TRAIN_SAPO, torch.float32)):
+        T, seed = TRAIN_N * L, 2 ** 43 + L
         x, h, scale, bias = _ln_inputs(dev, g, T, dtype)
         dy = torch.randn(T, HIDDEN, device=dev, generator=g).to(dtype)
         leaves = [t.detach().clone().requires_grad_() for t in (x, h, scale, bias)]
@@ -344,7 +396,7 @@ def add_ln_bwd_cases(dev, g):
             return mismatches == 0, f"mask mismatches {mismatches}"
 
         yield dict(
-            case=f"bf16 T={T} dropout {TRAIN_RATE}", dtype=dtype,
+            case=f"{str(dtype)[6:]} T={T} dropout {TRAIN_RATE}", dtype=dtype,
             kernel=lambda: add_ln.add_ln_backward(x, h, scale, dy, 1e-5, TRAIN_RATE,
                                                   seed),
             plain=lambda: add_ln.add_ln_backward_reference(x, h, scale, dy, 1e-5,
@@ -352,50 +404,80 @@ def add_ln_bwd_cases(dev, g):
             library=lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True),
             check=mask_check,
             bound=bound_ms(_nbytes(x, h, dy, x, h), 20 * T * HIDDEN, torch.float32),
-            main=L == TRAIN_SAPO)
+            main=L == TRAIN_SAPO and dtype == torch.bfloat16,
+            phases=("train",) if dtype == torch.bfloat16 else ())
+
+
+def _poly_inputs(dev, g, B, dtype, masked_rows=0, H=HIS, D=DIM, P=CODE_DIM, K=CODES):
+    emb = torch.randn(B, H, D, device=dev, generator=g).to(dtype)
+    w = (torch.randn(D, P, device=dev, generator=g) / 16).to(dtype)
+    codes = (torch.randn(K, P, device=dev, generator=g) / 4).to(dtype)
+    lengths = torch.randint(1, H + 1, (B,), device=dev, generator=g)
+    lengths[:masked_rows] = 0
+    mask = (torch.arange(H, device=dev)[None] < lengths[:, None]).to(torch.int32)
+    bias = torch.randn(B, H, device=dev, generator=g)
+    return emb, w, codes, mask, bias
+
+
+def _poly_bound(inputs):
+    emb, w, codes = inputs[:3]
+    (B, H, D), (K, P) = emb.shape, codes.shape
+    out_bytes = B * K * D * emb.element_size()
+    flops = 2 * B * H * (D * P + P * K + K * D)
+    return bound_ms(_nbytes(*inputs) + out_bytes, flops, emb.dtype)
 
 
 def poly_cases(dev, g):
+    """Poly-attention at the batches its paths give it (16: a training
+    micro-batch; 32: a full serving request batch; 64: an eval batch), in
+    bf16 and, at 32, in fp32 and with a quarter of the rows fully masked
+    (users with no clicks: the mean of the 50 real history rows)."""
     from miner_tpu_torch.ops import poly_attention
 
-    B = MAX_BATCH
-    for dtype in (torch.bfloat16, torch.float32):
-        emb = torch.randn(B, HIS, DIM, device=dev, generator=g).to(dtype)
-        w = (torch.randn(DIM, CODE_DIM, device=dev, generator=g) / 16).to(dtype)
-        codes = (torch.randn(CODES, CODE_DIM, device=dev, generator=g) / 4).to(dtype)
-        lengths = torch.randint(1, HIS + 1, (B,), device=dev, generator=g)
-        mask = (torch.arange(HIS, device=dev)[None] < lengths[:, None]).to(torch.int32)
-        bias = torch.randn(B, HIS, device=dev, generator=g)
-        out = torch.empty(B, CODES, DIM, dtype=dtype, device=dev)
-        flops = 2 * B * HIS * (DIM * CODE_DIM + CODE_DIM * CODES + CODES * DIM)
+    for B, dtype, masked in ((TRAIN_B, torch.bfloat16, 0), (MAX_BATCH, torch.bfloat16, 0),
+                             (EVAL_B, torch.bfloat16, 0), (MAX_BATCH, torch.float32, 0),
+                             (MAX_BATCH, torch.bfloat16, MAX_BATCH // 4)):
+        args = _poly_inputs(dev, g, B, dtype, masked)
         yield dict(
-            case=f"{str(dtype)[6:]} B={B}", dtype=dtype,
-            kernel=lambda: poly_attention.poly_attention_fused(emb, w, codes, mask, bias),
-            plain=lambda: poly_attention.poly_attention_reference(emb, w, codes, mask, bias),
+            case=f"{str(dtype)[6:]} B={B}" + (f", {masked} rows fully masked" if masked else ""),
+            dtype=dtype,
+            kernel=lambda: poly_attention.poly_attention_fused(*args),
+            plain=lambda: poly_attention.poly_attention_reference(*args),
             library=None,
-            bound=bound_ms(_nbytes(emb, w, codes, mask, bias, out), flops, dtype),
-            main=dtype == torch.bfloat16)
+            bound=_poly_bound(args),
+            main=dtype == torch.bfloat16 and B == MAX_BATCH and not masked)
+
+
+def _lookup_inputs(dev, g, N, B, C, K, D, dtype):
+    """A cache of N rows, (B, C) candidate rows (a whole-corpus request takes
+    every row in order, as ``serve_topk`` builds it; others draw them at
+    random) and (B, K, D) interests; and the bytes the gather must read."""
+    cache = torch.randn(N, D, device=dev, generator=g).to(dtype)
+    interests = torch.randn(B, K, D, device=dev, generator=g).to(dtype)
+    idx = torch.randint(0, N, (B, C), device=dev, generator=g, dtype=torch.int32)
+    if C >= N - 1:
+        idx[:] = torch.arange(1, C + 1, device=dev, dtype=torch.int32) % N
+    rows = torch.unique(idx).numel()
+    out_bytes = B * C * K * cache.element_size()
+    nbytes = rows * D * cache.element_size() + _nbytes(idx, interests) + out_bytes
+    return (cache, idx, interests), nbytes
 
 
 def lookup_cases(dev, g):
+    """lookup+score at a full serving request batch: a slate (C = 16), the
+    whole-corpus top-k (C = 4,096), and an eval batch (B = 64 rows of one
+    candidate each)."""
     from miner_tpu_torch.ops import lookup_score
     from miner_tpu_torch.utils import candidate_bucket
 
-    B, N = MAX_BATCH, NUM_NEWS + 1
+    N = NUM_NEWS + 1
     for dtype in (torch.bfloat16, torch.float32):
-        cache = torch.randn(N, DIM, device=dev, generator=g).to(dtype)
-        interests = torch.randn(B, CODES, DIM, device=dev, generator=g).to(dtype)
-        for C in (16, candidate_bucket(NUM_NEWS)):  # a slate, the corpus top-k
-            idx = torch.randint(0, N, (B, C), device=dev, generator=g, dtype=torch.int32)
-            if C == candidate_bucket(NUM_NEWS):
-                idx[:] = (torch.arange(C, device=dev, dtype=torch.int32) + 1) % N
-            rows = torch.unique(idx).numel()
-            out = torch.empty(B, C, CODES, dtype=dtype, device=dev)
-            nbytes = rows * DIM * cache.element_size() + _nbytes(idx, interests, out)
+        for B, C in ((MAX_BATCH, 16), (MAX_BATCH, candidate_bucket(NUM_NEWS)), (EVAL_B, 1)):
+            args, nbytes = _lookup_inputs(dev, g, N, B, C, CODES, DIM, dtype)
             yield dict(
                 case=f"{str(dtype)[6:]} B={B} C={C}", dtype=dtype,
-                kernel=lambda: lookup_score.lookup_score_fused(cache, idx, interests),
-                plain=lambda: lookup_score.lookup_score_reference(cache, idx, interests),
+                kernel=lambda: lookup_score.lookup_score_fused(*args),
+                plain=lambda: lookup_score.lookup_score_reference(*args),
                 library=None,
                 bound=bound_ms(nbytes, 2 * B * C * CODES * DIM, dtype),
                 main=dtype == torch.bfloat16 and C > 16)
@@ -435,7 +517,9 @@ def ff_cases(dev, g):
             plain=lambda: fastformer_attn.fastformer_attention_reference(*args),
             library=None,
             bound=bound_ms(nbytes, flops, dtype),
-            main=dtype == torch.float32 and what == "train")
+            main=dtype == torch.float32 and what == "train",
+            phases=(f"fastformer_{what}",) if dtype == torch.float32 and " " not in what
+            else ())
 
 
 KERNELS = [
@@ -446,7 +530,7 @@ KERNELS = [
      "miner_tpu/ops/mha.py:232", mha_bwd_cases),
     ("add_ln_fwd", "triton", "miner_tpu_torch/ops/add_ln.py",
      "miner_tpu/ops/add_ln.py:122", add_ln_cases),
-    ("add_ln_bwd", "triton", "miner_tpu_torch/ops/add_ln.py",
+    ("add_ln_bwd", "cuda", "miner_tpu_torch/csrc/add_ln_bwd.cu",
      "miner_tpu/ops/add_ln.py:144", add_ln_bwd_cases),
     ("poly_attention_fwd", "cuda", "miner_tpu_torch/csrc/poly_attention_fwd.cu",
      "miner_tpu/ops/poly_attention.py:91", poly_cases),
@@ -457,14 +541,19 @@ KERNELS = [
 ]
 
 
-def kernel_phase(dev):
-    """Every kernel against its plain version, and timed. Returns the rows
-    of the ``kernels`` line (launches are filled in by the main paths)."""
+def kernel_phase(dev, names=None):
+    """Every kernel (of ``names``, default all) against its plain version,
+    and timed. Returns the rows of the ``kernels`` line (launches are filled
+    in by the main paths) and, per kernel, each case's phases, time and
+    bound."""
     g = torch.Generator(device=dev)
     g.manual_seed(0)
-    rows, failures = [], []
+    rows, timed, failures = [], {}, []
     for name, route, source, replaces, cases in KERNELS:
+        if names is not None and name not in names:
+            continue
         row = None
+        timed[name] = []
         for c in cases(dev, g):
             got, want = _outputs(c["kernel"]()), _outputs(c["plain"]())
             torch.cuda.synchronize()
@@ -478,12 +567,15 @@ def kernel_phase(dev):
                 passed, note = c["check"]()
                 ok = ok and passed
                 note = f"  {note}"
-            ms = device_ms(c["kernel"])
+            call_ms = device_ms(c["kernel"])
+            ms = graph_ms(c["kernel"])
             plain_ms = device_ms(c["plain"])
             library_ms = device_ms(c["library"]) if c["library"] else None
             b_ms, b_by = c["bound"]
+            timed[name].append(dict(phases=c.get("phases", ()), ms=ms, bound_ms=b_ms))
             log(f"  {name:18s} {c['case']:30s} err {err:.3g} (tol {tol:.3g}) "
-                f"{'ok' if ok else 'FAIL'}{note}  kernel {ms:.4f} ms  plain "
+                f"{'ok' if ok else 'FAIL'}{note}  kernel {ms:.4f} ms ({call_ms:.4f} "
+                f"a call back to back)  plain "
                 f"{plain_ms:.4f} ms  library "
                 f"{'-' if library_ms is None else f'{library_ms:.4f} ms'}  "
                 f"bound {b_ms:.4f} ms ({b_by})")
@@ -499,7 +591,7 @@ def kernel_phase(dev):
                 row = {"name": name, "route": route, "source": source,
                        "replaces": replaces, "case": c["case"], "launches": 0,
                        "max_abs_err": max(e["max_err"] for e in errs),
-                       "worst_err_over_tol": err / tol, "ms": ms,
+                       "worst_err_over_tol": err / tol, "ms": ms, "call_ms": call_ms,
                        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                        "library_ms": library_ms}
             del got, want
@@ -507,7 +599,94 @@ def kernel_phase(dev):
         rows.append(row)
     if failures:
         raise SystemExit("kernel phase failed:\n  " + "\n  ".join(failures))
-    return rows
+    return rows, timed
+
+
+class LaunchCensus:
+    """The main path's launches of poly-attention and lookup+score by
+    shape and phase: their batch (and candidate count) follows the phase
+    and the serving batcher, and their time follows the shape. It reads the
+    C arguments each launch passes through ``common.launch`` while
+    ``phase`` is set, and launches and counts nothing itself."""
+
+    SHAPE = {"poly_attention_fwd": slice(6, 12),  # B, H, D, P, K, dtype code
+             "lookup_score_fwd": slice(4, 11)}  # N, B, C, K, D, cache, interests codes
+
+    def __init__(self):
+        import collections
+
+        self.phase = None
+        self.counts = collections.Counter()
+
+    def install(self) -> None:
+        from miner_tpu_torch.ops import common
+
+        launch = common.launch
+
+        def counted(name, fn, *args):
+            if self.phase is not None and name in self.SHAPE:
+                self.counts[(name, self.phase, tuple(args[self.SHAPE[name]]))] += 1
+            return launch(name, fn, *args)
+
+        common.launch = counted
+
+
+CENSUS = LaunchCensus()
+
+
+def census_sweep(dev) -> dict:
+    """Every shape the census saw, timed on fresh inputs of that shape:
+    per kernel a list of (shape, launches by phase, ms, bound ms)."""
+    from miner_tpu_torch.ops import common, lookup_score, poly_attention
+
+    dtypes = {code: dt for dt, code in common.DTYPE_CODES.items()}
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    shapes = {}
+    for (name, phase, shape), n in CENSUS.counts.items():
+        shapes.setdefault((name, shape), {})[phase] = n
+    out = {}
+    for (name, shape), by_phase in sorted(shapes.items()):
+        if name == "poly_attention_fwd":
+            B, H, D, P, K, code = shape
+            args = _poly_inputs(dev, g, B, dtypes[code], 0, H, D, P, K)
+            fn = lambda: poly_attention.poly_attention_fused(*args)
+            (b_ms, _), what = _poly_bound(args), f"{str(dtypes[code])[6:]} B={B}"
+        else:
+            N, B, C, K, D, code, _ = shape
+            args, nbytes = _lookup_inputs(dev, g, N, B, C, K, D, dtypes[code])
+            fn = lambda: lookup_score.lookup_score_fused(*args)
+            b_ms, _ = bound_ms(nbytes, 2 * B * C * K * D, dtypes[code])
+            what = f"{str(dtypes[code])[6:]} B={B} C={C}"
+        ms, call_ms = graph_ms(fn), device_ms(fn, 0.05)
+        out.setdefault(name, []).append(dict(shape=what, launches_by_phase=by_phase,
+                                             ms=ms, call_ms=call_ms, bound_ms=b_ms))
+        log(f"  {name:18s} {what:18s} launches {by_phase}  kernel {ms:.4f} ms "
+            f"({call_ms:.4f} a call back to back)  bound {b_ms:.4f} ms")
+    return out
+
+
+def launch_weighted_gaps(rows, timed, sweep) -> None:
+    """Each row's launches x (time - bound), summed over the shapes its
+    launches took: the census's shapes for poly-attention and lookup+score;
+    for the others each phase's launches at the cases standing for it."""
+    for row in rows:
+        name = row["name"]
+        if name in sweep:
+            row["shapes"] = sweep[name]
+            gap = sum(n * (s["ms"] - s["bound_ms"]) for s in sweep[name]
+                      for n in s["launches_by_phase"].values())
+        else:
+            gap = 0.0
+            for phase, n in row["launches_by_phase"].items():
+                cases = [c for c in timed[name] if phase in c["phases"]]
+                if n and not cases:
+                    raise SystemExit(f"{name}: no timed case stands for phase {phase}")
+                if n:
+                    gap += n * sum(c["ms"] - c["bound_ms"] for c in cases) / len(cases)
+        row["launch_weighted_gap_ms"] = gap
+        log(f"  {name:18s} {row['launches']} launches, launch-weighted gap "
+            f"{gap:.3f} ms")
 
 
 # ------------------------------------------------------------------ serve
@@ -601,6 +780,7 @@ def serve_phase(corpus: str, checkpoint: str, phase: str = "serve",
     family = ("--model_name", "fastformer") if phase == "fastformer_serve" else ()
     args = serve_args(corpus, "--saved_model_path", checkpoint, *family)
     reset_launch_counts()
+    CENSUS.phase = phase
     t0 = time.perf_counter()
     service = ScoringService(Trainer(args))
     torch.cuda.synchronize()
@@ -629,6 +809,7 @@ def serve_phase(corpus: str, checkpoint: str, phase: str = "serve",
         wall_s = time.perf_counter() - t0
         counts = launch_counts()
     finally:
+        CENSUS.phase = None
         server.shutdown()
         service.close()
         thread.join(timeout=10)
@@ -736,6 +917,7 @@ def train_phase(corpus: str, out: str, family: str = "miner"):
     from miner_tpu_torch.training.trainer import Trainer
 
     phase = "train" if family == "miner" else f"{family}_train"
+    eval_phase = phase.replace("train", "eval")
     args = train_args(corpus, out, family=family)
     trainer = Trainer(args)
     step_s, step_loss, eval_s, before_eval = [], [], [], {}
@@ -758,19 +940,25 @@ def train_phase(corpus: str, out: str, family: str = "miner"):
 
     def timed_eval(*a, **k):
         before_eval.update(launch_counts())
+        CENSUS.phase = eval_phase
         t0 = time.perf_counter()
         out = run_eval(*a, **k)
         torch.cuda.synchronize()
         eval_s.append(time.perf_counter() - t0)
+        CENSUS.phase = phase
         return out
 
     trainer.train_step, trainer._run_eval = timed_step, timed_eval
     trainer._apply_and_loss = measured_forward
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
+    CENSUS.phase = phase
     t0 = time.perf_counter()
-    run = trainer.train()
-    torch.cuda.synchronize()
+    try:
+        run = trainer.train()
+        torch.cuda.synchronize()
+    finally:
+        CENSUS.phase = None
     wall_s = time.perf_counter() - t0
     counts = launch_counts()
     eval_counts = {k: counts[k] - before_eval[k] for k in counts}
@@ -809,7 +997,6 @@ def train_phase(corpus: str, out: str, family: str = "miner"):
         raise SystemExit(f"{phase} phase: non-finite {bad}, {run.optimizer.updates} "
                          f"updates, {len(step_s)} micro-batches")
     _check_launches(phase, before_eval)
-    eval_phase = phase.replace("train", "eval")
     _check_launches(eval_phase, eval_counts)
     final = os.path.join(run.run_dir, "ckpt", "finalModel")
     if args.freeze_transformer:
@@ -909,7 +1096,18 @@ def parity_phase(corpus: str) -> None:
 
 
 # ------------------------------------------------------------------- main
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--kernels", help="comma-separated kernel names: build and run "
+                        "only their kernel phase, print their rows and stop")
+    parser.add_argument("--package", help="with --kernels: import miner_tpu_torch from "
+                        "this directory (an unpacked other commit), to time its kernels "
+                        "on the same card in the same session")
+    opts = parser.parse_args(argv)
+    if opts.package and not opts.kernels:
+        parser.error("--package needs --kernels")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
@@ -917,30 +1115,40 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+    if opts.package:
+        sys.path.insert(0, os.path.abspath(opts.package))
+    import miner_tpu_torch
     from miner_tpu_torch.ops import common
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     log(f"card: {torch.cuda.get_device_name(0)} ({smi}); torch {torch.__version__}, "
-        f"CUDA {torch.version.cuda}")
+        f"CUDA {torch.version.cuda}; package {os.path.dirname(miner_tpu_torch.__file__)}")
 
+    names = opts.kernels.split(",") if opts.kernels else None
     t0 = time.perf_counter()
-    reports = common.build()
+    reports = common.build(common.CUDA_SOURCES if names is None
+                           else [n for n in common.CUDA_SOURCES if n in names])
     log(f"build: {len(reports)} CUDA libraries in {time.perf_counter() - t0:.1f} s")
     for name, report in reports.items():
-        # each kernel's registers, spills and shared memory; for the mha
-        # kernels also the entry each line belongs to
-        keys = ("registers", "spill") + (("Compiling entry",) if name.startswith("mha") else ())
+        # each kernel's registers, spills and shared memory; for the kernels
+        # built in several variants also the entry each line belongs to
+        keys = ("registers", "spill") + (("Compiling entry",) if name in ENTRY_REPORTS else ())
         for line in report.splitlines():
             if any(k in line for k in keys):
                 log(f"  {name}: {line.strip()}")
 
     log("kernels (kernel vs plain version on the same inputs):")
-    rows = kernel_phase(dev)
+    rows, timed = kernel_phase(dev, names)
+    if names:
+        print(smi)
+        print(json.dumps({"kernels": rows}))
+        return 0
 
     import tempfile
 
+    CENSUS.install()
     with tempfile.TemporaryDirectory() as tmp:
         corpus = os.path.join(tmp, "corpus")
         write_corpus(corpus, NUM_NEWS, seed=0)
@@ -957,6 +1165,10 @@ def main() -> int:
     for row in rows:
         row["launches_by_phase"] = {phase: c[row["name"]] for phase, c in counts.items()}
         row["launches"] = sum(row["launches_by_phase"].values())
+    log("the main path's shapes of poly-attention and lookup+score, timed:")
+    sweep = census_sweep(dev)
+    log("launch-weighted gaps, launches x (time - bound) over the shapes launched:")
+    launch_weighted_gaps(rows, timed, sweep)
 
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -2,7 +2,9 @@
 // CUDA kernels. The same generator, with the same counter layouts, is
 // written in plain PyTorch in miner_tpu_torch/ops/philox.py (and in Triton
 // in ops/add_ln.py), so a kernel and its plain version draw the same mask
-// from the same 64-bit seed. See ops/philox.py for the layouts.
+// from the same 64-bit seed. See ops/philox.py for the layouts. The add_ln
+// forward is a Triton kernel that writes the rounds out again (ops/add_ln.py)
+// with the counter layout of add_ln_bits below.
 #pragma once
 
 #include <stdint.h>
@@ -56,4 +58,11 @@ __device__ __forceinline__ uint2 mha_row_pair_bits(int i, int kb, int kr, int h,
                                                    unsigned long long seed) {
   const Philox4 b = mha_block_bits(i >> 4, i & 7, kb, kr, h, n, seed);
   return (i & 8) ? make_uint2(b.w[2], b.w[3]) : make_uint2(b.w[0], b.w[1]);
+}
+
+// The add_ln layout: element (row r, column c) is word c % 4 of
+// philox(counter = (c / 4, r, 0, 0)). The call for columns 4 q .. 4 q + 3 of
+// row r: word w[i] is the bits of column 4 q + i.
+__device__ __forceinline__ Philox4 add_ln_bits(int q, int r, unsigned long long seed) {
+  return philox4x32_10(static_cast<uint32_t>(q), static_cast<uint32_t>(r), 0u, 0u, seed);
 }

@@ -1,4 +1,5 @@
-"""Fused dropout + residual add + LayerNorm: Triton kernels + plain version.
+"""Fused dropout + residual add + LayerNorm: a Triton forward, a CUDA
+backward, and the plain version of both.
 
 Counterpart of ``miner_tpu/ops/add_ln.py:fused_dropout_add_ln``:
 y = LayerNorm(x + dropout(h)) over the last axis. As in the TPU kernel
@@ -14,18 +15,23 @@ g = dy * gamma, ds = rstd * (g - mean(g) - xhat * mean(g * xhat)),
 dx = ds, dh = keep * ds / (1 - rate), dgamma = sum(dy * xhat),
 dbeta = sum(dy).
 
-The kernels are Triton: one row-wise pass each, with two (forward) or
-three (backward) reductions, bounded by the bytes they move. Each program
-normalises a block of rows at once, the feature axis padded to a power of
-two (768 -> 1024) under a mask; the forward reads x, h and writes y once.
-The backward's programs each walk a strided set of row blocks, keep their
-dgamma and dbeta partials in registers and write them to an
-(n_programs, D) fp32 buffer that is summed after the kernel (the TPU
-kernel's partials are summed outside it too, add_ln.py:168): blocks run in
-no order on the card, so there is no sum carried across the grid. The
-Philox rounds are written out below in Triton with the counter layout of
-``ops/philox.py``. ``triton`` is imported only when a kernel is launched,
-so the module imports without it.
+The forward is a Triton kernel: one row-wise pass with two reductions,
+bounded by the bytes it moves. Each program normalises a block of rows at
+once, the feature axis padded to a power of two (768 -> 1024) under a mask;
+it reads x, h and writes y once. The Philox rounds are written out below in
+Triton with the counter layout of ``ops/philox.py``. ``triton`` is imported
+only when the kernel is launched, so the module imports without it.
+
+The backward is CUDA C++, ``csrc/add_ln_bwd.cu``: a warp per row, lanes
+owning 16-byte vectors of it, dgamma and dbeta held in registers over
+every row a warp visits and written as one partial per block to a
+(2, blocks, D) fp32 buffer that is summed here (the TPU kernel's partials
+are summed outside it too, add_ln.py:168): blocks run in no order on the
+card, so there is no sum carried across the grid. Its Philox rounds are
+``csrc/philox.cuh``'s, with the same counter layout (``add_ln_bits``) as
+the Triton forward and the plain version, so the three draw one mask. It
+takes D a multiple of 8 (bf16) or 4 (fp32) up to 1024, and rows that start
+on 16-byte boundaries; the wrapper raises on anything else.
 
 Under autograd (grad mode on and an input requiring grad) the op is a
 ``torch.autograd.Function`` whose backward is the backward kernel on the
@@ -36,6 +42,7 @@ and _bwd_kernel (pallas_call at add_ln.py:144).
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Tuple
 
@@ -141,46 +148,7 @@ def _triton_kernels():
         y = diff * rstd[:, None] * g[None, :] + b[None, :]
         tl.store(y_ptr + offs, y.to(y_ptr.dtype.element_ty), mask=m)
 
-    @triton.jit(do_not_specialize=["seed_lo", "seed_hi", "thresh"])
-    def add_ln_bwd(x_ptr, h_ptr, g_ptr, dy_ptr, dx_ptr, dh_ptr, dg_ptr, db_ptr,
-                   T, D, eps, seed_lo, seed_hi, thresh, inv_keep,
-                   DROPOUT: tl.constexpr, BLOCK_T: tl.constexpr,
-                   BLOCK_D: tl.constexpr):
-        pid = tl.program_id(0)
-        cols = tl.arange(0, BLOCK_D)
-        cmask = cols < D
-        gamma = tl.load(g_ptr + cols, mask=cmask, other=0.0)
-        dg_acc = tl.zeros([BLOCK_D], dtype=tl.float32)
-        db_acc = tl.zeros([BLOCK_D], dtype=tl.float32)
-        for blk in range(pid, tl.cdiv(T, BLOCK_T), tl.num_programs(0)):
-            rows = blk * BLOCK_T + tl.arange(0, BLOCK_T)
-            m = (rows < T)[:, None] & cmask[None, :]
-            offs = rows[:, None].to(tl.int64) * D + cols[None, :]
-            h = tl.load(h_ptr + offs, mask=m, other=0.0).to(tl.float32)
-            if DROPOUT:
-                keep = keep_mask(rows, cols, seed_lo, seed_hi, thresh)
-                h = tl.where(keep, h * inv_keep, 0.0)
-            s = tl.load(x_ptr + offs, mask=m, other=0.0).to(tl.float32) + h
-            mean = tl.sum(s, axis=1) / D
-            diff = tl.where(m, s - mean[:, None], 0.0)
-            var = tl.sum(diff * diff, axis=1) / D
-            rstd = 1.0 / tl.sqrt(var + eps)
-            xhat = diff * rstd[:, None]
-            dy = tl.load(dy_ptr + offs, mask=m, other=0.0).to(tl.float32)
-            g = dy * gamma[None, :]
-            gm = tl.sum(g, axis=1) / D
-            gxm = tl.sum(g * xhat, axis=1) / D
-            ds = rstd[:, None] * (g - gm[:, None] - xhat * gxm[:, None])
-            tl.store(dx_ptr + offs, ds.to(dx_ptr.dtype.element_ty), mask=m)
-            if DROPOUT:
-                ds = tl.where(keep, ds * inv_keep, 0.0)
-            tl.store(dh_ptr + offs, ds.to(dh_ptr.dtype.element_ty), mask=m)
-            dg_acc += tl.sum(dy * xhat, axis=0)
-            db_acc += tl.sum(dy, axis=0)
-        tl.store(dg_ptr + pid * D + cols, dg_acc, mask=cmask)
-        tl.store(db_ptr + pid * D + cols, db_acc, mask=cmask)
-
-    return add_ln_fwd, add_ln_bwd, triton.next_power_of_2
+    return add_ln_fwd, triton.next_power_of_2
 
 
 def _dropout_args(rate: float, seed: int):
@@ -193,15 +161,15 @@ def _dropout_args(rate: float, seed: int):
 
 def _check(x, h, scale):
     common.check_tensor("x", x, x.device, tuple(common.DTYPE_CODES))
-    common.check_tensor("h", h, x.device, (x.dtype,))
-    common.check_tensor("scale", scale, x.device, (torch.float32,))
+    common.check_tensor("h", h, x.device, (x.dtype,), tuple(x.shape))
+    common.check_tensor("scale", scale, x.device, (torch.float32,), (x.shape[-1],))
 
 
 def _launch_fwd(x, h, scale, bias, eps, rate, seed) -> torch.Tensor:
     common.require_cuda(x, "fused_dropout_add_ln")
     _check(x, h, scale)
     common.check_tensor("bias", bias, x.device, (torch.float32,))
-    kernel, _, next_power_of_2 = _triton_kernels()
+    kernel, next_power_of_2 = _triton_kernels()
     T, D = x.shape
     y = torch.empty_like(x)
     block_d = next_power_of_2(D)
@@ -215,30 +183,51 @@ def _launch_fwd(x, h, scale, bias, eps, rate, seed) -> torch.Tensor:
     return y
 
 
+_MAX_BWD_D = 1024
+_BWD_ARGTYPES = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 3
+                 + (ctypes.c_float, ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_float)
+                 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,))
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_blocks(T: int, D: int, code: int, device: int) -> int:
+    """Blocks of the backward kernel's persistent grid: its partial rows."""
+    blocks = ctypes.c_int(0)
+    fn = common.kernel_function("add_ln_bwd", "add_ln_bwd_blocks",
+                                (ctypes.c_int,) * 4 + (ctypes.c_void_p,))
+    common.launch("add_ln_bwd", fn, T, D, code, device, ctypes.addressof(blocks))
+    return blocks.value
+
+
 def add_ln_backward(x: torch.Tensor, h: torch.Tensor, scale: torch.Tensor,
                     dy: torch.Tensor, eps: float, rate: float = 0.0,
                     seed: int = 0) -> Tuple[torch.Tensor, ...]:
     """(dx, dh, dscale, dbias) of y = LN(x + dropout(h)) for the gradient
     dy. A CPU tensor takes :func:`add_ln_backward_reference`; a CUDA tensor
     launches the backward kernel (x, h, dy of one type, float32 or
-    bfloat16; scale float32) or raises."""
+    bfloat16, D a multiple of 8 or 4 up to 1024; scale float32) or raises."""
     if x.device.type == "cpu":
         return add_ln_backward_reference(x, h, scale, dy, eps, rate, seed)
     common.require_cuda(x, "add_ln_backward")
     _check(x, h, scale)
     common.check_tensor("dy", dy, x.device, (x.dtype,), tuple(x.shape))
-    _, kernel, next_power_of_2 = _triton_kernels()
     T, D = x.shape
-    block_d = next_power_of_2(D)
-    block_t = max(1, 2048 // block_d)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    programs = max(1, min(-(-T // block_t), 4 * sms))
+    vec = 16 // x.element_size()
+    if D % vec or not 0 < D <= _MAX_BWD_D:
+        raise ValueError(f"add_ln_backward: the kernel takes D a multiple of {vec} "
+                         f"up to {_MAX_BWD_D} for {x.dtype}, got D = {D}")
+    for what, t in (("x", x), ("h", h), ("dy", dy)):
+        common.check_aligned(what, t)
+    code, dev = common.DTYPE_CODES[x.dtype], x.device.index
+    blocks = _bwd_blocks(T, D, code, dev)
     dx, dh = torch.empty_like(x), torch.empty_like(x)
-    partial = torch.empty((2, programs, D), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        kernel[(programs,)](x, h, scale, dy, dx, dh, partial[0], partial[1], T, D,
-                            eps, **_dropout_args(rate, seed), BLOCK_T=block_t,
-                            BLOCK_D=block_d, num_warps=8)
+    partial = torch.empty((2, blocks, D), dtype=torch.float32, device=x.device)
+    drop = _dropout_args(rate, seed)
+    fn = common.kernel_function("add_ln_bwd", "add_ln_bwd", _BWD_ARGTYPES)
+    common.launch("add_ln_bwd", fn, x.data_ptr(), h.data_ptr(), scale.data_ptr(),
+                  dy.data_ptr(), dx.data_ptr(), dh.data_ptr(), partial.data_ptr(), T, D,
+                  blocks, eps, seed, drop["thresh"], drop["inv_keep"],
+                  int(drop["DROPOUT"]), code, dev, common.stream_of(x))
     add_ln_backward.launches += 1
     dscale, dbias = partial.sum(dim=1)
     return dx, dh, dscale, dbias

@@ -29,8 +29,8 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
-CUDA_SOURCES = ("mha_fwd", "mha_bwd", "poly_attention_fwd", "lookup_score_fwd",
-                "fastformer_attn_fwd")
+CUDA_SOURCES = ("mha_fwd", "mha_bwd", "add_ln_bwd", "poly_attention_fwd",
+                "lookup_score_fwd", "fastformer_attn_fwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -8,8 +8,11 @@ Counterpart of ``miner_tpu/ops/poly_attention.py:poly_attention_fused``:
     out     = weights^T @ emb            # (B, K, D)
 
 The kernel is ``csrc/poly_attention_fwd.cu``; it keeps every intermediate in
-shared memory. W and codes must be in emb's type (the TPU kernel casts them
-to it). The bias is the (B, H) mean over candidates, computed by the caller.
+shared memory. In bf16 its three products run on the tensor cores, a
+cluster of four blocks per batch row (D must be a multiple of 16 and P of
+8, emb, W and codes 16-byte aligned); fp32 runs on the CUDA cores, any
+shape. W and codes must be in emb's type (the TPU kernel casts them to it).
+The bias is the (B, H) mean over candidates, computed by the caller.
 
 Under autograd (grad mode on and an input requiring grad) a CUDA tensor
 goes through a ``torch.autograd.Function``: the forward is the kernel, the
@@ -22,6 +25,7 @@ it. A CPU tensor takes the plain version, differentiable as it stands.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -73,6 +77,13 @@ def poly_attention_fused(emb: torch.Tensor, w: torch.Tensor, codes: torch.Tensor
     return _launch(emb, w, codes, mask, bias)
 
 
+@functools.lru_cache(maxsize=None)
+def _smem_bytes(H: int, D: int, P: int, K: int, code: int) -> int:
+    """Shared memory a block of the kernel takes at these shapes."""
+    return common.kernel_function("poly_attention_fwd", "poly_attention_smem_bytes",
+                                  (ctypes.c_int,) * 5, ctypes.c_longlong)(H, D, P, K, code)
+
+
 def _launch(emb, w, codes, mask, bias) -> torch.Tensor:
     common.require_cuda(emb, "poly_attention_fused")
     B, H, D = emb.shape
@@ -85,7 +96,14 @@ def _launch(emb, w, codes, mask, bias) -> torch.Tensor:
     if bias is None:
         bias = torch.zeros((B, H), dtype=torch.float32, device=dev)
     common.check_tensor("bias", bias, dev, (torch.float32,))
-    smem = 4 * (H * D + H * P + K * (P + 1) + H * K)
+    code = common.DTYPE_CODES[emb.dtype]
+    if emb.dtype == torch.bfloat16:  # tensor-core tiles, 16-byte copies
+        if D % 16 or P % 8:
+            raise ValueError(f"poly-attention in bfloat16 takes D a multiple of 16 and "
+                             f"P a multiple of 8, got D = {D}, P = {P}")
+        for what, t in (("emb", emb), ("w", w), ("codes", codes)):
+            common.check_aligned(what, t)
+    smem = _smem_bytes(H, D, P, K, code)
     if smem > _MAX_SMEM:
         raise ValueError(f"poly-attention shapes need {smem} bytes of shared "
                          f"memory per block, more than {_MAX_SMEM}")
@@ -94,8 +112,8 @@ def _launch(emb, w, codes, mask, bias) -> torch.Tensor:
                                 _ARGTYPES)
     common.launch("poly_attention_fwd", fn, emb.data_ptr(), w.data_ptr(),
                   codes.data_ptr(), mask.data_ptr(), bias.data_ptr(),
-                  out.data_ptr(), B, H, D, P, K, common.DTYPE_CODES[emb.dtype],
-                  dev.index, common.stream_of(emb))
+                  out.data_ptr(), B, H, D, P, K, code, dev.index,
+                  common.stream_of(emb))
     poly_attention_fused.launches += 1
     return out
 

@@ -102,6 +102,17 @@ def test_mha_dropout_layout_gives_one_call_per_lane_block():
     assert torch.unique(use).numel() == L * L  # (counter, word) of (i, j)
 
 
+def test_add_ln_dropout_layout_gives_one_call_per_four_columns():
+    """Columns 4q .. 4q + 3 of a row are the four words of one Philox call
+    (counter (q, row, 0, 0)): the backward kernel's 8-column bf16 vector
+    takes two calls and uses every word."""
+    seed, T, D = 2 ** 36 + 5, 7, 40
+    bits = philox.add_ln_bits(seed, T, D, "cpu")
+    for r, q in [(0, 0), (3, 5), (6, 9)]:
+        words = philox.philox4x32(*(torch.tensor([c]) for c in (q, r, 0, 0)), seed)
+        assert [int(b) for b in bits[r, 4 * q:4 * q + 4]] == [int(w) for w in words]
+
+
 @pytest.mark.parametrize("site", ["mha", "add_ln"])
 def test_dropout_mask_is_a_function_of_the_seed(site):
     draw = ((lambda s: philox.mha_bits(s, 3, 2, 16, "cpu")) if site == "mha"
@@ -490,3 +501,118 @@ def test_lookup_score_refuses_gradients_on_card():
     with torch.no_grad():
         assert lookup_score.lookup_score_fused(
             cache, idx, torch.randn(2, 4, 16, device=dev)).shape == (2, 3, 4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [96, 768])
+def test_add_ln_backward_kernel_widths_on_card(rng, D, dtype, rate):
+    """The CUDA backward at the model's width (768: three 16-byte vectors a
+    lane in bf16, six in fp32) and a narrow one (96: most lanes idle), over
+    1,001 rows (not a multiple of the 4 rows a block takes at a time, nor of
+    its persistent grid): dx, dh, dgamma, dbeta against the plain backward,
+    and dh's zeros exactly where the plain Philox mask drops."""
+    dev = _card()
+    T, seed = 1001, 2 ** 34 + D
+    x, h, dy = (torch.as_tensor(rng.normal(size=(T, D)), device=dev).to(dtype)
+                for _ in range(3))
+    g = torch.as_tensor(1 + 0.1 * rng.normal(size=D), device=dev).float()
+    before = launch_counts()["add_ln_bwd"]
+    got = add_ln.add_ln_backward(x, h, g, dy, 1e-5, rate, seed)
+    want = add_ln.add_ln_backward_reference(x, h, g, dy, 1e-5, rate, seed)
+    torch.cuda.synchronize()
+    assert launch_counts()["add_ln_bwd"] == before + 1
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.isfinite(a).all()
+        assert (a.float() - b.float()).abs().max().item() <= _tol(dtype, b)
+    if rate:
+        keep = philox.keep_mask(philox.add_ln_bits(seed, T, D, dev), rate)
+        assert torch.equal(got[1] != 0, keep)
+    else:
+        assert (got[1] != 0).all()
+
+
+@pytest.mark.gpu
+def test_add_ln_backward_parameter_sums_at_the_train_shape_on_card(rng):
+    """dgamma and dbeta over the sapo training shape (T = 112,640 rows of
+    768, bf16, dropout 0.1) against the same sums in float64. The kernel
+    sums in fp32 in another order (each lane over its rows, then the
+    block's warps, then the blocks): its error is a few fp32 roundings of
+    the partial sums, far under 1e-6 of the sum of the terms' magnitudes;
+    one row left out would move a column by ~1/T = 9e-6 of it."""
+    dev = _card()
+    T, D, rate, seed = 880 * 128, 768, 0.1, 2 ** 43 + 128
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x, h, dy = (torch.randn(T, D, device=dev, generator=gen).to(torch.bfloat16)
+                for _ in range(3))
+    g = 1 + 0.1 * torch.randn(D, device=dev, generator=gen)
+    _, _, dgamma, dbeta = add_ln.add_ln_backward(x, h, g, dy, 1e-5, rate, seed)
+    keep = philox.keep_mask(philox.add_ln_bits(seed, T, D, dev), rate)
+    s = x.double() + torch.where(keep, h.double() / (1 - rate), 0.0)
+    del keep
+    s = s - s.mean(dim=-1, keepdim=True)
+    xhat = s * torch.rsqrt(s.square().mean(dim=-1, keepdim=True) + 1e-5)
+    del s
+    terms = dy.double() * xhat
+    for got, want, mag in ((dgamma, terms.sum(0), terms.abs().sum(0)),
+                           (dbeta, dy.double().sum(0), dy.double().abs().sum(0))):
+        err = (got.double() - want).abs()
+        assert (err <= 1e-6 * mag).all(), f"worst err / magnitude {(err / mag).max()}"
+
+
+@pytest.mark.gpu
+def test_add_ln_backward_refuses_what_it_does_not_take():
+    """D a multiple of 8 (bf16) or 4 (fp32) up to 1024; no fallback."""
+    dev = _card()
+    g = lambda D: torch.ones(D, device=dev)
+    for dtype, D in ((torch.bfloat16, 100), (torch.float32, 98), (torch.bfloat16, 1032)):
+        x = torch.zeros(5, D, device=dev, dtype=dtype)
+        with pytest.raises(ValueError, match="multiple of"):
+            add_ln.add_ln_backward(x, x, g(D), x, 1e-5)
+    x = torch.zeros(5 * 96 + 4, device=dev, dtype=torch.bfloat16)[4:].view(5, 96)
+    with pytest.raises(ValueError, match="16-byte"):
+        add_ln.add_ln_backward(x, x, g(96), x, 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_poly_attention_main_shape_on_card(rng, dtype):
+    """H = 50, D = 256, P = 200, K = 32 (H pads to 64 mma rows, P to 208
+    columns in bf16), with a user of no clicks and one of a single click:
+    against the plain version, and the no-click row is the mean of the 50
+    real history rows (the finite -1e9 fill), never NaN and never a mean
+    over the padding."""
+    dev = _card()
+    B, H, D, P, K = 6, 50, 256, 200, 32
+    emb = torch.as_tensor(rng.normal(size=(B, H, D)), device=dev).to(dtype)
+    w = torch.as_tensor(rng.normal(size=(D, P)) / 16, device=dev).to(dtype)
+    codes = torch.as_tensor(rng.normal(size=(K, P)) / 4, device=dev).to(dtype)
+    lengths = torch.tensor([50, 0, 1, 37, 12, 50], device=dev)
+    mask = (torch.arange(H, device=dev)[None] < lengths[:, None]).to(torch.int32)
+    bias = torch.as_tensor(rng.normal(size=(B, H)), device=dev).float()
+    before = launch_counts()["poly_attention_fwd"]
+    got = poly_attention.poly_attention_fused(emb, w, codes, mask, bias)
+    want = poly_attention.poly_attention_reference(emb, w, codes, mask, bias)
+    torch.cuda.synchronize()
+    assert launch_counts()["poly_attention_fwd"] == before + 1
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= _tol(dtype, want)
+    mean = emb[1].float().mean(dim=0).expand(K, D)
+    assert (got[1].float() - mean).abs().max().item() <= _tol(dtype, mean)
+    assert (got[2].float() - emb[2, 0].float()).abs().max().item() <= _tol(dtype, emb[2, 0])
+
+
+@pytest.mark.gpu
+def test_poly_attention_refuses_bf16_shapes_off_the_tiles():
+    """The bf16 kernel takes D a multiple of 16 and P of 8; fp32 any."""
+    dev = _card()
+    for D, P in ((40, 24), (32, 20)):
+        emb = torch.zeros(2, 5, D, device=dev, dtype=torch.bfloat16)
+        w = torch.zeros(D, P, device=dev, dtype=torch.bfloat16)
+        codes = torch.zeros(3, P, device=dev, dtype=torch.bfloat16)
+        mask = torch.ones(2, 5, dtype=torch.int32, device=dev)
+        with pytest.raises(ValueError, match="multiple of"):
+            poly_attention.poly_attention_fused(emb, w, codes, mask)
+        out = poly_attention.poly_attention_fused(emb.float(), w.float(), codes.float(), mask)
+        assert out.shape == (2, 3, D) and torch.isfinite(out).all()
