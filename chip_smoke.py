@@ -14,18 +14,21 @@ Phases, each of which makes the script exit non-zero when it fails:
    so that the dropout's share of the time shows, and in fp32; the add_ln
    backward also in fp32; poly-attention at the train, serve and eval
    batches, in fp32, and with a quarter of its rows fully masked;
-   lookup+score at a slate, the whole-corpus top-k and an eval batch;
-   Fastformer attention at the train, eval and serve batches, in fp32 as
-   those paths give it, and in bf16) against its plain PyTorch version on
-   the same inputs (the tolerance is printed beside the error; the mha
-   backward's dq, dk and dv each at the scale of its (sequence, head)'s
-   gradient; with dropout the kernel's mask must equal the plain version's
-   bit for bit), and is timed with CUDA events beside the plain version,
-   the one PyTorch call computing the same function where there is one,
-   and its bound on an H100 SXM (3.35 TB/s; 989 TFLOP/s bf16, 67 TFLOP/s
-   fp32). A kernel's time is its device time, from calls captured in a
-   CUDA graph and replayed; the time of a call back to back, host
-   included, is printed beside it.
+   lookup+score at a slate (with candidates out of range: NaN), the
+   whole-corpus top-k and an eval batch, in bf16 and fp32, and the top-k
+   over a cache of MIND's size; Fastformer attention at the train, eval
+   and serve batches, in fp32 as those paths give it, and in bf16)
+   against its plain PyTorch version on the same inputs (the tolerance is
+   printed beside the error; the mha backward's dq, dk and dv each at the
+   scale of its (sequence, head)'s gradient; with dropout the kernel's
+   mask must equal the plain version's bit for bit), and is timed with
+   CUDA events beside the plain
+   version, the one PyTorch call computing the same function where there
+   is one (for lookup+score, which has none, the two calls index_select
+   and bmm as a yardstick), and its bound on an H100 SXM (3.35 TB/s; 989
+   TFLOP/s bf16, 67 TFLOP/s fp32). A kernel's time is its device time,
+   from calls captured in a CUDA graph and replayed; the time of a call
+   back to back, host included, is printed beside it.
 3. train: the launch counts are set to 0 and ``Trainer.train()`` runs the
    full-width ``config/train_miner.txt`` (roberta-base towers, random
    weights from the seed, bf16 compute, dropout, --remat, accumulation 8)
@@ -117,7 +120,11 @@ REQUIRED = {
 FORBIDDEN = {"fastformer_train": ("mha_bwd", "add_ln_bwd")}
 # the libraries whose ptxas report names each entry (kernels built in
 # several variants)
-ENTRY_REPORTS = ("mha_fwd", "mha_bwd", "add_ln_bwd", "poly_attention_fwd")
+ENTRY_REPORTS = ("mha_fwd", "mha_bwd", "add_ln_bwd", "poly_attention_fwd",
+                 "lookup_score_fwd", "fastformer_attn_fwd")
+# MIND (Wu et al., ACL 2020) counts 161,013 news: a cache of 161,014 rows
+# (row 0 the padding), and the corpus top-k's candidate bucket over it
+MIND_NEWS = 161013
 # which phases' launches a kernel case stands for, in the launch-weighted
 # gap (launches x (time - bound)): a phase's launches are split evenly over
 # its cases (titles and sapos launch equally often; the cache fill's chunks
@@ -463,24 +470,54 @@ def _lookup_inputs(dev, g, N, B, C, K, D, dtype):
     return (cache, idx, interests), nbytes
 
 
+def lookup_nan_check(cache, idx, interests):
+    """Candidates whose index lies outside [0, N) (negative, N, far past
+    it) score NaN, and every other score equals the plain version's on the
+    same rows."""
+    from miner_tpu_torch.ops import lookup_score
+
+    N = cache.shape[0]
+    bad_idx = idx.clone()
+    bad = torch.zeros_like(idx, dtype=torch.bool)
+    for b, c, v in ((0, 0, -1), (1, idx.shape[1] - 1, N), (2, idx.shape[1] // 2, N + 10 ** 6)):
+        bad_idx[b, c] = v
+        bad[b, c] = True
+    got = lookup_score.lookup_score_fused(cache, bad_idx, interests)
+    want = lookup_score.lookup_score_reference(cache, bad_idx.clamp(0, N - 1), interests)
+    nan_ok = bool(torch.isnan(got[bad]).all())
+    err = (got[~bad].float() - want[~bad].float()).abs().max().item()
+    ok = nan_ok and err <= REL_TOL[interests.dtype] * max(1.0, want[~bad].float().abs().max().item())
+    return ok, f"out-of-range rows NaN {nan_ok}, the others' err {err:.3g}"
+
+
 def lookup_cases(dev, g):
     """lookup+score at a full serving request batch: a slate (C = 16), the
     whole-corpus top-k (C = 4,096), and an eval batch (B = 64 rows of one
-    candidate each)."""
+    candidate each); in bf16 (the tensor cores) and fp32 (the CUDA cores);
+    and the top-k over a cache of MIND's size (161,014 rows, 82 MB in bf16,
+    more than the 50 MB L2) at B = 8. Beside each bf16 case the yardstick
+    of two PyTorch calls, ``index_select`` then ``torch.bmm``."""
     from miner_tpu_torch.ops import lookup_score
     from miner_tpu_torch.utils import candidate_bucket
 
-    N = NUM_NEWS + 1
-    for dtype in (torch.bfloat16, torch.float32):
-        for B, C in ((MAX_BATCH, 16), (MAX_BATCH, candidate_bucket(NUM_NEWS)), (EVAL_B, 1)):
-            args, nbytes = _lookup_inputs(dev, g, N, B, C, CODES, DIM, dtype)
-            yield dict(
-                case=f"{str(dtype)[6:]} B={B} C={C}", dtype=dtype,
-                kernel=lambda: lookup_score.lookup_score_fused(*args),
-                plain=lambda: lookup_score.lookup_score_reference(*args),
-                library=None,
-                bound=bound_ms(nbytes, 2 * B * C * CODES * DIM, dtype),
-                main=dtype == torch.bfloat16 and C > 16)
+    cases = [(dtype, NUM_NEWS + 1, B, C)
+             for dtype in (torch.bfloat16, torch.float32)
+             for B, C in ((MAX_BATCH, 16), (MAX_BATCH, candidate_bucket(NUM_NEWS)), (EVAL_B, 1))]
+    cases.append((torch.bfloat16, MIND_NEWS + 1, 8, candidate_bucket(MIND_NEWS)))
+    for dtype, N, B, C in cases:
+        args, nbytes = _lookup_inputs(dev, g, N, B, C, CODES, DIM, dtype)
+        cache, idx, interests = args
+        yield dict(
+            case=f"{str(dtype)[6:]} N={N} B={B} C={C}", dtype=dtype,
+            kernel=lambda: lookup_score.lookup_score_fused(*args),
+            plain=lambda: lookup_score.lookup_score_reference(*args),
+            library=None,
+            yardstick=(lambda: torch.bmm(
+                cache.index_select(0, idx.view(-1)).view(B, C, DIM),
+                interests.transpose(1, 2))) if dtype == torch.bfloat16 else None,
+            check=(lambda: lookup_nan_check(*args)) if C == 16 else None,
+            bound=bound_ms(nbytes, 2 * B * C * CODES * DIM, dtype),
+            main=dtype == torch.bfloat16 and C == candidate_bucket(NUM_NEWS))
 
 
 def ff_cases(dev, g):
@@ -579,6 +616,9 @@ def kernel_phase(dev, names=None):
                 f"{plain_ms:.4f} ms  library "
                 f"{'-' if library_ms is None else f'{library_ms:.4f} ms'}  "
                 f"bound {b_ms:.4f} ms ({b_by})")
+            yard_ms = graph_ms(c["yardstick"]) if c.get("yardstick") else None
+            if yard_ms is not None:
+                log(f"    yardstick (index_select + bmm, two calls) {yard_ms:.4f} ms")
             for e in errs:
                 if "part" in e:
                     log(f"    {e['part']}: err {e['err']:.3g} (tol {e['tol']:.3g}) at its "
@@ -594,6 +634,8 @@ def kernel_phase(dev, names=None):
                        "worst_err_over_tol": err / tol, "ms": ms, "call_ms": call_ms,
                        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                        "library_ms": library_ms}
+                if yard_ms is not None:
+                    row["yardstick_ms"] = yard_ms
             del got, want
             torch.cuda.empty_cache()
         rows.append(row)
@@ -1141,6 +1183,12 @@ def main(argv=None) -> int:
 
     log("kernels (kernel vs plain version on the same inputs):")
     rows, timed = kernel_phase(dev, names)
+    # cuBLAS keeps a workspace for each stream it ran on: the yardstick's bmm
+    # on graph_ms's capture streams left one each, which would count in the
+    # train phases' peaks
+    torch._C._cuda_clearCublasWorkspaces()
+    log(f"device memory still allocated after the kernel phase: "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB")
     if names:
         print(smi)
         print(json.dumps({"kernels": rows}))

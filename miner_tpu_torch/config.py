@@ -97,6 +97,11 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--serve_warmup_topk", type=int, default=16,
                    help="warm the corpus top-k path for this k bucket "
                         "(every batch bucket; 0 disables)")
+    p.add_argument("--serve_max_slate", type=int, default=512,
+                   help="reject unbert reranking slates above this size "
+                        "(each cross-encoder candidate costs a full PLM "
+                        "pass). Read only by UnBERT serving, which the port "
+                        "has not reached yet (ROADMAP Queue 1, item 6)")
     return parser
 
 

@@ -20,7 +20,10 @@ runs over all positions as if nothing were masked: never NaN.
 The kernel is ``csrc/fastformer_attn_fwd.cu``. It takes float32 and
 bfloat16; the weights are cast to q's type, as the TPU kernel does, and the
 intermediates are rounded to that type where the JAX reference rounds them
-(scores, softmax weights, pooled vectors, u).
+(scores, softmax weights, pooled vectors, u). A batch row is spread over a
+cluster of CTAs, each owning a slice of the L positions in its shared
+memory (:func:`plan` picks the cluster size); any h dividing D is taken,
+and any L whose slices fit in shared memory at 8 CTAs a row.
 
 Under autograd (grad mode on and an input requiring grad) a CUDA tensor
 goes through a ``torch.autograd.Function``: the forward is the kernel, the
@@ -33,6 +36,7 @@ CPU tensor takes the plain version, differentiable as it stands.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -40,8 +44,35 @@ import torch
 from miner_tpu_torch.ops import common
 
 MASK_FILL = -10000.0
+CLUSTER = 4  # CTAs a batch row, unless the row's slices need more room
+MAX_CLUSTER = 8  # the largest portable cluster
 _MAX_SMEM = 227 * 1024
-_ARGTYPES = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
+_ARGTYPES = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 7 + (ctypes.c_void_p,)
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_bytes(L: int, D: int, h: int, nc: int, code: int) -> int:
+    """Shared memory a CTA of the kernel takes at these shapes with ``nc``
+    CTAs a batch row, from the kernel's own layout."""
+    return common.kernel_function(
+        "fastformer_attn_fwd", "fastformer_attn_smem_bytes", (ctypes.c_int,) * 5,
+        ctypes.c_longlong)(L, D, h, nc, code)
+
+
+def plan(L: int, D: int, h: int, dtype: torch.dtype):
+    """(CTAs a batch row, shared-memory bytes a CTA): :data:`CLUSTER`,
+    doubled up to :data:`MAX_CLUSTER` while a CTA's slice of the row does
+    not fit. Raises when it does not fit at the most."""
+    code = common.DTYPE_CODES[dtype]
+    nc = CLUSTER
+    while _smem_bytes(L, D, h, nc, code) > _MAX_SMEM and nc < MAX_CLUSTER:
+        nc *= 2
+    smem = _smem_bytes(L, D, h, nc, code)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"Fastformer attention at L={L}, D={D}, h={h} needs "
+                         f"{smem} bytes of shared memory per CTA at {nc} CTAs a "
+                         f"row, more than {_MAX_SMEM}")
+    return nc, smem
 
 
 def fastformer_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -107,19 +138,13 @@ def _launch(q, k, wqa, bqa, wka, bka, mask, h) -> torch.Tensor:
     weights = [w.to(dt).contiguous() for w in (wqa, bqa, wka, bka)]
     for name, w in zip(("wqa", "bqa", "wka", "bka"), weights):
         common.check_tensor(name, w, dev, (dt,))
-    # one block's shared memory, as the kernel lays it out in fp32: both
-    # weights and their biases, the (L, h) scores, both pooled vectors
-    smem = 4 * (2 * h * D + 2 * h + L * h + 2 * D)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"Fastformer attention at L={L}, D={D}, h={h} needs "
-                         f"{smem} bytes of shared memory per block, more than "
-                         f"{_MAX_SMEM}")
+    nc, _ = plan(L, D, h, dt)
     out = torch.empty_like(q)
     fn = common.kernel_function("fastformer_attn_fwd", "fastformer_attn_fwd",
                                 _ARGTYPES)
     common.launch("fastformer_attn_fwd", fn, q.data_ptr(), k.data_ptr(),
                   *(w.data_ptr() for w in weights), mask.data_ptr(),
-                  out.data_ptr(), B, L, D, h, common.DTYPE_CODES[dt], dev.index,
+                  out.data_ptr(), B, L, D, h, nc, common.DTYPE_CODES[dt], dev.index,
                   common.stream_of(q))
     fastformer_attention_fused.launches += 1
     return out

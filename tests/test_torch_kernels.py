@@ -616,3 +616,230 @@ def test_poly_attention_refuses_bf16_shapes_off_the_tiles():
             poly_attention.poly_attention_fused(emb, w, codes, mask)
         out = poly_attention.poly_attention_fused(emb.float(), w.float(), codes.float(), mask)
         assert out.shape == (2, 3, D) and torch.isfinite(out).all()
+
+
+# ---------------------------------------------------------------- lookup+score
+@pytest.mark.parametrize("cache_dt, int_dt, D, route", [
+    (torch.bfloat16, torch.bfloat16, 256, "tensor_core"),
+    (torch.bfloat16, torch.bfloat16, 64, "tensor_core"),
+    (torch.bfloat16, torch.bfloat16, 40, "cuda_core"),  # D off the 16-column tiles
+    (torch.float32, torch.float32, 256, "cuda_core"),  # TF32 would fail fp32's tolerance
+    (torch.bfloat16, torch.float32, 256, "cuda_core"),
+    (torch.float32, torch.bfloat16, 256, "cuda_core"),
+])
+def test_lookup_plan_picks_the_route_by_types_and_width(monkeypatch, cache_dt, int_dt, D,
+                                                        route):
+    """The route follows the types and D; the size is the kernel's own (here
+    a stand-in for the library), asked for with the inputs' type codes."""
+    asked = []
+    monkeypatch.setattr(lookup_score, "_smem_bytes",
+                        lambda *a: asked.append(a) or 50_000 + a[-1])
+    got, tiles, smem = lookup_score.plan(32, 4096, 32, D, cache_dt, int_dt)
+    assert got == route and smem == 50_000 + tiles
+    codes = (common.DTYPE_CODES[cache_dt], common.DTYPE_CODES[int_dt])
+    assert {a[:4] for a in asked} == {(32, D, *codes)}
+
+
+def test_lookup_plan_sizes_runs_to_a_wave_and_refuses_what_does_not_fit(monkeypatch):
+    """A block's run of tiles is the shortest that makes the grid one wave
+    of 132 SMs, within the tiles there are and at most MAX_RUN: two blocks
+    an SM where a block takes ~90 KB (bf16 on the tensor cores at K = 32,
+    D = 256), one where it takes ~150 KB (fp32 on the CUDA cores). A
+    float16 input and a block larger than shared memory are refused."""
+    for base, B, C, tiles in ((90_000, 32, 16, 1), (90_000, 64, 1, 1), (90_000, 1, 4096, 1),
+                              (90_000, 32, 4096, 8), (150_000, 32, 4096, 16),
+                              (90_000, 8, 262144, lookup_score.MAX_RUN)):
+        monkeypatch.setattr(lookup_score, "_smem_bytes",
+                            lambda K, D, c, i, n, base=base: base + 256 * n)
+        assert lookup_score.plan(B, C, 32, 256, torch.bfloat16, torch.bfloat16)[1] == tiles
+    with pytest.raises(TypeError, match="dtype"):
+        lookup_score.plan(32, 16, 32, 256, torch.float16, torch.bfloat16)
+    monkeypatch.setattr(lookup_score, "_smem_bytes", lambda *a: 228 * 1024)
+    with pytest.raises(ValueError, match="shared memory"):
+        lookup_score.plan(32, 16, 512, 256, torch.float32, torch.float32)
+
+
+def _lookup_case(rng, dev, N, B, C, K, D, cache_dt, int_dt):
+    cache = torch.as_tensor(rng.normal(size=(N, D)), device=dev).to(cache_dt)
+    idx = torch.as_tensor(rng.integers(0, N, size=(B, C)).astype(np.int32), device=dev)
+    interests = torch.as_tensor(rng.normal(size=(B, K, D)), device=dev).to(int_dt)
+    return cache, idx, interests
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [1, 16, 100, 4096])
+@pytest.mark.parametrize("cache_dt, int_dt", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+    (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)])
+def test_lookup_score_routes_match_plain_on_card(rng, cache_dt, int_dt, C):
+    """Both routes at the serving width (K = 32, D = 256) over one
+    candidate, a slate, a count off the 64-candidate tile and a corpus
+    top-k, one launch each, within the tolerance of the output's type."""
+    dev = _card()
+    args = _lookup_case(rng, dev, 5000, 3, C, 32, 256, cache_dt, int_dt)
+    before = launch_counts()["lookup_score_fwd"]
+    got = lookup_score.lookup_score_fused(*args)
+    want = lookup_score.lookup_score_reference(*args)
+    torch.cuda.synchronize()
+    assert launch_counts()["lookup_score_fwd"] == before + 1
+    assert got.dtype == int_dt and got.shape == (3, C, 32) and torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= _tol(int_dt, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype, B, C, tiles", [
+    (torch.float32, 3, 700, 1), (torch.bfloat16, 3, 700, 1),
+    (torch.float32, 30, 700, 3), (torch.bfloat16, 60, 700, 3),
+    (torch.float32, 62, 2000, 16), (torch.bfloat16, 124, 2000, 16)])
+def test_lookup_score_runs_match_plain_on_card(rng, dtype, B, C, tiles):
+    """Runs of one tile, of three (700 candidates are 11 tiles, the last of
+    60: the row's last run is short) and of 16 (two runs a row, the last
+    tile of 16 candidates), reached through B and C as the plan sizes runs
+    to one wave of an H100's 132 SMs."""
+    dev = _card()
+    args = _lookup_case(rng, dev, 3000, B, C, 32, 256, dtype, dtype)
+    assert lookup_score.plan(B, C, 32, 256, dtype, dtype,
+                             lookup_score._sms(dev.index))[1] == tiles
+    got = lookup_score.lookup_score_fused(*args)
+    want = lookup_score.lookup_score_reference(*args)
+    assert (got.float() - want.float()).abs().max().item() <= _tol(dtype, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K, D", [(5, 64), (5, 256), (40, 48), (33, 40), (7, 30)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lookup_score_odd_widths_match_plain_on_card(rng, K, D, dtype):
+    """K off the 8-row pieces and past one 32-interest chunk; D off the
+    16-column tiles (bf16 then takes the CUDA cores) and off the 16-byte
+    copies (D = 30: element by element)."""
+    dev = _card()
+    args = _lookup_case(rng, dev, 300, 4, 150, K, D, dtype, dtype)
+    got = lookup_score.lookup_score_fused(*args)
+    want = lookup_score.lookup_score_reference(*args)
+    assert (got.float() - want.float()).abs().max().item() <= _tol(dtype, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache_dt, int_dt", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32)])
+def test_lookup_score_out_of_range_rows_are_nan_on_card(rng, cache_dt, int_dt):
+    """A negative index or one at or past N gives NaN for that candidate's
+    K scores and leaves every other score exact."""
+    dev = _card()
+    N = 200
+    cache, idx, interests = _lookup_case(rng, dev, N, 2, 130, 32, 256, cache_dt, int_dt)
+    bad = torch.zeros_like(idx, dtype=torch.bool)
+    for b, c, v in ((0, 0, -1), (0, 63, N), (0, 64, N + 5000), (1, 129, -(2 ** 31))):
+        idx[b, c] = v
+        bad[b, c] = True
+    got = lookup_score.lookup_score_fused(cache, idx, interests)
+    want = lookup_score.lookup_score_reference(cache, idx.clamp(0, N - 1), interests)
+    assert torch.isnan(got[bad]).all()
+    assert torch.isfinite(got[~bad]).all()
+    err = (got[~bad].float() - want[~bad].float()).abs().max().item()
+    assert err <= _tol(int_dt, want[~bad])
+
+
+@pytest.mark.gpu
+def test_lookup_score_refuses_what_its_routes_do_not_take():
+    """No fallback: float16 and int64 indices are refused, and so is a
+    bf16 cache off a 16-byte boundary on the tensor-core route. At the
+    corpus top-k the plan, sized by the kernel's own layout, is one wave:
+    runs of 8 tiles, two blocks an SM."""
+    dev = _card()
+    cache = torch.zeros(10, 64, device=dev, dtype=torch.bfloat16)
+    idx = torch.zeros(2, 3, dtype=torch.int32, device=dev)
+    interests = torch.zeros(2, 4, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="dtype"):
+        lookup_score.lookup_score_fused(cache.half(), idx, interests)
+    with pytest.raises(TypeError, match="dtype"):
+        lookup_score.lookup_score_fused(cache, idx.long(), interests)
+    shifted = torch.zeros(10 * 64 + 4, device=dev, dtype=torch.bfloat16)[4:].view(10, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        lookup_score.lookup_score_fused(shifted, idx, interests)
+    route, tiles, smem = lookup_score.plan(32, 4096, 32, 256, torch.bfloat16,
+                                           torch.bfloat16, lookup_score._sms(dev.index))
+    assert (route, tiles) == ("tensor_core", 8) and 2 * (smem + 1024) <= lookup_score.SM_SMEM
+
+
+# ----------------------------------------------------------- Fastformer attention
+def test_fastformer_plan_spreads_a_row_over_a_cluster(monkeypatch):
+    """Four CTAs a row at the model's shapes; eight when a quarter of a long
+    row does not fit in shared memory; refused when an eighth does not
+    either. The size is the kernel's own (here a stand-in for the library
+    that grows with a CTA's rows), asked for with q's type code."""
+    asked = set()
+
+    def size(L, D, h, nc, code):
+        asked.add(code)
+        return 40_000 + -(-L // nc) * D * 8
+
+    monkeypatch.setattr(fastformer_attn, "_smem_bytes", size)
+    assert fastformer_attn.plan(50, 256, 16, torch.float32) == (4, size(50, 256, 16, 4, 0))
+    assert fastformer_attn.plan(256, 256, 16, torch.bfloat16)[0] == 4
+    assert fastformer_attn.plan(512, 256, 16, torch.float32)[0] == 8
+    assert asked == {common.DTYPE_CODES[torch.float32], common.DTYPE_CODES[torch.bfloat16]}
+    with pytest.raises(ValueError, match="shared memory"):
+        fastformer_attn.plan(16384, 32, 4, torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B, L, D, h", [(3, 1, 256, 16), (4, 7, 32, 16), (5, 50, 96, 12),
+                                        (3, 33, 80, 20), (2, 512, 256, 16)])
+def test_fastformer_row_slices_match_plain_on_card(rng, B, L, D, h, dtype):
+    """One position (three of four CTAs own no rows); fewer positions than
+    a row's CTAs hold evenly; 12 heads (padded to 16 in the score pass) and
+    20 (two passes, the second a partial one); a row long enough to take 8
+    CTAs. Each with a padded and a fully masked row."""
+    dev = _card()
+    xs, mask = _ff_inputs(rng, B, L, D, h)
+    q, k = (torch.as_tensor(x, device=dev).to(dtype) for x in xs[:2])
+    weights = [torch.as_tensor(x, device=dev).float() for x in xs[2:]]
+    mask = torch.as_tensor(mask, device=dev)
+    got = fastformer_attn.fastformer_attention_fused(q, k, *weights, mask, h)
+    want = fastformer_attn.fastformer_attention_reference(q, k, *weights, mask, h)
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= _tol(dtype, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype, L, cluster", [
+    (torch.float32, 50, 4), (torch.bfloat16, 50, 4),
+    (torch.float32, 512, 8), (torch.bfloat16, 1024, 8)])
+def test_fastformer_cluster_sizes_match_plain_on_card(rng, dtype, L, cluster):
+    """The training shape, at the 4 CTAs a row the plan gives it, and a row
+    long enough to take 8 (a quarter of 512 bf16 rows still fits): the same
+    result within the tolerance, and bit for bit from run to run (partials
+    summed in rank order)."""
+    dev = _card()
+    assert fastformer_attn.plan(L, 256, 16, dtype)[0] == cluster
+    xs, mask = _ff_inputs(rng, 16, L, 256, 16)
+    q, k = (torch.as_tensor(x, device=dev).to(dtype) for x in xs[:2])
+    weights = [torch.as_tensor(x, device=dev).to(dtype) for x in xs[2:]]
+    mask = torch.as_tensor(mask, device=dev)
+    got = fastformer_attn.fastformer_attention_fused(q, k, *weights, mask, 16)
+    again = fastformer_attn.fastformer_attention_fused(q, k, *weights, mask, 16)
+    want = fastformer_attn.fastformer_attention_reference(q, k, *weights, mask, 16)
+    assert torch.equal(got, again)
+    assert (got.float() - want.float()).abs().max().item() <= _tol(dtype, want)
+
+
+@pytest.mark.gpu
+def test_fastformer_bf16_rounds_where_the_reference_rounds_on_card(rng):
+    """bf16 at the training shape against the reference (which rounds
+    scores, weights, pooled vectors and u to bf16) and against the same
+    function with every intermediate kept in fp32: the kernel must sit
+    with the first, closer than the bf16 tolerance to it."""
+    dev = _card()
+    xs, mask = _ff_inputs(rng, 16, 50, 256, 16)
+    q, k = (torch.as_tensor(x, device=dev).to(torch.bfloat16) for x in xs[:2])
+    weights = [torch.as_tensor(x, device=dev).to(torch.bfloat16) for x in xs[2:]]
+    mask = torch.as_tensor(mask, device=dev)
+    got = fastformer_attn.fastformer_attention_fused(q, k, *weights, mask, 16).float()
+    want = fastformer_attn.fastformer_attention_reference(q, k, *weights, mask, 16).float()
+    unrounded = fastformer_attn.fastformer_attention_reference(
+        q.float(), k.float(), *(w.float() for w in weights), mask, 16)
+    err = (got - want).abs().max().item()
+    assert err <= _tol(torch.bfloat16, want)
+    assert err < (got - unrounded).abs().max().item()

@@ -99,6 +99,21 @@ def test_lookup_score_matches_pallas_kernel(rng):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
 
 
+def test_lookup_score_rows_past_the_cache_are_nan_as_in_jax(rng):
+    """An index at or past N scores NaN in the port's plain version, as the
+    JAX reference's ``jnp.take`` fills it; the other rows agree."""
+    N, D, B, C, K = 30, 16, 2, 6, 3
+    cache = rng.normal(size=(N, D)).astype(np.float32)
+    idx = rng.integers(0, N, size=(B, C)).astype(np.int32)
+    idx[0, 1], idx[1, 4] = N, N + 7
+    interests = rng.normal(size=(B, K, D)).astype(np.float32)
+    want = np.asarray(jax_lookup_score(jnp.asarray(cache), jnp.asarray(idx),
+                                       jnp.asarray(interests)))
+    got = lookup_score_fused(T(cache), T(idx), T(interests)).numpy()
+    assert np.isnan(want[0, 1]).all() and np.isnan(want[1, 4]).all()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)  # NaN where NaN
+
+
 # ------------------------------------------------------------- backwards
 # The port's plain backward formulas against the Pallas backward kernels
 # (interpret mode) and, for poly-attention, against jax.grad through the

@@ -9,6 +9,7 @@ summation-order noise. Also: the port's package imports neither JAX nor the
 JAX package, the CLI parses ``config/serve_miner.txt``, and the flags this
 slice cannot honour are refused.
 """
+import argparse
 import json
 import os
 import subprocess
@@ -169,6 +170,30 @@ def test_serve_config_parses_unchanged():
             args.word_embed_dim, args.score_type) == (50, 32, 200, 256, "weighted")
     assert args.use_category_bias and args.use_sapo and args.apply_reduce_dim
     assert args.compute_dtype == "bfloat16" and args.device is None
+
+
+def _option_strings(parser):
+    """Each subcommand's option strings."""
+    sub = next(a for a in parser._actions
+               if isinstance(a, argparse._SubParsersAction))
+    return {name: {s for act in p._actions for s in act.option_strings}
+            for name, p in sub.choices.items()}
+
+
+def test_every_jax_option_is_accepted_by_the_port():
+    """The port takes the JAX package's flags: for every subcommand of the
+    JAX parser, its option strings are a subset of the port's for the same
+    subcommand. ``pretrain`` is not ported yet (ROADMAP Queue 1, item 4)."""
+    jax_opts, port_opts = _option_strings(jax_parser()), _option_strings(make_parser())
+    unported = {"pretrain"}
+    assert set(jax_opts) - unported <= set(port_opts)
+    missing = {name: sorted(opts - port_opts[name])
+               for name, opts in jax_opts.items() if name not in unported}
+    assert missing == {name: [] for name in missing}
+    args = make_parser().parse_args(
+        ["serve", "@" + os.path.join(REPO, "config", "serve_miner.txt"),
+         "--serve_max_slate", "64"])
+    assert args.serve_max_slate == 64
 
 
 def _args(tmp_path, *extra):
