@@ -11,21 +11,24 @@ Phases, each of which makes the script exit non-zero when it fails:
 2. kernels: each of the seven kernels runs at the shapes its paths give it
    (serving: the cache fill's chunks and request batches; training: a
    ``train_miner.txt`` micro-batch, with dropout on, and for mha also off,
-   so that the dropout's share of the time shows, and in fp32; the add_ln
-   backward also in fp32; poly-attention at the train, serve and eval
-   batches, in fp32, and with a quarter of its rows fully masked;
-   lookup+score at a slate (with candidates out of range: NaN), the
+   so that the dropout's share of the time shows, and in fp32, and a
+   ``pretrain_miner.txt`` micro-batch; the add_ln backward also in fp32;
+   poly-attention at the train, serve and eval batches, in fp32, and with a
+   quarter of its rows fully masked; lookup+score at a slate (with
+   candidates in [-N, 0): wrapped, and outside [-N, N): NaN), the
    whole-corpus top-k and an eval batch, in bf16 and fp32, and the top-k
-   over a cache of MIND's size; Fastformer attention at the train, eval
-   and serve batches, in fp32 as those paths give it, and in bf16)
+   over a cache of MIND's size, then its int8 route at the same shapes with
+   bf16 and fp32 interests; Fastformer attention at the train, eval and
+   serve batches, in fp32 as those paths give it, and in bf16)
    against its plain PyTorch version on the same inputs (the tolerance is
    printed beside the error; the mha backward's dq, dk and dv each at the
    scale of its (sequence, head)'s gradient; with dropout the kernel's
    mask must equal the plain version's bit for bit), and is timed with
    CUDA events beside the plain
    version, the one PyTorch call computing the same function where there
-   is one (for lookup+score, which has none, the two calls index_select
-   and bmm as a yardstick), and its bound on an H100 SXM (3.35 TB/s; 989
+   is one (for lookup+score, which has none, the calls index_select and
+   bmm, for int8 rows with the cast and the scales' product, as a
+   yardstick), and its bound on an H100 SXM (3.35 TB/s; 989
    TFLOP/s bf16, 67 TFLOP/s fp32). A kernel's time is its device time,
    from calls captured in a CUDA graph and replayed; the time of a call
    back to back, host included, is printed beside it.
@@ -40,6 +43,25 @@ Phases, each of which makes the script exit non-zero when it fails:
    into the news-embedding cache, and the HTTP server answers concurrent
    slate and whole-corpus top-k requests. Every serving kernel must have
    launched.
+   serve cache: ``serve_miner.txt`` with its ``--serve_cache_path`` (in
+   the temporary directory) started twice on that ``finalModel``: the
+   first start encodes the corpus and persists it, the second loads the
+   file, launches no PLM kernel, holds the same cache bit for bit and
+   answers the same requests (one at a time) with the same replies bit for
+   bit; then the same with ``--serve_cache_int8`` (the int8 route of
+   lookup+score), its bytes against bf16's and both start-up times printed.
+   pretrain: ``config/pretrain_miner.txt`` at full width (the news encoder
+   alone over the positive, its 3 augmented variants and 4 negatives:
+   128 news a micro-batch; bf16, --remat, dropout) for one epoch of 16
+   updates and its eval, the contrastive loss summed: mha and add_ln
+   forward and backward launched, no poly-attention, lookup+score or
+   Fastformer kernel; finite losses; ``bestLossModel`` and ``finalModel``
+   written.
+   warm start: ``config/train_miner_hard.txt`` (hard augmentation mode)
+   with ``--pretrained_model_path`` set to that ``finalModel`` and
+   ``--learning_rate 0`` for one epoch: every Miner kernel launched, and
+   the ``finalModel``'s news encoder equal to the pretrained one bit for
+   bit.
 5. Fastformer train: the same for ``config/train_fastformer.txt`` (the
    Fastformer user encoder over the same towers, frozen with
    ``--freeze_transformer``). The micro-batches and the eval must launch
@@ -96,28 +118,60 @@ NUM_NEWS = 4096
 # config/train_miner.txt: batch 16 of 1 positive + 4 negatives and 50 history
 # news, 55 news per impression -> 880 sequences per field per micro-batch
 TRAIN_N, TRAIN_TITLE, TRAIN_SAPO = 16 * 55, 32, 128
+# config/pretrain_miner.txt: batch 16 of the positive, its 3 augmented
+# variants and 4 negatives: 128 sequences per field per micro-batch
+PRETRAIN_N = 16 * 8
 TRAIN_RATE = 0.1  # hidden_dropout and attention_dropout of the PLM
-# the mha kernels' training cases (L, dropout rate, dtype): the sapo shape
-# with dropout (the main path's), without it (Philox's share), in fp32
-# (--compute_dtype float32, the CUDA-core kernels); the title shape
-TRAIN_MHA_CASES = ((TRAIN_SAPO, TRAIN_RATE, torch.bfloat16), (TRAIN_SAPO, 0.0, torch.bfloat16),
-                   (TRAIN_SAPO, TRAIN_RATE, torch.float32),
-                   (TRAIN_TITLE, TRAIN_RATE, torch.bfloat16))
+# which phases' launches a kernel case stands for, in the launch-weighted
+# gap (launches x (time - bound)): a phase's launches are split evenly over
+# its cases (titles and sapos launch equally often; the cache fill's chunks
+# are taken as full, and the pretrain eval's 256 sequences a call as a
+# chunk of 512). Poly-attention and lookup+score are counted shape by
+# shape instead (LaunchCensus).
+TRAIN_PHASES = ("train", "fastformer_train", "warm_start")  # 880 sequences a micro-batch
+BWD_PHASES = ("train", "warm_start", "pretrain")  # the phases that differentiate the PLM
+FILL_PHASES = ("eval", "serve", "fastformer_eval", "fastformer_serve", "warm_start_eval",
+               "pretrain_eval", "serve_cache", "serve_int8")
+# the mha kernels' training cases (N, L, dropout rate, dtype, phases): the
+# sapo shape with dropout (the main path's), without it (Philox's share), in
+# fp32 (--compute_dtype float32, the CUDA-core kernels); the title shape;
+# the pretrain micro-batch's two shapes
+TRAIN_MHA_CASES = ((TRAIN_N, TRAIN_SAPO, TRAIN_RATE, torch.bfloat16, TRAIN_PHASES),
+                   (TRAIN_N, TRAIN_SAPO, 0.0, torch.bfloat16, ()),
+                   (TRAIN_N, TRAIN_SAPO, TRAIN_RATE, torch.float32, ()),
+                   (TRAIN_N, TRAIN_TITLE, TRAIN_RATE, torch.bfloat16, TRAIN_PHASES),
+                   (PRETRAIN_N, TRAIN_SAPO, TRAIN_RATE, torch.bfloat16, ("pretrain",)),
+                   (PRETRAIN_N, TRAIN_TITLE, TRAIN_RATE, torch.bfloat16, ("pretrain",)))
 FF_HEADS = 16  # the Fastformer of word_embed_dim 256 (trainer: 16 if D % 16 == 0)
 TRAIN_B, EVAL_B = 16, 64  # train_fastformer.txt's train and eval batches
 # the kernels each phase of the main path must launch (and, for the frozen
 # Fastformer training, must not)
 MINER_KERNELS = ("mha_fwd", "add_ln_fwd", "poly_attention_fwd")
 FF_KERNELS = ("mha_fwd", "add_ln_fwd", "fastformer_attn_fwd")
+PLM_FWD, PLM_BWD = ("mha_fwd", "add_ln_fwd"), ("mha_bwd", "add_ln_bwd")
+TAIL_KERNELS = ("poly_attention_fwd", "lookup_score_fwd", "fastformer_attn_fwd")
+SERVE_KERNELS = MINER_KERNELS + ("lookup_score_fwd",)
 REQUIRED = {
-    "train": MINER_KERNELS + ("mha_bwd", "add_ln_bwd"),
-    "eval": MINER_KERNELS + ("lookup_score_fwd",),
-    "serve": MINER_KERNELS + ("lookup_score_fwd",),
+    "train": MINER_KERNELS + PLM_BWD,
+    "eval": SERVE_KERNELS,
+    "serve": SERVE_KERNELS,
+    "serve_cache": SERVE_KERNELS,  # fills the cache and persists it
+    "serve_cache_loaded": ("poly_attention_fwd", "lookup_score_fwd"),
+    "serve_int8": SERVE_KERNELS,
+    "serve_int8_loaded": ("poly_attention_fwd", "lookup_score_fwd"),
+    "pretrain": PLM_FWD + PLM_BWD,
+    "pretrain_eval": PLM_FWD,
+    "warm_start": MINER_KERNELS + PLM_BWD,
+    "warm_start_eval": SERVE_KERNELS,
     "fastformer_train": FF_KERNELS,
     "fastformer_eval": FF_KERNELS,
     "fastformer_serve": FF_KERNELS,
 }
-FORBIDDEN = {"fastformer_train": ("mha_bwd", "add_ln_bwd")}
+FORBIDDEN = {"fastformer_train": PLM_BWD,
+             "serve_cache_loaded": PLM_FWD,  # the cache comes from the file
+             "serve_int8_loaded": PLM_FWD,
+             "pretrain": TAIL_KERNELS,  # the news encoder alone
+             "pretrain_eval": TAIL_KERNELS + PLM_BWD}
 # the libraries whose ptxas report names each entry (kernels built in
 # several variants)
 ENTRY_REPORTS = ("mha_fwd", "mha_bwd", "add_ln_bwd", "poly_attention_fwd",
@@ -125,13 +179,9 @@ ENTRY_REPORTS = ("mha_fwd", "mha_bwd", "add_ln_bwd", "poly_attention_fwd",
 # MIND (Wu et al., ACL 2020) counts 161,013 news: a cache of 161,014 rows
 # (row 0 the padding), and the corpus top-k's candidate bucket over it
 MIND_NEWS = 161013
-# which phases' launches a kernel case stands for, in the launch-weighted
-# gap (launches x (time - bound)): a phase's launches are split evenly over
-# its cases (titles and sapos launch equally often; the cache fill's chunks
-# are taken as full). Poly-attention and lookup+score are counted shape by
-# shape instead (LaunchCensus).
-TRAIN_PHASES = ("train", "fastformer_train")
-FILL_PHASES = ("eval", "serve", "fastformer_eval", "fastformer_serve")
+# the augmented news variants config/pretrain_miner.txt loads (the other
+# training configs take a subset of them)
+AUGMENTATIONS = ("changed_topic_text", "enhanced_text", "semi_enhanced_text")
 
 
 def log(msg: str) -> None:
@@ -264,24 +314,24 @@ def mha_cases(dev, g):
     # Philox's share shows), bf16 and, as --compute_dtype float32 gives it,
     # fp32; under autograd the forward also writes the softmax statistics,
     # as here
-    for L, rate, dtype in TRAIN_MHA_CASES:
+    for N, L, rate, dtype, phases in TRAIN_MHA_CASES:
         seed = 2 ** 40 + L
-        qkv, mask = _mha_inputs(dev, g, TRAIN_N, L, dtype)
-        q, k, v = qkv.view(TRAIN_N, L, 3, HEADS, -1).permute(2, 0, 3, 1, 4)
+        qkv, mask = _mha_inputs(dev, g, N, L, dtype)
+        q, k, v = qkv.view(N, L, 3, HEADS, -1).permute(2, 0, 3, 1, 4)
         bool_mask = mask.bool()[:, None, None, :]
-        out = torch.empty(TRAIN_N, L, HIDDEN, dtype=dtype, device=dev)
-        stats = torch.empty(TRAIN_N, HEADS, L, 2, device=dev)
-        flops = 4 * TRAIN_N * HEADS * L * L * (HIDDEN // HEADS)
+        out = torch.empty(N, L, HIDDEN, dtype=dtype, device=dev)
+        stats = torch.empty(N, HEADS, L, 2, device=dev)
+        flops = 4 * N * HEADS * L * L * (HIDDEN // HEADS)
         yield dict(
-            case=f"{str(dtype)[6:]} N={TRAIN_N} L={L} dropout {rate}", dtype=dtype,
+            case=f"{str(dtype)[6:]} N={N} L={L} dropout {rate}", dtype=dtype,
             kernel=lambda: mha._launch_fwd(qkv, mask, HEADS, 1, rate, seed, True)[0],
             plain=lambda: mha.mha_reference(qkv, mask, HEADS, 1, rate, seed),
             library=lambda: torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, attn_mask=bool_mask, dropout_p=rate),
             check=(lambda: mha_dropout_mask_check(qkv, mask, seed)) if rate else None,
             bound=bound_ms(_nbytes(qkv, mask, out, stats), flops, dtype),
-            main=L == TRAIN_SAPO and rate > 0 and dtype == torch.bfloat16,
-            phases=TRAIN_PHASES if rate > 0 and dtype == torch.bfloat16 else ())
+            main=N == TRAIN_N and L == TRAIN_SAPO and rate > 0 and dtype == torch.bfloat16,
+            phases=phases)
 
 
 def mha_grad_errors(got, want, rel):
@@ -315,18 +365,18 @@ def mha_grad_errors(got, want, rel):
 def mha_bwd_cases(dev, g):
     from miner_tpu_torch.ops import mha
 
-    for L, rate, dtype in TRAIN_MHA_CASES:
+    for N, L, rate, dtype, phases in TRAIN_MHA_CASES:
         seed = 2 ** 41 + L
-        qkv, mask = _mha_inputs(dev, g, TRAIN_N, L, dtype)
-        dout = torch.randn(TRAIN_N, L, HIDDEN, device=dev, generator=g).to(dtype)
+        qkv, mask = _mha_inputs(dev, g, N, L, dtype)
+        dout = torch.randn(N, L, HIDDEN, device=dev, generator=g).to(dtype)
         out, stats = mha._launch_fwd(qkv, mask, HEADS, 1, rate, seed, True)
         leaves = _sdpa_leaves(qkv)
         sdpa_out = torch.nn.functional.scaled_dot_product_attention(
             *leaves, attn_mask=mask.bool()[:, None, None, :], dropout_p=rate)
-        sdpa_dout = dout.view(TRAIN_N, L, HEADS, -1).transpose(1, 2)
-        flops = 5 * 2 * TRAIN_N * HEADS * L * L * (HIDDEN // HEADS)
+        sdpa_dout = dout.view(N, L, HEADS, -1).transpose(1, 2)
+        flops = 5 * 2 * N * HEADS * L * L * (HIDDEN // HEADS)
         yield dict(
-            case=f"{str(dtype)[6:]} N={TRAIN_N} L={L} dropout {rate}", dtype=dtype,
+            case=f"{str(dtype)[6:]} N={N} L={L} dropout {rate}", dtype=dtype,
             kernel=lambda: mha.mha_backward(qkv, mask, dout, HEADS, rate, seed, 1,
                                             out, stats),
             plain=lambda: mha.mha_backward_reference(qkv, mask, dout, HEADS, 1,
@@ -336,8 +386,8 @@ def mha_bwd_cases(dev, g):
             errors=mha_grad_errors,
             # reads qkv, out, dout, stats and mask; writes dqkv
             bound=bound_ms(_nbytes(qkv, out, dout, stats, mask, qkv), flops, dtype),
-            main=L == TRAIN_SAPO and rate > 0 and dtype == torch.bfloat16,
-            phases=("train",) if rate > 0 and dtype == torch.bfloat16 else ())
+            main=N == TRAIN_N and L == TRAIN_SAPO and rate > 0 and dtype == torch.bfloat16,
+            phases=tuple(p for p in phases if p in BWD_PHASES))
 
 
 def _ln_inputs(dev, g, T, dtype):
@@ -365,8 +415,9 @@ def add_ln_cases(dev, g):
                 bound=bound_ms(_nbytes(x, h, scale, bias, x), 8 * T * HIDDEN,
                                torch.float32),
                 phases=FILL_PHASES if dtype == torch.bfloat16 else ())
-    for L in (TRAIN_SAPO, TRAIN_TITLE):
-        T, dtype, seed = TRAIN_N * L, torch.bfloat16, 2 ** 42 + L
+    for N, L in ((TRAIN_N, TRAIN_SAPO), (TRAIN_N, TRAIN_TITLE), (PRETRAIN_N, TRAIN_SAPO),
+                 (PRETRAIN_N, TRAIN_TITLE)):
+        T, dtype, seed = N * L, torch.bfloat16, 2 ** 42 + L
         x, h, scale, bias = _ln_inputs(dev, g, T, dtype)
         scale_t, bias_t = scale.to(dtype), bias.to(dtype)
         yield dict(
@@ -380,15 +431,19 @@ def add_ln_cases(dev, g):
                 bias_t, 1e-5),
             bound=bound_ms(_nbytes(x, h, scale, bias, x), 9 * T * HIDDEN,
                            torch.float32),
-            main=L == TRAIN_SAPO, phases=TRAIN_PHASES)
+            main=N == TRAIN_N and L == TRAIN_SAPO,
+            phases=TRAIN_PHASES if N == TRAIN_N else ("pretrain",))
 
 
 def add_ln_bwd_cases(dev, g):
     from miner_tpu_torch.ops import add_ln, philox
 
-    for L, dtype in ((TRAIN_SAPO, torch.bfloat16), (TRAIN_TITLE, torch.bfloat16),
-                     (TRAIN_SAPO, torch.float32)):
-        T, seed = TRAIN_N * L, 2 ** 43 + L
+    for N, L, dtype in ((TRAIN_N, TRAIN_SAPO, torch.bfloat16),
+                        (TRAIN_N, TRAIN_TITLE, torch.bfloat16),
+                        (TRAIN_N, TRAIN_SAPO, torch.float32),
+                        (PRETRAIN_N, TRAIN_SAPO, torch.bfloat16),
+                        (PRETRAIN_N, TRAIN_TITLE, torch.bfloat16)):
+        T, seed = N * L, 2 ** 43 + L
         x, h, scale, bias = _ln_inputs(dev, g, T, dtype)
         dy = torch.randn(T, HIDDEN, device=dev, generator=g).to(dtype)
         leaves = [t.detach().clone().requires_grad_() for t in (x, h, scale, bias)]
@@ -411,8 +466,9 @@ def add_ln_bwd_cases(dev, g):
             library=lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True),
             check=mask_check,
             bound=bound_ms(_nbytes(x, h, dy, x, h), 20 * T * HIDDEN, torch.float32),
-            main=L == TRAIN_SAPO and dtype == torch.bfloat16,
-            phases=("train",) if dtype == torch.bfloat16 else ())
+            main=N == TRAIN_N and L == TRAIN_SAPO and dtype == torch.bfloat16,
+            phases=(() if dtype != torch.bfloat16 else ("pretrain",) if N == PRETRAIN_N
+                    else tuple(p for p in TRAIN_PHASES if p in BWD_PHASES)))
 
 
 def _poly_inputs(dev, g, B, dtype, masked_rows=0, H=HIS, D=DIM, P=CODE_DIM, K=CODES):
@@ -455,39 +511,64 @@ def poly_cases(dev, g):
             main=dtype == torch.bfloat16 and B == MAX_BATCH and not masked)
 
 
-def _lookup_inputs(dev, g, N, B, C, K, D, dtype):
-    """A cache of N rows, (B, C) candidate rows (a whole-corpus request takes
-    every row in order, as ``serve_topk`` builds it; others draw them at
-    random) and (B, K, D) interests; and the bytes the gather must read."""
-    cache = torch.randn(N, D, device=dev, generator=g).to(dtype)
-    interests = torch.randn(B, K, D, device=dev, generator=g).to(dtype)
+def _lookup_inputs(dev, g, N, B, C, K, D, cache_dt, int_dt):
+    """A cache of N rows (int8: an ``Int8Rows`` quantized from bf16 rows, as
+    ``--serve_cache_int8`` makes it), (B, C) candidate rows (a whole-corpus
+    request takes every row in order, as ``serve_topk`` builds it; others
+    draw them at random) and (B, K, D) interests; and the bytes the call
+    must move: each distinct row gathered (with its scale) and the indices
+    and interests read once, the scores written once."""
+    from miner_tpu_torch.parallel.news_cache import quantize_rows
+
+    cache = torch.randn(N, D, device=dev, generator=g)
+    cache = quantize_rows(cache.to(torch.bfloat16)) if cache_dt == torch.int8 else cache.to(cache_dt)
+    interests = torch.randn(B, K, D, device=dev, generator=g).to(int_dt)
     idx = torch.randint(0, N, (B, C), device=dev, generator=g, dtype=torch.int32)
     if C >= N - 1:
         idx[:] = torch.arange(1, C + 1, device=dev, dtype=torch.int32) % N
     rows = torch.unique(idx).numel()
-    out_bytes = B * C * K * cache.element_size()
-    nbytes = rows * D * cache.element_size() + _nbytes(idx, interests) + out_bytes
+    row_bytes = D + 4 if cache_dt == torch.int8 else D * cache.element_size()
+    nbytes = rows * row_bytes + _nbytes(idx, interests) + B * C * K * interests.element_size()
     return (cache, idx, interests), nbytes
 
 
 def lookup_nan_check(cache, idx, interests):
-    """Candidates whose index lies outside [0, N) (negative, N, far past
-    it) score NaN, and every other score equals the plain version's on the
-    same rows."""
+    """Candidates whose index lies in [-N, 0) score row N + index, as the
+    JAX package's ``jnp.take`` wraps it; those outside [-N, N) (below -N, N,
+    far past it) score NaN; every other score equals the plain version's on
+    the same rows."""
     from miner_tpu_torch.ops import lookup_score
 
     N = cache.shape[0]
-    bad_idx = idx.clone()
+    bad_idx, rows = idx.clone(), idx.clone()
     bad = torch.zeros_like(idx, dtype=torch.bool)
-    for b, c, v in ((0, 0, -1), (1, idx.shape[1] - 1, N), (2, idx.shape[1] // 2, N + 10 ** 6)):
+    for b, c, v in ((0, 0, -N - 1), (1, idx.shape[1] - 1, N), (2, idx.shape[1] // 2, N + 10 ** 6)):
         bad_idx[b, c] = v
         bad[b, c] = True
+    for b, c, v in ((3, 1, -1), (4, 2, -N)):
+        bad_idx[b, c], rows[b, c] = v, v + N
     got = lookup_score.lookup_score_fused(cache, bad_idx, interests)
-    want = lookup_score.lookup_score_reference(cache, bad_idx.clamp(0, N - 1), interests)
+    want = lookup_score.lookup_score_reference(cache, rows.clamp(0, N - 1), interests)
     nan_ok = bool(torch.isnan(got[bad]).all())
     err = (got[~bad].float() - want[~bad].float()).abs().max().item()
     ok = nan_ok and err <= REL_TOL[interests.dtype] * max(1.0, want[~bad].float().abs().max().item())
-    return ok, f"out-of-range rows NaN {nan_ok}, the others' err {err:.3g}"
+    return ok, (f"outside [-N, N) NaN {nan_ok}, the others (rows -1 and -N wrapped) "
+                f"err {err:.3g}")
+
+
+def _lookup_yardstick(cache, idx, interests):
+    """The PyTorch calls that compute lookup+score: ``index_select`` then
+    ``bmm`` (int8 rows: ``index_select``, ``.to`` the interests' type,
+    ``bmm``, times the gathered scales)."""
+    B, C = idx.shape
+    flat = idx.view(-1)
+    if isinstance(cache, torch.Tensor):
+        return lambda: torch.bmm(cache.index_select(0, flat).view(B, C, -1),
+                                 interests.transpose(1, 2))
+    return lambda: torch.bmm(
+        cache.values.index_select(0, flat).view(B, C, -1).to(interests.dtype),
+        interests.transpose(1, 2)) * cache.scales.index_select(0, flat).view(B, C, 1).to(
+            interests.dtype)
 
 
 def lookup_cases(dev, g):
@@ -495,29 +576,35 @@ def lookup_cases(dev, g):
     whole-corpus top-k (C = 4,096), and an eval batch (B = 64 rows of one
     candidate each); in bf16 (the tensor cores) and fp32 (the CUDA cores);
     and the top-k over a cache of MIND's size (161,014 rows, 82 MB in bf16,
-    more than the 50 MB L2) at B = 8. Beside each bf16 case the yardstick
-    of two PyTorch calls, ``index_select`` then ``torch.bmm``."""
+    more than the 50 MB L2) at B = 8. Then the int8 route
+    (``--serve_cache_int8``) at the same shapes, with bf16 interests (the
+    tensor cores) and fp32 (the CUDA cores). Beside each bf16 and int8 case
+    the yardstick of the PyTorch calls computing the same function."""
     from miner_tpu_torch.ops import lookup_score
     from miner_tpu_torch.utils import candidate_bucket
 
-    cases = [(dtype, NUM_NEWS + 1, B, C)
-             for dtype in (torch.bfloat16, torch.float32)
-             for B, C in ((MAX_BATCH, 16), (MAX_BATCH, candidate_bucket(NUM_NEWS)), (EVAL_B, 1))]
-    cases.append((torch.bfloat16, MIND_NEWS + 1, 8, candidate_bucket(MIND_NEWS)))
-    for dtype, N, B, C in cases:
-        args, nbytes = _lookup_inputs(dev, g, N, B, C, CODES, DIM, dtype)
-        cache, idx, interests = args
+    shapes = ((MAX_BATCH, 16), (MAX_BATCH, candidate_bucket(NUM_NEWS)), (EVAL_B, 1))
+    cases = [(dtype, dtype, NUM_NEWS + 1, B, C)
+             for dtype in (torch.bfloat16, torch.float32) for B, C in shapes]
+    cases.append((torch.bfloat16, torch.bfloat16, MIND_NEWS + 1, 8, candidate_bucket(MIND_NEWS)))
+    cases += [(torch.int8, int_dt, NUM_NEWS + 1, B, C)
+              for int_dt in (torch.bfloat16, torch.float32) for B, C in shapes]
+    cases.append((torch.int8, torch.bfloat16, MIND_NEWS + 1, 8, candidate_bucket(MIND_NEWS)))
+    for cache_dt, int_dt, N, B, C in cases:
+        args, nbytes = _lookup_inputs(dev, g, N, B, C, CODES, DIM, cache_dt, int_dt)
+        topk = N == NUM_NEWS + 1 and C == candidate_bucket(NUM_NEWS)
         yield dict(
-            case=f"{str(dtype)[6:]} N={N} B={B} C={C}", dtype=dtype,
+            case=f"{str(cache_dt)[6:]}/{str(int_dt)[6:]} N={N} B={B} C={C}", dtype=int_dt,
             kernel=lambda: lookup_score.lookup_score_fused(*args),
             plain=lambda: lookup_score.lookup_score_reference(*args),
             library=None,
-            yardstick=(lambda: torch.bmm(
-                cache.index_select(0, idx.view(-1)).view(B, C, DIM),
-                interests.transpose(1, 2))) if dtype == torch.bfloat16 else None,
+            yardstick=(_lookup_yardstick(*args)
+                       if cache_dt in (torch.bfloat16, torch.int8) else None),
             check=(lambda: lookup_nan_check(*args)) if C == 16 else None,
-            bound=bound_ms(nbytes, 2 * B * C * CODES * DIM, dtype),
-            main=dtype == torch.bfloat16 and C == candidate_bucket(NUM_NEWS))
+            bound=bound_ms(nbytes, 2 * B * C * CODES * DIM, int_dt),
+            main=cache_dt == torch.bfloat16 and topk,
+            route="int8" if cache_dt == torch.int8 and int_dt == torch.bfloat16 and topk
+            else None)
 
 
 def ff_cases(dev, g):
@@ -589,7 +676,7 @@ def kernel_phase(dev, names=None):
     for name, route, source, replaces, cases in KERNELS:
         if names is not None and name not in names:
             continue
-        row = None
+        row, routes = None, {}
         timed[name] = []
         for c in cases(dev, g):
             got, want = _outputs(c["kernel"]()), _outputs(c["plain"]())
@@ -618,7 +705,8 @@ def kernel_phase(dev, names=None):
                 f"bound {b_ms:.4f} ms ({b_by})")
             yard_ms = graph_ms(c["yardstick"]) if c.get("yardstick") else None
             if yard_ms is not None:
-                log(f"    yardstick (index_select + bmm, two calls) {yard_ms:.4f} ms")
+                log(f"    yardstick (index_select, bmm; for int8 rows also the cast and "
+                    f"the scales' product) {yard_ms:.4f} ms")
             for e in errs:
                 if "part" in e:
                     log(f"    {e['part']}: err {e['err']:.3g} (tol {e['tol']:.3g}) at its "
@@ -636,8 +724,15 @@ def kernel_phase(dev, names=None):
                        "library_ms": library_ms}
                 if yard_ms is not None:
                     row["yardstick_ms"] = yard_ms
+            if c.get("route"):  # another route's numbers at its main shape, in the row
+                routes[c["route"]] = {"case": c["case"], "launches": 0,
+                                      "max_abs_err": max(e["max_err"] for e in errs),
+                                      "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+                                      "bound_ms": b_ms, "bound_by": b_by,
+                                      "yardstick_ms": yard_ms}
             del got, want
             torch.cuda.empty_cache()
+        row.update(routes)
         rows.append(row)
     if failures:
         raise SystemExit("kernel phase failed:\n  " + "\n  ".join(failures))
@@ -652,7 +747,7 @@ class LaunchCensus:
     ``phase`` is set, and launches and counts nothing itself."""
 
     SHAPE = {"poly_attention_fwd": slice(6, 12),  # B, H, D, P, K, dtype code
-             "lookup_score_fwd": slice(4, 11)}  # N, B, C, K, D, cache, interests codes
+             "lookup_score_fwd": slice(5, 12)}  # N, B, C, K, D, cache, interests codes
 
     def __init__(self):
         import collections
@@ -695,11 +790,12 @@ def census_sweep(dev) -> dict:
             fn = lambda: poly_attention.poly_attention_fused(*args)
             (b_ms, _), what = _poly_bound(args), f"{str(dtypes[code])[6:]} B={B}"
         else:
-            N, B, C, K, D, code, _ = shape
-            args, nbytes = _lookup_inputs(dev, g, N, B, C, K, D, dtypes[code])
+            N, B, C, K, D, code, int_code = shape
+            cache_dt = torch.int8 if code == common.INT8_CODE else dtypes[code]
+            args, nbytes = _lookup_inputs(dev, g, N, B, C, K, D, cache_dt, dtypes[int_code])
             fn = lambda: lookup_score.lookup_score_fused(*args)
-            b_ms, _ = bound_ms(nbytes, 2 * B * C * K * D, dtypes[code])
-            what = f"{str(dtypes[code])[6:]} B={B} C={C}"
+            b_ms, _ = bound_ms(nbytes, 2 * B * C * K * D, dtypes[int_code])
+            what = f"{str(cache_dt)[6:]} B={B} C={C}"
         ms, call_ms = graph_ms(fn), device_ms(fn, 0.05)
         out.setdefault(name, []).append(dict(shape=what, launches_by_phase=by_phase,
                                              ms=ms, call_ms=call_ms, bound_ms=b_ms))
@@ -739,17 +835,20 @@ CATEGORIES = ["news", "sports", "finance", "lifestyle", "health", "travel",
 
 def write_corpus(root: str, num_news: int, seed: int) -> None:
     """A MIND-format corpus from a seed: titles of 40 words and abstracts of
-    160, so the title (32) and sapo (128) token windows are full."""
+    160, so the title (32) and sapo (128) token windows are full; and each
+    augmented variant of it (``<aug>_news.tsv``: the same ids and
+    categories, other words)."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     words = np.array([f"w{i}" for i in range(20000)])
     os.makedirs(root, exist_ok=True)
-    with open(os.path.join(root, "news.tsv"), "w", encoding="utf-8") as f:
-        for i in range(num_news):
-            title = " ".join(words[rng.integers(0, len(words), 40)])
-            sapo = " ".join(words[rng.integers(0, len(words), 160)])
-            f.write(f"N{i}\t{title}\t{CATEGORIES[i % len(CATEGORIES)]}\t{sapo}\n")
+    for variant in ("",) + tuple(f"{aug}_" for aug in AUGMENTATIONS):
+        with open(os.path.join(root, f"{variant}news.tsv"), "w", encoding="utf-8") as f:
+            for i in range(num_news):
+                title = " ".join(words[rng.integers(0, len(words), 40)])
+                sapo = " ".join(words[rng.integers(0, len(words), 160)])
+                f.write(f"N{i}\t{title}\t{CATEGORIES[i % len(CATEGORIES)]}\t{sapo}\n")
     with open(os.path.join(root, "category2id.json"), "w") as f:
         json.dump({"pad": 0, "unk": 1,
                    **{c: i + 2 for i, c in enumerate(CATEGORIES)}}, f)
@@ -762,7 +861,8 @@ def serve_args(corpus: str, *extra: str):
     the hash tokenizer over roberta-base's vocabulary size (no tokenizer
     files here). Its checkpoint and persisted cache are dropped: the caller
     names a checkpoint of the train phase in ``extra``, or none for random
-    weights from the seed (the cache persistence is not ported yet)."""
+    weights from the seed, and a cache file in the temporary directory, or
+    none to encode the corpus at every start."""
     from miner_tpu_torch.config import convert_arg_line_to_args, make_parser
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -802,6 +902,51 @@ def _check_launches(phase: str, counts: dict) -> None:
                          f"launched what it must not {extra}")
 
 
+def _requests(rng, n_slate: int, n_topk: int):
+    """``n_slate`` slates of 10 and ``n_topk`` whole-corpus top-10 requests,
+    each with a history of 5-60 clicks."""
+    ids = [f"N{i}" for i in range(NUM_NEWS)]
+    reqs = []
+    for i in range(n_slate + n_topk):
+        history = list(rng.choice(ids, int(rng.integers(5, 61)), replace=False))
+        if i < n_slate:
+            reqs.append({"history": history,
+                         "candidates": list(rng.choice(ids, 10, replace=False))})
+        else:
+            reqs.append({"history": history, "candidates": None, "topk": 10})
+    return reqs
+
+
+def _serve_requests(service, args, reqs, clients: int, phase: str):
+    """The requests over HTTP from ``clients`` concurrent clients: (the
+    replies (status, body, seconds), the wall time). Fails the phase unless
+    every reply is 200 with finite scores ranked best first."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from miner_tpu_torch.serving import make_http_server
+
+    server = make_http_server(service, args.host, args.port, args.serve_http_impl)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://{args.host}:{server.server_address[1]}"
+    try:
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(clients) as pool:
+            replies = list(pool.map(lambda r: _post(url, r), reqs))
+        wall_s = time.perf_counter() - t0
+    finally:
+        server.shutdown()
+        thread.join(timeout=10)
+    for req, (status, body, _) in zip(reqs, replies):
+        scores = [s for _, s in body["results"]]
+        want = len(req["candidates"]) if req["candidates"] else req["topk"]
+        if (status != 200 or len(scores) != want or not all(map(math.isfinite, scores))
+                or scores != sorted(scores, reverse=True)):
+            raise SystemExit(f"{phase} phase: bad reply {status} {body}")
+    return replies, wall_s
+
+
 def serve_phase(corpus: str, checkpoint: str, phase: str = "serve",
                 n_slate: int = 64, n_topk: int = 8) -> dict:
     """The serving path: ``serve``'s own pieces (service with its corpus
@@ -809,14 +954,11 @@ def serve_phase(corpus: str, checkpoint: str, phase: str = "serve",
     (``--saved_model_path``, loaded strictly), answering concurrent slate and
     top-k requests; ``phase`` "fastformer_serve" serves the Fastformer
     (``--model_name fastformer``). Returns the launch counts of the run."""
-    import threading
-    from concurrent.futures import ThreadPoolExecutor
-
     import numpy as np
 
     from miner_tpu_torch.ops import launch_counts, reset_launch_counts
     from miner_tpu_torch.parallel.news_cache import CacheFiller
-    from miner_tpu_torch.serving import ScoringService, make_http_server
+    from miner_tpu_torch.serving import ScoringService
     from miner_tpu_torch.training.trainer import Trainer
 
     family = ("--model_name", "fastformer") if phase == "fastformer_serve" else ()
@@ -830,37 +972,13 @@ def serve_phase(corpus: str, checkpoint: str, phase: str = "serve",
     t0 = time.perf_counter()
     warmed = service.warmup(args.serve_warmup_slates, topk=args.serve_warmup_topk)
     warmup_s = time.perf_counter() - t0
-    server = make_http_server(service, args.host, args.port, args.serve_http_impl)
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
-    url = f"http://{args.host}:{server.server_address[1]}"
-    rng = np.random.default_rng(1)
-    ids = [f"N{i}" for i in range(NUM_NEWS)]
-    reqs = []
-    for i in range(n_slate + n_topk):
-        history = list(rng.choice(ids, int(rng.integers(5, 61)), replace=False))
-        if i < n_slate:
-            reqs.append({"history": history,
-                         "candidates": list(rng.choice(ids, 10, replace=False))})
-        else:
-            reqs.append({"history": history, "candidates": None, "topk": 10})
+    reqs = _requests(np.random.default_rng(1), n_slate, n_topk)
     try:
-        t0 = time.perf_counter()
-        with ThreadPoolExecutor(16) as pool:
-            replies = list(pool.map(lambda r: _post(url, r), reqs))
-        wall_s = time.perf_counter() - t0
+        replies, wall_s = _serve_requests(service, args, reqs, 16, phase)
         counts = launch_counts()
     finally:
         CENSUS.phase = None
-        server.shutdown()
         service.close()
-        thread.join(timeout=10)
-    for req, (status, body, _) in zip(reqs, replies):
-        scores = [s for _, s in body["results"]]
-        want = len(req["candidates"]) if req["candidates"] else req["topk"]
-        if (status != 200 or len(scores) != want or not all(map(math.isfinite, scores))
-                or scores != sorted(scores, reverse=True)):
-            raise SystemExit(f"{phase} phase: bad reply {status} {body}")
     lat = sorted(t for _, _, t in replies)
     t0 = time.perf_counter()
     ctx = service.ctx
@@ -882,6 +1000,90 @@ def serve_phase(corpus: str, checkpoint: str, phase: str = "serve",
         f"on {torch.cuda.get_device_name(0)}")
     log(f"{phase}: kernel launches on the path {counts}")
     _check_launches(phase, counts)
+    return counts
+
+
+def _cache_arrays(cache):
+    """The tensors a news-embedding cache holds (int8 rows: values and
+    scales)."""
+    from miner_tpu_torch.parallel.news_cache import Int8Rows
+
+    emb = cache.embeddings
+    rows = (emb.values, emb.scales) if isinstance(emb, Int8Rows) else (emb,)
+    return rows + (cache.category,)
+
+
+def serve_cache_phase(corpus: str, checkpoint: str, tmp: str) -> dict:
+    """The persisted serving cache: ``serve @config/serve_miner.txt`` started
+    twice on the train phase's ``finalModel`` with ``--serve_cache_path`` in
+    the temporary directory, then twice more with ``--serve_cache_int8``
+    (another file). The first start of each encodes the corpus and persists
+    it; the second loads the file: its start-up must launch no PLM kernel,
+    its cache must equal the first's bit for bit, and the same requests,
+    sent one at a time (so each device call has the same shape in both
+    starts), must get the same replies bit for bit. Returns the launch
+    counts of each start, requests included."""
+    import numpy as np
+
+    from miner_tpu_torch.ops import launch_counts, reset_launch_counts
+    from miner_tpu_torch.serving import ScoringService
+    from miner_tpu_torch.training.trainer import Trainer
+
+    reqs = _requests(np.random.default_rng(4), 16, 4)
+    counts, arrays = {}, {}
+    for int8 in (False, True):
+        path = os.path.join(tmp, "serve_cache_int8.npz" if int8 else "serve_cache.npz")
+        starts = []
+        for phase in (("serve_int8", "serve_int8_loaded") if int8
+                      else ("serve_cache", "serve_cache_loaded")):
+            existed = os.path.exists(path)
+            args = serve_args(corpus, "--saved_model_path", checkpoint, "--serve_cache_path",
+                              path, *(("--serve_cache_int8",) if int8 else ()))
+            reset_launch_counts()
+            CENSUS.phase = phase
+            trainer = Trainer(args)
+            cache_s = []
+            build_cache = trainer._load_or_build_serving_cache
+
+            def timed_cache(*a):
+                t0 = time.perf_counter()
+                out = build_cache(*a)
+                torch.cuda.synchronize()
+                cache_s.append(time.perf_counter() - t0)
+                return out
+
+            trainer._load_or_build_serving_cache = timed_cache
+            t0 = time.perf_counter()
+            service = ScoringService(trainer)
+            torch.cuda.synchronize()
+            startup_s = time.perf_counter() - t0
+            at_startup = launch_counts()
+            try:
+                replies, _ = _serve_requests(service, args, reqs, 1, phase)
+                counts[phase] = launch_counts()
+            finally:
+                CENSUS.phase = None
+                service.close()
+            starts.append((existed, startup_s, at_startup, [body for _, body, _ in replies],
+                           _cache_arrays(service.ctx.cache)))
+            log(f"{phase}: start-up {startup_s:.2f} s, of which the cache "
+                f"{cache_s[0]:.3f} s ({'loaded from the file' if existed else 'encoded, persisted'}"
+                f"); launches at start-up {at_startup}; {len(reqs)} requests one at a time")
+            _check_launches(phase, counts[phase])
+        (existed0, fresh_s, _, bodies0, arrays0), (existed1, loaded_s, launched, bodies1,
+                                                   arrays1) = starts
+        same_cache = all(torch.equal(a, b) for a, b in zip(arrays0, arrays1))
+        if existed0 or not existed1 or launched["mha_fwd"] or not same_cache or bodies0 != bodies1:
+            raise SystemExit(f"{phase} phase: file there before the first start {existed0}, "
+                             f"after it {existed1}; mha_fwd launches loading it "
+                             f"{launched['mha_fwd']}; caches equal {same_cache}; replies "
+                             f"equal {bodies0 == bodies1}")
+        arrays[int8] = arrays0
+        log(f"{phase}: start-up fresh {fresh_s:.2f} s, loaded {loaded_s:.2f} s; the loaded "
+            f"cache and its {len(reqs)} replies equal the fresh ones bit for bit")
+    nbytes = {k: sum(_nbytes(a) for a in v[:-1]) for k, v in arrays.items()}
+    log(f"serve_cache: cache bytes (rows and scales) int8 {nbytes[True]}, "
+        f"{arrays[False][0].dtype} {nbytes[False]} ({nbytes[True] / nbytes[False]:.3f}x)")
     return counts
 
 
@@ -909,20 +1111,26 @@ def write_behaviors(root: str, num_news: int, seed: int) -> None:
                 f.write(f"{line}\tU{line % 97}\t11/11/2019 9:05:58 AM\t{his}\t{beh}\n")
 
 
-# the training configurations as their files name their subcommands
-TRAIN_CONFIGS = {"miner": ("train", "train_miner.txt"),
-                 "fastformer": ("train_fastformer", "train_fastformer.txt")}
+# the training configurations: the subcommand each runs under, and the
+# phases of its micro-batches and of its eval
+TRAIN_CONFIGS = {"miner": ("train", "train_miner.txt", "train", "eval"),
+                 "fastformer": ("train_fastformer", "train_fastformer.txt",
+                                "fastformer_train", "fastformer_eval"),
+                 "pretrain": ("pretrain", "pretrain_miner.txt", "pretrain", "pretrain_eval"),
+                 "hard": ("train", "train_miner_hard.txt", "warm_start", "warm_start_eval")}
+PARITY_FAMILIES = ("miner", "fastformer")
 
 
 def train_args(corpus: str, out: str, *extra: str, family: str = "miner"):
-    """``config/train_miner.txt`` (or, for ``family`` "fastformer",
-    ``config/train_fastformer.txt`` under ``train_fastformer``) as it
-    stands, on the synthetic corpus and behaviors, with the hash tokenizer
-    over roberta-base's vocabulary (no tokenizer files here), random init,
-    and one epoch."""
+    """``config/train_miner.txt`` (or for ``family`` "fastformer"
+    ``config/train_fastformer.txt`` under ``train_fastformer``, "pretrain"
+    ``config/pretrain_miner.txt`` under ``pretrain``, "hard"
+    ``config/train_miner_hard.txt``) as it stands, on the synthetic corpus
+    and behaviors, with the hash tokenizer over roberta-base's vocabulary
+    (no tokenizer files here), random init, and one epoch."""
     from miner_tpu_torch.config import convert_arg_line_to_args, make_parser
 
-    mode, config = TRAIN_CONFIGS[family]
+    mode, config = TRAIN_CONFIGS[family][:2]
     here = os.path.dirname(os.path.abspath(__file__))
     words = []
     with open(os.path.join(here, "config", config)) as f:
@@ -942,29 +1150,37 @@ def train_args(corpus: str, out: str, *extra: str, family: str = "miner"):
                                      os.path.join(out, family), *extra])
 
 
-def train_phase(corpus: str, out: str, family: str = "miner"):
+def train_phase(corpus: str, out: str, family: str = "miner", *extra: str):
     """The training path: ``Trainer(args).train()`` of a full-width
-    configuration for one epoch of 16 micro-batches, i.e. 2 optimizer
-    updates, then its end-of-epoch cached eval and checkpoints.
+    configuration (``train_args``; ``extra`` flags appended) for one epoch
+    of 16 micro-batches, then its end-of-epoch eval and checkpoints.
     ``train_miner.txt``: roberta-base towers, bf16 compute, fp32 masters,
-    dropout 0.1 in the PLM and 0.2 elsewhere, --remat, accumulation 8.
-    ``train_fastformer.txt``: the same towers frozen (--freeze_transformer)
-    under a 2-layer Fastformer user encoder in fp32; its PLM parameters must
-    come out bit-identical. Returns the launch counts of the micro-batches
+    dropout 0.1 in the PLM and 0.2 elsewhere, --remat, accumulation 8 (2
+    updates). ``train_fastformer.txt``: the same towers frozen
+    (--freeze_transformer) under a 2-layer Fastformer user encoder in fp32;
+    its PLM parameters must come out bit-identical. ``pretrain_miner.txt``:
+    the news encoder alone on the contrastive loss over the positive, its 3
+    augmented variants and 4 negatives, no accumulation (16 updates), its
+    eval the summed loss (``bestLossModel``, never ``bestAucModel``).
+    ``train_miner_hard.txt`` with ``--pretrained_model_path``: the news
+    encoder of ``finalModel`` must equal that checkpoint's bit for bit when
+    ``--learning_rate 0``. Returns the launch counts of the micro-batches
     and of the eval, and the finalModel checkpoint."""
     import csv
+    import gc
 
     from miner_tpu_torch.ops import launch_counts, reset_launch_counts
     from miner_tpu_torch.training import checkpoint
     from miner_tpu_torch.training.trainer import Trainer
 
-    phase = "train" if family == "miner" else f"{family}_train"
-    eval_phase = phase.replace("train", "eval")
-    args = train_args(corpus, out, family=family)
+    phase, eval_phase = TRAIN_CONFIGS[family][2:]
+    args = train_args(corpus, out, *extra, family=family)
     trainer = Trainer(args)
     step_s, step_loss, eval_s, before_eval = [], [], [], {}
+    update_s = []  # each optimizer update (clip, AdamW), the card synchronised around it
     held, after_fwd = [], []  # GiB allocated at each micro-batch's start, after its forward
-    train_step, run_eval = trainer.train_step, trainer._run_eval
+    eval_name = "_run_pretrain_eval" if trainer.kind == "pretrain" else "_run_eval"
+    train_step, run_eval = trainer.train_step, getattr(trainer, eval_name)
     apply_and_loss = trainer._apply_and_loss
 
     def measured_forward(*a, **k):
@@ -990,8 +1206,31 @@ def train_phase(corpus: str, out: str, family: str = "miner"):
         CENSUS.phase = phase
         return out
 
-    trainer.train_step, trainer._run_eval = timed_step, timed_eval
+    make_optimizer = trainer.make_optimizer
+
+    def timed_optimizer(*a, **k):
+        optimizer = make_optimizer(*a, **k)
+        step = optimizer.step
+
+        def timed_update():
+            torch.cuda.synchronize()  # the backward's kernels done
+            t0 = time.perf_counter()
+            applied = step()
+            torch.cuda.synchronize()
+            if applied:
+                update_s.append(time.perf_counter() - t0)
+            return applied
+
+        optimizer.step = timed_update
+        return optimizer
+
+    trainer.make_optimizer = timed_optimizer
+    trainer.train_step = timed_step
+    setattr(trainer, eval_name, timed_eval)
     trainer._apply_and_loss = measured_forward
+    # what earlier phases left in reference cycles (their models and
+    # optimizer states among them) is freed first, so the peak is this run's
+    gc.collect()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     CENSUS.phase = phase
@@ -1011,20 +1250,25 @@ def train_phase(corpus: str, out: str, family: str = "miner"):
                if k not in ("epoch", "step") and v != ""}
     steady = sorted(step_s[1:])
     mid = steady[len(steady) // 2]
-    log(f"{phase}: {args.model_name}, {len(step_s)} micro-batches of "
-        f"{args.train_batch_size} "
-        f"({args.train_batch_size * (args.npratio + 1 + args.his_length)} news "
-        f"per micro-batch), {run.optimizer.updates} optimizer updates at "
-        f"accumulation {args.gradient_accumulation_steps}, {args.compute_dtype}, "
-        f"--remat {args.remat}, --freeze_transformer {args.freeze_transformer}, "
-        f"dropout {args.dropout} / {TRAIN_RATE}")
+    accum = args.gradient_accumulation_steps
+    if trainer.kind == "pretrain":  # the positive, its variants, the negatives
+        news = args.train_batch_size * (1 + len(args.augmentations or ()) + args.npratio)
+    else:
+        news = args.train_batch_size * (args.npratio + 1 + args.his_length)
+    log(f"{phase}: {args.model_name if trainer.kind != 'pretrain' else 'pretrain'}, "
+        f"{len(step_s)} micro-batches of {args.train_batch_size} ({news} news per "
+        f"micro-batch), {run.optimizer.updates} optimizer updates at accumulation "
+        f"{accum}, {args.compute_dtype}, --remat {args.remat}, --freeze_transformer "
+        f"{args.freeze_transformer}, dropout {args.dropout} / {TRAIN_RATE}")
     log(f"{phase}: micro-batch {1e3 * mid:.1f} ms median of {len(steady)} "
         f"(first {1e3 * step_s[0]:.1f} ms, with kernel compiles), "
         f"{args.train_batch_size / mid:.2f} examples/s, "
-        f"{1 / (mid * args.gradient_accumulation_steps):.3f} updates/s; "
+        f"{1 / (mid * accum):.3f} updates/s; "
         f"eval {eval_s[0]:.2f} s; whole train() {wall_s:.2f} s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB on "
         f"{torch.cuda.get_device_name(0)}")
+    log(f"{phase}: optimizer updates (clip, AdamW; in the micro-batch times above) "
+        f"{[round(1e3 * t, 1) for t in update_s]} ms")
     log(f"{phase}: device memory of the last micro-batch: {held[-1]:.2f} GiB held "
         f"at its start (weights, optimizer state, gradient sums), "
         f"{after_fwd[len(held) - 1]:.2f} GiB after its forward (the forwards "
@@ -1035,12 +1279,16 @@ def train_phase(corpus: str, out: str, family: str = "miner"):
     log(f"{phase}: kernel launches per micro-batch {per_batch}; in the eval "
         f"{eval_counts}")
     bad = [x for x in step_loss + list(metrics.values()) if not math.isfinite(x)]
-    if bad or run.optimizer.updates != 2 or len(step_s) != 16:
+    if bad or run.optimizer.updates != len(step_s) // accum or len(step_s) != 16:
         raise SystemExit(f"{phase} phase: non-finite {bad}, {run.optimizer.updates} "
                          f"updates, {len(step_s)} micro-batches")
     _check_launches(phase, before_eval)
     _check_launches(eval_phase, eval_counts)
-    final = os.path.join(run.run_dir, "ckpt", "finalModel")
+    ckpt = os.path.join(run.run_dir, "ckpt")
+    final = os.path.join(ckpt, "finalModel")
+    if trainer.kind == "pretrain" and sorted(os.listdir(ckpt)) != ["bestLossModel", "finalModel"]:
+        raise SystemExit(f"{phase} phase: checkpoints {sorted(os.listdir(ckpt))}, expected "
+                         "bestLossModel and finalModel alone")
     if args.freeze_transformer:
         initial = trainer.build_model().state_dict()
         saved = checkpoint.load(final)["params"]
@@ -1050,6 +1298,16 @@ def train_phase(corpus: str, out: str, family: str = "miner"):
             "finalModel bit-identical to their initial values (frozen)")
         if moved or not plm:
             raise SystemExit(f"{phase} phase: frozen PLM parameters moved: {moved[:5]}")
+    if args.pretrained_model_path and args.learning_rate == 0:
+        warm = checkpoint.load(args.pretrained_model_path)["params"]
+        saved = checkpoint.load(final)["params"]
+        moved = [k for k in warm if not torch.equal(saved[f"news_encoder.{k}"], warm[k])]
+        log(f"{phase}: {len(warm) - len(moved)} of {len(warm)} news-encoder tensors of the "
+            f"finalModel bit-identical to {os.path.relpath(args.pretrained_model_path, out)} "
+            "(--learning_rate 0)")
+        if moved or not warm:
+            raise SystemExit(f"{phase} phase: the warm-started encoder moved at learning "
+                             f"rate 0: {moved[:5]}")
     return {phase: before_eval, eval_phase: eval_counts}, final
 
 
@@ -1203,16 +1461,27 @@ def main(argv=None) -> int:
         write_behaviors(corpus, NUM_NEWS, seed=3)
         counts, final_model = train_phase(corpus, tmp)
         counts["serve"] = serve_phase(corpus, final_model)
+        counts.update(serve_cache_phase(corpus, final_model, tmp))
+        pre_counts, pre_model = train_phase(corpus, tmp, "pretrain")
+        counts.update(pre_counts)
+        warm_counts, _ = train_phase(corpus, tmp, "hard", "--pretrained_model_path", pre_model,
+                                     "--learning_rate", "0")
+        counts.update(warm_counts)
         ff_counts, ff_model = train_phase(corpus, tmp, "fastformer")
         counts.update(ff_counts)
         counts["fastformer_serve"] = serve_phase(corpus, ff_model, "fastformer_serve")
         write_corpus(os.path.join(tmp, "parity"), 64, seed=1)
         parity_phase(os.path.join(tmp, "parity"))
-        for family in TRAIN_CONFIGS:
+        for family in PARITY_FAMILIES:
             train_parity_phase(corpus, tmp, family)
     for row in rows:
         row["launches_by_phase"] = {phase: c[row["name"]] for phase, c in counts.items()}
         row["launches"] = sum(row["launches_by_phase"].values())
+    for row in rows:
+        if "int8" in row:  # the int8 route's share of lookup+score's launches
+            row["int8"]["launches"] = sum(
+                n for (name, _, shape), n in CENSUS.counts.items()
+                if name == row["name"] and shape[5] == common.INT8_CODE)
     log("the main path's shapes of poly-attention and lookup+score, timed:")
     sweep = census_sweep(dev)
     log("launch-weighted gaps, launches x (time - bound) over the shapes launched:")

@@ -13,9 +13,11 @@ tensor on the CPU; on a CUDA tensor it launches the kernel or raises.
 
 Ported so far: training and evaluation of the Miner and Fastformer
 families (``python -m miner_tpu_torch train`` / ``eval``, and
-``train_fastformer`` / ``eval_fastformer``) and serving both from the
-news-embedding cache (``serve`` / ``recommend``). Every Pallas kernel of
-the JAX package now has its Hopper counterpart.
+``train_fastformer`` / ``eval_fastformer``), with augmented news variants
+and warm starts; contrastive pretraining of the news encoder
+(``pretrain``); and serving both from the news-embedding cache (``serve`` /
+``recommend``), persisted across restarts and optionally int8. Every
+Pallas kernel of the JAX package now has its Hopper counterpart.
 """
 
 __version__ = "0.1.0"

@@ -2,7 +2,9 @@
 
 ``python -m miner_tpu_torch train @config/train_miner.txt``,
 ``train_fastformer @config/train_fastformer.txt`` (``train`` by another
-name, as in JAX; ``--model_name`` picks the family), ``eval
+name, as in JAX; ``--model_name`` picks the family), ``pretrain
+@config/pretrain_miner.txt`` (contrastive pretraining of the news encoder
+alone, whatever ``--model_name`` says), ``eval
 @config/eval_miner.txt`` or ``eval_fastformer`` (a port checkpoint),
 ``serve @config/serve_miner.txt`` (HTTP scoring server over the
 news-embedding cache) and ``recommend ...`` (one-shot ranking), on
@@ -24,7 +26,7 @@ def main(argv=None):
 
     from miner_tpu_torch.training.trainer import Trainer
 
-    if args.mode in ("train", "train_fastformer"):
+    if args.mode in ("train", "train_fastformer", "pretrain"):
         Trainer(args).train()
     elif args.mode in ("eval", "eval_fastformer"):
         Trainer(args).eval()

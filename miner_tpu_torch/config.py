@@ -1,16 +1,15 @@
 """Config / flag system of the port.
 
-The JAX package's argparse surface (``miner_tpu/config.py``) for the
-subcommands the port has: ``train`` and ``train_fastformer``, ``eval`` and
-``eval_fastformer`` (each pair with the same flags, as in JAX), ``serve``
-(HTTP scoring server) and ``recommend`` (one-shot ranking).
-``@config/file.txt`` argument files with ``#`` comments parse unchanged
-(``config/train_miner.txt``, ``train_fastformer.txt``, ``eval_miner.txt``
-and ``serve_miner.txt`` included). The JAX package's TPU settings (mesh
+The JAX package's argparse surface (``miner_tpu/config.py``), every
+subcommand: ``train``, ``train_fastformer`` and ``pretrain`` (the same
+flags, as in JAX), ``eval`` and ``eval_fastformer``, ``serve`` (HTTP
+scoring server) and ``recommend`` (one-shot ranking). ``@config/file.txt``
+argument files with ``#`` comments parse unchanged (every shipped file of
+``config/``). The JAX package's TPU settings (mesh
 shape, compilation cache, PRNG implementation, layer scan, remat policy,
 matmul precision) are accepted and ignored, each saying so in ``--help``. Flags of a path the
 port has not reached yet are accepted and refused by the ``Trainer``,
-naming the ROADMAP item that brings them.
+naming the feature of ROADMAP Queue 1 that brings them.
 """
 from __future__ import annotations
 
@@ -48,10 +47,12 @@ def _serving_parser(sub, name: str) -> argparse.ArgumentParser:
     p = _sub(sub, name)
     add_eval_arguments(p)
     p.add_argument("--serve_cache_path", type=str, default=None,
-                   help="persist the corpus news-embedding cache (not ported "
-                        "yet: ignored, ROADMAP Queue 1, item 3)")
+                   help="persist the corpus news-embedding cache here (.npz) "
+                        "and load it on the next start when the corpus, "
+                        "checkpoint and encoding settings still match")
     p.add_argument("--serve_cache_int8", action="store_true",
-                   help="int8 corpus cache (not ported yet: refused)")
+                   help="int8 corpus cache with per-row absmax scales (half "
+                        "the bytes of bf16)")
     return p
 
 
@@ -63,7 +64,7 @@ def make_parser() -> argparse.ArgumentParser:
     )
     parser.convert_arg_line_to_args = convert_arg_line_to_args
     sub = parser.add_subparsers(dest="mode")
-    for name in ("train", "train_fastformer"):
+    for name in ("train", "train_fastformer", "pretrain"):
         add_train_arguments(_sub(sub, name))
     for name in ("eval", "eval_fastformer"):
         add_eval_arguments(_sub(sub, name))
@@ -101,7 +102,7 @@ def make_parser() -> argparse.ArgumentParser:
                    help="reject unbert reranking slates above this size "
                         "(each cross-encoder candidate costs a full PLM "
                         "pass). Read only by UnBERT serving, which the port "
-                        "has not reached yet (ROADMAP Queue 1, item 6)")
+                        "has not reached yet (ROADMAP Queue 1: UnBERT)")
     return parser
 
 
@@ -215,7 +216,8 @@ def add_train_arguments(p: argparse.ArgumentParser):
     p.add_argument("--eval_behaviors_path", type=str)
     p.add_argument("--eval_news_path", type=str)
     p.add_argument("--augmentations", nargs="*", default=None,
-                   help="augmented news variants (not ported yet: refused)")
+                   help="augmented news variants: <aug>_news.tsv beside "
+                        "each news.tsv")
     p.add_argument("--augmentation_mode", type=str, default="base",
                    choices=["base", "hard", "unbert"])
     p.add_argument("--online", type=int, default=0, choices=[0, 1])
@@ -223,8 +225,8 @@ def add_train_arguments(p: argparse.ArgumentParser):
     p.add_argument("--lstm_num_layers", type=int, default=1)
     p.add_argument("--lstm_dropout", type=float, default=0.0)
     p.add_argument("--pretrained_model_path", type=str, default=None,
-                   help="warm start from a checkpoint (not ported yet: "
-                        "refused)")
+                   help="warm start from a port checkpoint: a whole model, "
+                        "or a pretrain run's news encoder")
     p.add_argument("--unbert_news_layers", type=int, default=None,
                    help="(UnBERT; not ported yet)")
     p.add_argument("--unbert_news_mode", type=str, default="nseg",

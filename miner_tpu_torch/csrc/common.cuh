@@ -6,8 +6,9 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-// dtype codes: the same table as miner_tpu_torch/ops/common.py DTYPE_CODES
-enum { DTYPE_F32 = 0, DTYPE_BF16 = 1 };
+// dtype codes: the same table as miner_tpu_torch/ops/common.py DTYPE_CODES;
+// DTYPE_I8 (INT8_CODE there) only for lookup+score's int8 cache rows
+enum { DTYPE_F32 = 0, DTYPE_BF16 = 1, DTYPE_I8 = 2 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }

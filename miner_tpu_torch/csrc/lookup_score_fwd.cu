@@ -5,16 +5,19 @@
 // With a (N, D) news-embedding cache, (B, C) candidate rows and (B, K, D)
 // interests:
 //   out[b, c, k] = cache[cand_idx[b, c]] . interests[b, k]
-// without ever building the (B, C, D) gather in device memory. An index
-// outside [0, N) gives NaN scores for that candidate, as a gather out of
-// range does in JAX, instead of reading out of bounds.
+// without ever building the (B, C, D) gather in device memory. An index in
+// [-N, 0) takes row N + index and one outside [-N, N) gives NaN scores for
+// that candidate, as a gather does in JAX (jnp.take), instead of reading
+// out of bounds. An int8 cache (parallel/news_cache.py:Int8Rows) comes
+// with a float32 scale a row: out = (q . interests) * scale, the scale
+// applied to the fp32 sum, then rounded once to the interests' type.
 //
 // What bounds it: each candidate row is D values read once and scored
 // against K interests, 2 K flops per value: 32 flop/byte for a bf16 cache
-// at K = 32, far under the ridge, so the least time is the bytes of the
-// distinct rows gathered and of the (B, C, K) scores written. Every (b, c)
-// row still passes from L2 to an SM once: a corpus top-k at B = 32 moves
-// 32 x the cache through L2, which bounds it in practice.
+// at K = 32 (64 for int8), far under the ridge, so the least time is the
+// bytes of the distinct rows gathered and of the (B, C, K) scores written.
+// Every (b, c) row still passes from L2 to an SM once: a corpus top-k at
+// B = 32 moves 32 x the cache through L2, which bounds it in practice.
 //
 // Design: a block takes one batch row and a run of `tiles` tiles of 64
 // candidates (the wrapper sizes the run so that the grid is about one wave
@@ -29,21 +32,37 @@
 // memory about once even when the cache outgrows L2.
 //
 // Two routes, by the types and D:
-// - bf16 cache and bf16 interests, D a multiple of 16: the tensor cores.
-//   mma.sync m16n8k16 bf16 -> fp32 (csrc/tensor_core.cuh), a warp a (16
-//   candidates, 16 interests) unit; K padded to 16 with zero rows. bf16 x
-//   bf16 products are exact in fp32, so the result is the reference's fp32
-//   einsum up to summation order.
+// - bf16 cache with bf16 interests, D a multiple of 16, or int8 cache with
+//   bf16 interests, D a multiple of 32: the tensor cores. mma.sync m16n8k16
+//   bf16 -> fp32 (csrc/tensor_core.cuh), a warp a (16 candidates, 16
+//   interests) unit; K padded to 16 with zero rows. bf16 x bf16 products
+//   are exact in fp32, so the result is the reference's fp32 einsum up to
+//   summation order. int8 rows land in the double buffer as int8 (half the
+//   bytes of bf16); a warp loads its A fragments of them with one ldmatrix
+//   per 32 columns (16-bit lanes holding two int8 each) and widens them to
+//   bf16 in registers, exactly, since |q| <= 127 < 2^8. A lane then holds
+//   columns 4t..4t+3 of a 16-column chunk where the mma's layout puts
+//   2t, 2t + 1, 2t + 8, 2t + 9: the products are summed over the chunk in
+//   another order of k, so the lane reads the interests' B fragments at the
+//   same four columns (one 8-byte load) and the dot product is unchanged.
+//   Widening costs more instructions than the mma, so each element is
+//   widened once per 32 interests: two warps take one 16-candidate piece,
+//   each half of the 32-column steps and 32 interests at a time, and their
+//   partial sums meet in shared memory.
 // - every other pair, or D off the 16-column tiles: the CUDA cores (the
 //   tensor cores' fp32 is TF32, which fails the fp32 tolerance). The row's
 //   interests are staged once a block in their own type, K padded to 32;
 //   each thread holds 2 candidates x 4 interests of a tile in registers,
 //   fed by 16-byte (fp32) or 8-byte (bf16) loads from shared memory,
-//   widened to fp32 as they are read.
+//   widened to fp32 as they are read; int8 rows by 4-byte loads.
 #include <stdint.h>
 
 #include "common.cuh"
 #include "tensor_core.cuh"
+
+template <> __device__ __forceinline__ int8_t from_float<int8_t>(float x) {
+  return static_cast<int8_t>(x);
+}
 
 namespace {
 
@@ -61,11 +80,18 @@ __host__ __device__ inline int round_up(int n, int m) { return (n + m - 1) / m *
 // buffers of gathered rows, the scores of a tile in the output type, the
 // run's indices.
 struct Layout {
-  int kp, ldi, ldr;  // interest rows (K padded); interest and row strides, in elements
-  size_t in, rows, stage, out, idx, bytes;
+  int kp, ldi, ldr;  // interest rows (K padded); interest and gathered-row strides, in elements
+  size_t in, rows, stage, red, out, idx, bytes;
   __host__ __device__ Layout(int K, int D, bool tensor_core, int cache_elem, int out_elem,
                              int tiles) {
-    if (tensor_core) {  // bf16 interests, rows padded by 8 for ldmatrix
+    if (tensor_core && cache_elem == 1) {
+      // int8 rows padded by 16 bytes and bf16 interests by 16 elements: the
+      // 8 rows of an ldmatrix and the 16 lanes of an 8-byte load of B each
+      // fall on distinct banks (D a multiple of 32)
+      kp = round_up(K, 16);
+      ldi = D + 16;
+      ldr = D + 16;
+    } else if (tensor_core) {  // bf16 rows and interests padded by 8 for ldmatrix
       kp = round_up(K, 16);
       ldi = D + 8;
       ldr = D + 8;
@@ -77,7 +103,10 @@ struct Layout {
     in = 0;
     rows = in + align16((size_t)kp * ldi * out_elem);
     stage = align16((size_t)TC * ldr * cache_elem);
-    out = rows + STAGES * stage;
+    red = rows + STAGES * stage;
+    // int8 on the tensor cores: one warp's partial sums a 16-candidate
+    // piece, 16 floats a lane
+    out = red + (tensor_core && cache_elem == 1 ? (size_t)(TC / 16) * 16 * 32 * 4 : 0);
     idx = out + align16((size_t)TC * K * out_elem);
     bytes = idx + align16(sizeof(int) * (size_t)tiles * TC);
   }
@@ -147,22 +176,52 @@ __device__ __forceinline__ void wait_tile(int t, const Run& run) {
     cp_async_wait<0>();
 }
 
-// the run's indices into sIdx, -1 past C
+// the run's rows into sIdx: an index in [-N, 0) wrapped to N + index, -1
+// for one outside [-N, N) and past C
 __device__ __forceinline__ void load_indices(const Run& run, const int* cand_idx, int* sIdx,
-                                             int C) {
+                                             int C, int N) {
   const int* idx = cand_idx + (long)run.b * C + (long)run.t0 * TC;
   const int n = min((run.t1 - run.t0) * TC, C - run.t0 * TC);
-  for (int i = threadIdx.x; i < (run.t1 - run.t0) * TC; i += THREADS)
-    sIdx[i] = i < n ? idx[i] : -1;
+  for (int i = threadIdx.x; i < (run.t1 - run.t0) * TC; i += THREADS) {
+    int row = i < n ? idx[i] : -1;
+    if (i < n && row < 0) row = row >= -N ? row + N : -1;
+    sIdx[i] = row < N ? row : -1;
+  }
+}
+
+// four int8 (byte 0 the lowest column) -> two bf16 pairs, exactly: each
+// byte, offset by 128, becomes the low mantissa bits of 2^23 and the float
+// minus 2^23 + 128 is the integer
+__device__ __forceinline__ void widen4(uint32_t q, uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = q ^ 0x80808080u;
+  float f[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    f[k] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540u | k)) - 8388736.f;
+  lo = pack_bf16(f[0], f[1]);
+  hi = pack_bf16(f[2], f[3]);
+}
+
+// the scale of a candidate's row: its int8 scale, 1 for a float cache
+template <typename TCache>
+__device__ __forceinline__ float row_scale(const float* scales, int row) {
+  if constexpr (sizeof(TCache) == 1) {
+    return row >= 0 ? scales[row] : 1.f;
+  } else {
+    return 1.f;
+  }
 }
 
 // ------------------------------------------------------- tensor cores
+// TCache bf16, or int8_t with scales: its rows widened to bf16 in registers
+template <typename TCache>
 __global__ void __launch_bounds__(THREADS)
-lookup_score_tc(const bf16* __restrict__ cache, const int* __restrict__ cand_idx,
-                const bf16* __restrict__ interests, bf16* __restrict__ out, int N, int B,
-                int C, int K, int D, int tiles) {
+lookup_score_tc(const TCache* __restrict__ cache, const float* __restrict__ scales,
+                const int* __restrict__ cand_idx, const bf16* __restrict__ interests,
+                bf16* __restrict__ out, int N, int B, int C, int K, int D, int tiles) {
+  constexpr bool kInt8 = sizeof(TCache) == 1;
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout lay(K, D, true, 2, 2, tiles);
+  const Layout lay(K, D, true, sizeof(TCache), 2, tiles);
   bf16* sI = reinterpret_cast<bf16*>(smem + lay.in);
   bf16* sOut = reinterpret_cast<bf16*>(smem + lay.out);
   int* sIdx = reinterpret_cast<int*>(smem + lay.idx);
@@ -172,10 +231,10 @@ lookup_score_tc(const bf16* __restrict__ cache, const int* __restrict__ cand_idx
   const Run run(B, C, tiles);
   // the interests' copies in flight while the indices load
   gather(sI, lay.ldi, interests + (long)run.b * K * D, nullptr, K, lay.kp, K, D, true);
-  load_indices(run, cand_idx, sIdx, C);
+  load_indices(run, cand_idx, sIdx, C, N);
   __syncthreads();  // sIdx
   auto stage_rows = [&](int t) {
-    return reinterpret_cast<bf16*>(smem + lay.rows + (t % STAGES) * lay.stage);
+    return reinterpret_cast<TCache*>(smem + lay.rows + (t % STAGES) * lay.stage);
   };
   auto tile_size = [&](int t) { return min(TC, C - t * TC); };
   auto fetch = [&](int t) {
@@ -191,34 +250,88 @@ lookup_score_tc(const bf16* __restrict__ cache, const int* __restrict__ cand_idx
     if (t + 1 < run.t1) fetch(t + 1);  // into the buffer of t - 1
     wait_tile(t, run);
     __syncthreads();
-    const bf16* rows = stage_rows(t);
+    const TCache* rows = stage_rows(t);
     const int* tIdx = sIdx + (t - run.t0) * TC;
     const int nc = tile_size(t);
     const int mtiles = (nc + 15) / 16;
-    for (int u = warp; u < mtiles * ktiles; u += WARPS) {
-      const int mt = u / ktiles, kt = u - mt * ktiles;
-      float acc[2][4] = {};
-      for (int kc = 0; kc < D / 16; ++kc) {
-        uint32_t a[4], bi[4];
-        ldsm_x4(a, rows + (mt * 16 + (lane & 15)) * lay.ldr + kc * 16 + (lane >> 4) * 8);
-        ldsm_x4(bi, sI + (kt * 16 + (lane & 7) + ((lane >> 4) << 3)) * lay.ldi + kc * 16 +
-                        ((lane >> 3) & 1) * 8);
-        mma_bf16(acc[0], a, bi[0], bi[1]);
-        mma_bf16(acc[1], a, bi[2], bi[3]);
-      }
+    // the scores of 16 candidates (piece mt) x 16 interests (kt) into sOut
+    auto store = [&](const float (&acc)[2][4], int mt, int kt) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int c = mt * 16 + g + 8 * r;
         if (c >= nc) continue;
-        const bool ok = tIdx[c] >= 0 && tIdx[c] < N;
+        const bool ok = tIdx[c] >= 0;
+        const float scale = row_scale<TCache>(scales, tIdx[c]);
 #pragma unroll
         for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int k = kt * 16 + nt * 8 + 2 * t4 + e;
             if (k < K)
-              sOut[c * K + k] = __float2bfloat16_rn(nan_unless(ok, acc[nt][2 * r + e]));
+              sOut[c * K + k] = __float2bfloat16_rn(nan_unless(ok, acc[nt][2 * r + e] * scale));
           }
+      }
+    };
+    if constexpr (kInt8) {
+      // warps 2 mt and 2 mt + 1 take piece mt, the even and the odd
+      // 32-column steps; 32 interests (two units) at a time
+      const int mt = warp >> 1, half = warp & 1;
+      const bool active = mt < mtiles;
+      float* red = reinterpret_cast<float*>(smem + lay.red) + mt * 16 * 32 + lane;
+      for (int kt0 = 0; kt0 < ktiles; kt0 += 2) {
+        const bool two = kt0 + 1 < ktiles;
+        float acc[2][2][4] = {};
+        if (active) {
+          // the lane's interest rows (n g and g + 8 of each unit), at the
+          // four columns 4t..4t+3 of a chunk that its int8 fragments hold
+          const bf16* i0 = sI + (kt0 * 16 + g) * lay.ldi + 4 * t4;
+          for (int kc = 2 * half; kc < D / 16; kc += 4) {
+            uint32_t q[4];  // rows g, g + 8 of chunk kc, then of chunk kc + 1
+            ldsm_x4(q, rows + (mt * 16 + (lane & 15)) * lay.ldr + kc * 16 + (lane >> 4) * 16);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              uint32_t a[4];
+              widen4(q[2 * h], a[0], a[2]);
+              widen4(q[2 * h + 1], a[1], a[3]);
+#pragma unroll
+              for (int j = 0; j < 2; ++j) {
+                if (j == 1 && !two) break;
+#pragma unroll
+                for (int nt = 0; nt < 2; ++nt) {
+                  const uint2 b = *reinterpret_cast<const uint2*>(
+                      i0 + (j * 16 + nt * 8) * lay.ldi + (kc + h) * 16);
+                  mma_bf16(acc[j][nt], a, b.x, b.y);
+                }
+              }
+            }
+          }
+          if (half) {  // the odd steps' partial sums, for the even warp
+#pragma unroll
+            for (int f = 0; f < 16; ++f) red[f * 32] = (&acc[0][0][0])[f];
+          }
+        }
+        __syncthreads();
+        if (active && !half) {
+#pragma unroll
+          for (int f = 0; f < 16; ++f) (&acc[0][0][0])[f] += red[f * 32];
+          store(acc[0], mt, kt0);
+          if (two) store(acc[1], mt, kt0 + 1);
+        }
+        if (kt0 + 2 < ktiles) __syncthreads();  // red is taken before the next pair
+      }
+    } else {
+      for (int u = warp; u < mtiles * ktiles; u += WARPS) {
+        const int mt = u / ktiles, kt = u - mt * ktiles;
+        float acc[2][4] = {};
+        for (int kc = 0; kc < D / 16; ++kc) {
+          uint32_t a[4], bi[4];
+          ldsm_x4(a, rows + (mt * 16 + (lane & 15)) * lay.ldr + kc * 16 + (lane >> 4) * 8);
+          ldsm_x4(bi, sI + (kt * 16 + (lane & 7) + ((lane >> 4) << 3)) * lay.ldi + kc * 16 +
+                          ((lane >> 3) & 1) * 8);
+          mma_bf16(acc[0], a, bi[0], bi[1]);
+          mma_bf16(acc[1], a, bi[2], bi[3]);
+        }
+        store(acc, mt, kt);
       }
     }
     __syncthreads();
@@ -238,6 +351,11 @@ __device__ __forceinline__ float4 load4(const bf16* p) {
   return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
+__device__ __forceinline__ float4 load4(const int8_t* p) {
+  const char4 v = *reinterpret_cast<const char4*>(p);
+  return make_float4(v.x, v.y, v.z, v.w);
+}
+
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
 }
@@ -245,9 +363,9 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
 // one block an SM at fp32 rows (~170 KB of shared memory): no register cap
 template <typename TCache, typename TI>
 __global__ void __launch_bounds__(THREADS, 1)
-lookup_score_cc(const TCache* __restrict__ cache, const int* __restrict__ cand_idx,
-                const TI* __restrict__ interests, TI* __restrict__ out, int N, int B, int C,
-                int K, int D, int tiles) {
+lookup_score_cc(const TCache* __restrict__ cache, const float* __restrict__ scales,
+                const int* __restrict__ cand_idx, const TI* __restrict__ interests,
+                TI* __restrict__ out, int N, int B, int C, int K, int D, int tiles) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout lay(K, D, false, sizeof(TCache), sizeof(TI), tiles);
   TI* sI = reinterpret_cast<TI*>(smem + lay.in);
@@ -263,7 +381,7 @@ lookup_score_cc(const TCache* __restrict__ cache, const int* __restrict__ cand_i
 
   const Run run(B, C, tiles);
   gather(sI, lay.ldi, interests + (long)run.b * K * D, nullptr, K, lay.kp, K, D, vec_i);
-  load_indices(run, cand_idx, sIdx, C);
+  load_indices(run, cand_idx, sIdx, C, N);
   __syncthreads();  // sIdx
   auto stage_rows = [&](int t) {
     return reinterpret_cast<TCache*>(smem + lay.rows + (t % STAGES) * lay.stage);
@@ -303,11 +421,12 @@ lookup_score_cc(const TCache* __restrict__ cache, const int* __restrict__ cand_i
         for (int j = 0; j < 2; ++j) {
           const int c = cgp + 32 * j;
           if (c >= nc) continue;
-          const bool ok = tIdx[c] >= 0 && tIdx[c] < N;
+          const bool ok = tIdx[c] >= 0;
+          const float scale = row_scale<TCache>(scales, tIdx[c]);
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const int k = k0 + kg + 8 * i;
-            if (k < K) sOut[c * K + k] = from_float<TI>(nan_unless(ok, acc[j][i]));
+            if (k < K) sOut[c * K + k] = from_float<TI>(nan_unless(ok, acc[j][i] * scale));
           }
         }
       }
@@ -318,49 +437,53 @@ lookup_score_cc(const TCache* __restrict__ cache, const int* __restrict__ cand_i
 }
 
 bool tensor_core_route(int D, int cache_dtype, int interests_dtype) {
-  return cache_dtype == DTYPE_BF16 && interests_dtype == DTYPE_BF16 && D % 16 == 0;
+  return interests_dtype == DTYPE_BF16 && ((cache_dtype == DTYPE_BF16 && D % 16 == 0) ||
+                                           (cache_dtype == DTYPE_I8 && D % 32 == 0));
 }
 
-int elem_size(int dtype) { return dtype == DTYPE_BF16 ? 2 : 4; }
+int elem_size(int dtype) { return dtype == DTYPE_I8 ? 1 : dtype == DTYPE_BF16 ? 2 : 4; }
 
-cudaError_t launch_tc(const void* cache, const void* cand_idx, const void* interests,
-                      void* out, int N, int B, int C, int K, int D, int tiles, int blocks,
-                      cudaStream_t stream) {
-  const size_t smem = Layout(K, D, true, 2, 2, tiles).bytes;
+template <typename TCache>
+cudaError_t launch_tc(const void* cache, const void* scales, const void* cand_idx,
+                      const void* interests, void* out, int N, int B, int C, int K, int D,
+                      int tiles, int blocks, cudaStream_t stream) {
+  const size_t smem = Layout(K, D, true, sizeof(TCache), 2, tiles).bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      lookup_score_tc, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      lookup_score_tc<TCache>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  lookup_score_tc<<<blocks, THREADS, smem, stream>>>(
-      static_cast<const bf16*>(cache), static_cast<const int*>(cand_idx),
-      static_cast<const bf16*>(interests), static_cast<bf16*>(out), N, B, C, K, D, tiles);
+  lookup_score_tc<TCache><<<blocks, THREADS, smem, stream>>>(
+      static_cast<const TCache*>(cache), static_cast<const float*>(scales),
+      static_cast<const int*>(cand_idx), static_cast<const bf16*>(interests),
+      static_cast<bf16*>(out), N, B, C, K, D, tiles);
   return cudaGetLastError();
 }
 
 template <typename TCache, typename TI>
-cudaError_t launch_cc(const void* cache, const void* cand_idx, const void* interests,
-                      void* out, int N, int B, int C, int K, int D, int tiles, int blocks,
-                      cudaStream_t stream) {
+cudaError_t launch_cc(const void* cache, const void* scales, const void* cand_idx,
+                      const void* interests, void* out, int N, int B, int C, int K, int D,
+                      int tiles, int blocks, cudaStream_t stream) {
   const size_t smem = Layout(K, D, false, sizeof(TCache), sizeof(TI), tiles).bytes;
   cudaError_t err = cudaFuncSetAttribute(
       lookup_score_cc<TCache, TI>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   lookup_score_cc<TCache, TI><<<blocks, THREADS, smem, stream>>>(
-      static_cast<const TCache*>(cache), static_cast<const int*>(cand_idx),
-      static_cast<const TI*>(interests), static_cast<TI*>(out), N, B, C, K, D, tiles);
+      static_cast<const TCache*>(cache), static_cast<const float*>(scales),
+      static_cast<const int*>(cand_idx), static_cast<const TI*>(interests),
+      static_cast<TI*>(out), N, B, C, K, D, tiles);
   return cudaGetLastError();
 }
 
 template <typename TCache>
-cudaError_t dispatch_cc(const void* cache, const void* cand_idx, const void* interests,
-                        void* out, int N, int B, int C, int K, int D, int interests_dtype,
-                        int tiles, int blocks, cudaStream_t stream) {
+cudaError_t dispatch_cc(const void* cache, const void* scales, const void* cand_idx,
+                        const void* interests, void* out, int N, int B, int C, int K, int D,
+                        int interests_dtype, int tiles, int blocks, cudaStream_t stream) {
   switch (interests_dtype) {
     case DTYPE_F32:
-      return launch_cc<TCache, float>(cache, cand_idx, interests, out, N, B, C, K, D, tiles,
-                                      blocks, stream);
+      return launch_cc<TCache, float>(cache, scales, cand_idx, interests, out, N, B, C, K, D,
+                                      tiles, blocks, stream);
     case DTYPE_BF16:
-      return launch_cc<TCache, bf16>(cache, cand_idx, interests, out, N, B, C, K, D, tiles,
-                                     blocks, stream);
+      return launch_cc<TCache, bf16>(cache, scales, cand_idx, interests, out, N, B, C, K, D,
+                                     tiles, blocks, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -377,11 +500,13 @@ extern "C" long long lookup_score_smem_bytes(int K, int D, int cache_dtype,
       .bytes;
 }
 
-// cache (N, D) in cache_dtype; cand_idx (B, C) int32; interests (B, K, D) and
-// out (B, C, K) in interests_dtype; all contiguous; a block scores a run of
-// `tiles` tiles of 64 candidates. The tensor-core route (both bf16, D a
-// multiple of 16) takes cache and interests 16-byte aligned.
-extern "C" int lookup_score_fwd(const void* cache, const void* cand_idx,
+// cache (N, D) in cache_dtype, with scales (N, 1) float32 for an int8 cache
+// (null for the others); cand_idx (B, C) int32; interests (B, K, D) and out
+// (B, C, K) in interests_dtype; all contiguous; a block scores a run of
+// `tiles` tiles of 64 candidates. The tensor-core route (bf16 interests with
+// a bf16 cache, D a multiple of 16, or an int8 one, D a multiple of 32)
+// takes cache and interests 16-byte aligned.
+extern "C" int lookup_score_fwd(const void* cache, const void* scales, const void* cand_idx,
                                 const void* interests, void* out, int N, int B, int C,
                                 int K, int D, int cache_dtype, int interests_dtype,
                                 int tiles, int device, void* stream) {
@@ -389,21 +514,29 @@ extern "C" int lookup_score_fwd(const void* cache, const void* cand_idx,
   if (err != cudaSuccess) return err;
   if (N <= 0 || B <= 0 || C <= 0 || K <= 0 || D <= 0 || tiles <= 0)
     return cudaErrorInvalidValue;
+  if ((cache_dtype == DTYPE_I8) != (scales != nullptr)) return cudaErrorInvalidValue;
   const long long blocks = (long long)B * (((C + TC - 1) / TC + tiles - 1) / tiles);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tensor_core_route(D, cache_dtype, interests_dtype)) {
     if ((reinterpret_cast<uintptr_t>(cache) | reinterpret_cast<uintptr_t>(interests)) % 16)
       return cudaErrorMisalignedAddress;
-    return launch_tc(cache, cand_idx, interests, out, N, B, C, K, D, tiles, (int)blocks, s);
+    if (cache_dtype == DTYPE_I8)
+      return launch_tc<int8_t>(cache, scales, cand_idx, interests, out, N, B, C, K, D, tiles,
+                               (int)blocks, s);
+    return launch_tc<bf16>(cache, scales, cand_idx, interests, out, N, B, C, K, D, tiles,
+                           (int)blocks, s);
   }
   switch (cache_dtype) {
     case DTYPE_F32:
-      return dispatch_cc<float>(cache, cand_idx, interests, out, N, B, C, K, D,
+      return dispatch_cc<float>(cache, scales, cand_idx, interests, out, N, B, C, K, D,
                                 interests_dtype, tiles, (int)blocks, s);
     case DTYPE_BF16:
-      return dispatch_cc<bf16>(cache, cand_idx, interests, out, N, B, C, K, D,
+      return dispatch_cc<bf16>(cache, scales, cand_idx, interests, out, N, B, C, K, D,
                                interests_dtype, tiles, (int)blocks, s);
+    case DTYPE_I8:
+      return dispatch_cc<int8_t>(cache, scales, cand_idx, interests, out, N, B, C, K, D,
+                                 interests_dtype, tiles, (int)blocks, s);
     default:
       return cudaErrorInvalidValue;
   }

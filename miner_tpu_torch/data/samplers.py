@@ -12,6 +12,12 @@ Modes (behavioral contracts):
     loaded) + npratio sampled negatives, shuffled; label one-hot.
   * online base (reference: src/entities.py:256-272): same, but re-sampled
     every epoch.
+  * hard (``--augmentation_mode hard``): with augmentations loaded, the
+    first 1 to min(V, npratio) - 1 slots are distinct variants of the
+    positive, only the first of them labelled 1, and the rest negatives;
+    then shuffled.
+  * pretrain: the vanilla positive, every augmentation variant of it, then
+    npratio negatives (``PretrainSampler``).
   * eval (reference: src/reader.py:351-379): one row per candidate of every
     impression containing both classes.
 
@@ -20,10 +26,9 @@ news = 0.
 
 The port's own copy of ``miner_tpu/data/samplers.py``, numpy path only: the
 JAX package's native C++ sampler (``native/miner_data.cpp``) keeps the same
-invariants but not the same draws, and is not ported yet (ROADMAP Queue 1,
-item 11); the ``hard`` mode comes with the augmentations (item 14) and
-``PretrainSampler`` with the pretraining slice (item 6). The tests hold these
-samplers equal to the JAX package's with ``backend="numpy"``.
+invariants but not the same draws, and is not ported yet (ROADMAP Queue 1:
+the native sampler). The tests hold these samplers equal to the JAX
+package's with ``backend="numpy"``, draw for draw.
 """
 from __future__ import annotations
 
@@ -67,11 +72,15 @@ class _BaseTrainSampler:
         store: NewsStore,
         npratio: int,
         seed: int = 0,
+        mode: str = "base",
     ):
+        if mode not in ("base", "hard"):
+            raise ValueError(f"unknown sampler mode {mode!r}")
         self.log = log
         self.store = store
         self.npratio = npratio
         self.seed = seed
+        self.mode = mode
         self.num_variants = store.num_variants
 
     def _history_gidx(self) -> np.ndarray:
@@ -91,10 +100,18 @@ class _BaseTrainSampler:
         for e in range(E):
             negs = self.log.negatives(e)
             pos = int(self.log.pos_row[e])
-            variant = int(rng.integers(0, V)) if V > 1 else 0
-            row = np.empty(C, dtype=np.int64)
-            row[0] = variant * N + pos
-            row[1:] = _sample_negatives(negs, self.npratio, rng)
+            if self.mode == "hard" and V > 1:
+                cap = min(V, self.npratio)
+                num_pick = int(rng.integers(1, cap)) if cap > 1 else 1
+                picks = np.sort(rng.choice(V, size=num_pick, replace=False))
+                row = np.empty(C, dtype=np.int64)
+                row[:num_pick] = picks * N + pos
+                row[num_pick:] = _sample_negatives(negs, C - num_pick, rng)
+            else:
+                variant = int(rng.integers(0, V)) if V > 1 else 0
+                row = np.empty(C, dtype=np.int64)
+                row[0] = variant * N + pos
+                row[1:] = _sample_negatives(negs, self.npratio, rng)
             lab = np.zeros(C, dtype=np.float32)
             lab[0] = 1.0
             perm = rng.permutation(C)
@@ -112,8 +129,8 @@ class _BaseTrainSampler:
 class OfflineSampler(_BaseTrainSampler):
     """Sampled once at construction; every epoch reuses the same block."""
 
-    def __init__(self, log, store, npratio, seed=0):
-        super().__init__(log, store, npratio, seed)
+    def __init__(self, log, store, npratio, seed=0, mode="base"):
+        super().__init__(log, store, npratio, seed, mode)
         self._block = super().sample_epoch(0)
 
     def sample_epoch(self, epoch: int) -> SampleBlock:
@@ -122,6 +139,52 @@ class OfflineSampler(_BaseTrainSampler):
 
 class OnlineSampler(_BaseTrainSampler):
     """Re-samples every epoch (reference's DatasetOnline)."""
+
+
+class PretrainSampler:
+    """Candidate-only blocks for contrastive news-encoder pretraining: the
+    vanilla positive and each of its augmentation variants, then npratio
+    negatives."""
+
+    def __init__(self, log: BehaviorsLog, store: NewsStore, npratio: int, seed: int = 0):
+        self.log = log
+        self.store = store
+        self.npratio = npratio
+        self.seed = seed
+
+    @property
+    def num_candidates(self) -> int:
+        return self.store.num_variants + self.npratio
+
+    def sample_epoch(self, epoch: int) -> SampleBlock:
+        rng = np.random.default_rng((self.seed, epoch))
+        log = self.log
+        E = log.num_events
+        N = self.store.num_news
+        V = self.store.num_variants
+        C = self.num_candidates
+
+        cand = np.zeros((E, C), dtype=np.int64)
+        cand[:, :V] = (np.arange(V)[None, :] * N
+                       + log.pos_row[:E, None].astype(np.int64))
+        # npratio negatives per event without replacement, vectorised over
+        # the ragged pools: random keys sorted within each event's segment,
+        # the first npratio kept (short pools keep all and pad with 0)
+        counts = np.diff(log.neg_offsets).astype(np.int64)
+        total = int(counts.sum())
+        if total:
+            seg = np.repeat(np.arange(E), counts)
+            order = np.lexsort((rng.random(total), seg))
+            pos_in_seg = np.arange(total) - np.repeat(log.neg_offsets[:-1], counts)
+            take = pos_in_seg < self.npratio
+            cand[seg[order][take], V + pos_in_seg[take]] = log.neg_flat[order][take]
+
+        return SampleBlock(
+            cand=cand.astype(np.int32),
+            his=np.zeros((E, 0), dtype=np.int32),
+            label=np.zeros((E, C), dtype=np.float32),
+            impression_id=self.log.impression_id.copy(),
+        )
 
 
 class EvalSampler:

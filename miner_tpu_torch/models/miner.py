@@ -27,6 +27,7 @@ from miner_tpu_torch.models.dropout import DropoutRNG, dropout_active
 from miner_tpu_torch.models.news_encoder import NewsEncoder
 from miner_tpu_torch.models.plm import normal_init_
 from miner_tpu_torch.models.poly_attention import PolyAttention, TargetAwareAttention
+from miner_tpu_torch.ops.lookup_score import lookup_score_fused
 from miner_tpu_torch.utils import pairwise_cosine_similarity
 
 
@@ -120,6 +121,20 @@ class Miner(nn.Module):
         if self.score_type == "mean":
             return scores.mean(dim=-1)
         return self.target_aware_attn(interests, cand_repr, scores)
+
+    def matching_from_cache(self, cache, cand_idx: torch.Tensor,
+                            interests: torch.Tensor) -> torch.Tensor:
+        """(B, C) matching scores of (B, C) rows of the news-embedding cache
+        (a tensor or ``Int8Rows``) without gathering them: the per-interest
+        scores and, for the weighted score, the target-aware logits (the
+        candidate rows dotted with the projected interests) both come from
+        the lookup+score op, which reads the rows in the cache's own type."""
+        scores = lookup_score_fused(cache, cand_idx, interests)
+        if self.score_type != "weighted":
+            return self.aggregate_matching(interests, scores)
+        proj = self.target_aware_attn.project(interests)
+        return self.target_aware_attn.weigh(lookup_score_fused(cache, cand_idx, proj),
+                                            scores, proj.dtype)
 
     def tail(self, cand_repr: torch.Tensor, his_repr: torch.Tensor,
              cand_category: torch.Tensor, his_category: torch.Tensor,

@@ -7,7 +7,7 @@ an optional ``reduce_dim`` linear maps it to ``word_embed_dim``, and the
 ``reduce_dim``'s output takes dropout at ``dropout`` (``--dropout``,
 news_encoder.py:95,122), its mask drawn from the step's ``DropoutRNG``. The
 ``lstm`` and ``pre-concat`` combines are not ported yet (ROADMAP Queue 1,
-item 4).
+the other combines).
 """
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ class NewsEncoder(nn.Module):
         super().__init__()
         if use_sapo and combine_type != "linear":
             raise NotImplementedError(
-                f"--combine_type {combine_type!r} is not ported yet (ROADMAP Queue 1, item 4); "
+                f"--combine_type {combine_type!r} is not ported yet (ROADMAP Queue 1: the other combines); "
                 "the port has the linear title/sapo combine")
         self.plm_cfg = plm_cfg
         self.use_sapo = use_sapo

@@ -33,7 +33,7 @@ class PolyAttention(nn.Module):
         if legacy_mask:
             raise NotImplementedError(
                 "--legacy_poly_mask (the reference's 1e-30 fill) is not "
-                "ported yet (ROADMAP Queue 1, item 4)")
+                "ported yet (ROADMAP Queue 1: the other combines)")
         self.proj_kernel = nn.Parameter(torch.empty(embed_dim, context_code_dim))
         self.context_codes = nn.Parameter(
             torch.empty(num_context_codes, context_code_dim))
@@ -68,11 +68,21 @@ class TargetAwareAttention(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         lecun_normal_(self.proj.weight.data, self.proj.in_features, generator)
 
+    def project(self, query: torch.Tensor) -> torch.Tensor:
+        """(B, K, D) interests -> the (B, K, D) vectors each candidate is
+        dotted with."""
+        return F.gelu(self.proj(query))
+
+    @staticmethod
+    def weigh(logits: torch.Tensor, value: torch.Tensor,
+              dtype: torch.dtype) -> torch.Tensor:
+        """(B, C, K) candidate logits and per-interest scores -> (B, C)."""
+        weights = torch.softmax(logits.float(), dim=-1).to(dtype)
+        return torch.sum(weights * value, dim=-1)
+
     def forward(self, query: torch.Tensor, key: torch.Tensor,
                 value: torch.Tensor) -> torch.Tensor:
         """query (B, K, D) interests, key (B, C, D) candidates, value
         (B, C, K) per-interest scores -> (B, C)."""
-        proj = F.gelu(self.proj(query))
-        logits = torch.einsum("bcd,bkd->bck", key, proj).float()
-        weights = torch.softmax(logits, dim=-1).to(proj.dtype)
-        return torch.sum(weights * value, dim=-1)
+        proj = self.project(query)
+        return self.weigh(torch.einsum("bcd,bkd->bck", key, proj), value, proj.dtype)

@@ -34,8 +34,10 @@ CUDA_SOURCES = ("mha_fwd", "mha_bwd", "add_ln_bwd", "poly_attention_fwd",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# dtype codes shared with csrc/common.cuh
+# dtype codes shared with csrc/common.cuh; INT8_CODE names lookup+score's
+# int8 cache rows, the only kernel input of that type
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+INT8_CODE = 2
 
 _load_lock = threading.Lock()
 _libraries: Dict[str, ctypes.CDLL] = {}

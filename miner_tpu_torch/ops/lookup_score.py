@@ -3,14 +3,17 @@
 Counterpart of ``miner_tpu/ops/lookup_score.py:lookup_score_fused``: given a
 (N, D) news-embedding cache, (B, C) candidate rows and (B, K, D) interests,
 the per-interest scores (B, C, K), without building the (B, C, D) gather.
+An index in [-N, 0) takes row N + index and one outside [-N, N) scores
+NaN, as the JAX package's ``jnp.take`` gives them.
 
 The kernel is ``csrc/lookup_score_fwd.cu``. It reads the cache in its own
-type (float32 or bfloat16), accumulates in fp32 and writes the interests'
-type, as the TPU kernel's fp32 route does. :func:`plan` names its route: a
-bfloat16 cache with bfloat16 interests and D a multiple of 16 runs on the
-tensor cores (both 16-byte aligned), every other pair on the CUDA cores;
-neither falls back to the plain version. The int8 cache (``Int8Rows``) is
-not ported yet. The op has no gradient, in the JAX package either: on the
+type (float32, bfloat16, or int8 rows with a float32 scale each, an
+``Int8Rows``), accumulates in fp32, multiplies an int8 row's sums by its
+scale and writes the interests' type, as the TPU kernel's fp32 route does.
+:func:`plan` names its route: bfloat16 interests with a bfloat16 cache
+and D a multiple of 16, or an int8 cache and D a multiple of 32, run on
+the tensor cores (both 16-byte aligned), every other pair on the CUDA
+cores; neither falls back to the plain version. The op has no gradient, in the JAX package either: on the
 card it raises when an input requires grad under grad mode, so a gradient
 is never dropped quietly.
 """
@@ -22,12 +25,15 @@ import functools
 import torch
 
 from miner_tpu_torch.ops import common
+from miner_tpu_torch.parallel.news_cache import Int8Rows, gather_rows
 
 TILE = 64  # candidates a tile, as in the kernel
 MAX_RUN = 16  # the most tiles a block scores
 SM_SMEM = 228 * 1024  # shared memory of an SM (H100), 1 KB of it kept per block
 _MAX_SMEM = 227 * 1024
-_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 9 + (ctypes.c_void_p,)
+_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 9 + (ctypes.c_void_p,)
+# the kernel's cache types: its interests' types and int8 rows
+CACHE_CODES = {**common.DTYPE_CODES, torch.int8: common.INT8_CODE}
 
 
 @functools.lru_cache(maxsize=None)
@@ -42,18 +48,20 @@ def _smem_bytes(K: int, D: int, cache_code: int, interests_code: int, tiles: int
 def plan(B: int, C: int, K: int, D: int, cache_dtype: torch.dtype,
          interests_dtype: torch.dtype, sms: int = 132):
     """(route, tiles a block, shared-memory bytes a block) of a launch on a
-    card of ``sms`` SMs: "tensor_core" for a bfloat16 cache and bfloat16
-    interests with D a multiple of 16, else "cuda_core". A block's run of
-    tiles is the shortest (up to :data:`MAX_RUN`) that makes the grid about
-    one wave of the blocks the SMs hold. Raises on a type the kernel does
-    not take or shapes that do not fit in shared memory."""
-    for what, dt in (("cache", cache_dtype), ("interests", interests_dtype)):
-        if dt not in common.DTYPE_CODES:
-            raise TypeError(f"{what} has dtype {dt}, expected one of "
-                            f"{list(common.DTYPE_CODES)}")
-    tensor_core = (cache_dtype == interests_dtype == torch.bfloat16
-                   and D % 16 == 0)
-    size = lambda n: _smem_bytes(K, D, common.DTYPE_CODES[cache_dtype],
+    card of ``sms`` SMs: "tensor_core" for bfloat16 interests with a
+    bfloat16 cache and D a multiple of 16 or an int8 cache and D a multiple
+    of 32, else "cuda_core". A block's
+    run of tiles is the shortest (up to :data:`MAX_RUN`) that makes the grid
+    about one wave of the blocks the SMs hold. Raises on a type the kernel
+    does not take or shapes that do not fit in shared memory."""
+    for what, dt, codes in (("cache", cache_dtype, CACHE_CODES),
+                            ("interests", interests_dtype, common.DTYPE_CODES)):
+        if dt not in codes:
+            raise TypeError(f"{what} has dtype {dt}, expected one of {list(codes)}")
+    tensor_core = interests_dtype == torch.bfloat16 and (
+        (cache_dtype == torch.bfloat16 and D % 16 == 0)
+        or (cache_dtype == torch.int8 and D % 32 == 0))
+    size = lambda n: _smem_bytes(K, D, CACHE_CODES[cache_dtype],
                                  common.DTYPE_CODES[interests_dtype], n)
     ntiles = -(-C // TILE)
     per_sm = max(1, SM_SMEM // (size(MAX_RUN) + 1024))
@@ -70,62 +78,77 @@ def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def lookup_score_reference(cache: torch.Tensor, cand_idx: torch.Tensor,
+def _rows(cache):
+    return cache.values if isinstance(cache, Int8Rows) else cache
+
+
+def lookup_score_reference(cache, cand_idx: torch.Tensor,
                            interests: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version: gather, then an fp32 product. A candidate whose
-    index lies outside [0, N) scores NaN, as in the kernel. Past N that is
-    what the JAX package's ``jnp.take`` gives; a negative index it wraps
-    instead (ROADMAP Queue 3)."""
-    N = cache.shape[0]
-    idx = cand_idx.clamp(0, N - 1)
-    cand = cache.index_select(0, idx.reshape(-1)).reshape(*cand_idx.shape, cache.shape[1])
+    """Plain PyTorch version: gather (the values and scales of an
+    ``Int8Rows``), an fp32 product, times the row's scale. An index in
+    [-N, 0) takes row N + index and one outside [-N, N) scores NaN, as in
+    the kernel and in the JAX package."""
+    N = _rows(cache).shape[0]
+    row = torch.where(cand_idx < 0, cand_idx + N, cand_idx)
+    idx = row.clamp(0, N - 1)
+    cand = gather_rows(_rows(cache), idx)
     out = torch.einsum("bcd,bkd->bck", cand.float(), interests.float())
+    if isinstance(cache, Int8Rows):
+        out = out * gather_rows(cache.scales, idx)
     # in place, and no test of the indices on the host: a card would wait for it
-    out.masked_fill_((idx != cand_idx)[..., None], float("nan"))
+    out.masked_fill_((idx != row)[..., None], float("nan"))
     return out.to(interests.dtype)
 
 
-def lookup_score_fused(cache: torch.Tensor, cand_idx: torch.Tensor,
+def lookup_score_fused(cache, cand_idx: torch.Tensor,
                        interests: torch.Tensor) -> torch.Tensor:
-    """(B, C, K) scores. A CPU tensor takes :func:`lookup_score_reference`;
-    a CUDA tensor launches the kernel (cache and interests float32 or
-    bfloat16, cand_idx int32) or raises."""
-    if cache.dim() != 2 or cand_idx.dim() != 2 or interests.dim() != 3:
+    """(B, C, K) scores from a (N, D) cache tensor or an ``Int8Rows``. A CPU
+    tensor takes :func:`lookup_score_reference`; a CUDA tensor launches the
+    kernel (a float32 or bfloat16 cache, or int8 rows with float32 scales;
+    interests float32 or bfloat16; cand_idx int32) or raises."""
+    rows = _rows(cache)
+    if rows.dim() != 2 or cand_idx.dim() != 2 or interests.dim() != 3:
         raise ValueError("cache must be (N, D), cand_idx (B, C), interests (B, K, D)")
-    N, D = cache.shape
+    N, D = rows.shape
     B, C = cand_idx.shape
     K = interests.shape[1]
     if tuple(interests.shape) != (B, K, D):
         raise ValueError(f"interests has shape {tuple(interests.shape)}, "
                          f"expected {(B, K, D)}")
-    if cache.device.type == "cpu":
+    if rows.device.type == "cpu":
         return lookup_score_reference(cache, cand_idx, interests)
     return _launch(cache, cand_idx, interests)
 
 
 def _launch(cache, cand_idx, interests) -> torch.Tensor:
-    common.require_cuda(cache, "lookup_score_fused")
-    N, D = cache.shape
+    rows = _rows(cache)
+    common.require_cuda(rows, "lookup_score_fused")
+    N, D = rows.shape
     B, C = cand_idx.shape
     K = interests.shape[1]
-    if torch.is_grad_enabled() and (cache.requires_grad or interests.requires_grad):
+    if torch.is_grad_enabled() and (rows.requires_grad or interests.requires_grad):
         raise RuntimeError("lookup_score_fused has no backward: call it under "
                            "torch.no_grad() or on tensors that need no gradient")
-    dev = cache.device
-    common.check_tensor("cache", cache, dev, tuple(common.DTYPE_CODES))
+    dev = rows.device
+    scales = None
+    if isinstance(cache, Int8Rows):
+        common.check_tensor("cache.values", rows, dev, (torch.int8,))
+        common.check_tensor("cache.scales", cache.scales, dev, (torch.float32,), (N, 1))
+        scales = cache.scales.data_ptr()
+    else:
+        common.check_tensor("cache", rows, dev, tuple(common.DTYPE_CODES))
     common.check_tensor("cand_idx", cand_idx, dev, (torch.int32,))
     common.check_tensor("interests", interests, dev, tuple(common.DTYPE_CODES))
-    route, tiles, _ = plan(B, C, K, D, cache.dtype, interests.dtype, _sms(dev.index))
+    route, tiles, _ = plan(B, C, K, D, rows.dtype, interests.dtype, _sms(dev.index))
     if route == "tensor_core":  # 16-byte copies of rows and interests
-        common.check_aligned("cache", cache)
+        common.check_aligned("cache", rows)
         common.check_aligned("interests", interests)
     out = torch.empty((B, C, K), dtype=interests.dtype, device=dev)
     fn = common.kernel_function("lookup_score_fwd", "lookup_score_fwd", _ARGTYPES)
-    common.launch("lookup_score_fwd", fn, cache.data_ptr(), cand_idx.data_ptr(),
+    common.launch("lookup_score_fwd", fn, rows.data_ptr(), scales, cand_idx.data_ptr(),
                   interests.data_ptr(), out.data_ptr(), N, B, C, K, D,
-                  common.DTYPE_CODES[cache.dtype],
-                  common.DTYPE_CODES[interests.dtype], tiles, dev.index,
-                  common.stream_of(cache))
+                  CACHE_CODES[rows.dtype], common.DTYPE_CODES[interests.dtype], tiles,
+                  dev.index, common.stream_of(rows))
     lookup_score_fused.launches += 1
     return out
 

@@ -1,9 +1,13 @@
-"""The trainer of the port: ``train``, ``eval``, ``serve`` and ``recommend``.
+"""The trainer of the port: ``train``, ``pretrain``, ``eval``, ``serve`` and
+``recommend``.
 
-Counterpart of ``miner_tpu/training/trainer.py`` for two model kinds, as
-``--model_name`` picks them (trainer.py:272-292): ``miner`` (the Miner) and
+Counterpart of ``miner_tpu/training/trainer.py`` for three model kinds, as
+``--model_name`` picks them (trainer.py:272-292): ``miner`` (the Miner),
 ``vanilla`` (``fastformer``: the news encoder under a Fastformer user
-encoder, logits only):
+encoder, logits only) and ``pretrain`` (the news encoder alone, trained on
+the contrastive loss over a positive, its augmented variants and
+negatives; the ``pretrain`` subcommand takes it whatever ``--model_name``
+says, trainer.py:111-112):
 
   * ``train`` (trainer.py:558-799): ``BehaviorsLog``, the numpy samplers and
     the shuffled ``Batcher``; every micro-batch gathers its token rows from
@@ -12,20 +16,27 @@ encoder, logits only):
     backward, and the optimizer (clip, AdamW, warmup schedule, accumulation)
     updates every ``--gradient_accumulation_steps`` micro-batches; an eval
     at every ``--eval_steps`` and at each epoch's end, best and final
-    checkpoints, ``--resume_from``;
+    checkpoints, ``--resume_from``; ``--augmentations`` (the
+    ``<aug>_news.tsv`` variants) with the ``hard`` sampler mode, and
+    ``--pretrained_model_path`` (trainer.py:624-660): a port checkpoint
+    loaded whole, or a pretrain run's news encoder grafted into the model;
   * ``eval`` (trainer.py:1081-1130): the model restored from
     ``--saved_model_path`` over the eval behaviors, by default from the
     news-embedding cache (``--cached_eval``);
   * the serving half: ``serving_context`` (news store, model, and the corpus
-    news-embedding cache, encoded once), ``_cached_scores`` (Miner: category
-    bias, poly-attention interests, the lookup+score op, target-aware
-    aggregation; Fastformer: the user encoder over the gathered history
-    rows, dotted with the gathered candidate rows), ``serve_scores`` for
-    slates and ``serve_topk`` for whole-corpus ranking with ``torch.topk``.
+    news-embedding cache, encoded once or loaded from ``--serve_cache_path``,
+    int8 with ``--serve_cache_int8``; trainer.py:1250-1329),
+    ``_cached_scores`` (Miner: category bias, poly-attention interests, the
+    lookup+score op for the per-interest scores and the target-aware
+    logits; Fastformer: the user encoder over the gathered history rows,
+    dotted with the gathered candidate rows), ``serve_scores`` for slates
+    and ``serve_topk`` for whole-corpus ranking with ``torch.topk``.
 
 The Miner trains on ``miner_loss`` and evaluates on ``miner_eval_loss``; the
 vanilla kind trains on ``vanilla_loss`` and evaluates on
-``logsigmoid_eval_loss`` (trainer.py:401-408, 947-953).
+``logsigmoid_eval_loss`` (trainer.py:401-408, 947-953); the pretrain kind
+trains on ``pretrain_contrastive`` and evaluates on its sum over the eval
+behaviors (trainer.py:354-370, 499-548).
 
 The model runs on ``--device`` (default ``cuda``; asking for a card that is
 not there raises). On the card every op of the path launches its kernel; on
@@ -34,10 +45,11 @@ Parameters are fp32 masters and the model computes in ``--compute_dtype``.
 A micro-step's dropout is a pure function of (``--seed`` + 1, micro-step)
 (``models/dropout.py``), so a resumed run draws what the interrupted one
 would have. Flags whose paths come in later slices are refused, naming the
-ROADMAP item (Queue 1) that brings them.
+feature of ROADMAP Queue 1 that brings them.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import time
@@ -53,7 +65,12 @@ from miner_tpu_torch.data.batcher import Batcher, block_size
 from miner_tpu_torch.data.behaviors import BehaviorsLog
 from miner_tpu_torch.data.device_table import NewsTable
 from miner_tpu_torch.data.news_store import NewsStore
-from miner_tpu_torch.data.samplers import EvalSampler, OfflineSampler, OnlineSampler
+from miner_tpu_torch.data.samplers import (
+    EvalSampler,
+    OfflineSampler,
+    OnlineSampler,
+    PretrainSampler,
+)
 from miner_tpu_torch.data.tokenization import load_tokenizer
 from miner_tpu_torch.evaluation.evaluator import FastEvaluator, ImpressionEvaluator
 from miner_tpu_torch.models import (
@@ -63,13 +80,14 @@ from miner_tpu_torch.models import (
     NewsEncoder,
 )
 from miner_tpu_torch.models.dropout import DropoutRNG
-from miner_tpu_torch.models.plm import cast_to_compute_
+from miner_tpu_torch.models.plm import cast_to_compute_, normal_init_
 from miner_tpu_torch.observability.logging import RunLogger
-from miner_tpu_torch.ops.lookup_score import lookup_score_fused
 from miner_tpu_torch.parallel.news_cache import (
     CacheFiller,
     NewsEmbeddingCache,
     gather_rows,
+    load_cache,
+    save_cache,
 )
 from miner_tpu_torch.serving import history_row
 from miner_tpu_torch.training import checkpoint, losses
@@ -82,7 +100,7 @@ from miner_tpu_torch.utils import candidate_bucket, resolve_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # --model_name (lower case) -> model kind; UnBERT and UniSRec come later
-_KINDS = {"miner": "miner", "fastformer": "vanilla"}
+_KINDS = {"miner": "miner", "fastformer": "vanilla", "pretrain": "pretrain"}
 
 
 class ServingContext(NamedTuple):
@@ -107,20 +125,16 @@ class TrainRun(NamedTuple):
 
 def _refuse_unported(args, device: torch.device) -> None:
     """Raise for a flag whose meaning this slice of the port cannot honour,
-    naming the ROADMAP item that brings it, instead of running something
-    else than was asked for."""
+    naming the feature of ROADMAP Queue 1 that brings it, instead of running
+    something else than was asked for."""
     name = (args.model_name or "Miner").lower()
     if name in ("unbert", "unisrec"):
         raise NotImplementedError(
             f"--model_name {args.model_name!r}: the port runs the Miner and "
-            "Fastformer families so far (ROADMAP Queue 1, items 8-9: the "
-            "UnBERT and UniSRec families)")
+            "Fastformer families and pretraining so far (ROADMAP Queue 1: "
+            "UnBERT, UniSRec)")
     if name not in _KINDS:
         raise ValueError(f"unknown --model_name {args.model_name!r}")
-    if getattr(args, "serve_cache_int8", False):
-        raise NotImplementedError(
-            "--serve_cache_int8: the int8 cache (Int8Rows) is not ported "
-            "yet (ROADMAP Queue 1, item 3)")
     if args.fused_kernels is False and device.type == "cuda":
         raise ValueError(
             "--no-fused_kernels with a CUDA device: on the card every path "
@@ -129,8 +143,8 @@ def _refuse_unported(args, device: torch.device) -> None:
     if args.use_sapo and args.combine_type != "linear":
         raise NotImplementedError(
             f"--combine_type {args.combine_type!r} is not ported yet "
-            "(ROADMAP Queue 1, item 4); the port has the linear title/sapo "
-            "combine")
+            "(ROADMAP Queue 1: the other combines); the port has the linear "
+            "title/sapo combine")
     if args.param_dtype != "float32":
         raise NotImplementedError(
             "--param_dtype only supports float32 (fp32 master weights); "
@@ -139,21 +153,13 @@ def _refuse_unported(args, device: torch.device) -> None:
                               and os.path.isdir(args.pretrained_embedding)):
         raise NotImplementedError(
             "--hf_checkpoint / a local --pretrained_embedding: importing HF "
-            "weights is not ported yet (ROADMAP Queue 1, item 12)")
-    if getattr(args, "mode", None) not in ("train", "train_fastformer"):
+            "weights is not ported yet (ROADMAP Queue 1: HF import)")
+    if getattr(args, "mode", None) not in ("train", "train_fastformer", "pretrain"):
         return
     if args.his_cache_refresh > 0:
         raise NotImplementedError(
             "--his_cache_refresh: cached-history training is not ported yet "
-            "(ROADMAP Queue 1, item 5)")
-    if args.pretrained_model_path:
-        raise NotImplementedError(
-            "--pretrained_model_path: warm starts are not ported yet "
-            "(ROADMAP Queue 1, item 13)")
-    if args.augmentations or args.augmentation_mode == "hard":
-        raise NotImplementedError(
-            "--augmentations / --augmentation_mode hard: augmented news "
-            "variants are not ported yet (ROADMAP Queue 1, item 14)")
+            "(ROADMAP Queue 1: cached-history training)")
 
 
 class Trainer:
@@ -161,7 +167,14 @@ class Trainer:
         self.args = args
         self.device = resolve_device(getattr(args, "device", None))
         _refuse_unported(args, self.device)
-        self.kind = _KINDS[(args.model_name or "Miner").lower()]
+        # the pretrain subcommand pretrains the news encoder alone whatever
+        # --model_name says (its default is "Miner"; trainer.py:111-112)
+        if getattr(args, "mode", None) == "pretrain":
+            self.model_name = "pretrain"
+        else:
+            self.model_name = (args.model_name or "Miner").lower()
+        self.kind = _KINDS[self.model_name]
+        self._num_augs = 0  # augmented variants a pretrain row holds (the train store's)
         self.tokenizer = load_tokenizer(args.pretrained_tokenizer)
         self.user2id: Dict[str, int] = {}
         if args.user2id_path:
@@ -176,10 +189,11 @@ class Trainer:
         self.eval_info = frozenset(args.evaluation_info or ("metrics", "loss"))
 
     # ------------------------------------------------------------------ data
-    def _load_store(self, news_path: str) -> NewsStore:
+    def _load_store(self, news_path: str, augmentations=None) -> NewsStore:
         return NewsStore.from_tsv(news_path, self.tokenizer, self.category2id,
                                   self.args.max_title_length,
-                                  self.args.max_sapo_length)
+                                  self.args.max_sapo_length,
+                                  augmentations=augmentations)
 
     def _make_table(self, store: NewsStore) -> NewsTable:
         return NewsTable.from_store(store, use_sapo=self.args.use_sapo,
@@ -191,16 +205,26 @@ class Trainer:
                                      self.args.his_length,
                                      legacy_layout=self._legacy_layout)
 
+    def _train_sampler(self, log: BehaviorsLog, store: NewsStore):
+        a = self.args
+        if self.kind == "pretrain":
+            return PretrainSampler(log, store, a.npratio, seed=a.seed)
+        mode = "hard" if a.augmentation_mode == "hard" else "base"
+        cls = OnlineSampler if a.online else OfflineSampler
+        return cls(log, store, a.npratio, seed=a.seed, mode=mode)
+
     def _index(self, idx: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.asarray(idx, np.int32), device=self.device)
 
     # ----------------------------------------------------------------- model
     def build_model(self) -> nn.Module:
-        """The model of ``--model_name`` with fresh weights from ``--seed``,
-        fp32, on the CPU (so the same seed gives the same weights on any
-        device). The news encoder, and all of the Miner, compute in
-        ``--compute_dtype``; the Fastformer user encoder computes in fp32,
-        since the JAX package builds it without a dtype (trainer.py:291)."""
+        """The model of the kind with fresh weights from ``--seed``, fp32, on
+        the CPU (so the same seed gives the same weights on any device). The
+        news encoder, and all of the Miner, compute in ``--compute_dtype``;
+        the Fastformer user encoder computes in fp32, since the JAX package
+        builds it without a dtype (trainer.py:291). The pretrain kind's
+        model is the news encoder alone (trainer.py:239-252), with the
+        weights the Miner's encoder takes from the same seed."""
         a = self.args
         gelu_approx = a.gelu_approx
         if gelu_approx is None:
@@ -211,6 +235,10 @@ class Trainer:
                               word_embed_dim=a.word_embed_dim,
                               use_sapo=a.use_sapo, combine_type=a.combine_type,
                               dropout=a.dropout, dtype=self.compute_dtype)
+        if self.kind == "pretrain":
+            normal_init_(encoder, plm.initializer_range,
+                         torch.Generator().manual_seed(a.seed))
+            return encoder
         if self.kind == "vanilla":
             D = encoder.embed_dim
             cfg = FastformerConfig(hidden_size=D,
@@ -259,6 +287,9 @@ class Trainer:
         those of ``--saved_model_path``, else random from ``--seed``;
         loaded strictly."""
         a = self.args
+        if self.kind == "pretrain":
+            raise ValueError("serving takes the Miner and Fastformer families, "
+                             "not the pretrain kind's bare news encoder")
         store = self._load_store(a.eval_news_path)
         table = self._make_table(store)
         if state_dict is not None:
@@ -271,11 +302,69 @@ class Trainer:
         cast_to_compute_(model.news_encoder if self.kind == "vanilla" else model,
                          self.compute_dtype)
         model = model.to(self.device).eval()
-        if getattr(a, "serve_cache_path", None):
-            print("--serve_cache_path ignored: persisting the cache is not "
-                  "ported yet (ROADMAP Queue 1, item 3)")
-        cache = CacheFiller(model.encode_news).fill(table)
+        cache = self._load_or_build_serving_cache(model, table)
         return ServingContext(store=store, table=table, model=model, cache=cache)
+
+    def _serving_cache_fingerprint(self) -> Dict:
+        """What a persisted serving cache is a function of (trainer.py:
+        1250-1298): the corpus bytes, the tokenization geometry, the
+        checkpoint file and the settings that change the encoding. The
+        checkpoint is one file, named with its size and modification time
+        (cheap; a false mismatch only costs an encode)."""
+        a = self.args
+        h = hashlib.sha256()
+        with open(a.eval_news_path, "rb") as f:
+            for block in iter(lambda: f.read(1 << 20), b""):
+                h.update(block)
+        st = os.stat(a.saved_model_path)
+        ckpt = f"{os.path.basename(a.saved_model_path)}:{st.st_size}:{st.st_mtime_ns}"
+        gelu_approx = a.gelu_approx
+        if gelu_approx is None:
+            gelu_approx = self.compute_dtype == torch.bfloat16
+        return {
+            "news_sha": h.hexdigest(),
+            "ckpt_sha": hashlib.sha256(ckpt.encode()).hexdigest(),
+            "tokenizer": str(a.pretrained_tokenizer),
+            "model_name": self.model_name,
+            "plm_preset": str(a.plm_preset),
+            "compute_dtype": str(a.compute_dtype),
+            "max_title_length": int(a.max_title_length),
+            "max_sapo_length": int(a.max_sapo_length),
+            "use_sapo": bool(a.use_sapo),
+            "combine_type": str(a.combine_type),
+            "gelu_approx": bool(gelu_approx),
+            "attn_fp32": bool(a.attn_fp32),
+            "fused_kernels": self.device.type == "cuda",
+            # an int8 file never serves a float request, nor the other way
+            "serve_cache_int8": bool(getattr(a, "serve_cache_int8", False)),
+        }
+
+    def _load_or_build_serving_cache(self, model: nn.Module,
+                                     table: NewsTable) -> NewsEmbeddingCache:
+        """The corpus cache (trainer.py:1299-1329): loaded from
+        ``--serve_cache_path`` when the file's fingerprint matches, else one
+        corpus encode, quantized to int8 with ``--serve_cache_int8``, and
+        persisted to that path. Without ``--saved_model_path`` the weights
+        have no identity to fingerprint and the path is ignored."""
+        a = self.args
+        path = getattr(a, "serve_cache_path", None)
+        if path and not a.saved_model_path:
+            print("--serve_cache_path ignored: no checkpoint "
+                  "(--saved_model_path) to fingerprint against")
+            path = None
+        fingerprint = self._serving_cache_fingerprint() if path else None
+        if path:
+            cache = load_cache(path, fingerprint, self.device)
+            if cache is not None:
+                print(f"serving cache loaded from {path}")
+                return cache
+        cache = CacheFiller(model.encode_news).fill(table)
+        if getattr(a, "serve_cache_int8", False):
+            cache = cache.quantize()
+        if path:
+            save_cache(cache, path, cache.num_rows, fingerprint)
+            print(f"serving cache persisted to {path}")
+        return cache
 
     # --------------------------------------------------------------- scoring
     def _cached_scores(self, model: nn.Module, cache: NewsEmbeddingCache,
@@ -283,9 +372,11 @@ class Trainer:
                        ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
         """Scoring from the news-embedding cache (zero PLM calls):
         (interests (B, K, D) or None, matching (B, C)). For the Miner the
-        candidate gather and per-interest scoring run in the lookup+score op
-        straight against the cache; the vanilla kind gathers the candidate
-        and history rows and runs its tail (trainer.py:917-923)."""
+        candidate rows are never gathered: the lookup+score op reads them
+        straight from the cache (``Miner.matching_from_cache``); the vanilla
+        kind gathers the candidate and history rows and runs its tail
+        (trainer.py:917-923). An int8 cache's gathered rows are dequantized
+        to the compute type."""
         his_repr = gather_rows(cache.embeddings, his_idx)
         his_cat = gather_rows(cache.category, his_idx)
         his_mask = (his_cat != cache.category_pad_id).to(torch.int32)
@@ -297,11 +388,7 @@ class Trainer:
             cand_cat = gather_rows(cache.category, cand_idx)
             bias = model.category_bias_from_ids(his_cat, cand_cat)
         interests = model.interests_from_history(his_repr, his_mask, bias)
-        pscores = lookup_score_fused(cache.embeddings, cand_idx, interests)
-        cand_repr = None
-        if model.score_type == "weighted":
-            cand_repr = gather_rows(cache.embeddings, cand_idx)
-        return interests, model.aggregate_matching(interests, pscores, cand_repr)
+        return interests, model.matching_from_cache(cache.embeddings, cand_idx, interests)
 
     def _loss(self, interests: Optional[torch.Tensor], logits: torch.Tensor,
               label: torch.Tensor, train: bool,
@@ -378,7 +465,8 @@ class Trainer:
                        warmup: int) -> Optimizer:
         a = self.args
         if a.freeze_transformer:
-            model.news_encoder.plm.requires_grad_(False)
+            encoder = model if self.kind == "pretrain" else model.news_encoder
+            encoder.plm.requires_grad_(False)
         return Optimizer(model.named_parameters(), learning_rate=a.learning_rate,
                          total_steps=total_updates, warmup_steps=warmup,
                          weight_decay=a.weight_decay,
@@ -390,14 +478,32 @@ class Trainer:
                         rng: Optional[DropoutRNG] = None,
                         row_mask: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(loss, logits) of a batch of index rows (``_apply_and_loss``, the
-        Miner and vanilla branches, trainer.py:390-408)."""
+        """(loss, logits) of a batch of index rows (``_apply_and_loss``,
+        trainer.py:354-408); for the pretrain kind (loss, news vectors)."""
+        if self.kind == "pretrain":
+            return self._pretrain_loss(model, table, batch["cand_idx"], self._num_augs,
+                                       rng, row_mask)
         model_batch = table.lookup(self._index(batch["cand_idx"]),
                                    self._index(batch["his_idx"]))
         label = torch.as_tensor(batch["label"], device=self.device)
         out = model(model_batch, rng)
         interests, logits = out if self.kind == "miner" else (None, out)
         return self._loss(interests, logits, label, train, row_mask), logits
+
+    def _pretrain_loss(self, model: nn.Module, table: NewsTable, cand_idx: np.ndarray,
+                       num_augs: int, rng: Optional[DropoutRNG] = None,
+                       row_mask: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The contrastive loss of (B, C) candidate rows (trainer.py:354-370):
+        the B * C news through the encoder, back to (B, C, D)."""
+        cand = table.lookup_candidates(self._index(cand_idx))
+        B, C = cand["cand_title"].shape[:2]
+        sapo = sapo_mask = None
+        if "cand_sapo" in cand:
+            sapo, sapo_mask = cand["cand_sapo"].flatten(0, 1), cand["cand_sapo_mask"].flatten(0, 1)
+        reprs = model(cand["cand_title"].flatten(0, 1), cand["cand_title_mask"].flatten(0, 1),
+                      sapo, sapo_mask, rng).reshape(B, C, -1)
+        return losses.pretrain_contrastive(reprs, num_augs, row_mask), reprs
 
     def train_step(self, model: nn.Module, table: NewsTable,
                    batch: Dict[str, np.ndarray], optimizer: Optimizer,
@@ -430,6 +536,30 @@ class Trainer:
             p.grad = None if grad is None else grad.to(p.device)
         return int(payload["micro_step"])
 
+    def _warm_start(self, model: nn.Module, path: str, log) -> None:
+        """``--pretrained_model_path`` (trainer.py:624-660): a port
+        checkpoint's parameters, grafted under ``news_encoder.`` when they
+        are a news encoder's alone (a pretrain run's), else loaded whole.
+        Raises ``ValueError`` naming up to 5 missing and 5 unexpected keys
+        when they are neither."""
+        loaded = checkpoint.load(path)["params"]
+        own = model.state_dict()
+        prefix = "news_encoder."
+        enc = {k[len(prefix):] for k in own if k.startswith(prefix)}
+        if enc and set(loaded) != set(own) and enc == set(loaded):
+            model.news_encoder.load_state_dict(loaded, strict=True)
+            log.info("warm-started news_encoder (pretrain -> finetune) from %s", path)
+            return
+        if set(loaded) != set(own):
+            missing = sorted(set(own) - set(loaded))[:5]
+            extra = sorted(set(loaded) - set(own))[:5]
+            raise ValueError(
+                f"--pretrained_model_path {path} does not match the model (neither "
+                f"the whole model nor its news encoder): missing {missing}, "
+                f"unexpected {extra}")
+        model.load_state_dict(loaded, strict=True)
+        log.info("warm-started the whole model from %s", path)
+
     def train(self) -> TrainRun:
         a = self.args
         logger = RunLogger(a.train_path, "train", vars(a))
@@ -438,10 +568,10 @@ class Trainer:
         log = self._log = logger.logger
         log.info("device: %s", self.device)
 
-        store = self._load_store(a.train_news_path)
+        store = self._load_store(a.train_news_path, a.augmentations)
+        self._num_augs = store.num_variants - 1
         train_log = self._load_log(a.train_behaviors_path, store)
-        sampler_cls = OnlineSampler if a.online else OfflineSampler
-        sampler = sampler_cls(train_log, store, a.npratio, seed=a.seed)
+        sampler = self._train_sampler(train_log, store)
         table = self._make_table(store)
         eval_store, eval_table, eval_log = store, table, None
         if a.eval_news_path and a.eval_news_path != a.train_news_path:
@@ -461,6 +591,8 @@ class Trainer:
         warmup = warmup_steps_from_ratio(total_updates, a.warmup_ratio, a.warmup_steps)
 
         model = self.build_model().to(self.device).train()
+        if a.pretrained_model_path:  # before the optimizer sees the parameters
+            self._warm_start(model, a.pretrained_model_path, log)
         if a.pretrained_embedding:
             log.warning("--pretrained_embedding %r is not a local checkpoint "
                         "directory; training from random init",
@@ -478,6 +610,20 @@ class Trainer:
         # the partial epoch's consumed batches fast-forwarded
         start_epoch = min(global_step // steps_per_epoch, a.num_train_epochs)
         skip_batches = global_step % steps_per_epoch
+
+        run_eval = lambda epoch, step: self._run_eval(  # noqa: E731
+            model, eval_table, eval_store, eval_log, logger, epoch, step)
+        if self.kind == "pretrain" and eval_log is not None:
+            # the contrastive loss over the eval behaviors, negatives drawn
+            # once (seed, epoch 0), with the eval store's variants
+            eval_block = PretrainSampler(eval_log, eval_store, a.npratio,
+                                         seed=a.seed).sample_epoch(0)
+            run_eval = lambda epoch, step: ({}, self._run_pretrain_eval(  # noqa: E731
+                model, eval_table, eval_block, eval_store.num_variants - 1, logger,
+                epoch, step))
+            if "metrics" in self.eval_info:
+                log.warning("--evaluation_info metrics has no effect for pretrain "
+                            "(the forward emits embeddings, not rankable logits)")
 
         best_loss, best_auc = float("inf"), -float("inf")
         ex_counter, t_last = 0, time.time()
@@ -503,17 +649,13 @@ class Trainer:
                                                         global_step // accum),
                                      eps)
                 if eval_log is not None and global_step % a.eval_steps == 0:
-                    scores, eval_loss = self._run_eval(model, eval_table, eval_store,
-                                                       eval_log, logger, epoch,
-                                                       global_step)
+                    scores, eval_loss = run_eval(epoch, global_step)
                     best_loss, best_auc = self._maybe_checkpoint(
                         ckpt_dir, model, optimizer, global_step, scores,
                         eval_loss, best_loss, best_auc, log)
             mean_loss = float(torch.stack(epoch_losses).mean()) if epoch_losses else float("nan")
             if eval_log is not None:
-                scores, eval_loss = self._run_eval(model, eval_table, eval_store,
-                                                   eval_log, logger, epoch,
-                                                   global_step)
+                scores, eval_loss = run_eval(epoch, global_step)
                 best_loss, best_auc = self._maybe_checkpoint(
                     ckpt_dir, model, optimizer, global_step, scores, eval_loss,
                     best_loss, best_auc, log)
@@ -596,8 +738,31 @@ class Trainer:
                 evaluator.save_ranking(logger.run_dir)
         return scores, eval_loss
 
+    def _run_pretrain_eval(self, model: nn.Module, table: NewsTable, block,
+                           num_augs: int, logger: RunLogger, epoch: int,
+                           step: int) -> float:
+        """The pretrain kind's eval (trainer.py:499-548): the contrastive
+        loss summed over the batches of ``block``, the padded tail's rows
+        masked, logged to eval.csv with no ranking metrics."""
+        batcher = Batcher(self.args.eval_batch_size, drop_last=False, shuffle=False)
+        was_training = model.training
+        model.eval()
+        total = 0.0
+        with torch.inference_mode():
+            for batch in batcher.batches(block):
+                valid = int(batch.pop("valid"))
+                B = len(batch["cand_idx"])
+                row_mask = torch.arange(B, device=self.device) < valid
+                loss, _ = self._pretrain_loss(model, table, batch["cand_idx"], num_augs,
+                                              row_mask=row_mask)
+                total += float(loss)
+        model.train(was_training)
+        logger.log_eval(epoch, step, {}, total)
+        return total
+
     def eval(self) -> Dict[str, float]:
-        """Standalone evaluation of ``--saved_model_path``."""
+        """Standalone evaluation of ``--saved_model_path``; for the pretrain
+        kind ``{"loss": total}`` (trainer.py:1095-1118)."""
         a = self.args
         logger = RunLogger(a.eval_path, "eval", vars(a))
         self._log = logger.logger
@@ -605,6 +770,10 @@ class Trainer:
         eval_log = self._load_log(a.eval_behaviors_path, store)
         table = self._make_table(store)
         model = self.restored_model().to(self.device).eval()
+        if self.kind == "pretrain":
+            block = PretrainSampler(eval_log, store, a.npratio, seed=a.seed).sample_epoch(0)
+            return {"loss": self._run_pretrain_eval(model, table, block,
+                                                    store.num_variants - 1, logger, 0, 0)}
         scores, _ = self._run_eval(model, table, store, eval_log, logger, 0, 0)
         return scores
 

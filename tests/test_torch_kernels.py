@@ -28,6 +28,7 @@ from miner_tpu_torch.ops import (
     philox,
     poly_attention,
 )
+from miner_tpu_torch.parallel.news_cache import Int8Rows, quantize_rows
 
 
 @pytest.fixture
@@ -626,17 +627,21 @@ def test_poly_attention_refuses_bf16_shapes_off_the_tiles():
     (torch.float32, torch.float32, 256, "cuda_core"),  # TF32 would fail fp32's tolerance
     (torch.bfloat16, torch.float32, 256, "cuda_core"),
     (torch.float32, torch.bfloat16, 256, "cuda_core"),
+    (torch.int8, torch.bfloat16, 256, "tensor_core"),  # int8 rows widened to bf16
+    (torch.int8, torch.bfloat16, 48, "cuda_core"),  # the int8 tensor-core route takes 32 columns at a time
+    (torch.int8, torch.float32, 256, "cuda_core"),
 ])
 def test_lookup_plan_picks_the_route_by_types_and_width(monkeypatch, cache_dt, int_dt, D,
                                                         route):
     """The route follows the types and D; the size is the kernel's own (here
-    a stand-in for the library), asked for with the inputs' type codes."""
+    a stand-in for the library), asked for with the inputs' type codes (int8
+    rows with the kernel's own code, ``common.INT8_CODE``)."""
     asked = []
     monkeypatch.setattr(lookup_score, "_smem_bytes",
                         lambda *a: asked.append(a) or 50_000 + a[-1])
     got, tiles, smem = lookup_score.plan(32, 4096, 32, D, cache_dt, int_dt)
     assert got == route and smem == 50_000 + tiles
-    codes = (common.DTYPE_CODES[cache_dt], common.DTYPE_CODES[int_dt])
+    codes = (lookup_score.CACHE_CODES[cache_dt], common.DTYPE_CODES[int_dt])
     assert {a[:4] for a in asked} == {(32, D, *codes)}
 
 
@@ -660,7 +665,13 @@ def test_lookup_plan_sizes_runs_to_a_wave_and_refuses_what_does_not_fit(monkeypa
 
 
 def _lookup_case(rng, dev, N, B, C, K, D, cache_dt, int_dt):
-    cache = torch.as_tensor(rng.normal(size=(N, D)), device=dev).to(cache_dt)
+    """A cache of N rows (``cache_dt`` int8: an ``Int8Rows`` quantized from
+    bf16 rows, as a serving cache is), (B, C) rows and (B, K, D) interests."""
+    cache = torch.as_tensor(rng.normal(size=(N, D)), device=dev)
+    if cache_dt == torch.int8:
+        cache = quantize_rows(cache.to(torch.bfloat16))
+    else:
+        cache = cache.to(cache_dt)
     idx = torch.as_tensor(rng.integers(0, N, size=(B, C)).astype(np.int32), device=dev)
     interests = torch.as_tensor(rng.normal(size=(B, K, D)), device=dev).to(int_dt)
     return cache, idx, interests
@@ -721,29 +732,73 @@ def test_lookup_score_odd_widths_match_plain_on_card(rng, K, D, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("cache_dt, int_dt", [
-    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32)])
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+    (torch.int8, torch.bfloat16), (torch.int8, torch.float32)])
 def test_lookup_score_out_of_range_rows_are_nan_on_card(rng, cache_dt, int_dt):
-    """A negative index or one at or past N gives NaN for that candidate's
-    K scores and leaves every other score exact."""
+    """An index in [-N, 0) scores row N + index, as the JAX package's
+    ``jnp.take`` wraps it; one below -N or at or past N gives NaN for that
+    candidate's K scores; every other score is exact."""
     dev = _card()
     N = 200
     cache, idx, interests = _lookup_case(rng, dev, N, 2, 130, 32, 256, cache_dt, int_dt)
     bad = torch.zeros_like(idx, dtype=torch.bool)
-    for b, c, v in ((0, 0, -1), (0, 63, N), (0, 64, N + 5000), (1, 129, -(2 ** 31))):
+    rows = idx.clone()
+    for b, c, v in ((0, 0, -1), (0, 1, -N), (1, 70, -7)):  # wrapped: rows N - 1, 0, N - 7
+        idx[b, c], rows[b, c] = v, v + N
+    for b, c, v in ((0, 63, N), (0, 64, N + 5000), (1, 129, -(2 ** 31)), (1, 5, -N - 1)):
         idx[b, c] = v
         bad[b, c] = True
     got = lookup_score.lookup_score_fused(cache, idx, interests)
-    want = lookup_score.lookup_score_reference(cache, idx.clamp(0, N - 1), interests)
+    want = lookup_score.lookup_score_reference(cache, rows.clamp(0, N - 1), interests)
     assert torch.isnan(got[bad]).all()
     assert torch.isfinite(got[~bad]).all()
     err = (got[~bad].float() - want[~bad].float()).abs().max().item()
     assert err <= _tol(int_dt, want[~bad])
+    assert torch.equal(torch.isnan(lookup_score.lookup_score_reference(cache, idx, interests)),
+                       torch.isnan(got))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int_dt, B, C, K, D", [
+    (torch.bfloat16, 32, 16, 32, 256),  # a serving slate, tensor cores
+    (torch.bfloat16, 32, 4096, 32, 256),  # the corpus top-k
+    (torch.float32, 32, 4096, 32, 256),  # fp32 interests: the CUDA cores
+    (torch.bfloat16, 64, 1, 32, 256),  # an eval batch
+    (torch.bfloat16, 4, 150, 5, 96),  # D a multiple of 32 off the 64-column ones
+    (torch.bfloat16, 4, 150, 5, 48),  # D off the 32-column steps: the CUDA cores
+    (torch.float32, 4, 150, 33, 30),  # D off the 16-byte copies: element by element
+])
+def test_lookup_score_int8_route_matches_plain_on_card(rng, int_dt, B, C, K, D):
+    """int8 rows with a float32 scale each (``Int8Rows``), one launch each,
+    against the plain version (an fp32 product of the same int8 values,
+    times the scale, rounded once): the same function up to summation
+    order, within the tolerance of the output's type."""
+    dev = _card()
+    args = _lookup_case(rng, dev, 5000, B, C, K, D, torch.int8, int_dt)
+    before = launch_counts()["lookup_score_fwd"]
+    got = lookup_score.lookup_score_fused(*args)
+    want = lookup_score.lookup_score_reference(*args)
+    torch.cuda.synchronize()
+    assert launch_counts()["lookup_score_fwd"] == before + 1
+    assert got.dtype == int_dt and got.shape == (B, C, K) and torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= _tol(int_dt, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int_dt", [torch.bfloat16, torch.float32])
+def test_lookup_score_int8_is_bit_equal_across_launches_on_card(rng, int_dt):
+    """Each score is one block's fixed sum: two launches agree bit for bit."""
+    dev = _card()
+    args = _lookup_case(rng, dev, 5000, 32, 4096, 32, 256, torch.int8, int_dt)
+    assert torch.equal(lookup_score.lookup_score_fused(*args),
+                       lookup_score.lookup_score_fused(*args))
 
 
 @pytest.mark.gpu
 def test_lookup_score_refuses_what_its_routes_do_not_take():
     """No fallback: float16 and int64 indices are refused, and so is a
-    bf16 cache off a 16-byte boundary on the tensor-core route. At the
+    bf16 cache off a 16-byte boundary on the tensor-core route, a bare int8
+    tensor (no scales) and int8 rows with scales of the wrong shape. At the
     corpus top-k the plan, sized by the kernel's own layout, is one wave:
     runs of 8 tiles, two blocks an SM."""
     dev = _card()
@@ -757,6 +812,12 @@ def test_lookup_score_refuses_what_its_routes_do_not_take():
     shifted = torch.zeros(10 * 64 + 4, device=dev, dtype=torch.bfloat16)[4:].view(10, 64)
     with pytest.raises(ValueError, match="16-byte"):
         lookup_score.lookup_score_fused(shifted, idx, interests)
+    with pytest.raises(TypeError, match="dtype"):  # int8 rows without their scales
+        lookup_score.lookup_score_fused(cache.to(torch.int8), idx, interests)
+    rows = quantize_rows(cache)
+    with pytest.raises(ValueError, match="shape"):
+        lookup_score.lookup_score_fused(Int8Rows(rows.values, rows.scales.view(1, 10)), idx,
+                                        interests)
     route, tiles, smem = lookup_score.plan(32, 4096, 32, 256, torch.bfloat16,
                                            torch.bfloat16, lookup_score._sms(dev.index))
     assert (route, tiles) == ("tensor_core", 8) and 2 * (smem + 1024) <= lookup_score.SM_SMEM

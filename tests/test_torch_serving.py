@@ -181,14 +181,12 @@ def _option_strings(parser):
 
 
 def test_every_jax_option_is_accepted_by_the_port():
-    """The port takes the JAX package's flags: for every subcommand of the
-    JAX parser, its option strings are a subset of the port's for the same
-    subcommand. ``pretrain`` is not ported yet (ROADMAP Queue 1, item 4)."""
+    """The port takes the JAX package's flags: it has every subcommand of
+    the JAX parser, and each one's option strings are a subset of the
+    port's for the same subcommand."""
     jax_opts, port_opts = _option_strings(jax_parser()), _option_strings(make_parser())
-    unported = {"pretrain"}
-    assert set(jax_opts) - unported <= set(port_opts)
-    missing = {name: sorted(opts - port_opts[name])
-               for name, opts in jax_opts.items() if name not in unported}
+    assert set(jax_opts) <= set(port_opts)
+    missing = {name: sorted(opts - port_opts[name]) for name, opts in jax_opts.items()}
     assert missing == {name: [] for name in missing}
     args = make_parser().parse_args(
         ["serve", "@" + os.path.join(REPO, "config", "serve_miner.txt"),
@@ -209,8 +207,7 @@ def test_cuda_without_a_card_raises(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("extra, match", [
     (["--combine_type", "lstm"], "combine_type"),
-    (["--serve_cache_int8"], "int8"),
-    (["--model_name", "unisrec"], "items 8-9"),
+    (["--model_name", "unisrec"], "UnBERT, UniSRec"),
 ])
 def test_unported_flags_are_refused(tmp_path, extra, match):
     with pytest.raises(NotImplementedError, match=match):
