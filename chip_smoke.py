@@ -19,7 +19,10 @@ Phases, each of which makes the script exit non-zero when it fails:
    whole-corpus top-k and an eval batch, in bf16 and fp32, and the top-k
    over a cache of MIND's size, then its int8 route at the same shapes with
    bf16 and fp32 interests; Fastformer attention at the train, eval and
-   serve batches, in fp32 as those paths give it, and in bf16)
+   serve batches, in fp32 as those paths give it, and in bf16; mha and
+   add_ln at UnBERT's shapes: 300-token rows and 23-sentence news
+   sequences of a micro-batch (16), an eval batch (64) and the largest
+   serving call (512))
    against its plain PyTorch version on the same inputs (the tolerance is
    printed beside the error; the mha backward's dq, dk and dv each at the
    scale of its (sequence, head)'s gradient; with dropout the kernel's
@@ -71,12 +74,28 @@ Phases, each of which makes the script exit non-zero when it fails:
 6. Fastformer serve: ``serve_miner.txt`` with ``--model_name fastformer``
    restores that ``finalModel`` and answers over HTTP, launching mha_fwd,
    add_ln_fwd (cache fill) and fastformer_attn_fwd.
-7. parity: the full-width Miner in float32 over 64 news, on the card
+7. UnBERT train: ``config/train_unbert.txt`` (under ``train_fastformer``;
+   bert-base word and news towers, the hash tokenizer over bert-base's
+   vocabulary, bf16, dropout, accumulation 8) for one epoch: 1,280 packed
+   rows of 300 tokens (5 visits of each of the 256 impressions), 80
+   micro-batches, 10 updates, and its end-of-epoch eval over 2,560 packed
+   eval rows. mha and add_ln forward and backward launched, never
+   poly-attention, lookup+score or Fastformer attention. The host's
+   packing time is printed.
+   UnBERT eval: standalone ``eval_fastformer`` of its ``bestAucModel`` at
+   the train config's geometry must give the train run's auc bit for bit;
+   ``config/eval_unbert.txt`` as shipped must give finite metrics.
+   UnBERT serve: ``config/serve_unbert.txt`` on its ``finalModel``: the
+   warm-up reaches 32 slates of bucket 16, 512 packed rows a call; 64
+   slates of 10 from 16 clients over HTTP; a whole-corpus request and a
+   slate above ``--serve_max_slate`` are refused (400).
+8. parity: the full-width Miner in float32 over 64 news, on the card
    through the kernels and on the CPU through the plain versions; the cache
    rows and the scores of one request batch must agree.
-8. train parity, Miner and Fastformer: one micro-batch of one impression in
-   float32, dropout off, on the card and on the CPU: the loss and every
-   trainable parameter's gradient must agree.
+9. train parity, Miner, Fastformer and UnBERT: one micro-batch of one
+   impression (UnBERT: two packed rows) in float32, dropout off, on the
+   card and on the CPU: the loss and every trainable parameter's gradient
+   must agree; for UnBERT also the serving scores of two slates.
 
 After the phases, every shape at which the main path launched
 poly-attention or lookup+score (a census of their launches) is timed, and
@@ -142,6 +161,22 @@ TRAIN_MHA_CASES = ((TRAIN_N, TRAIN_SAPO, TRAIN_RATE, torch.bfloat16, TRAIN_PHASE
                    (TRAIN_N, TRAIN_TITLE, TRAIN_RATE, torch.bfloat16, TRAIN_PHASES),
                    (PRETRAIN_N, TRAIN_SAPO, TRAIN_RATE, torch.bfloat16, ("pretrain",)),
                    (PRETRAIN_N, TRAIN_TITLE, TRAIN_RATE, torch.bfloat16, ("pretrain",)))
+# UnBERT (config/train_unbert.txt, eval_unbert.txt, serve_unbert.txt): packed
+# rows of 300 tokens at the word level, 3 + 20 sentences at the news level;
+# 16 rows a micro-batch, 64 an eval batch, up to 32 x 16 = 512 a serving call
+UNBERT_WORD, UNBERT_NEWS = 300, 23
+UNBERT_TRAIN_B, UNBERT_EVAL_B, UNBERT_SERVE_B = 16, 64, 512
+UNBERT_INFER_PHASES = ("unbert_eval", "unbert_eval_standalone", "unbert_serve")
+# the mha cases at UnBERT's shapes (N, L, dropout rate, dtype, phases): the
+# micro-batch's two levels with dropout, an eval batch (taken for the
+# serving calls too, whose batch follows the traffic) and the warm-up's
+# largest serving call
+UNBERT_MHA_CASES = tuple(
+    (N, L, rate, torch.bfloat16, phases)
+    for N, rate, phases in ((UNBERT_TRAIN_B, TRAIN_RATE, ("unbert_train",)),
+                            (UNBERT_EVAL_B, 0.0, UNBERT_INFER_PHASES),
+                            (UNBERT_SERVE_B, 0.0, ()))
+    for L in (UNBERT_WORD, UNBERT_NEWS))
 FF_HEADS = 16  # the Fastformer of word_embed_dim 256 (trainer: 16 if D % 16 == 0)
 TRAIN_B, EVAL_B = 16, 64  # train_fastformer.txt's train and eval batches
 # the kernels each phase of the main path must launch (and, for the frozen
@@ -166,12 +201,19 @@ REQUIRED = {
     "fastformer_train": FF_KERNELS,
     "fastformer_eval": FF_KERNELS,
     "fastformer_serve": FF_KERNELS,
+    "unbert_train": PLM_FWD + PLM_BWD,
+    "unbert_eval": PLM_FWD,
+    "unbert_eval_standalone": PLM_FWD,
+    "unbert_serve": PLM_FWD,
 }
 FORBIDDEN = {"fastformer_train": PLM_BWD,
              "serve_cache_loaded": PLM_FWD,  # the cache comes from the file
              "serve_int8_loaded": PLM_FWD,
              "pretrain": TAIL_KERNELS,  # the news encoder alone
-             "pretrain_eval": TAIL_KERNELS + PLM_BWD}
+             "pretrain_eval": TAIL_KERNELS + PLM_BWD,
+             # the cross-encoder: the PLM kernels alone
+             "unbert_train": TAIL_KERNELS,
+             **{phase: TAIL_KERNELS + PLM_BWD for phase in UNBERT_INFER_PHASES}}
 # the libraries whose ptxas report names each entry (kernels built in
 # several variants)
 ENTRY_REPORTS = ("mha_fwd", "mha_bwd", "add_ln_bwd", "poly_attention_fwd",
@@ -332,6 +374,25 @@ def mha_cases(dev, g):
             bound=bound_ms(_nbytes(qkv, mask, out, stats), flops, dtype),
             main=N == TRAIN_N and L == TRAIN_SAPO and rate > 0 and dtype == torch.bfloat16,
             phases=phases)
+    # UnBERT's shapes: training writes the softmax statistics for its
+    # backward; eval and serving (inference mode) do not
+    for N, L, rate, dtype, phases in UNBERT_MHA_CASES:
+        seed, train = 2 ** 44 + L, rate > 0
+        qkv, mask = _mha_inputs(dev, g, N, L, dtype)
+        q, k, v = qkv.view(N, L, 3, HEADS, -1).permute(2, 0, 3, 1, 4)
+        bool_mask = mask.bool()[:, None, None, :]
+        out = torch.empty(N, L, HIDDEN, dtype=dtype, device=dev)
+        stats = torch.empty(N, HEADS, L, 2, device=dev) if train else out[:0]
+        yield dict(
+            case=f"unbert bf16 N={N} L={L} dropout {rate}", dtype=dtype,
+            kernel=lambda: mha._launch_fwd(qkv, mask, HEADS, 1, rate, seed, train)[0],
+            plain=lambda: mha.mha_reference(qkv, mask, HEADS, 1, rate, seed),
+            library=lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=bool_mask, dropout_p=rate),
+            check=(lambda: mha_dropout_mask_check(qkv, mask, seed)) if rate else None,
+            bound=bound_ms(_nbytes(qkv, mask, out, stats),
+                           4 * N * HEADS * L * L * (HIDDEN // HEADS), dtype),
+            phases=phases)
 
 
 def mha_grad_errors(got, want, rel):
@@ -365,7 +426,8 @@ def mha_grad_errors(got, want, rel):
 def mha_bwd_cases(dev, g):
     from miner_tpu_torch.ops import mha
 
-    for N, L, rate, dtype, phases in TRAIN_MHA_CASES:
+    for N, L, rate, dtype, phases in TRAIN_MHA_CASES + tuple(
+            c for c in UNBERT_MHA_CASES if c[2] > 0):
         seed = 2 ** 41 + L
         qkv, mask = _mha_inputs(dev, g, N, L, dtype)
         dout = torch.randn(N, L, HIDDEN, device=dev, generator=g).to(dtype)
@@ -387,7 +449,7 @@ def mha_bwd_cases(dev, g):
             # reads qkv, out, dout, stats and mask; writes dqkv
             bound=bound_ms(_nbytes(qkv, out, dout, stats, mask, qkv), flops, dtype),
             main=N == TRAIN_N and L == TRAIN_SAPO and rate > 0 and dtype == torch.bfloat16,
-            phases=tuple(p for p in phases if p in BWD_PHASES))
+            phases=tuple(p for p in phases if p in BWD_PHASES + ("unbert_train",)))
 
 
 def _ln_inputs(dev, g, T, dtype):
@@ -433,6 +495,22 @@ def add_ln_cases(dev, g):
                            torch.float32),
             main=N == TRAIN_N and L == TRAIN_SAPO,
             phases=TRAIN_PHASES if N == TRAIN_N else ("pretrain",))
+    # UnBERT's rows: a micro-batch's two levels with dropout, an eval batch's
+    # (standing for the serving calls too) and the largest serving call's
+    for N, L, rate, dtype, phases in UNBERT_MHA_CASES:
+        T, seed = N * L, 2 ** 45 + L
+        x, h, scale, bias = _ln_inputs(dev, g, T, dtype)
+        scale_t, bias_t = scale.to(dtype), bias.to(dtype)
+        yield dict(
+            case=f"unbert bf16 T={T} dropout {rate}", dtype=dtype,
+            kernel=lambda: add_ln.fused_dropout_add_ln(x, h, scale, bias, rate, 1e-12,
+                                                       seed),
+            plain=lambda: add_ln.add_ln_reference(x, h, scale, bias, 1e-12, rate, seed),
+            library=lambda: torch.nn.functional.layer_norm(
+                x + torch.nn.functional.dropout(h, rate), (HIDDEN,), scale_t, bias_t, 1e-12),
+            bound=bound_ms(_nbytes(x, h, scale, bias, x), (9 if rate else 8) * T * HIDDEN,
+                           torch.float32),
+            phases=phases)
 
 
 def add_ln_bwd_cases(dev, g):
@@ -442,7 +520,9 @@ def add_ln_bwd_cases(dev, g):
                         (TRAIN_N, TRAIN_TITLE, torch.bfloat16),
                         (TRAIN_N, TRAIN_SAPO, torch.float32),
                         (PRETRAIN_N, TRAIN_SAPO, torch.bfloat16),
-                        (PRETRAIN_N, TRAIN_TITLE, torch.bfloat16)):
+                        (PRETRAIN_N, TRAIN_TITLE, torch.bfloat16),
+                        (UNBERT_TRAIN_B, UNBERT_WORD, torch.bfloat16),
+                        (UNBERT_TRAIN_B, UNBERT_NEWS, torch.bfloat16)):
         T, seed = N * L, 2 ** 43 + L
         x, h, scale, bias = _ln_inputs(dev, g, T, dtype)
         dy = torch.randn(T, HIDDEN, device=dev, generator=g).to(dtype)
@@ -468,6 +548,7 @@ def add_ln_bwd_cases(dev, g):
             bound=bound_ms(_nbytes(x, h, dy, x, h), 20 * T * HIDDEN, torch.float32),
             main=N == TRAIN_N and L == TRAIN_SAPO and dtype == torch.bfloat16,
             phases=(() if dtype != torch.bfloat16 else ("pretrain",) if N == PRETRAIN_N
+                    else ("unbert_train",) if N == UNBERT_TRAIN_B
                     else tuple(p for p in TRAIN_PHASES if p in BWD_PHASES)))
 
 
@@ -1087,6 +1168,234 @@ def serve_cache_phase(corpus: str, checkpoint: str, tmp: str) -> dict:
     return counts
 
 
+# ------------------------------------------------------------------ UnBERT
+class PackTimer:
+    """Host time of UnBERT's packing (``unbert_packing.pack_rows``, numpy,
+    one row at a time): each call's rows and seconds while ``phase`` is
+    set. It wraps the function where the batcher's blocks and the serving
+    path look it up, and changes nothing of what it returns."""
+
+    def __init__(self):
+        self.phase = None
+        self.calls = {}
+
+    def install(self) -> None:
+        from miner_tpu_torch.data import unbert_packing
+        from miner_tpu_torch.training import trainer
+
+        pack = unbert_packing.pack_rows
+
+        def timed(packer, cand, hist):
+            t0 = time.perf_counter()
+            out = pack(packer, cand, hist)
+            if self.phase is not None:
+                self.calls.setdefault(self.phase, []).append(
+                    (len(cand), time.perf_counter() - t0))
+            return out
+
+        unbert_packing.pack_rows = trainer.pack_rows = timed
+
+    def report(self, phase: str) -> str:
+        calls = self.calls.get(phase, [])
+        if not calls:
+            return f"{phase}: no packing calls"
+        ms = sorted(1e3 * t for _, t in calls)
+        rows = sorted(n for n, _ in calls)
+        return (f"{phase}: host packing {len(calls)} calls of {rows[0]}-{rows[-1]} rows, "
+                f"median {ms[len(ms) // 2]:.2f} ms, max {ms[-1]:.2f} ms, "
+                f"{1e3 * sum(t for _, t in calls) / sum(rows):.4f} ms a row")
+
+
+PACK_TIMER = PackTimer()
+
+
+def unbert_eval_args(corpus: str, out: str, checkpoint: str, *extra: str):
+    """``config/eval_unbert.txt`` as it stands on the synthetic corpus and
+    its eval behaviors, the hash tokenizer over bert-base's vocabulary,
+    ``--saved_model_path`` the given checkpoint; ``extra`` flags appended
+    (the last of a repeated flag wins)."""
+    from miner_tpu_torch.config import convert_arg_line_to_args, make_parser
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    words = []
+    with open(os.path.join(here, "config", "eval_unbert.txt")) as f:
+        for line in f:
+            words += convert_arg_line_to_args(line)
+    for flag, value in (
+            ("--pretrained_tokenizer", TOKENIZERS["unbert"]),
+            ("--user2id_path", os.path.join(corpus, "user2id.json")),
+            ("--category2id_path", os.path.join(corpus, "category2id.json")),
+            ("--eval_behaviors_path", os.path.join(corpus, "valid", "behaviors.tsv")),
+            ("--eval_news_path", os.path.join(corpus, "news.tsv")),
+            ("--saved_model_path", checkpoint)):
+        words[words.index(flag) + 1] = value
+    return make_parser().parse_args(["eval_fastformer", *words, "--eval_path",
+                                     os.path.join(out, "unbert_eval"), *extra])
+
+
+def unbert_eval_phase(corpus: str, out: str, final_model: str) -> dict:
+    """Standalone ``eval_fastformer`` of the UnBERT train phase's
+    ``bestAucModel``: first at the train config's geometry
+    (``train_unbert.txt``: titles of 32, 50 history news, bf16), whose auc
+    must equal the train run's end-of-epoch eval bit for bit; then
+    ``config/eval_unbert.txt`` as shipped (titles of 20, 20 history news),
+    whose metrics must be finite. Returns the launch counts of both."""
+    import csv
+
+    from miner_tpu_torch.ops import launch_counts, reset_launch_counts
+    from miner_tpu_torch.training.trainer import Trainer
+
+    run_dir = os.path.dirname(os.path.dirname(final_model))
+    with open(os.path.join(run_dir, "eval.csv")) as f:
+        train_auc = max(float(r["auc"]) for r in csv.DictReader(f))
+    best = os.path.join(run_dir, "ckpt", "bestAucModel")
+    phase = "unbert_eval_standalone"
+    reset_launch_counts()
+    PACK_TIMER.phase = phase
+    results = []
+    try:
+        for geometry in (("--max_title_length", "32", "--max_sapo_length", "128",
+                          "--his_length", "50"), ()):
+            t0 = time.perf_counter()
+            scores = Trainer(unbert_eval_args(corpus, out, best, *geometry)).eval()
+            torch.cuda.synchronize()
+            results.append((scores, time.perf_counter() - t0))
+    finally:
+        PACK_TIMER.phase = None
+    counts = launch_counts()
+    (at_train, train_s), (shipped, shipped_s) = results
+    log(f"{phase}: bestAucModel at train_unbert.txt's geometry {train_s:.2f} s, auc "
+        f"{at_train['auc']!r} against the train run's {train_auc!r}; eval_unbert.txt as "
+        f"shipped {shipped_s:.2f} s: {shipped}")
+    log(PACK_TIMER.report(phase))
+    log(f"{phase}: kernel launches {counts}")
+    bad = [v for v in list(at_train.values()) + list(shipped.values())
+           if not math.isfinite(v)]
+    if at_train["auc"] != train_auc or bad:
+        raise SystemExit(f"{phase} phase: auc {at_train['auc']!r} against the train "
+                         f"run's {train_auc!r}; non-finite {bad}")
+    _check_launches(phase, counts)
+    return counts
+
+
+def unbert_serve_args(corpus: str, checkpoint: str):
+    """``config/serve_unbert.txt`` as it stands on the synthetic corpus, the
+    hash tokenizer over bert-base's vocabulary, ``--saved_model_path`` the
+    given checkpoint, any free port."""
+    from miner_tpu_torch.config import convert_arg_line_to_args, make_parser
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    words = []
+    with open(os.path.join(here, "config", "serve_unbert.txt")) as f:
+        for line in f:
+            words += convert_arg_line_to_args(line)
+    for flag, value in (
+            ("--pretrained_tokenizer", TOKENIZERS["unbert"]),
+            ("--user2id_path", os.path.join(corpus, "user2id.json")),
+            ("--category2id_path", os.path.join(corpus, "category2id.json")),
+            ("--eval_news_path", os.path.join(corpus, "news.tsv")),
+            ("--saved_model_path", checkpoint),
+            ("--port", "0")):
+        words[words.index(flag) + 1] = value
+    return make_parser().parse_args(["serve", *words])
+
+
+def _refusals(service, args, payloads):
+    """(status, error) of each request, over HTTP: what a refused request
+    gets back."""
+    import threading
+    import urllib.error
+
+    from miner_tpu_torch.serving import make_http_server
+
+    server = make_http_server(service, args.host, args.port, args.serve_http_impl)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://{args.host}:{server.server_address[1]}"
+    replies = []
+    try:
+        for payload in payloads:
+            try:
+                status, body, _ = _post(url, payload)
+            except urllib.error.HTTPError as e:
+                status, body = e.code, json.loads(e.read())
+            replies.append((status, body.get("error", "")))
+    finally:
+        server.shutdown()
+        thread.join(timeout=10)
+    return replies
+
+
+def unbert_serve_phase(corpus: str, checkpoint: str) -> dict:
+    """The UnBERT reranker: ``serve @config/serve_unbert.txt`` on the train
+    phase's ``finalModel``. The warm-up runs slates of 10 (bucket 16) at
+    every batch bucket up to 32, so up to 512 packed rows a call; 64
+    slates of 10 from 16 clients must get 200, finite and ranked replies;
+    a whole-corpus request and a slate of ``--serve_max_slate`` + 1 must be
+    refused (400). Returns the launch counts."""
+    import numpy as np
+
+    from miner_tpu_torch.ops import launch_counts, reset_launch_counts
+    from miner_tpu_torch.serving import ScoringService
+    from miner_tpu_torch.training.trainer import Trainer
+
+    phase = "unbert_serve"
+    args = unbert_serve_args(corpus, checkpoint)
+    reset_launch_counts()
+    PACK_TIMER.phase = phase
+    trainer = Trainer(args)
+    score_unbert, device_calls = trainer.serve_scores_unbert, []
+
+    def timed_scores(model, packer, cand_idx, his_idx):
+        t0 = time.perf_counter()
+        scores = score_unbert(model, packer, cand_idx, his_idx)  # synchronises (.cpu())
+        device_calls.append((cand_idx.size, time.perf_counter() - t0))
+        return scores
+
+    trainer.serve_scores_unbert = timed_scores
+    t0 = time.perf_counter()
+    service = ScoringService(trainer)
+    torch.cuda.synchronize()
+    startup_s = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        warmed = service.warmup(args.serve_warmup_slates, topk=args.serve_warmup_topk or None)
+        warmup_s = time.perf_counter() - t0
+        warm_calls, device_calls[:] = list(device_calls), []
+        reqs = _requests(np.random.default_rng(5), 64, 0)
+        replies, wall_s = _serve_requests(service, args, reqs, 16, phase)
+        ids = [f"N{i}" for i in range(args.serve_max_slate + 1)]
+        refused = _refusals(service, args, [
+            {"history": ids[:5], "candidates": None, "topk": 10},
+            {"history": ids[:5], "candidates": ids}])
+        counts = launch_counts()
+    finally:
+        PACK_TIMER.phase = None
+        service.close()
+    lat = sorted(t for _, _, t in replies)
+    rows = [n for n, _ in device_calls]
+    log(f"{phase}: unbert reranker restored from {os.path.relpath(checkpoint, corpus)}, "
+        f"startup {startup_s:.2f} s; {warmed} warm-up calls {warmup_s:.2f} s "
+        f"({', '.join(f'{n} rows {1e3 * t:.1f} ms' for n, t in warm_calls)})")
+    log(f"{phase}: {len(reqs)} slates of 10, 16 clients: {len(reqs) / wall_s:.1f} req/s, "
+        f"p50 {1e3 * lat[len(lat) // 2]:.1f} ms, max {1e3 * lat[-1]:.1f} ms "
+        f"({len(lat)} samples, too few for a p99), {len(rows)} device calls of "
+        f"{min(rows)}-{max(rows)} rows (mean {sum(rows) / len(rows):.1f}, padding "
+        f"included), {service.batcher.stats()['mean_batch']} requests per device call "
+        f"on {torch.cuda.get_device_name(0)}")
+    log(PACK_TIMER.report(phase))
+    log(f"{phase}: refusals {refused}")
+    log(f"{phase}: kernel launches on the path {counts}")
+    want = (service.batcher.max_batch.bit_length()) * len(args.serve_warmup_slates)
+    if (warmed != want or max(n for n, _ in warm_calls) != UNBERT_SERVE_B
+            or [s for s, _ in refused] != [400, 400] or "cross-encoder" not in refused[0][1]
+            or "serve_max_slate" not in refused[1][1]):
+        raise SystemExit(f"{phase} phase: {warmed} warm-up calls (want {want}) of at most "
+                         f"{max(n for n, _ in warm_calls)} rows; refusals {refused}")
+    _check_launches(phase, counts)
+    return counts
+
+
 # ------------------------------------------------------------------ train
 TRAIN_IMPRESSIONS, EVAL_IMPRESSIONS, IMPRESSION_SIZE = 256, 128, 20
 
@@ -1117,17 +1426,30 @@ TRAIN_CONFIGS = {"miner": ("train", "train_miner.txt", "train", "eval"),
                  "fastformer": ("train_fastformer", "train_fastformer.txt",
                                 "fastformer_train", "fastformer_eval"),
                  "pretrain": ("pretrain", "pretrain_miner.txt", "pretrain", "pretrain_eval"),
-                 "hard": ("train", "train_miner_hard.txt", "warm_start", "warm_start_eval")}
-PARITY_FAMILIES = ("miner", "fastformer")
+                 "hard": ("train", "train_miner_hard.txt", "warm_start", "warm_start_eval"),
+                 "unbert": ("train_fastformer", "train_unbert.txt", "unbert_train",
+                            "unbert_eval")}
+PARITY_FAMILIES = ("miner", "fastformer", "unbert")
+# the hash tokenizer over each family's vocabulary size: roberta-base's, and
+# bert-base's for UnBERT (bert_base preset); no tokenizer files here
+TOKENIZERS = {"unbert": "hash:30522"}
+
+
+def micro_batches(family: str) -> int:
+    """One epoch's micro-batches of 16 over the 256 train impressions: one
+    a impression, or for UnBERT five packed rows an impression (one
+    candidate drawn per visit, five visits)."""
+    return TRAIN_IMPRESSIONS * (5 if family == "unbert" else 1) // 16
 
 
 def train_args(corpus: str, out: str, *extra: str, family: str = "miner"):
     """``config/train_miner.txt`` (or for ``family`` "fastformer"
     ``config/train_fastformer.txt`` under ``train_fastformer``, "pretrain"
     ``config/pretrain_miner.txt`` under ``pretrain``, "hard"
-    ``config/train_miner_hard.txt``) as it stands, on the synthetic corpus
-    and behaviors, with the hash tokenizer over roberta-base's vocabulary
-    (no tokenizer files here), random init, and one epoch."""
+    ``config/train_miner_hard.txt``, "unbert" ``config/train_unbert.txt``
+    under ``train_fastformer``) as it stands, on the synthetic corpus and
+    behaviors, with the hash tokenizer over the PLM's vocabulary
+    (``TOKENIZERS``), random init, and one epoch."""
     from miner_tpu_torch.config import convert_arg_line_to_args, make_parser
 
     mode, config = TRAIN_CONFIGS[family][:2]
@@ -1137,7 +1459,7 @@ def train_args(corpus: str, out: str, *extra: str, family: str = "miner"):
         for line in f:
             words += convert_arg_line_to_args(line)
     for flag, value in (
-            ("--pretrained_tokenizer", "hash:50265"),
+            ("--pretrained_tokenizer", TOKENIZERS.get(family, "hash:50265")),
             ("--user2id_path", os.path.join(corpus, "user2id.json")),
             ("--category2id_path", os.path.join(corpus, "category2id.json")),
             ("--train_behaviors_path", os.path.join(corpus, "train", "behaviors.tsv")),
@@ -1252,11 +1574,13 @@ def train_phase(corpus: str, out: str, family: str = "miner", *extra: str):
     mid = steady[len(steady) // 2]
     accum = args.gradient_accumulation_steps
     if trainer.kind == "pretrain":  # the positive, its variants, the negatives
-        news = args.train_batch_size * (1 + len(args.augmentations or ()) + args.npratio)
+        what = f"{args.train_batch_size * (1 + len(args.augmentations or ()) + args.npratio)} news"
+    elif trainer.kind == "unbert":
+        what = f"packed rows of {UNBERT_WORD} tokens and {UNBERT_NEWS} sentences"
     else:
-        news = args.train_batch_size * (args.npratio + 1 + args.his_length)
+        what = f"{args.train_batch_size * (args.npratio + 1 + args.his_length)} news"
     log(f"{phase}: {args.model_name if trainer.kind != 'pretrain' else 'pretrain'}, "
-        f"{len(step_s)} micro-batches of {args.train_batch_size} ({news} news per "
+        f"{len(step_s)} micro-batches of {args.train_batch_size} ({what} per "
         f"micro-batch), {run.optimizer.updates} optimizer updates at accumulation "
         f"{accum}, {args.compute_dtype}, --remat {args.remat}, --freeze_transformer "
         f"{args.freeze_transformer}, dropout {args.dropout} / {TRAIN_RATE}")
@@ -1279,7 +1603,8 @@ def train_phase(corpus: str, out: str, family: str = "miner", *extra: str):
     log(f"{phase}: kernel launches per micro-batch {per_batch}; in the eval "
         f"{eval_counts}")
     bad = [x for x in step_loss + list(metrics.values()) if not math.isfinite(x)]
-    if bad or run.optimizer.updates != len(step_s) // accum or len(step_s) != 16:
+    if (bad or run.optimizer.updates != len(step_s) // accum
+            or len(step_s) != micro_batches(family)):
         raise SystemExit(f"{phase} phase: non-finite {bad}, {run.optimizer.updates} "
                          f"updates, {len(step_s)} micro-batches")
     _check_launches(phase, before_eval)
@@ -1312,12 +1637,14 @@ def train_phase(corpus: str, out: str, family: str = "miner", *extra: str):
 
 
 def train_parity_phase(corpus: str, out: str, family: str = "miner") -> None:
-    """One micro-batch of one impression (55 news) through the full-width
+    """One micro-batch of one impression (55 news; for UnBERT two packed
+    rows of 300 tokens, both towers at full depth) through the full-width
     model in float32 with dropout off, on the card (kernels, their autograd
     Functions) and on the CPU (plain versions), same weights from the seed:
     the loss and every trainable parameter's gradient must agree (the
     Fastformer's PLM is frozen, as ``--freeze_transformer`` makes it in
-    training). Tolerance: 1e-3 of each gradient's largest magnitude plus
+    training); for UnBERT also the serving scores of two slates of 4,
+    within 1e-3 of their scale. Tolerance: 1e-3 of each gradient's largest magnitude plus
     1e-5 of the largest over all gradients, since float32 sums through 12
     layers forward and back are taken in other orders by the kernels and
     cuBLAS than by the plain versions and the CPU's BLAS, and a gradient
@@ -1327,16 +1654,22 @@ def train_parity_phase(corpus: str, out: str, family: str = "miner") -> None:
     from miner_tpu_torch.data.samplers import OnlineSampler
     from miner_tpu_torch.training.trainer import Trainer
 
-    result = {}
+    import numpy as np
+
+    result, scores = {}, {}
     for device in ("cuda", "cpu"):
         trainer = Trainer(train_args(corpus, out, "--compute_dtype", "float32",
                                      "--device", device, family=family))
         a = trainer.args
         store = trainer._load_store(a.train_news_path)
-        block = OnlineSampler(trainer._load_log(a.train_behaviors_path, store),
-                              store, a.npratio, seed=a.seed).sample_epoch(0)
-        batch = {"cand_idx": block.cand[:1], "his_idx": block.his[:1],
-                 "label": block.label[:1]}
+        log_ = trainer._load_log(a.train_behaviors_path, store)
+        if trainer.kind == "unbert":
+            batch = trainer._train_sampler(log_, store).sample_epoch(0).materialize(
+                np.arange(2))
+        else:
+            block = OnlineSampler(log_, store, a.npratio, seed=a.seed).sample_epoch(0)
+            batch = {"cand_idx": block.cand[:1], "his_idx": block.his[:1],
+                     "label": block.label[:1]}
         model = trainer.build_model().to(trainer.device).eval()
         if a.freeze_transformer:
             model.news_encoder.plm.requires_grad_(False)
@@ -1345,6 +1678,20 @@ def train_parity_phase(corpus: str, out: str, family: str = "miner") -> None:
         result[device] = (float(loss.detach()), {n: p.grad.float().cpu()
                                         for n, p in model.named_parameters()
                                         if p.requires_grad})
+        if trainer.kind == "unbert":
+            cand = np.arange(1, 9, dtype=np.int32).reshape(2, 4)
+            his = np.stack([log_.history[0], log_.history[1]])
+            scores[device] = trainer.serve_scores_unbert(
+                model, trainer._unbert_packer(store), cand, his)
+    if scores:
+        got, want = scores["cuda"], scores["cpu"]
+        err = float(np.abs(got - want).max())
+        tol = 1e-3 * max(1.0, float(np.abs(want).max()))
+        log(f"train parity ({family}): serving scores {got.shape} card vs CPU max abs "
+            f"err {err:.3g} (tol {tol:.3g})")
+        if not (np.isfinite(got).all() and err <= tol):
+            raise SystemExit(f"train parity phase ({family}): serving scores disagree "
+                             f"({err} > {tol})")
     (loss_gpu, grads_gpu), (loss_cpu, grads_cpu) = result["cuda"], result["cpu"]
     overall = max(g.abs().max().item() for g in grads_cpu.values())
     worst, failed = (0.0, ""), []
@@ -1470,6 +1817,16 @@ def main(argv=None) -> int:
         ff_counts, ff_model = train_phase(corpus, tmp, "fastformer")
         counts.update(ff_counts)
         counts["fastformer_serve"] = serve_phase(corpus, ff_model, "fastformer_serve")
+        PACK_TIMER.install()
+        PACK_TIMER.phase = "unbert_train"
+        try:
+            ub_counts, ub_model = train_phase(corpus, tmp, "unbert")
+        finally:
+            PACK_TIMER.phase = None
+        log(PACK_TIMER.report("unbert_train"))
+        counts.update(ub_counts)
+        counts["unbert_eval_standalone"] = unbert_eval_phase(corpus, tmp, ub_model)
+        counts["unbert_serve"] = unbert_serve_phase(corpus, ub_model)
         write_corpus(os.path.join(tmp, "parity"), 64, seed=1)
         parity_phase(os.path.join(tmp, "parity"))
         for family in PARITY_FAMILIES:

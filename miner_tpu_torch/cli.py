@@ -1,13 +1,16 @@
 """CLI entry point of the port.
 
 ``python -m miner_tpu_torch train @config/train_miner.txt``,
-``train_fastformer @config/train_fastformer.txt`` (``train`` by another
-name, as in JAX; ``--model_name`` picks the family), ``pretrain
+``train_fastformer @config/train_fastformer.txt`` or
+``@config/train_unbert.txt`` (``train`` by another name, as in JAX;
+``--model_name`` picks the family: Miner, fastformer or unbert), ``pretrain
 @config/pretrain_miner.txt`` (contrastive pretraining of the news encoder
 alone, whatever ``--model_name`` says), ``eval
-@config/eval_miner.txt`` or ``eval_fastformer`` (a port checkpoint),
-``serve @config/serve_miner.txt`` (HTTP scoring server over the
-news-embedding cache) and ``recommend ...`` (one-shot ranking), on
+@config/eval_miner.txt`` or ``eval_fastformer @config/eval_unbert.txt``
+(a port checkpoint), ``serve @config/serve_miner.txt`` (HTTP scoring
+server over the news-embedding cache) or ``@config/serve_unbert.txt``
+(the UnBERT cross-encoder reranking slates) and ``recommend ...``
+(one-shot ranking), on
 ``--device`` (default ``cuda``).
 """
 from __future__ import annotations

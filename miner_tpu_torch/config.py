@@ -101,8 +101,7 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--serve_max_slate", type=int, default=512,
                    help="reject unbert reranking slates above this size "
                         "(each cross-encoder candidate costs a full PLM "
-                        "pass). Read only by UnBERT serving, which the port "
-                        "has not reached yet (ROADMAP Queue 1: UnBERT)")
+                        "pass); read by UnBERT serving only")
     return parser
 
 
@@ -141,7 +140,8 @@ def _add_common(p: argparse.ArgumentParser):
                    choices=["float32", "bfloat16"])
     p.add_argument("--remat", action="store_true",
                    help="rematerialise each PLM layer in the backward "
-                        "(torch.utils.checkpoint) to save device memory")
+                        "(torch.utils.checkpoint) to save device memory; "
+                        "UnBERT's layers are never rematerialised, as in JAX")
     p.add_argument("--remat_policy", type=str, default="", choices=["", "dots"],
                    help=_TPU_ONLY + " (--remat recomputes whole layers)")
     p.add_argument("--scan_layers", action=argparse.BooleanOptionalAction,
@@ -219,7 +219,10 @@ def add_train_arguments(p: argparse.ArgumentParser):
                    help="augmented news variants: <aug>_news.tsv beside "
                         "each news.tsv")
     p.add_argument("--augmentation_mode", type=str, default="base",
-                   choices=["base", "hard", "unbert"])
+                   choices=["base", "hard", "unbert"],
+                   help="hard: the hard sampler mode; base and unbert: the "
+                        "base mode (UnBERT's sampler draws one candidate a "
+                        "visit, whatever the mode)")
     p.add_argument("--online", type=int, default=0, choices=[0, 1])
     p.add_argument("--fast_eval", action="store_true")
     p.add_argument("--lstm_num_layers", type=int, default=1)
@@ -228,10 +231,12 @@ def add_train_arguments(p: argparse.ArgumentParser):
                    help="warm start from a port checkpoint: a whole model, "
                         "or a pretrain run's news encoder")
     p.add_argument("--unbert_news_layers", type=int, default=None,
-                   help="(UnBERT; not ported yet)")
+                   help="UnBERT news-level encoder depth (default: the "
+                        "PLM's depth, as model_unbert.py:70)")
     p.add_argument("--unbert_news_mode", type=str, default="nseg",
                    choices=["nseg", "mean", "attention"],
-                   help="(UnBERT; not ported yet)")
+                   help="UnBERT news aggregation (reference: "
+                        "model_unbert.py:160-200)")
     p.add_argument("--unisrec_train_all", action="store_true",
                    help="(UniSRec; not ported yet)")
     p.add_argument("--unisrec_pretrained_path", type=str, default=None,

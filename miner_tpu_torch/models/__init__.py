@@ -10,6 +10,7 @@ from miner_tpu_torch.models.miner import CategoryEmbedding, Miner
 from miner_tpu_torch.models.news_encoder import NewsEncoder
 from miner_tpu_torch.models.plm import PLMConfig, TransformerPLM
 from miner_tpu_torch.models.poly_attention import PolyAttention, TargetAwareAttention
+from miner_tpu_torch.models.unbert import UNBert
 
 __all__ = [
     "AttentionPooling",
@@ -25,4 +26,5 @@ __all__ = [
     "PolyAttention",
     "TargetAwareAttention",
     "TransformerPLM",
+    "UNBert",
 ]

@@ -3,16 +3,18 @@
 ``params_from_jax`` takes a JAX parameter tree as nested dicts of numpy
 arrays, as ``jax.device_get(params)`` gives them, and returns a state dict
 for the matching module of the port: the Miner's or the
-``FastformerUserModel``'s tree for those models, or a subtree for the
-matching sub-module (``params["news_encoder"]["plm"]`` for a
-``TransformerPLM``). The layouts differ in three ways:
+``FastformerUserModel``'s or the ``UNBert``'s tree for those models, or a
+subtree for the matching sub-module (``params["news_encoder"]["plm"]`` for
+a ``TransformerPLM``). The layouts differ in three ways:
 
   * a flax ``Dense`` stores ``kernel`` as (in, out); ``nn.Linear`` stores
     ``weight`` as (out, in). The fused ``qkv`` kernel (D, 3D) becomes a
     (3D, D) weight whose rows stay in q|k|v order;
   * flax ``Embed`` tables (``embedding``) and LayerNorm ``scale`` become
     ``weight``;
-  * an unrolled layer stack ``layer_{i}`` becomes ``layers.{i}``.
+  * an unrolled layer stack ``layer_{i}`` becomes ``layers.{i}``, and
+    UnBERT's two stacks ``word_layer_{i}`` and ``news_layer_{i}`` become
+    ``word_layers.{i}`` and ``news_layers.{i}``.
 
 Other leaves (LayerNorm and Dense ``bias``, poly-attention's
 ``proj_kernel`` and ``context_codes``, the Fastformer's
@@ -29,7 +31,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-_LAYER = re.compile(r"layer_(\d+)$")
+_LAYER = re.compile(r"((?:word_|news_)?layer)_(\d+)$")
 
 
 def params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
@@ -39,7 +41,7 @@ def params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
         for name, value in tree.items():
             if isinstance(value, Mapping):
                 m = _LAYER.match(name)
-                sub = f"layers.{m.group(1)}" if m else name
+                sub = f"{m.group(1)}s.{m.group(2)}" if m else name
                 walk(value, f"{prefix}{sub}.")
                 continue
             arr = np.asarray(value, dtype=np.float32)

@@ -1,7 +1,8 @@
-"""HTTP scoring server over the news-embedding cache.
+"""HTTP scoring server over the news-embedding cache, and the UnBERT reranker.
 
-The port's copy of ``miner_tpu/serving.py`` for the two-tower families the
-port has, Miner and Fastformer (``--model_name``).
+The port's copy of ``miner_tpu/serving.py`` for the families the port has:
+the two-tower Miner and Fastformer, and the UnBERT cross-encoder
+(``--model_name``).
 ``python -m miner_tpu_torch serve @config.txt --port 8400`` starts an HTTP
 server that ranks candidate news for a click history with ZERO PLM calls per
 request: the corpus is encoded once into the news-embedding cache at startup
@@ -11,6 +12,12 @@ model's scores whatever its kind: for the Miner the category bias,
 poly-attention interests, the lookup+score op and target-aware aggregation;
 for Fastformer the user encoder over the history rows and a dot product
 with the candidate rows; through the port's kernels on the card.
+
+The UnBERT cross-encoder serves as a reranker through the same server: no
+cache can exist for it, so each (candidate, history) pair of a slate packs
+into one row and the coalesced batch runs the whole model once
+(``Trainer.serve_scores_unbert``). Whole-corpus requests are refused, and
+so are slates above ``--serve_max_slate`` (miner_tpu/serving.py:441-452).
 
 Concurrent requests coalesce through a :class:`MicroBatcher` into ONE
 device call per drain window (``--serve_max_batch``,
@@ -340,11 +347,19 @@ class ScoringService:
             if max_batch is None else max_batch,
             max_wait_ms=getattr(a, "serve_batch_wait_ms", None)
             if batch_wait_ms is None else batch_wait_ms,
-            topk_fn=self._topk_batch,
+            # a cross-encoder has no corpus cache to rank: slates only
+            topk_fn=None if self.cross_encoder else self._topk_batch,
         )
+
+    @property
+    def cross_encoder(self) -> bool:
+        return self.trainer.kind == "unbert"
 
     def _score_batch(self, cand_idx: np.ndarray,
                      his_idx: np.ndarray) -> np.ndarray:
+        if self.cross_encoder:
+            return self.trainer.serve_scores_unbert(self.ctx.model, self.ctx.packer,
+                                                    cand_idx, his_idx)
         return self.trainer.serve_scores(self.ctx.model, self.ctx.cache,
                                          cand_idx, his_idx)
 
@@ -355,8 +370,9 @@ class ScoringService:
                max_b: Optional[int] = None) -> int:
         """Run the scoring path once for every (B_bucket, C_bucket) shape
         live traffic will hit for the given slate sizes, plus the corpus
-        top-k over the same batch buckets, so the first requests pay no
-        kernel build or allocator growth. Returns the number of calls."""
+        top-k over the same batch buckets (none for the cross-encoder), so
+        the first requests pay no kernel build or allocator growth. Returns
+        the number of calls."""
         cap = self.batcher.max_batch if max_b is None else max_b
 
         def b_buckets():
@@ -374,7 +390,7 @@ class ScoringService:
                 self._score_batch(np.zeros((b, c_pad), np.int32),
                                   np.zeros((b, self.his_length), np.int32))
                 n += 1
-        if topk is not None:
+        if topk is not None and self.batcher.topk_fn is not None:
             k_pad = candidate_bucket(min(topk, self.num_news - 1))
             for b in b_buckets():
                 self._topk_batch(np.zeros((b, self.his_length), np.int32),
@@ -397,6 +413,18 @@ class ScoringService:
                  topk: Optional[int]):
         """Validate + resolve one request into a submission plan (the
         CPU-side half shared by the blocking and async paths)."""
+        if self.cross_encoder:
+            if candidates is None:
+                raise ValueError(
+                    "whole-corpus scoring is not supported for the unbert "
+                    "cross-encoder (every candidate costs a full PLM pass) "
+                    "— pass 'candidates'")
+            max_slate = int(getattr(self.trainer.args, "serve_max_slate", 512) or 512)
+            if len(candidates) > max_slate:
+                raise ValueError(
+                    f"slate of {len(candidates)} exceeds --serve_max_slate="
+                    f"{max_slate} for the unbert cross-encoder (each "
+                    "candidate costs a full PLM pass)")
         his_row = history_row([self._idx_of(n) for n in history],
                               self.his_length, self.trainer._legacy_layout)
         if candidates is None and topk is not None:

@@ -1,13 +1,14 @@
 """The trainer of the port: ``train``, ``pretrain``, ``eval``, ``serve`` and
 ``recommend``.
 
-Counterpart of ``miner_tpu/training/trainer.py`` for three model kinds, as
-``--model_name`` picks them (trainer.py:272-292): ``miner`` (the Miner),
+Counterpart of ``miner_tpu/training/trainer.py`` for four model kinds, as
+``--model_name`` picks them (trainer.py:272-328): ``miner`` (the Miner),
 ``vanilla`` (``fastformer``: the news encoder under a Fastformer user
-encoder, logits only) and ``pretrain`` (the news encoder alone, trained on
-the contrastive loss over a positive, its augmented variants and
-negatives; the ``pretrain`` subcommand takes it whatever ``--model_name``
-says, trainer.py:111-112):
+encoder, logits only), ``unbert`` (the UnBERT cross-encoder over packed
+(candidate, history) rows, ``data/unbert_packing.py``) and ``pretrain``
+(the news encoder alone, trained on the contrastive loss over a positive,
+its augmented variants and negatives; the ``pretrain`` subcommand takes it
+whatever ``--model_name`` says, trainer.py:111-112):
 
   * ``train`` (trainer.py:558-799): ``BehaviorsLog``, the numpy samplers and
     the shuffled ``Batcher``; every micro-batch gathers its token rows from
@@ -22,7 +23,12 @@ says, trainer.py:111-112):
     loaded whole, or a pretrain run's news encoder grafted into the model;
   * ``eval`` (trainer.py:1081-1130): the model restored from
     ``--saved_model_path`` over the eval behaviors, by default from the
-    news-embedding cache (``--cached_eval``);
+    news-embedding cache (``--cached_eval``); UnBERT scores every packed
+    eval row with the model, as the JAX package's ``_run_eval`` does inside
+    ``train`` (trainer.py:986-998). The JAX package's standalone UnBERT
+    eval raises ``KeyError: 'input_ids'`` (it builds its init example from
+    ``EvalSampler``, trainer.py:1101-1107, which ``_init_params_for_kind``
+    reads as packed rows, :804-809); the port runs the branch that works;
   * the serving half: ``serving_context`` (news store, model, and the corpus
     news-embedding cache, encoded once or loaded from ``--serve_cache_path``,
     int8 with ``--serve_cache_int8``; trainer.py:1250-1329),
@@ -30,11 +36,16 @@ says, trainer.py:111-112):
     lookup+score op for the per-interest scores and the target-aware
     logits; Fastformer: the user encoder over the gathered history rows,
     dotted with the gathered candidate rows), ``serve_scores`` for slates
-    and ``serve_topk`` for whole-corpus ranking with ``torch.topk``.
+    and ``serve_topk`` for whole-corpus ranking with ``torch.topk``. UnBERT
+    has no cache: ``serve_scores_unbert`` packs every (candidate, history)
+    pair of a slate batch and runs the model once over them
+    (trainer.py:1366-1399), and whole-corpus ranking is refused.
 
 The Miner trains on ``miner_loss`` and evaluates on ``miner_eval_loss``; the
 vanilla kind trains on ``vanilla_loss`` and evaluates on
-``logsigmoid_eval_loss`` (trainer.py:401-408, 947-953); the pretrain kind
+``logsigmoid_eval_loss`` (trainer.py:401-408, 947-953); UnBERT trains on
+``binary_cross_entropy_with_logits`` and evaluates on
+``logsigmoid_eval_loss`` (trainer.py:372-390); the pretrain kind
 trains on ``pretrain_contrastive`` and evaluates on its sum over the eval
 behaviors (trainer.py:354-370, 499-548).
 
@@ -49,6 +60,7 @@ feature of ROADMAP Queue 1 that brings them.
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import os
@@ -72,12 +84,21 @@ from miner_tpu_torch.data.samplers import (
     PretrainSampler,
 )
 from miner_tpu_torch.data.tokenization import load_tokenizer
+from miner_tpu_torch.data.unbert_packing import (
+    FEATURES,
+    SEQ_MAX_LEN,
+    UnbertEvalSampler,
+    UnbertPacker,
+    UnbertTrainSampler,
+    pack_rows,
+)
 from miner_tpu_torch.evaluation.evaluator import FastEvaluator, ImpressionEvaluator
 from miner_tpu_torch.models import (
     FastformerConfig,
     FastformerUserModel,
     Miner,
     NewsEncoder,
+    UNBert,
 )
 from miner_tpu_torch.models.dropout import DropoutRNG
 from miner_tpu_torch.models.plm import cast_to_compute_, normal_init_
@@ -99,17 +120,20 @@ from miner_tpu_torch.training.optim import (
 from miner_tpu_torch.utils import candidate_bucket, resolve_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-# --model_name (lower case) -> model kind; UnBERT and UniSRec come later
-_KINDS = {"miner": "miner", "fastformer": "vanilla", "pretrain": "pretrain"}
+# --model_name (lower case) -> model kind; UniSRec comes later
+_KINDS = {"miner": "miner", "fastformer": "vanilla", "pretrain": "pretrain",
+          "unbert": "unbert"}
 
 
 class ServingContext(NamedTuple):
-    """One-time setup shared by ``recommend`` and the HTTP scoring server."""
+    """One-time setup shared by ``recommend`` and the HTTP scoring server.
+    The UnBERT cross-encoder has no table and no cache, and a packer."""
 
     store: NewsStore
-    table: NewsTable
+    table: Optional[NewsTable]
     model: nn.Module
-    cache: NewsEmbeddingCache
+    cache: Optional[NewsEmbeddingCache]
+    packer: Optional[UnbertPacker] = None
 
 
 class TrainRun(NamedTuple):
@@ -128,11 +152,11 @@ def _refuse_unported(args, device: torch.device) -> None:
     naming the feature of ROADMAP Queue 1 that brings it, instead of running
     something else than was asked for."""
     name = (args.model_name or "Miner").lower()
-    if name in ("unbert", "unisrec"):
+    if name == "unisrec":
         raise NotImplementedError(
-            f"--model_name {args.model_name!r}: the port runs the Miner and "
-            "Fastformer families and pretraining so far (ROADMAP Queue 1: "
-            "UnBERT, UniSRec)")
+            f"--model_name {args.model_name!r}: the port runs the Miner, "
+            "Fastformer and UnBERT families and pretraining so far (ROADMAP "
+            "Queue 1: UniSRec)")
     if name not in _KINDS:
         raise ValueError(f"unknown --model_name {args.model_name!r}")
     if args.fused_kernels is False and device.type == "cuda":
@@ -195,7 +219,11 @@ class Trainer:
                                   self.args.max_sapo_length,
                                   augmentations=augmentations)
 
-    def _make_table(self, store: NewsStore) -> NewsTable:
+    def _make_table(self, store: NewsStore) -> Optional[NewsTable]:
+        """The store's token table on the device; None for UnBERT, which
+        packs its rows on the host from the store's titles."""
+        if self.kind == "unbert":
+            return None
         return NewsTable.from_store(store, use_sapo=self.args.use_sapo,
                                     combine_type=self.args.combine_type,
                                     device=self.device)
@@ -209,9 +237,20 @@ class Trainer:
         a = self.args
         if self.kind == "pretrain":
             return PretrainSampler(log, store, a.npratio, seed=a.seed)
+        if self.kind == "unbert":
+            return UnbertTrainSampler(log, store, self._unbert_packer(store),
+                                      a.npratio, seed=a.seed)
         mode = "hard" if a.augmentation_mode == "hard" else "base"
         cls = OnlineSampler if a.online else OfflineSampler
         return cls(log, store, a.npratio, seed=a.seed, mode=mode)
+
+    def _unbert_packer(self, store: NewsStore) -> UnbertPacker:
+        """The packer over ``store``'s titles with the tokenizer's CLS, SEP
+        (EOS when it has none) and PAD ids (trainer.py:196-205)."""
+        tok = self.tokenizer
+        sep = tok.sep_token_id if tok.sep_token_id is not None else tok.eos_token_id
+        return UnbertPacker(store, cls_id=tok.cls_token_id, sep_id=sep,
+                            pad_id=tok.pad_token_id, legacy_layout=self._legacy_layout)
 
     def _index(self, idx: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.asarray(idx, np.int32), device=self.device)
@@ -224,13 +263,27 @@ class Trainer:
         the Fastformer user encoder computes in fp32, since the JAX package
         builds it without a dtype (trainer.py:291). The pretrain kind's
         model is the news encoder alone (trainer.py:239-252), with the
-        weights the Miner's encoder takes from the same seed."""
+        weights the Miner's encoder takes from the same seed. UnBERT
+        (trainer.py:303-328) computes in ``--compute_dtype`` throughout."""
         a = self.args
         gelu_approx = a.gelu_approx
         if gelu_approx is None:
             gelu_approx = self.compute_dtype == torch.bfloat16
         plm = plm_config(a.plm_preset, vocab_size=self.tokenizer.vocab_size,
                          gelu_approx=gelu_approx, remat=a.remat)
+        if self.kind == "unbert":
+            # two token types, and a position table covering the packed row
+            # (the tiny preset's 256 < 300)
+            cfg = dataclasses.replace(
+                plm, type_vocab_size=max(2, plm.type_vocab_size),
+                max_position_embeddings=max(plm.max_position_embeddings,
+                                            SEQ_MAX_LEN + plm.position_offset))
+            # eval / serve / recommend do not take the UnBERT flags: their
+            # defaults, as the JAX package's getattr reads them
+            model = UNBert(cfg, getattr(a, "unbert_news_layers", None) or cfg.num_layers,
+                           getattr(a, "unbert_news_mode", "nseg"), self.compute_dtype)
+            normal_init_(model, cfg.initializer_range, torch.Generator().manual_seed(a.seed))
+            return model
         encoder = NewsEncoder(plm, apply_reduce_dim=a.apply_reduce_dim,
                               word_embed_dim=a.word_embed_dim,
                               use_sapo=a.use_sapo, combine_type=a.combine_type,
@@ -288,15 +341,22 @@ class Trainer:
         loaded strictly."""
         a = self.args
         if self.kind == "pretrain":
-            raise ValueError("serving takes the Miner and Fastformer families, "
-                             "not the pretrain kind's bare news encoder")
+            raise ValueError("serving takes the Miner, Fastformer and UnBERT "
+                             "families, not the pretrain kind's bare news encoder")
         store = self._load_store(a.eval_news_path)
-        table = self._make_table(store)
         if state_dict is not None:
             model = self.build_model()
             model.load_state_dict(state_dict, strict=True)
         else:
             model = self.restored_model()
+        if self.kind == "unbert":
+            # a cross-encoder reranker: every request runs the model over
+            # packed (candidate, history) rows, so there is no table and no
+            # cache, and --serve_cache_path is not read (trainer.py:1202-1218)
+            model = cast_to_compute_(model, self.compute_dtype).to(self.device).eval()
+            return ServingContext(store=store, table=None, model=model, cache=None,
+                                  packer=self._unbert_packer(store))
+        table = self._make_table(store)
         # one cast for serving; the same bf16 values as casting at each use.
         # The Fastformer user encoder stays fp32: only its news tower casts
         cast_to_compute_(model.news_encoder if self.kind == "vanilla" else model,
@@ -411,6 +471,24 @@ class Trainer:
                                             self._index(his_idx))
             return logits.float().cpu().numpy()
 
+    def _unbert_features(self, feat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        return {k: torch.as_tensor(feat[k], device=self.device) for k in FEATURES}
+
+    def serve_scores_unbert(self, model: nn.Module, packer: UnbertPacker,
+                            cand_idx: np.ndarray, his_idx: np.ndarray) -> np.ndarray:
+        """Cross-encoder reranking (trainer.py:1366-1399): (B, C) candidate
+        rows + (B, H) history rows -> (B, C) logits. Each (candidate,
+        history) pair packs into one ``seq_max_len``-token row on the host
+        and the B * C rows run through the model in one call: no cache can
+        exist for a cross-encoder, so a request costs a full pass per
+        candidate."""
+        B, C = cand_idx.shape
+        hist = np.repeat(np.asarray(his_idx, np.int32), C, axis=0)  # (B*C, H)
+        feat = pack_rows(packer, np.asarray(cand_idx, np.int32).reshape(-1), hist)
+        with torch.inference_mode():
+            logits = model(self._unbert_features(feat))
+            return logits.float().cpu().numpy().reshape(B, C)
+
     def serve_topk(self, model: nn.Module, cache: NewsEmbeddingCache,
                    his_idx: np.ndarray, k: int):
         """Whole-corpus top-k on the device: (B, H) history rows ->
@@ -447,9 +525,18 @@ class Trainer:
                               a.his_length, self._legacy_layout)[None]
         if a.candidates:
             cand_idx = np.asarray([idx_of(n) for n in a.candidates], np.int32)[None]
-            scores = self.serve_scores(ctx.model, ctx.cache, cand_idx, his_idx)[0]
+            if self.kind == "unbert":
+                scores = self.serve_scores_unbert(ctx.model, ctx.packer, cand_idx,
+                                                  his_idx)[0]
+            else:
+                scores = self.serve_scores(ctx.model, ctx.cache, cand_idx, his_idx)[0]
             order = np.argsort(-scores)[: a.topk]
             results = [(a.candidates[i], float(scores[i])) for i in order]
+        elif self.kind == "unbert":
+            raise ValueError(
+                "whole-corpus ranking is not supported for the unbert "
+                "cross-encoder (no embedding cache exists; every candidate "
+                "costs a full PLM pass) — pass --candidates")
         else:
             row_to_id = {v: k for k, v in store.id_to_row.items()}
             k = min(a.topk, store.num_news - 1)
@@ -464,7 +551,9 @@ class Trainer:
     def make_optimizer(self, model: nn.Module, total_updates: int,
                        warmup: int) -> Optimizer:
         a = self.args
-        if a.freeze_transformer:
+        # UnBERT has no "plm" subtree, so --freeze_transformer freezes
+        # nothing of it, as the JAX package's name filter (trainer.py:345)
+        if a.freeze_transformer and self.kind != "unbert":
             encoder = model if self.kind == "pretrain" else model.news_encoder
             encoder.plm.requires_grad_(False)
         return Optimizer(model.named_parameters(), learning_rate=a.learning_rate,
@@ -479,10 +568,17 @@ class Trainer:
                         row_mask: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(loss, logits) of a batch of index rows (``_apply_and_loss``,
-        trainer.py:354-408); for the pretrain kind (loss, news vectors)."""
+        trainer.py:354-408); for the pretrain kind (loss, news vectors); for
+        UnBERT of a batch of packed rows (``table`` unused)."""
         if self.kind == "pretrain":
             return self._pretrain_loss(model, table, batch["cand_idx"], self._num_augs,
                                        rng, row_mask)
+        if self.kind == "unbert":
+            logits = model(self._unbert_features(batch), rng)
+            label = torch.as_tensor(batch["label"], device=self.device)
+            if train:
+                return losses.binary_cross_entropy_with_logits(logits, label), logits
+            return losses.logsigmoid_eval_loss(logits, label, row_mask), logits
         model_batch = table.lookup(self._index(batch["cand_idx"]),
                                    self._index(batch["his_idx"]))
         label = torch.as_tensor(batch["label"], device=self.device)
@@ -691,9 +787,16 @@ class Trainer:
         per batch, the same scores as re-encoding, since the encoder is
         deterministic at eval); ``--fast_eval`` scores train-format
         (1+npratio) rows with softmax probabilities. Returns (scores,
-        summed eval loss)."""
+        summed eval loss). UnBERT scores the packed row of every eval
+        candidate over ``store`` with the model (trainer.py:986-998):
+        ``--cached_eval`` and ``--fast_eval`` do not apply to a
+        cross-encoder."""
         a = self.args
-        if a.fast_eval:
+        fast = a.fast_eval and self.kind != "unbert"
+        if self.kind == "unbert":
+            block = UnbertEvalSampler(eval_log, store, self._unbert_packer(store)).sample_all()
+            evaluator = ImpressionEvaluator(eval_log.eval_targets_by_impression())
+        elif fast:
             block = OfflineSampler(eval_log, store, a.npratio, seed=a.seed).sample_epoch(0)
             evaluator = FastEvaluator([row.tolist() for row in block.label.astype(int)])
         else:
@@ -703,13 +806,13 @@ class Trainer:
         was_training = model.training
         model.eval()
         cache = None
-        if a.cached_eval and not a.fast_eval:
+        if a.cached_eval and not fast and self.kind != "unbert":
             cache = CacheFiller(model.encode_news).fill(table)
         total_loss = 0.0
         with torch.inference_mode():
             for batch in batcher.batches(block):
                 valid = int(batch.pop("valid"))
-                B = len(batch["cand_idx"])
+                B = len(batch["label"])
                 row_mask = torch.arange(B, device=self.device) < valid
                 if cache is not None:
                     interests, logits = self._cached_scores(
@@ -762,7 +865,8 @@ class Trainer:
 
     def eval(self) -> Dict[str, float]:
         """Standalone evaluation of ``--saved_model_path``; for the pretrain
-        kind ``{"loss": total}`` (trainer.py:1095-1118)."""
+        kind ``{"loss": total}`` (trainer.py:1095-1118); for UnBERT the
+        packed-row eval that ``train`` runs (see the module docstring)."""
         a = self.args
         logger = RunLogger(a.eval_path, "eval", vars(a))
         self._log = logger.logger

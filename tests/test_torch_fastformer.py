@@ -471,8 +471,9 @@ def test_dropout_is_a_function_of_seed_and_step(pair):
 
 
 def test_train_fastformer_config_parses_and_refusals(fixture_dir):
-    """config/train_fastformer.txt parses unchanged; train_fastformer runs
-    train's refusals; UnBERT and UniSRec are still refused."""
+    """config/train_fastformer.txt and config/train_unbert.txt parse
+    unchanged; train_fastformer runs train's refusals; UniSRec is still
+    refused (UnBERT is not: tests/test_torch_unbert.py)."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     a = make_parser().parse_args(
         ["train_fastformer", "@" + os.path.join(repo, "config", "train_fastformer.txt")])
@@ -484,7 +485,16 @@ def test_train_fastformer_config_parses_and_refusals(fixture_dir):
         Trainer(make_parser().parse_args(
             ["train_fastformer", *_flags(fixture_dir), "--device", "cpu",
              "--his_cache_refresh", "2"]))
-    with pytest.raises(NotImplementedError, match="UnBERT, UniSRec"):
+    u = make_parser().parse_args(
+        ["train_fastformer", "@" + os.path.join(repo, "config", "train_unbert.txt")])
+    assert (u.model_name, u.plm_preset, u.augmentation_mode, u.train_batch_size,
+            u.gradient_accumulation_steps, u.npratio, u.unbert_news_mode) == (
+        "unbert", "bert_base", "unbert", 16, 8, 4, "nseg")
+    assert u.remat and u.compute_dtype == "bfloat16" and u.unbert_news_layers is None
+    assert Trainer(make_parser().parse_args(
+        ["eval_fastformer", *_flags(fixture_dir), "--device", "cpu",
+         "--model_name", "unbert"])).kind == "unbert"
+    with pytest.raises(NotImplementedError, match="UniSRec"):
         Trainer(make_parser().parse_args(
             ["eval_fastformer", *_flags(fixture_dir), "--device", "cpu",
-             "--model_name", "unbert"]))
+             "--model_name", "unisrec"]))

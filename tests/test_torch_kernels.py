@@ -904,3 +904,102 @@ def test_fastformer_bf16_rounds_where_the_reference_rounds_on_card(rng):
     err = (got - want).abs().max().item()
     assert err <= _tol(torch.bfloat16, want)
     assert err < (got - unrounded).abs().max().item()
+
+
+# ------------------------------------------------ UnBERT's shapes on the card
+def _unbert_mask(N, L):
+    """Rows of UnBERT's packed lengths: full, one ending inside the last
+    partial key tile (and the last query pass), one ending mid-sequence and
+    a short one."""
+    ends = [L, L - 7, L // 2 + 3, 5][:N]
+    return (np.arange(L)[None] < np.asarray(ends)[:, None]).astype(np.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", [300, 23])
+def test_mha_at_unbert_shapes_on_card(rng, L, dtype, rate):
+    """UnBERT's attention shapes, 12 heads of Dh = 64, N = 4: the word level
+    (L = 300: three query passes of 128, the last holding 44 rows; five key
+    tiles of 64, the last holding 44; the bf16 backward's dQ summed over
+    three key tiles of 128 in its fp32 scratch) and the news level (L =
+    23, 3 + 20 sentences: several heads per block, a ragged 16-row block).
+    Forward and backward against the plain versions, with the mask of one
+    row ending inside the last partial tile."""
+    dev = _card()
+    N, H, Dh = 4, 12, 64
+    qkv = torch.as_tensor(rng.normal(size=(N, L, 3 * H * Dh)) * 0.5, device=dev).to(dtype)
+    mask = torch.as_tensor(_unbert_mask(N, L), device=dev)
+    dout = torch.as_tensor(rng.normal(size=(N, L, H * Dh)), device=dev).to(dtype)
+    before = launch_counts()
+    out, stats = mha._launch_fwd(qkv, mask, H, 1, rate, 2 ** 35 + L, True)
+    want = mha.mha_reference(qkv, mask, H, 1, rate, 2 ** 35 + L)
+    assert out.dtype == dtype and torch.isfinite(out).all()
+    assert (out.float() - want.float()).abs().max().item() <= _tol(dtype, want)
+    got = mha.mha_backward(qkv, mask, dout, H, rate, 2 ** 35 + L, 1, out, stats)
+    want = mha.mha_backward_reference(qkv, mask, dout, H, 1, rate, 2 ** 35 + L)
+    torch.cuda.synchronize()
+    assert launch_counts()["mha_fwd"] == before["mha_fwd"] + 1
+    assert launch_counts()["mha_bwd"] == before["mha_bwd"] + 1
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    _assert_mha_grad_close(got, want, H, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_add_ln_at_the_unbert_train_shape_on_card(rng, dtype):
+    """add_ln forward (Triton) and backward (CUDA) at a UnBERT training
+    micro-batch's word level, T = 16 x 300 = 4,800 rows of 768, with
+    dropout 0.1, against the plain versions."""
+    dev = _card()
+    T, D, rate, seed = 4800, 768, 0.1, 2 ** 36 + 1
+    x, h, dy = (torch.as_tensor(rng.normal(size=(T, D)), device=dev).to(dtype)
+                for _ in range(3))
+    g = torch.as_tensor(1 + 0.1 * rng.normal(size=D), device=dev).float()
+    b = torch.as_tensor(0.1 * rng.normal(size=D), device=dev).float()
+    got = add_ln.fused_dropout_add_ln(x, h, g, b, rate, 1e-12, seed)
+    want = add_ln.add_ln_reference(x, h, g, b, 1e-12, rate, seed)
+    assert (got.float() - want.float()).abs().max().item() <= _tol(dtype, want)
+    for a, w in zip(add_ln.add_ln_backward(x, h, g, dy, 1e-12, rate, seed),
+                    add_ln.add_ln_backward_reference(x, h, g, dy, 1e-12, rate, seed)):
+        assert torch.isfinite(a).all()
+        assert (a.float() - w.float()).abs().max().item() <= _tol(dtype, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["nseg", "mean", "attention"])
+def test_unbert_forward_on_card_matches_cpu(rng, mode):
+    """The tiny ``UNBert`` (2 + 2 layers of width 64, 4 heads of Dh = 16) in
+    float32 over 3 packed rows of 300 tokens and 23 sentences: on the card
+    through the mha and add_ln kernels, on the CPU through the plain
+    versions; same weights; scores within 1e-4 of their scale."""
+    import dataclasses as dc
+
+    from miner_tpu_torch.models import PLMConfig, UNBert
+    from miner_tpu_torch.models.plm import normal_init_
+
+    dev = _card()
+    cfg = dc.replace(PLMConfig.tiny(), max_position_embeddings=300)
+    model = UNBert(cfg, news_mode=mode).eval()
+    normal_init_(model, 0.02, torch.Generator().manual_seed(0))
+    B, L, S = 3, 300, 23
+    lengths, n_sent = np.array([300, 211, 40]), np.array([23, 17, 6])
+    pos, spos = np.arange(L)[None], np.arange(S)[None]
+    feat = {"input_ids": rng.integers(3, cfg.vocab_size, size=(B, L)),
+            "input_mask": pos < lengths[:, None],
+            "segment_ids": (pos >= 12) & (pos < lengths[:, None]),
+            "news_segment_ids": np.minimum(pos // 10, 63),
+            "sentence_ids": np.where(spos < n_sent[:, None], spos, 0),
+            "sentence_mask": spos < n_sent[:, None]}
+    feat = {k: torch.as_tensor(np.asarray(v, np.int64 if k.endswith("ids") else np.int32))
+            for k, v in feat.items()}
+    with torch.no_grad():
+        want = model(feat)
+        before = launch_counts()
+        got = model.to(dev)({k: v.to(dev) for k, v in feat.items()}).cpu()
+    counts = launch_counts()
+    assert counts["mha_fwd"] - before["mha_fwd"] == 4  # 2 word + 2 news layers
+    assert counts["add_ln_fwd"] - before["add_ln_fwd"] == 8
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 1e-4 * max(1.0, want.abs().max().item())
