@@ -22,7 +22,9 @@ Phases, each of which makes the script exit non-zero when it fails:
    serve batches, in fp32 as those paths give it, and in bf16; mha and
    add_ln at UnBERT's shapes: 300-token rows and 23-sentence news
    sequences of a micro-batch (16), an eval batch (64) and the largest
-   serving call (512))
+   serving call (512); mha and add_ln at UniSRec's pre-concatenated titles
+   of 159 tokens: a micro-batch's 880 with dropout (the backward kernels
+   too), a cache-fill chunk's 512 and an eval batch's 64 without)
    against its plain PyTorch version on the same inputs (the tolerance is
    printed beside the error; the mha backward's dq, dk and dv each at the
    scale of its (sequence, head)'s gradient; with dropout the kernel's
@@ -89,13 +91,29 @@ Phases, each of which makes the script exit non-zero when it fails:
    warm-up reaches 32 slates of bucket 16, 512 packed rows a call; 64
    slates of 10 from 16 clients over HTTP; a whole-corpus request and a
    slate above ``--serve_max_slate`` are refused (400).
-8. parity: the full-width Miner in float32 over 64 news, on the card
+8. UniSRec train: ``config/train_unisrec.txt`` (under ``train_fastformer``;
+   bert-base over pre-concatenated titles of 159 tokens, the MoE adaptor
+   alone trains, bf16, --remat) for one epoch: 16 micro-batches of one
+   tower call over 880 news, 12 mha_fwd and 24 add_ln_fwd launches each,
+   no backward kernel, every non-MoE tensor of the ``finalModel``
+   bit-identical to its initial value; its cached eval.
+   UniSRec serve: ``serve_miner.txt`` with ``SERVE_FLAGS["unisrec_serve"]``
+   on that ``finalModel`` over HTTP, then started twice from a persisted
+   cache, bf16 and int8, as the Miner's (the loaded starts launch nothing).
+   UniSRec train_all: the same config with ``--unisrec_train_all`` and
+   accumulation 8 (2 updates): both backward kernels at L = 159.
+   hf_import: the config with ``--hf_checkpoint`` (a bert-base
+   ``pytorch_model.bin`` of HF key names) and ``--unisrec_pretrained_path``
+   (a RecBole-layout ``.pth``), both written from a seed: every grafted
+   tensor on the card equal to the file's, one micro-batch finite.
+9. parity: the full-width Miner in float32 over 64 news, on the card
    through the kernels and on the CPU through the plain versions; the cache
    rows and the scores of one request batch must agree.
-9. train parity, Miner, Fastformer and UnBERT: one micro-batch of one
-   impression (UnBERT: two packed rows) in float32, dropout off, on the
+10. train parity, Miner, Fastformer, UnBERT and UniSRec: one micro-batch of
+   one impression (UnBERT: two packed rows) in float32, dropout off, on the
    card and on the CPU: the loss and every trainable parameter's gradient
-   must agree; for UnBERT also the serving scores of two slates.
+   must agree (UniSRec with ``--unisrec_train_all``, so the tower's too);
+   for UnBERT also the serving scores of two slates.
 
 After the phases, every shape at which the main path launched
 poly-attention or lookup+score (a census of their launches) is timed, and
@@ -177,6 +195,17 @@ UNBERT_MHA_CASES = tuple(
                             (UNBERT_EVAL_B, 0.0, UNBERT_INFER_PHASES),
                             (UNBERT_SERVE_B, 0.0, ()))
     for L in (UNBERT_WORD, UNBERT_NEWS))
+# UniSRec (config/train_unisrec.txt): bert-base over pre-concatenated titles,
+# title + sapo[1:] = 32 + 128 - 1 = 159 tokens, the train micro-batch's 880
+# news at once (one tower call); the cache fill's chunks of 512 at serving
+# and eval, and an eval batch's 64
+UNISREC_L = TRAIN_TITLE + TRAIN_SAPO - 1
+UNISREC_TRAIN_PHASES = ("unisrec_train", "unisrec_train_all")
+UNISREC_FILL_PHASES = ("unisrec_eval", "unisrec_train_all_eval", "unisrec_serve",
+                       "unisrec_serve_cache", "unisrec_serve_int8")
+UNISREC_MHA_CASES = ((TRAIN_N, UNISREC_L, TRAIN_RATE, torch.bfloat16, UNISREC_TRAIN_PHASES),
+                     (CHUNK, UNISREC_L, 0.0, torch.bfloat16, UNISREC_FILL_PHASES),
+                     (64, UNISREC_L, 0.0, torch.bfloat16, ()))
 FF_HEADS = 16  # the Fastformer of word_embed_dim 256 (trainer: 16 if D % 16 == 0)
 TRAIN_B, EVAL_B = 16, 64  # train_fastformer.txt's train and eval batches
 # the kernels each phase of the main path must launch (and, for the frozen
@@ -205,6 +234,17 @@ REQUIRED = {
     "unbert_eval": PLM_FWD,
     "unbert_eval_standalone": PLM_FWD,
     "unbert_serve": PLM_FWD,
+    # UniSRec: the MoE-only freeze runs the PLM forward alone; the tail is
+    # plain products, so a loaded cache launches nothing
+    "unisrec_train": PLM_FWD,
+    "unisrec_eval": PLM_FWD,
+    "unisrec_train_all": PLM_FWD + PLM_BWD,
+    "unisrec_train_all_eval": PLM_FWD,
+    "unisrec_serve": PLM_FWD,
+    "unisrec_serve_cache": PLM_FWD,
+    "unisrec_serve_cache_loaded": (),
+    "unisrec_serve_int8": PLM_FWD,
+    "unisrec_serve_int8_loaded": (),
 }
 FORBIDDEN = {"fastformer_train": PLM_BWD,
              "serve_cache_loaded": PLM_FWD,  # the cache comes from the file
@@ -213,7 +253,12 @@ FORBIDDEN = {"fastformer_train": PLM_BWD,
              "pretrain_eval": TAIL_KERNELS + PLM_BWD,
              # the cross-encoder: the PLM kernels alone
              "unbert_train": TAIL_KERNELS,
-             **{phase: TAIL_KERNELS + PLM_BWD for phase in UNBERT_INFER_PHASES}}
+             **{phase: TAIL_KERNELS + PLM_BWD for phase in UNBERT_INFER_PHASES},
+             "unisrec_train": TAIL_KERNELS + PLM_BWD,  # no backward through the PLM
+             "unisrec_train_all": TAIL_KERNELS,
+             **{phase: TAIL_KERNELS + PLM_BWD for phase in UNISREC_FILL_PHASES},
+             **{f"unisrec_serve_{c}_loaded": TAIL_KERNELS + PLM_FWD + PLM_BWD
+                for c in ("cache", "int8")}}
 # the libraries whose ptxas report names each entry (kernels built in
 # several variants)
 ENTRY_REPORTS = ("mha_fwd", "mha_bwd", "add_ln_bwd", "poly_attention_fwd",
@@ -393,6 +438,26 @@ def mha_cases(dev, g):
             bound=bound_ms(_nbytes(qkv, mask, out, stats),
                            4 * N * HEADS * L * L * (HIDDEN // HEADS), dtype),
             phases=phases)
+    # UniSRec's pre-concatenated titles, L = 159: a second query tile of 31
+    # rows and a third key tile of 31 keys; the micro-batch with dropout (and
+    # the statistics), the cache fill's chunk and an eval batch without
+    for N, L, rate, dtype, phases in UNISREC_MHA_CASES:
+        seed, train = 2 ** 46 + N, rate > 0
+        qkv, mask = _mha_inputs(dev, g, N, L, dtype)
+        q, k, v = qkv.view(N, L, 3, HEADS, -1).permute(2, 0, 3, 1, 4)
+        bool_mask = mask.bool()[:, None, None, :]
+        out = torch.empty(N, L, HIDDEN, dtype=dtype, device=dev)
+        stats = torch.empty(N, HEADS, L, 2, device=dev) if train else out[:0]
+        yield dict(
+            case=f"unisrec bf16 N={N} L={L} dropout {rate}", dtype=dtype,
+            kernel=lambda: mha._launch_fwd(qkv, mask, HEADS, 1, rate, seed, train)[0],
+            plain=lambda: mha.mha_reference(qkv, mask, HEADS, 1, rate, seed),
+            library=lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=bool_mask, dropout_p=rate),
+            check=(lambda: mha_dropout_mask_check(qkv, mask, seed)) if rate else None,
+            bound=bound_ms(_nbytes(qkv, mask, out, stats),
+                           4 * N * HEADS * L * L * (HIDDEN // HEADS), dtype),
+            phases=phases)
 
 
 def mha_grad_errors(got, want, rel):
@@ -427,7 +492,7 @@ def mha_bwd_cases(dev, g):
     from miner_tpu_torch.ops import mha
 
     for N, L, rate, dtype, phases in TRAIN_MHA_CASES + tuple(
-            c for c in UNBERT_MHA_CASES if c[2] > 0):
+            c for c in UNBERT_MHA_CASES + UNISREC_MHA_CASES if c[2] > 0):
         seed = 2 ** 41 + L
         qkv, mask = _mha_inputs(dev, g, N, L, dtype)
         dout = torch.randn(N, L, HIDDEN, device=dev, generator=g).to(dtype)
@@ -449,7 +514,8 @@ def mha_bwd_cases(dev, g):
             # reads qkv, out, dout, stats and mask; writes dqkv
             bound=bound_ms(_nbytes(qkv, out, dout, stats, mask, qkv), flops, dtype),
             main=N == TRAIN_N and L == TRAIN_SAPO and rate > 0 and dtype == torch.bfloat16,
-            phases=tuple(p for p in phases if p in BWD_PHASES + ("unbert_train",)))
+            phases=tuple(p for p in phases
+                         if p in BWD_PHASES + ("unbert_train", "unisrec_train_all")))
 
 
 def _ln_inputs(dev, g, T, dtype):
@@ -511,6 +577,22 @@ def add_ln_cases(dev, g):
             bound=bound_ms(_nbytes(x, h, scale, bias, x), (9 if rate else 8) * T * HIDDEN,
                            torch.float32),
             phases=phases)
+    # UniSRec's rows: a micro-batch's 880 x 159 with dropout, a fill chunk's
+    # 512 x 159 without
+    for N, L, rate, dtype, phases in UNISREC_MHA_CASES[:2]:
+        T, seed = N * L, 2 ** 47 + N
+        x, h, scale, bias = _ln_inputs(dev, g, T, dtype)
+        scale_t, bias_t = scale.to(dtype), bias.to(dtype)
+        yield dict(
+            case=f"unisrec bf16 T={T} dropout {rate}", dtype=dtype,
+            kernel=lambda: add_ln.fused_dropout_add_ln(x, h, scale, bias, rate, 1e-12,
+                                                       seed),
+            plain=lambda: add_ln.add_ln_reference(x, h, scale, bias, 1e-12, rate, seed),
+            library=lambda: torch.nn.functional.layer_norm(
+                x + torch.nn.functional.dropout(h, rate), (HIDDEN,), scale_t, bias_t, 1e-12),
+            bound=bound_ms(_nbytes(x, h, scale, bias, x), (9 if rate else 8) * T * HIDDEN,
+                           torch.float32),
+            phases=phases)
 
 
 def add_ln_bwd_cases(dev, g):
@@ -522,7 +604,8 @@ def add_ln_bwd_cases(dev, g):
                         (PRETRAIN_N, TRAIN_SAPO, torch.bfloat16),
                         (PRETRAIN_N, TRAIN_TITLE, torch.bfloat16),
                         (UNBERT_TRAIN_B, UNBERT_WORD, torch.bfloat16),
-                        (UNBERT_TRAIN_B, UNBERT_NEWS, torch.bfloat16)):
+                        (UNBERT_TRAIN_B, UNBERT_NEWS, torch.bfloat16),
+                        (TRAIN_N, UNISREC_L, torch.bfloat16)):
         T, seed = N * L, 2 ** 43 + L
         x, h, scale, bias = _ln_inputs(dev, g, T, dtype)
         dy = torch.randn(T, HIDDEN, device=dev, generator=g).to(dtype)
@@ -549,6 +632,7 @@ def add_ln_bwd_cases(dev, g):
             main=N == TRAIN_N and L == TRAIN_SAPO and dtype == torch.bfloat16,
             phases=(() if dtype != torch.bfloat16 else ("pretrain",) if N == PRETRAIN_N
                     else ("unbert_train",) if N == UNBERT_TRAIN_B
+                    else ("unisrec_train_all",) if L == UNISREC_L
                     else tuple(p for p in TRAIN_PHASES if p in BWD_PHASES)))
 
 
@@ -983,6 +1067,18 @@ def _check_launches(phase: str, counts: dict) -> None:
                          f"launched what it must not {extra}")
 
 
+# UniSRec's one tower call a micro-batch: 12 layers of two add_ln sites;
+# its backward (--unisrec_train_all) the same in reverse
+PER_BATCH = {"unisrec_train": {"mha_fwd": 12, "add_ln_fwd": 24},
+             "unisrec_train_all": {"mha_bwd": 12, "add_ln_bwd": 24}}
+
+
+def _check_per_batch(phase: str, per_batch: dict) -> None:
+    want = PER_BATCH.get(phase, {})
+    if any(per_batch[k] != n for k, n in want.items()):
+        raise SystemExit(f"{phase} phase: launches per micro-batch {per_batch}, want {want}")
+
+
 def _requests(rng, n_slate: int, n_topk: int):
     """``n_slate`` slates of 10 and ``n_topk`` whole-corpus top-10 requests,
     each with a history of 5-60 clicks."""
@@ -1034,7 +1130,8 @@ def serve_phase(corpus: str, checkpoint: str, phase: str = "serve",
     cache, warm-up, HTTP server) on a train phase's ``finalModel``
     (``--saved_model_path``, loaded strictly), answering concurrent slate and
     top-k requests; ``phase`` "fastformer_serve" serves the Fastformer
-    (``--model_name fastformer``). Returns the launch counts of the run."""
+    (``--model_name fastformer``), "unisrec_serve" UniSRec (``SERVE_FLAGS``).
+    Returns the launch counts of the run."""
     import numpy as np
 
     from miner_tpu_torch.ops import launch_counts, reset_launch_counts
@@ -1042,8 +1139,7 @@ def serve_phase(corpus: str, checkpoint: str, phase: str = "serve",
     from miner_tpu_torch.serving import ScoringService
     from miner_tpu_torch.training.trainer import Trainer
 
-    family = ("--model_name", "fastformer") if phase == "fastformer_serve" else ()
-    args = serve_args(corpus, "--saved_model_path", checkpoint, *family)
+    args = serve_args(corpus, "--saved_model_path", checkpoint, *SERVE_FLAGS.get(phase, ()))
     reset_launch_counts()
     CENSUS.phase = phase
     t0 = time.perf_counter()
@@ -1079,6 +1175,14 @@ def serve_phase(corpus: str, checkpoint: str, phase: str = "serve",
         f"({len(lat)} samples, too few for a p99), "
         f"{service.batcher.stats()['mean_batch']} requests per device call "
         f"on {torch.cuda.get_device_name(0)}")
+    # the spread of a slate's scores: whether the model ranks, or ties
+    slates = [[sc for _, sc in body["results"]] for req, (_, body, _) in zip(reqs, replies)
+              if req["candidates"]]
+    spread = sorted(max(sc) - min(sc) for sc in slates)
+    log(f"{phase}: slate scores up to {max(abs(x) for sc in slates for x in sc):.4g} in "
+        f"magnitude; spread (max - min) within a slate: median {spread[len(spread) // 2]:.4g}, "
+        f"smallest {spread[0]:.4g}; {sum(len(set(sc)) < len(sc) for sc in slates)} of "
+        f"{len(slates)} slates hold tied scores")
     log(f"{phase}: kernel launches on the path {counts}")
     _check_launches(phase, counts)
     return counts
@@ -1094,11 +1198,12 @@ def _cache_arrays(cache):
     return rows + (cache.category,)
 
 
-def serve_cache_phase(corpus: str, checkpoint: str, tmp: str) -> dict:
+def serve_cache_phase(corpus: str, checkpoint: str, tmp: str, family: str = "") -> dict:
     """The persisted serving cache: ``serve @config/serve_miner.txt`` started
     twice on the train phase's ``finalModel`` with ``--serve_cache_path`` in
     the temporary directory, then twice more with ``--serve_cache_int8``
-    (another file). The first start of each encodes the corpus and persists
+    (another file); ``family`` "unisrec" does the same for UniSRec's
+    ``finalModel`` (``SERVE_FLAGS``), its phases named ``unisrec_serve_*``. The first start of each encodes the corpus and persists
     it; the second loads the file: its start-up must launch no PLM kernel,
     its cache must equal the first's bit for bit, and the same requests,
     sent one at a time (so each device call has the same shape in both
@@ -1112,14 +1217,16 @@ def serve_cache_phase(corpus: str, checkpoint: str, tmp: str) -> dict:
 
     reqs = _requests(np.random.default_rng(4), 16, 4)
     counts, arrays = {}, {}
+    prefix = f"{family}_" if family else ""
     for int8 in (False, True):
-        path = os.path.join(tmp, "serve_cache_int8.npz" if int8 else "serve_cache.npz")
+        path = os.path.join(tmp, f"{prefix}serve_cache{'_int8' if int8 else ''}.npz")
         starts = []
-        for phase in (("serve_int8", "serve_int8_loaded") if int8
-                      else ("serve_cache", "serve_cache_loaded")):
+        for phase in ((f"{prefix}serve_int8", f"{prefix}serve_int8_loaded") if int8
+                      else (f"{prefix}serve_cache", f"{prefix}serve_cache_loaded")):
             existed = os.path.exists(path)
             args = serve_args(corpus, "--saved_model_path", checkpoint, "--serve_cache_path",
-                              path, *(("--serve_cache_int8",) if int8 else ()))
+                              path, *(("--serve_cache_int8",) if int8 else ()),
+                              *SERVE_FLAGS.get(f"{prefix}serve", ()))
             reset_launch_counts()
             CENSUS.phase = phase
             trainer = Trainer(args)
@@ -1163,7 +1270,7 @@ def serve_cache_phase(corpus: str, checkpoint: str, tmp: str) -> dict:
         log(f"{phase}: start-up fresh {fresh_s:.2f} s, loaded {loaded_s:.2f} s; the loaded "
             f"cache and its {len(reqs)} replies equal the fresh ones bit for bit")
     nbytes = {k: sum(_nbytes(a) for a in v[:-1]) for k, v in arrays.items()}
-    log(f"serve_cache: cache bytes (rows and scales) int8 {nbytes[True]}, "
+    log(f"{prefix}serve_cache: cache bytes (rows and scales) int8 {nbytes[True]}, "
         f"{arrays[False][0].dtype} {nbytes[False]} ({nbytes[True] / nbytes[False]:.3f}x)")
     return counts
 
@@ -1428,11 +1535,23 @@ TRAIN_CONFIGS = {"miner": ("train", "train_miner.txt", "train", "eval"),
                  "pretrain": ("pretrain", "pretrain_miner.txt", "pretrain", "pretrain_eval"),
                  "hard": ("train", "train_miner_hard.txt", "warm_start", "warm_start_eval"),
                  "unbert": ("train_fastformer", "train_unbert.txt", "unbert_train",
-                            "unbert_eval")}
-PARITY_FAMILIES = ("miner", "fastformer", "unbert")
+                            "unbert_eval"),
+                 "unisrec": ("train_fastformer", "train_unisrec.txt", "unisrec_train",
+                             "unisrec_eval"),
+                 "unisrec_all": ("train_fastformer", "train_unisrec.txt", "unisrec_train_all",
+                                 "unisrec_train_all_eval")}
+PARITY_FAMILIES = ("miner", "fastformer", "unbert", "unisrec")
+# the flags each family's parity phase adds: UniSRec trains its PLM too, so
+# that every tower gradient is compared
+PARITY_FLAGS = {"unisrec": ("--unisrec_train_all",)}
 # the hash tokenizer over each family's vocabulary size: roberta-base's, and
-# bert-base's for UnBERT (bert_base preset); no tokenizer files here
-TOKENIZERS = {"unbert": "hash:30522"}
+# bert-base's for UnBERT and UniSRec (bert_base preset); no tokenizer files here
+TOKENIZERS = {"unbert": "hash:30522", "unisrec": "hash:30522", "unisrec_all": "hash:30522"}
+# serve_miner.txt's flags overridden for a family's checkpoint
+SERVE_FLAGS = {"fastformer_serve": ("--model_name", "fastformer"),
+               "unisrec_serve": ("--model_name", "unisrec", "--plm_preset", "bert_base",
+                                 "--pretrained_tokenizer", TOKENIZERS["unisrec"],
+                                 "--combine_type", "pre-concat")}
 
 
 def micro_batches(family: str) -> int:
@@ -1447,7 +1566,8 @@ def train_args(corpus: str, out: str, *extra: str, family: str = "miner"):
     ``config/train_fastformer.txt`` under ``train_fastformer``, "pretrain"
     ``config/pretrain_miner.txt`` under ``pretrain``, "hard"
     ``config/train_miner_hard.txt``, "unbert" ``config/train_unbert.txt``
-    under ``train_fastformer``) as it stands, on the synthetic corpus and
+    and "unisrec" / "unisrec_all" ``config/train_unisrec.txt`` under
+    ``train_fastformer``) as it stands, on the synthetic corpus and
     behaviors, with the hash tokenizer over the PLM's vocabulary
     (``TOKENIZERS``), random init, and one epoch."""
     from miner_tpu_torch.config import convert_arg_line_to_args, make_parser
@@ -1498,6 +1618,7 @@ def train_phase(corpus: str, out: str, family: str = "miner", *extra: str):
     phase, eval_phase = TRAIN_CONFIGS[family][2:]
     args = train_args(corpus, out, *extra, family=family)
     trainer = Trainer(args)
+    unisrec = trainer.model_name == "unisrec"
     step_s, step_loss, eval_s, before_eval = [], [], [], {}
     update_s = []  # each optimizer update (clip, AdamW), the card synchronised around it
     held, after_fwd = [], []  # GiB allocated at each micro-batch's start, after its forward
@@ -1583,7 +1704,9 @@ def train_phase(corpus: str, out: str, family: str = "miner", *extra: str):
         f"{len(step_s)} micro-batches of {args.train_batch_size} ({what} per "
         f"micro-batch), {run.optimizer.updates} optimizer updates at accumulation "
         f"{accum}, {args.compute_dtype}, --remat {args.remat}, --freeze_transformer "
-        f"{args.freeze_transformer}, dropout {args.dropout} / {TRAIN_RATE}")
+        f"{args.freeze_transformer}, dropout {args.dropout} / {TRAIN_RATE}"
+        + (f", --combine_type {args.combine_type} ({UNISREC_L} tokens a news), "
+           f"--unisrec_train_all {args.unisrec_train_all}" if unisrec else ""))
     log(f"{phase}: micro-batch {1e3 * mid:.1f} ms median of {len(steady)} "
         f"(first {1e3 * step_s[0]:.1f} ms, with kernel compiles), "
         f"{args.train_batch_size / mid:.2f} examples/s, "
@@ -1609,6 +1732,7 @@ def train_phase(corpus: str, out: str, family: str = "miner", *extra: str):
                          f"updates, {len(step_s)} micro-batches")
     _check_launches(phase, before_eval)
     _check_launches(eval_phase, eval_counts)
+    _check_per_batch(phase, per_batch)
     ckpt = os.path.join(run.run_dir, "ckpt")
     final = os.path.join(ckpt, "finalModel")
     if trainer.kind == "pretrain" and sorted(os.listdir(ckpt)) != ["bestLossModel", "finalModel"]:
@@ -1623,6 +1747,16 @@ def train_phase(corpus: str, out: str, family: str = "miner", *extra: str):
             "finalModel bit-identical to their initial values (frozen)")
         if moved or not plm:
             raise SystemExit(f"{phase} phase: frozen PLM parameters moved: {moved[:5]}")
+    if unisrec and not args.unisrec_train_all:
+        initial = trainer.build_model().state_dict()
+        saved = checkpoint.load(final)["params"]
+        moved = {k for k in initial if not torch.equal(saved[k].cpu(), initial[k])}
+        moe = {k for k in initial if "moe" in k}
+        log(f"{phase}: {len(initial) - len(moved)} of {len(initial)} tensors of the "
+            f"finalModel bit-identical to their initial values; moved: {sorted(moved)}")
+        if moved != moe:
+            raise SystemExit(f"{phase} phase: the MoE-only freeze moved {sorted(moved - moe)[:5]}"
+                             f" and left {sorted(moe - moved)[:5]}")
     if args.pretrained_model_path and args.learning_rate == 0:
         warm = checkpoint.load(args.pretrained_model_path)["params"]
         saved = checkpoint.load(final)["params"]
@@ -1643,8 +1777,11 @@ def train_parity_phase(corpus: str, out: str, family: str = "miner") -> None:
     Functions) and on the CPU (plain versions), same weights from the seed:
     the loss and every trainable parameter's gradient must agree (the
     Fastformer's PLM is frozen, as ``--freeze_transformer`` makes it in
-    training); for UnBERT also the serving scores of two slates of 4,
-    within 1e-3 of their scale. Tolerance: 1e-3 of each gradient's largest magnitude plus
+    training; UniSRec runs with ``--unisrec_train_all``, so its tower's
+    gradients are compared too, and its ``w_noise``, which only the
+    training mode's gating noise reaches, has none on either device); for
+    UnBERT also the serving scores of two slates of 4, within 1e-3 of their
+    scale. Tolerance: 1e-3 of each gradient's largest magnitude plus
     1e-5 of the largest over all gradients, since float32 sums through 12
     layers forward and back are taken in other orders by the kernels and
     cuBLAS than by the plain versions and the CPU's BLAS, and a gradient
@@ -1659,7 +1796,8 @@ def train_parity_phase(corpus: str, out: str, family: str = "miner") -> None:
     result, scores = {}, {}
     for device in ("cuda", "cpu"):
         trainer = Trainer(train_args(corpus, out, "--compute_dtype", "float32",
-                                     "--device", device, family=family))
+                                     "--device", device, *PARITY_FLAGS.get(family, ()),
+                                     family=family))
         a = trainer.args
         store = trainer._load_store(a.train_news_path)
         log_ = trainer._load_log(a.train_behaviors_path, store)
@@ -1675,9 +1813,11 @@ def train_parity_phase(corpus: str, out: str, family: str = "miner") -> None:
             model.news_encoder.plm.requires_grad_(False)
         loss, _ = trainer._apply_and_loss(model, trainer._make_table(store), batch, True)
         loss.backward()
+        # a tensor the loss does not reach has no gradient on either
+        # device (UniSRec's w_noise: no gating noise in eval mode)
         result[device] = (float(loss.detach()), {n: p.grad.float().cpu()
-                                        for n, p in model.named_parameters()
-                                        if p.requires_grad})
+                                                 for n, p in model.named_parameters()
+                                                 if p.grad is not None})
         if trainer.kind == "unbert":
             cand = np.arange(1, 9, dtype=np.int32).reshape(2, 4)
             his = np.stack([log_.history[0], log_.history[1]])
@@ -1693,6 +1833,9 @@ def train_parity_phase(corpus: str, out: str, family: str = "miner") -> None:
             raise SystemExit(f"train parity phase ({family}): serving scores disagree "
                              f"({err} > {tol})")
     (loss_gpu, grads_gpu), (loss_cpu, grads_cpu) = result["cuda"], result["cpu"]
+    if set(grads_gpu) != set(grads_cpu):
+        raise SystemExit(f"train parity phase ({family}): gradients of "
+                         f"{sorted(set(grads_gpu) ^ set(grads_cpu))[:5]} on one device only")
     overall = max(g.abs().max().item() for g in grads_cpu.values())
     worst, failed = (0.0, ""), []
     for name, want in grads_cpu.items():
@@ -1708,6 +1851,140 @@ def train_parity_phase(corpus: str, out: str, family: str = "miner") -> None:
     if failed or abs(loss_gpu - loss_cpu) > 1e-4 * max(1.0, abs(loss_cpu)):
         raise SystemExit(f"train parity phase ({family}) failed:\n  "
                          + "\n  ".join(failed))
+
+
+# ------------------------------------------------------------- HF import
+def _hf_bert_state(cfg, g) -> dict:
+    """Random tensors under HF BERT's key names at ``cfg``'s shapes, as a
+    ``BertForSequenceClassification`` saves them (``bert.`` prefix, a pooler
+    the import ignores): keys and tensors, no ``transformers``."""
+    D, F = cfg.hidden_size, cfg.intermediate_size
+    r = lambda *shape: 0.02 * torch.randn(*shape, generator=g)
+    sd = {"embeddings.word_embeddings.weight": r(cfg.vocab_size, D),
+          "embeddings.position_embeddings.weight": r(cfg.max_position_embeddings, D),
+          "embeddings.token_type_embeddings.weight": r(cfg.type_vocab_size, D),
+          "embeddings.LayerNorm.weight": 1 + r(D), "embeddings.LayerNorm.bias": r(D),
+          "pooler.dense.weight": r(D, D)}
+    dense = {"attention.self.query": (D, D), "attention.self.key": (D, D),
+             "attention.self.value": (D, D), "attention.output.dense": (D, D),
+             "intermediate.dense": (F, D), "output.dense": (D, F)}
+    for i in range(cfg.num_layers):
+        for name, (rows, cols) in dense.items():
+            sd[f"encoder.layer.{i}.{name}.weight"] = r(rows, cols)
+            sd[f"encoder.layer.{i}.{name}.bias"] = r(rows)
+        for name in ("attention.output.LayerNorm", "output.LayerNorm"):
+            sd[f"encoder.layer.{i}.{name}.weight"] = 1 + r(D)
+            sd[f"encoder.layer.{i}.{name}.bias"] = r(D)
+    return {f"bert.{k}": v for k, v in sd.items()}
+
+
+def _recbole_state(g, d_in: int, D=300, experts=8, inner=256) -> dict:
+    """Random tensors under a RecBole UniSRec's key names: the sequential
+    encoder of 2 layers, its position table and LayerNorm, the MoE adaptor
+    of ``experts`` experts from the tower's width ``d_in`` to ``D``."""
+    r = lambda *shape: 0.02 * torch.randn(*shape, generator=g)
+    sd = {"position_embedding.weight": r(HIS, D), "LayerNorm.weight": 1 + r(D),
+          "LayerNorm.bias": r(D), "moe_adaptor.w_gate": r(d_in, experts),
+          "moe_adaptor.w_noise": r(d_in, experts)}
+    dense = {"multi_head_attention.query": (D, D), "multi_head_attention.key": (D, D),
+             "multi_head_attention.value": (D, D), "multi_head_attention.dense": (D, D),
+             "feed_forward.dense_1": (inner, D), "feed_forward.dense_2": (D, inner)}
+    for i in range(2):
+        for name, (rows, cols) in dense.items():
+            sd[f"trm_encoder.layer.{i}.{name}.weight"] = r(rows, cols)
+            sd[f"trm_encoder.layer.{i}.{name}.bias"] = r(rows)
+        for name in ("multi_head_attention.LayerNorm", "feed_forward.LayerNorm"):
+            sd[f"trm_encoder.layer.{i}.{name}.weight"] = 1 + r(D)
+            sd[f"trm_encoder.layer.{i}.{name}.bias"] = r(D)
+    for e in range(experts):
+        sd[f"moe_adaptor.experts.{e}.bias"] = r(d_in)
+        sd[f"moe_adaptor.experts.{e}.lin.weight"] = r(D, d_in)
+    return sd
+
+
+def _grafted(hf: dict, rec: dict, num_layers: int) -> dict:
+    """Where each file's tensor must land in the UniSRec: the tower's
+    layers with Q, K and V stacked on the weight's rows in that order, the
+    sequential encoder's likewise, each expert's ``lin.weight`` transposed
+    into the (E, D_in, D_out) kernel."""
+    want = {f"news_encoder.plm.embeddings.{n}.weight": hf[f"bert.embeddings.{n}.weight"]
+            for n in ("word_embeddings", "position_embeddings", "token_type_embeddings")}
+    want["news_encoder.plm.embeddings.ln.weight"] = hf["bert.embeddings.LayerNorm.weight"]
+    want["news_encoder.plm.embeddings.ln.bias"] = hf["bert.embeddings.LayerNorm.bias"]
+    layers = [(hf, f"bert.encoder.layer.{i}.", f"news_encoder.plm.layers.{i}.",
+               ("attention.self", "attention.output.dense", "attention.output.LayerNorm",
+                "intermediate.dense", "output.dense", "output.LayerNorm"))
+              for i in range(num_layers)]
+    layers += [(rec, f"trm_encoder.layer.{i}.", f"trm_layers.{i}.",
+                ("multi_head_attention", "multi_head_attention.dense",
+                 "multi_head_attention.LayerNorm", "feed_forward.dense_1",
+                 "feed_forward.dense_2", "feed_forward.LayerNorm")) for i in range(2)]
+    for sd, src, dst, (attn, *rest) in layers:
+        for suffix in ("weight", "bias"):
+            want[f"{dst}attention.qkv.{suffix}"] = torch.cat(
+                [sd[f"{src}{attn}.{n}.{suffix}"] for n in ("query", "key", "value")])
+            for name, s in zip(("attention.out", "attention_ln", "ffn_in", "ffn_out",
+                                "ffn_ln"), rest):
+                want[f"{dst}{name}.{suffix}"] = sd[f"{src}{s}.{suffix}"]
+    experts = sum(1 for k in rec if k.endswith(".lin.weight"))
+    moe = "news_encoder.moe_adaptor."
+    want.update({"position_embedding.weight": rec["position_embedding.weight"],
+                 "ln.weight": rec["LayerNorm.weight"], "ln.bias": rec["LayerNorm.bias"],
+                 moe + "w_gate": rec["moe_adaptor.w_gate"],
+                 moe + "w_noise": rec["moe_adaptor.w_noise"],
+                 moe + "experts.bias": torch.stack(
+                     [rec[f"moe_adaptor.experts.{e}.bias"] for e in range(experts)]),
+                 moe + "experts.kernel": torch.stack(
+                     [rec[f"moe_adaptor.experts.{e}.lin.weight"].T for e in range(experts)])})
+    return want
+
+
+def hf_import_phase(corpus: str, out: str, tmp: str) -> None:
+    """``config/train_unisrec.txt`` with ``--hf_checkpoint`` (a
+    ``pytorch_model.bin`` of HF BERT key names at bert-base's shapes) and
+    ``--unisrec_pretrained_path`` (a RecBole-layout ``.pth``), both written
+    here from a seed: every tensor of the model on the card must equal the
+    file's it was grafted from, bit for bit, and one micro-batch must train
+    with a finite loss through the kernels."""
+    import numpy as np
+
+    from miner_tpu_torch.config import plm_config
+    from miner_tpu_torch.data.samplers import OnlineSampler
+    from miner_tpu_torch.ops import launch_counts, reset_launch_counts
+    from miner_tpu_torch.training.trainer import Trainer
+
+    g = torch.Generator().manual_seed(5)
+    hf_dir, pth = os.path.join(tmp, "hf_bert"), os.path.join(tmp, "unisrec_recbole.pth")
+    os.makedirs(hf_dir, exist_ok=True)
+    trainer = Trainer(train_args(corpus, out, "--hf_checkpoint", hf_dir,
+                                 "--unisrec_pretrained_path", pth, family="unisrec"))
+    cfg = plm_config(trainer.args.plm_preset, vocab_size=trainer.tokenizer.vocab_size)
+    hf, rec = _hf_bert_state(cfg, g), _recbole_state(g, cfg.hidden_size)
+    torch.save(hf, os.path.join(hf_dir, "pytorch_model.bin"))
+    torch.save(rec, pth)
+    t0 = time.perf_counter()
+    model = trainer.initial_model().to(trainer.device)
+    torch.cuda.synchronize()
+    graft_s = time.perf_counter() - t0
+    got = model.state_dict()
+    want = _grafted(hf, rec, cfg.num_layers)
+    bad = [k for k, v in want.items() if not torch.equal(got[k].cpu(), v)]
+    a = trainer.args
+    store = trainer._load_store(a.train_news_path)
+    block = OnlineSampler(trainer._load_log(a.train_behaviors_path, store), store, a.npratio,
+                          seed=a.seed).sample_epoch(0)
+    batch = {"cand_idx": block.cand[:16], "his_idx": block.his[:16], "label": block.label[:16]}
+    reset_launch_counts()
+    optimizer = trainer.make_optimizer(model.train(), 1, 0)
+    loss = float(trainer.train_step(model, trainer._make_table(store), batch, optimizer, 0))
+    counts = launch_counts()
+    log(f"hf_import: {len(want) - len(bad)} of {len(want)} tensors on the card equal to the "
+        f"files' ({len(hf)} HF BERT tensors, {len(rec)} RecBole ones; the pooler ignored), "
+        f"import and graft {graft_s:.2f} s; one micro-batch loss {loss:.5f}, launches "
+        f"{counts}")
+    if bad or not np.isfinite(loss) or counts["mha_fwd"] != cfg.num_layers:
+        raise SystemExit(f"hf_import phase: grafted tensors differing from the files "
+                         f"{bad[:5]}; loss {loss}; launches {counts}")
 
 
 # ----------------------------------------------------------------- parity
@@ -1827,6 +2104,14 @@ def main(argv=None) -> int:
         counts.update(ub_counts)
         counts["unbert_eval_standalone"] = unbert_eval_phase(corpus, tmp, ub_model)
         counts["unbert_serve"] = unbert_serve_phase(corpus, ub_model)
+        us_counts, us_model = train_phase(corpus, tmp, "unisrec")
+        counts.update(us_counts)
+        counts["unisrec_serve"] = serve_phase(corpus, us_model, "unisrec_serve")
+        counts.update(serve_cache_phase(corpus, us_model, tmp, "unisrec"))
+        all_counts, _ = train_phase(corpus, tmp, "unisrec_all", "--unisrec_train_all",
+                                    "--gradient_accumulation_steps", "8")
+        counts.update(all_counts)
+        hf_import_phase(corpus, tmp, tmp)
         write_corpus(os.path.join(tmp, "parity"), 64, seed=1)
         parity_phase(os.path.join(tmp, "parity"))
         for family in PARITY_FAMILIES:

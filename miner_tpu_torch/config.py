@@ -150,8 +150,8 @@ def _add_common(p: argparse.ArgumentParser):
                    choices=["roberta_base", "bert_base", "tiny", "small"],
                    help="PLM tower architecture preset")
     p.add_argument("--hf_checkpoint", type=str, default=None,
-                   help="HF checkpoint dir to import PLM weights from (not "
-                        "ported yet: refused)")
+                   help="HF checkpoint dir (model.safetensors or "
+                        "pytorch_model.bin) to import the PLM's weights from")
     p.add_argument("--legacy_poly_mask", action="store_true",
                    help="the reference's 1e-30 poly-attention mask fill "
                         "(not ported yet: refused)")
@@ -159,7 +159,8 @@ def _add_common(p: argparse.ArgumentParser):
                    help="pads-FIRST history rows, as a model trained under "
                         "the reference's layout expects")
     p.add_argument("--force_layout_mismatch", action="store_true",
-                   help="(UniSRec pretrained artifacts; not ported yet)")
+                   help="load a full-layout UniSRec artifact whose history "
+                        "layout differs from this run's")
     p.add_argument("--cached_eval", action=argparse.BooleanOptionalAction,
                    default=True,
                    help="evaluate from the news-embedding cache (one PLM pass "
@@ -202,8 +203,8 @@ def _add_model(p: argparse.ArgumentParser):
                    choices=["mean", "max", "weighted"])
     p.add_argument("--dropout", type=float, default=0.2)
     p.add_argument("--pretrained_embedding", type=str, default=None,
-                   help="PLM weights: a local HF directory (not ported yet: "
-                        "refused); a hub name trains from random init")
+                   help="PLM weights: a local HF directory (as "
+                        "--hf_checkpoint); a hub name trains from random init")
 
 
 def add_train_arguments(p: argparse.ArgumentParser):
@@ -238,9 +239,12 @@ def add_train_arguments(p: argparse.ArgumentParser):
                    help="UnBERT news aggregation (reference: "
                         "model_unbert.py:160-200)")
     p.add_argument("--unisrec_train_all", action="store_true",
-                   help="(UniSRec; not ported yet)")
+                   help="UniSRec: train every parameter, not the MoE "
+                        "adaptor alone (--freeze_transformer still freezes "
+                        "the PLM)")
     p.add_argument("--unisrec_pretrained_path", type=str, default=None,
-                   help="(UniSRec; not ported yet)")
+                   help="UniSRec: graft a RecBole-layout or full-layout "
+                        "UniSRec .pth into the model (strict=False)")
     p.add_argument("--train_path", type=str, default="train")
     p.add_argument("--tensorboard_path", type=str, default="runs")
     p.add_argument("--npratio", type=int, default=4)

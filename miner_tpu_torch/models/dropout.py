@@ -12,8 +12,10 @@ contract with two ``torch.Generator``s seeded from (seed, step):
     the global RNG state, not an explicit generator) regenerates the same
     masks;
   * a device generator draws the masks of the sites outside any kernel
-    (embedding, ``reduce_dim`` and category dropout) with ``torch.rand``,
-    each outside any checkpointed region.
+    (embedding, ``reduce_dim``, category, MoE-adaptor and SASRec dropout)
+    with ``torch.rand``, and the MoE adaptor's gating noise with
+    ``torch.randn`` (JAX draws it from its own "gating" stream,
+    trainer.py:414), each outside any checkpointed region.
 
 A resumed run therefore draws exactly what the interrupted one would have.
 """
@@ -41,6 +43,12 @@ class DropoutRNG:
             return x
         keep = torch.rand(x.shape, generator=self.device, device=x.device) >= rate
         return torch.where(keep, x / (1.0 - rate), 0.0)
+
+    def normal(self, shape, dtype: torch.dtype) -> torch.Tensor:
+        """Standard normal draws of ``shape`` on the device, in ``dtype``
+        (drawn in fp32 and rounded)."""
+        return torch.randn(shape, generator=self.device,
+                           device=self.device.device).to(dtype)
 
 
 def dropout_active(module: torch.nn.Module, rng, rate: float) -> bool:

@@ -5,6 +5,9 @@ layer, post-LN blocks, static position ids ``arange(L) + position_offset``
 (plm.py:381), exact or tanh GELU per ``gelu_approx``. Every attention goes
 through the mha op and every post-LN site (``attention_ln``, ``ffn_ln``)
 through the add_ln op, so on the card the tower runs the port's kernels.
+A ``TransformerLayer`` of ``PLMConfig(fused=False)`` runs JAX's unfused
+layer instead, plain products under an additive bias: UniSRec's SASRec
+stack, which JAX never sends to Pallas (unisrec.py:29-43).
 
 Parameter names follow the JAX tree (``layer_{i}`` becomes ``layers.{i}``)
 so ``models.convert.params_from_jax`` can carry weights over.
@@ -66,6 +69,10 @@ class PLMConfig:
     remat: bool = False
     # tanh-approximate gelu; the trainer turns it on for bf16 compute
     gelu_approx: bool = False
+    # the mha and add_ln kernels (True), or the unfused layer of plain
+    # products under an additive bias of any broadcastable shape (False;
+    # JAX's path with fused_attention and fused_ln off, plm.py:215-236)
+    fused: bool = True
 
     @property
     def head_dim(self) -> int:
@@ -126,7 +133,8 @@ class AddLN(LayerNorm):
 
 
 class SelfAttention(nn.Module):
-    """Multi-head self-attention with a fused QKV projection."""
+    """Multi-head self-attention with a fused QKV projection: through the
+    mha op (``forward``) or JAX's unfused products (``plain``)."""
 
     def __init__(self, cfg: PLMConfig):
         super().__init__()
@@ -138,27 +146,58 @@ class SelfAttention(nn.Module):
                 seed: int = 0) -> torch.Tensor:
         return self.out(fused_mha(self.qkv(x), mask, self.num_heads, rate, 1, seed))
 
+    def plain(self, x: torch.Tensor, bias: torch.Tensor, rate: float = 0.0,
+              rng: Optional[DropoutRNG] = None) -> torch.Tensor:
+        """JAX's unfused attention (plm.py:215-236): logits in fp32 scaled
+        by an fp32 1/sqrt(Dh), plus the additive ``bias`` (any shape that
+        broadcasts to (B, heads, L, L)); an fp32 softmax cast to x's type;
+        dropout at ``rate`` on the probabilities; the context."""
+        B, L, D = x.shape
+        H = self.num_heads
+        qkv = self.qkv(x)
+        q, k, v = (qkv[..., i * D:(i + 1) * D].reshape(B, L, H, D // H).transpose(1, 2)
+                   for i in range(3))
+        scale = 1.0 / torch.sqrt(torch.tensor(float(D // H), device=x.device))
+        logits = torch.matmul(q, k.transpose(-1, -2)).float() * scale + bias.float()
+        probs = torch.softmax(logits, dim=-1).to(x.dtype)
+        if rate > 0.0:
+            probs = rng.dropout(probs, rate)
+        return self.out(torch.matmul(probs, v).transpose(1, 2).reshape(B, L, D))
+
 
 class TransformerLayer(nn.Module):
-    """Post-LN block (BERT layout: attn -> add&LN -> FFN -> add&LN)."""
+    """Post-LN block (BERT layout: attn -> add&LN -> FFN -> add&LN).
+
+    ``cfg.fused`` picks the path, as JAX's ``fused_attention`` / ``fused_ln``
+    do: the mha and add_ln kernels under a (B, L) key mask, or the unfused
+    layer (plm.py:309-327) under an additive bias, with dropout drawn from
+    the step's ``DropoutRNG`` (so it is never rematerialised) and
+    ``LN(x + dropout(h))`` summed in x's type with fp32 statistics. Both
+    keep the same parameter names."""
 
     SEEDS = 3  # kernel dropout seeds per layer: attention, attention_ln, ffn_ln
 
     def __init__(self, cfg: PLMConfig):
         super().__init__()
+        self.fused = cfg.fused
         self.attention_dropout = cfg.attention_dropout
         self.hidden_dropout = cfg.hidden_dropout
         self.attention = SelfAttention(cfg)
-        self.attention_ln = AddLN(cfg.hidden_size, cfg.layer_norm_eps)
+        ln = AddLN if cfg.fused else LayerNorm
+        self.attention_ln = ln(cfg.hidden_size, cfg.layer_norm_eps)
         self.ffn_in = Dense(cfg.hidden_size, cfg.intermediate_size)
         self.ffn_out = Dense(cfg.intermediate_size, cfg.hidden_size)
-        self.ffn_ln = AddLN(cfg.hidden_size, cfg.layer_norm_eps)
+        self.ffn_ln = ln(cfg.hidden_size, cfg.layer_norm_eps)
         self.gelu = "tanh" if cfg.gelu_approx else "none"
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
-                seeds: Optional[Sequence[int]] = None) -> torch.Tensor:
-        """``seeds`` (three kernel seeds) turns dropout on; None is
-        deterministic."""
+                seeds: Optional[Sequence[int]] = None,
+                rng: Optional[DropoutRNG] = None) -> torch.Tensor:
+        """Fused: ``mask`` (B, L) int32 and ``seeds`` (three kernel seeds)
+        turn dropout on, None is deterministic. Unfused: ``mask`` is the
+        additive bias and ``rng`` draws the dropout in training mode."""
+        if not self.fused:
+            return self._plain(x, mask, rng)
         p_attn = p_hid = 0.0
         s_attn = s_ln1 = s_ln2 = 0
         if seeds is not None:
@@ -167,6 +206,19 @@ class TransformerLayer(nn.Module):
         x = self.attention_ln(x, self.attention(x, mask, p_attn, s_attn), p_hid, s_ln1)
         h = self.ffn_out(F.gelu(self.ffn_in(x), approximate=self.gelu))
         return self.ffn_ln(x, h, p_hid, s_ln2)
+
+    def _plain(self, x: torch.Tensor, bias: torch.Tensor,
+               rng: Optional[DropoutRNG]) -> torch.Tensor:
+        p_attn = self.attention_dropout if dropout_active(
+            self, rng, self.attention_dropout) else 0.0
+        p_hid = self.hidden_dropout if dropout_active(self, rng, self.hidden_dropout) else 0.0
+
+        def drop(h):
+            return rng.dropout(h, p_hid) if p_hid > 0.0 else h
+
+        x = self.attention_ln(x + drop(self.attention.plain(x, bias, p_attn, rng)))
+        h = self.ffn_out(F.gelu(self.ffn_in(x), approximate=self.gelu))
+        return self.ffn_ln(x + drop(h))
 
 
 class Embeddings(nn.Module):
@@ -197,11 +249,14 @@ class Embeddings(nn.Module):
 
 
 class TransformerPLM(nn.Module):
-    """The full encoder tower. Returns the last hidden states (B, L, D) in
-    ``dtype``."""
+    """The full encoder tower on the kernels (``cfg.fused``). Returns the
+    last hidden states (B, L, D) in ``dtype``."""
 
     def __init__(self, cfg: PLMConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
+        if not cfg.fused:
+            raise ValueError("the PLM tower runs the mha and add_ln kernels; the "
+                             "unfused layer is for stacks that call it directly")
         self.cfg = cfg
         self.embeddings = Embeddings(cfg, dtype)
         self.layers = nn.ModuleList(TransformerLayer(cfg)

@@ -4,7 +4,8 @@
 Counterpart of ``miner_tpu/training/trainer.py`` for four model kinds, as
 ``--model_name`` picks them (trainer.py:272-328): ``miner`` (the Miner),
 ``vanilla`` (``fastformer``: the news encoder under a Fastformer user
-encoder, logits only), ``unbert`` (the UnBERT cross-encoder over packed
+encoder; ``unisrec``: the MoE news encoder under a causal SASRec encoder;
+logits only), ``unbert`` (the UnBERT cross-encoder over packed
 (candidate, history) rows, ``data/unbert_packing.py``) and ``pretrain``
 (the news encoder alone, trained on the contrastive loss over a positive,
 its augmented variants and negatives; the ``pretrain`` subcommand takes it
@@ -21,6 +22,10 @@ whatever ``--model_name`` says, trainer.py:111-112):
     ``<aug>_news.tsv`` variants) with the ``hard`` sampler mode, and
     ``--pretrained_model_path`` (trainer.py:624-660): a port checkpoint
     loaded whole, or a pretrain run's news encoder grafted into the model;
+    before it, as JAX grafts them at init (trainer.py:800-861), the HF
+    weights of ``--hf_checkpoint`` (or a local ``--pretrained_embedding``)
+    into the PLM and UniSRec's ``--unisrec_pretrained_path`` artifact;
+    UniSRec trains its MoE adaptor alone unless ``--unisrec_train_all``;
   * ``eval`` (trainer.py:1081-1130): the model restored from
     ``--saved_model_path`` over the eval behaviors, by default from the
     news-embedding cache (``--cached_eval``); UnBERT scores every packed
@@ -34,8 +39,8 @@ whatever ``--model_name`` says, trainer.py:111-112):
     int8 with ``--serve_cache_int8``; trainer.py:1250-1329),
     ``_cached_scores`` (Miner: category bias, poly-attention interests, the
     lookup+score op for the per-interest scores and the target-aware
-    logits; Fastformer: the user encoder over the gathered history rows,
-    dotted with the gathered candidate rows), ``serve_scores`` for slates
+    logits; Fastformer and UniSRec: the user encoder over the gathered
+    history rows, dotted with the gathered candidate rows), ``serve_scores`` for slates
     and ``serve_topk`` for whole-corpus ranking with ``torch.topk``. UnBERT
     has no cache: ``serve_scores_unbert`` packs every (candidate, history)
     pair of a slate batch and runs the model once over them
@@ -63,6 +68,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import logging
 import os
 import time
 from typing import Dict, NamedTuple, Optional, Tuple
@@ -98,8 +104,11 @@ from miner_tpu_torch.models import (
     FastformerUserModel,
     Miner,
     NewsEncoder,
+    NewsEncoderMoe,
     UNBert,
+    UniSRec,
 )
+from miner_tpu_torch.models import hf_import
 from miner_tpu_torch.models.dropout import DropoutRNG
 from miner_tpu_torch.models.plm import cast_to_compute_, normal_init_
 from miner_tpu_torch.observability.logging import RunLogger
@@ -120,9 +129,9 @@ from miner_tpu_torch.training.optim import (
 from miner_tpu_torch.utils import candidate_bucket, resolve_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-# --model_name (lower case) -> model kind; UniSRec comes later
-_KINDS = {"miner": "miner", "fastformer": "vanilla", "pretrain": "pretrain",
-          "unbert": "unbert"}
+# --model_name (lower case) -> model kind
+_KINDS = {"miner": "miner", "fastformer": "vanilla", "unisrec": "vanilla",
+          "pretrain": "pretrain", "unbert": "unbert"}
 
 
 class ServingContext(NamedTuple):
@@ -152,11 +161,6 @@ def _refuse_unported(args, device: torch.device) -> None:
     naming the feature of ROADMAP Queue 1 that brings it, instead of running
     something else than was asked for."""
     name = (args.model_name or "Miner").lower()
-    if name == "unisrec":
-        raise NotImplementedError(
-            f"--model_name {args.model_name!r}: the port runs the Miner, "
-            "Fastformer and UnBERT families and pretraining so far (ROADMAP "
-            "Queue 1: UniSRec)")
     if name not in _KINDS:
         raise ValueError(f"unknown --model_name {args.model_name!r}")
     if args.fused_kernels is False and device.type == "cuda":
@@ -164,20 +168,14 @@ def _refuse_unported(args, device: torch.device) -> None:
             "--no-fused_kernels with a CUDA device: on the card every path "
             "always runs the port's kernels (the plain versions run on "
             "--device cpu)")
-    if args.use_sapo and args.combine_type != "linear":
+    if args.use_sapo and args.combine_type == "lstm":
         raise NotImplementedError(
-            f"--combine_type {args.combine_type!r} is not ported yet "
-            "(ROADMAP Queue 1: the other combines); the port has the linear "
-            "title/sapo combine")
+            "--combine_type 'lstm' is not ported yet (ROADMAP Queue 1: the "
+            "other combines); the port has the linear and pre-concat combines")
     if args.param_dtype != "float32":
         raise NotImplementedError(
             "--param_dtype only supports float32 (fp32 master weights); "
             "use --compute_dtype bfloat16 for mixed precision")
-    if args.hf_checkpoint or (args.pretrained_embedding
-                              and os.path.isdir(args.pretrained_embedding)):
-        raise NotImplementedError(
-            "--hf_checkpoint / a local --pretrained_embedding: importing HF "
-            "weights is not ported yet (ROADMAP Queue 1: HF import)")
     if getattr(args, "mode", None) not in ("train", "train_fastformer", "pretrain"):
         return
     if args.his_cache_refresh > 0:
@@ -264,7 +262,9 @@ class Trainer:
         builds it without a dtype (trainer.py:291). The pretrain kind's
         model is the news encoder alone (trainer.py:239-252), with the
         weights the Miner's encoder takes from the same seed. UnBERT
-        (trainer.py:303-328) computes in ``--compute_dtype`` throughout."""
+        (trainer.py:303-328) computes in ``--compute_dtype`` throughout.
+        UniSRec (trainer.py:293-301): ``NewsEncoderMoe`` in the compute type
+        with ``--dropout`` in its adaptor, the SASRec tail in fp32."""
         a = self.args
         gelu_approx = a.gelu_approx
         if gelu_approx is None:
@@ -283,6 +283,12 @@ class Trainer:
             model = UNBert(cfg, getattr(a, "unbert_news_layers", None) or cfg.num_layers,
                            getattr(a, "unbert_news_mode", "nseg"), self.compute_dtype)
             normal_init_(model, cfg.initializer_range, torch.Generator().manual_seed(a.seed))
+            return model
+        if self.model_name == "unisrec":
+            encoder = NewsEncoderMoe(plm, use_sapo=a.use_sapo, combine_type=a.combine_type,
+                                     adaptor_dropout=a.dropout, dtype=self.compute_dtype)
+            model = UniSRec(encoder, max_his_len=a.his_length)
+            model.reset_parameters(torch.Generator().manual_seed(a.seed))
             return model
         encoder = NewsEncoder(plm, apply_reduce_dim=a.apply_reduce_dim,
                               word_embed_dim=a.word_embed_dim,
@@ -321,13 +327,47 @@ class Trainer:
         model.reset_parameters(torch.Generator().manual_seed(a.seed))
         return model
 
-    def restored_model(self) -> nn.Module:
-        """``build_model``, with the parameters of ``--saved_model_path``
-        (a port checkpoint) loaded strictly when it is given."""
+    def initial_model(self) -> nn.Module:
+        """``build_model`` with the grafts the JAX package makes at init
+        (trainer.py:822-861), in its order: the HF weights of
+        ``--hf_checkpoint``, or of ``--pretrained_embedding`` when it names
+        a local directory (a hub name only warns), into the PLM (the
+        pretrain kind's ``plm``, else ``news_encoder.plm``; UnBERT takes
+        none, as in JAX); then UniSRec's ``--unisrec_pretrained_path``."""
+        a = self.args
+        log = getattr(self, "_log", logging.getLogger("miner_tpu_torch"))
         model = self.build_model()
-        if self.args.saved_model_path:
-            payload = checkpoint.load(self.args.saved_model_path)
-            model.load_state_dict(payload["params"], strict=True)
+        hf_dir, pretrained = a.hf_checkpoint, getattr(a, "pretrained_embedding", None)
+        if not hf_dir and pretrained:
+            if os.path.isdir(pretrained):
+                hf_dir = pretrained
+            else:
+                log.warning("--pretrained_embedding %r is not a local checkpoint "
+                            "directory; training from random init", pretrained)
+        if hf_dir and self.kind == "unbert":
+            log.warning("HF weights are not imported into UnBERT (as in the JAX "
+                        "package); %s ignored", hf_dir)
+        elif hf_dir:
+            hf_import.load_plm_into(model.plm if self.kind == "pretrain"
+                                    else model.news_encoder.plm, hf_dir)
+            log.info("imported the PLM's weights from %s", hf_dir)
+        path = getattr(a, "unisrec_pretrained_path", None)
+        if self.model_name == "unisrec" and path:
+            n = hf_import.load_unisrec_pretrained(
+                model, path, legacy_layout=self._legacy_layout,
+                force=getattr(a, "force_layout_mismatch", False))
+            log.info("loaded %d tensors from UniSRec pretrained checkpoint %s", n, path)
+        return model
+
+    def restored_model(self) -> nn.Module:
+        """The parameters of ``--saved_model_path`` (a port checkpoint)
+        loaded strictly into ``build_model`` when it is given (they replace
+        every graft), else ``initial_model``."""
+        if not self.args.saved_model_path:
+            return self.initial_model()
+        model = self.build_model()
+        payload = checkpoint.load(self.args.saved_model_path)
+        model.load_state_dict(payload["params"], strict=True)
         return model
 
     def serving_context(self, state_dict: Optional[Dict[str, torch.Tensor]] = None
@@ -551,9 +591,15 @@ class Trainer:
     def make_optimizer(self, model: nn.Module, total_updates: int,
                        warmup: int) -> Optimizer:
         a = self.args
+        if self.model_name == "unisrec" and not getattr(a, "unisrec_train_all", False):
+            # the MoE adaptor alone trains (trainer.py:331-345, JAX's name
+            # filter): nothing before it needs a gradient, so no backward
+            # runs through the PLM
+            for name, p in model.named_parameters():
+                p.requires_grad_("moe" in name.lower())
         # UnBERT has no "plm" subtree, so --freeze_transformer freezes
         # nothing of it, as the JAX package's name filter (trainer.py:345)
-        if a.freeze_transformer and self.kind != "unbert":
+        elif a.freeze_transformer and self.kind != "unbert":
             encoder = model if self.kind == "pretrain" else model.news_encoder
             encoder.plm.requires_grad_(False)
         return Optimizer(model.named_parameters(), learning_rate=a.learning_rate,
@@ -686,13 +732,9 @@ class Trainer:
         total_updates = a.max_steps or updates_per_epoch * a.num_train_epochs
         warmup = warmup_steps_from_ratio(total_updates, a.warmup_ratio, a.warmup_steps)
 
-        model = self.build_model().to(self.device).train()
+        model = self.initial_model().to(self.device).train()
         if a.pretrained_model_path:  # before the optimizer sees the parameters
             self._warm_start(model, a.pretrained_model_path, log)
-        if a.pretrained_embedding:
-            log.warning("--pretrained_embedding %r is not a local checkpoint "
-                        "directory; training from random init",
-                        a.pretrained_embedding)
         log.info("parameters: %.2fM",
                  sum(p.numel() for p in model.parameters()) / 1e6)
         optimizer = self.make_optimizer(model, total_updates, warmup)

@@ -471,9 +471,10 @@ def test_dropout_is_a_function_of_seed_and_step(pair):
 
 
 def test_train_fastformer_config_parses_and_refusals(fixture_dir):
-    """config/train_fastformer.txt and config/train_unbert.txt parse
-    unchanged; train_fastformer runs train's refusals; UniSRec is still
-    refused (UnBERT is not: tests/test_torch_unbert.py)."""
+    """config/train_fastformer.txt, config/train_unbert.txt and
+    config/train_unisrec.txt parse unchanged; train_fastformer runs train's
+    refusals; UnBERT and UniSRec take their kinds (tests/test_torch_unbert.py,
+    tests/test_torch_unisrec.py)."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     a = make_parser().parse_args(
         ["train_fastformer", "@" + os.path.join(repo, "config", "train_fastformer.txt")])
@@ -494,7 +495,13 @@ def test_train_fastformer_config_parses_and_refusals(fixture_dir):
     assert Trainer(make_parser().parse_args(
         ["eval_fastformer", *_flags(fixture_dir), "--device", "cpu",
          "--model_name", "unbert"])).kind == "unbert"
-    with pytest.raises(NotImplementedError, match="UniSRec"):
-        Trainer(make_parser().parse_args(
-            ["eval_fastformer", *_flags(fixture_dir), "--device", "cpu",
-             "--model_name", "unisrec"]))
+    s = make_parser().parse_args(
+        ["train_fastformer", "@" + os.path.join(repo, "config", "train_unisrec.txt")])
+    assert (s.model_name, s.plm_preset, s.combine_type, s.max_title_length,
+            s.max_sapo_length, s.his_length, s.npratio, s.train_batch_size,
+            s.learning_rate, s.dropout, s.compute_dtype) == (
+        "unisrec", "bert_base", "pre-concat", 32, 128, 50, 4, 16, 1e-3, 0.2, "bfloat16")
+    assert s.remat and not s.use_sapo and not s.unisrec_train_all
+    assert Trainer(make_parser().parse_args(
+        ["eval_fastformer", *_flags(fixture_dir), "--device", "cpu",
+         "--model_name", "unisrec"])).kind == "vanilla"

@@ -1003,3 +1003,124 @@ def test_unbert_forward_on_card_matches_cpu(rng, mode):
     assert counts["add_ln_fwd"] - before["add_ln_fwd"] == 8
     assert torch.isfinite(got).all()
     assert (got - want).abs().max().item() <= 1e-4 * max(1.0, want.abs().max().item())
+
+
+# ------------------------------------- UniSRec's pre-concat titles on the card
+PRECONCAT_L = 159  # 32 title + 128 sapo - 1 tokens (NewsTable's pre-concat)
+
+
+def _preconcat_mask(N, L=PRECONCAT_L):
+    """Full rows and rows ending inside the last key tile of 64 (keys 128 to
+    158: 31 keys), inside the second query tile of 128 (31 rows) and early."""
+    ends = [L, L - 9, 140, 40][:N]
+    return (np.arange(L)[None] < np.asarray(ends)[:, None]).astype(np.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mha_at_the_preconcat_length_on_card(rng, dtype, rate):
+    """bert-base's attention, 12 heads of Dh = 64, over UniSRec's
+    pre-concatenated titles, L = 159: the forward's second query tile holds
+    31 rows and its third key tile 31 keys; the bf16 backward sums dQ over
+    two key tiles of 128 in its fp32 scratch, the second of 31 keys; masks
+    end inside the last tile. Forward and backward against the plain
+    versions, one launch each."""
+    dev = _card()
+    N, H, Dh, L = 4, 12, 64, PRECONCAT_L
+    qkv = torch.as_tensor(rng.normal(size=(N, L, 3 * H * Dh)) * 0.5, device=dev).to(dtype)
+    mask = torch.as_tensor(_preconcat_mask(N), device=dev)
+    dout = torch.as_tensor(rng.normal(size=(N, L, H * Dh)), device=dev).to(dtype)
+    seed = 2 ** 37 + L
+    before = launch_counts()
+    out, stats = mha._launch_fwd(qkv, mask, H, 1, rate, seed, True)
+    want = mha.mha_reference(qkv, mask, H, 1, rate, seed)
+    assert out.dtype == dtype and torch.isfinite(out).all()
+    assert (out.float() - want.float()).abs().max().item() <= _tol(dtype, want)
+    got = mha.mha_backward(qkv, mask, dout, H, rate, seed, 1, out, stats)
+    want = mha.mha_backward_reference(qkv, mask, dout, H, 1, rate, seed)
+    torch.cuda.synchronize()
+    assert launch_counts()["mha_fwd"] == before["mha_fwd"] + 1
+    assert launch_counts()["mha_bwd"] == before["mha_bwd"] + 1
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    _assert_mha_grad_close(got, want, H, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mha_dropout_mask_at_the_preconcat_length_on_card(rng, dtype):
+    """At L = 159 the forward kernel's dropout zeros lie exactly where the
+    plain Philox mask drops or the key mask ends (rows ending inside the
+    31-key tile), bit for bit, and the inference launch (no softmax
+    statistics) agrees with the plain version."""
+    dev = _card()
+    N, H, Dh, L, rate, seed = 4, 2, 64, PRECONCAT_L, 0.3, 2 ** 38 + 5
+    qkv = torch.as_tensor(rng.normal(size=(N, L, 3 * H * Dh)) * 0.5, device=dev).to(dtype)
+    mask = torch.as_tensor(_preconcat_mask(N), device=dev)
+    keep = philox.keep_mask(philox.mha_bits(seed, N, H, L, dev), rate)
+    want_zero = ~(keep & mask.bool()[:, None, None, :])
+    assert torch.equal(_mha_dropped(qkv, mask, H, rate, seed), want_zero)
+    got = mha.fused_mha(qkv, mask, H)
+    want = mha.mha_reference(qkv, mask, H)
+    assert (got.float() - want.float()).abs().max().item() <= _tol(dtype, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_add_ln_at_a_row_count_off_the_block_on_card(rng, dtype):
+    """add_ln forward (Triton, blocks of 4 rows of 768) and backward (CUDA)
+    at T = 7 x 159 = 1,113 rows, not a multiple of the row block, with
+    dropout 0.1: against the plain versions, dh's zeros bit for bit where
+    the Philox mask drops."""
+    dev = _card()
+    T, D, rate, seed = 7 * PRECONCAT_L, 768, 0.1, 2 ** 39 + 3
+    x, h, dy = (torch.as_tensor(rng.normal(size=(T, D)), device=dev).to(dtype)
+                for _ in range(3))
+    g = torch.as_tensor(1 + 0.1 * rng.normal(size=D), device=dev).float()
+    b = torch.as_tensor(0.1 * rng.normal(size=D), device=dev).float()
+    got = add_ln.fused_dropout_add_ln(x, h, g, b, rate, 1e-12, seed)
+    want = add_ln.add_ln_reference(x, h, g, b, 1e-12, rate, seed)
+    assert (got.float() - want.float()).abs().max().item() <= _tol(dtype, want)
+    grads = add_ln.add_ln_backward(x, h, g, dy, 1e-12, rate, seed)
+    keep = philox.keep_mask(philox.add_ln_bits(seed, T, D, dev), rate)
+    assert torch.equal(grads[1] != 0, keep)
+    for a, w in zip(grads, add_ln.add_ln_backward_reference(x, h, g, dy, 1e-12, rate, seed)):
+        assert torch.isfinite(a).all()
+        assert (a.float() - w.float()).abs().max().item() <= _tol(dtype, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("legacy", [False, True])
+def test_unisrec_forward_on_card_matches_cpu(rng, legacy):
+    """The tiny ``UniSRec`` (a 2-layer tower of width 64, the adaptor to
+    300, the SASRec tail) in float32 over pre-concatenated titles of 159
+    tokens, 2 users of 1 + 3 candidates and 5 history slots (a no-click
+    user; clicks first, or pads first): on the card through the mha and
+    add_ln kernels (the tail's plain products on cuBLAS), on the CPU
+    through the plain versions; same weights; scores within 1e-4 of their
+    scale."""
+    from miner_tpu_torch.models import NewsEncoderMoe, PLMConfig, UniSRec
+
+    dev = _card()
+    model = UniSRec(NewsEncoderMoe(PLMConfig.tiny()), max_his_len=5).eval()
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for p in model.news_encoder.moe_adaptor.parameters():
+            p.add_(0.3 * torch.randn(p.shape, generator=torch.Generator().manual_seed(1)))
+    B, C, H, L = 2, 4, 5, PRECONCAT_L
+    his_mask = np.array([[0, 0, 1, 1, 1] if legacy else [1, 1, 1, 0, 0], [0] * 5], np.int32)
+    batch = {"cand_title": rng.integers(1, 1000, size=(B, C, L)),
+             "cand_title_mask": np.broadcast_to(_preconcat_mask(4), (B, C, L)),
+             "his_title": rng.integers(1, 1000, size=(B, H, L)),
+             "his_title_mask": np.broadcast_to(_preconcat_mask(1), (B, H, L)),
+             "his_mask": his_mask}
+    batch = {k: torch.as_tensor(np.ascontiguousarray(v).astype(np.int32)) for k, v in batch.items()}
+    with torch.no_grad():
+        want = model(batch)
+        before = launch_counts()
+        got = model.to(dev)({k: v.to(dev) for k, v in batch.items()}).cpu()
+    counts = launch_counts()
+    assert counts["mha_fwd"] - before["mha_fwd"] == 2  # one tower call of 2 layers
+    assert counts["add_ln_fwd"] - before["add_ln_fwd"] == 4
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 1e-4 * max(1.0, want.abs().max().item())

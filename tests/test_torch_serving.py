@@ -207,7 +207,6 @@ def test_cuda_without_a_card_raises(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("extra, match", [
     (["--combine_type", "lstm"], "combine_type"),
-    (["--model_name", "unisrec"], "Queue 1: UniSRec"),
 ])
 def test_unported_flags_are_refused(tmp_path, extra, match):
     with pytest.raises(NotImplementedError, match=match):

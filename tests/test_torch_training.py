@@ -541,9 +541,7 @@ def test_train_and_eval_configs_parse_unchanged():
 
 @pytest.mark.parametrize("extra, match", [
     (["--his_cache_refresh", "2"], "cached-history training"),
-    (["--hf_checkpoint", "x"], "HF import"),
     (["--combine_type", "lstm"], "the other combines"),
-    (["--combine_type", "pre-concat"], "the other combines"),
     (["--param_dtype", "bfloat16"], "float32"),
 ])
 def test_training_flags_of_later_slices_are_refused(fixture_dir, extra, match):
