@@ -24,7 +24,10 @@ Phases, each of which makes the script exit non-zero when it fails:
    sequences of a micro-batch (16), an eval batch (64) and the largest
    serving call (512); mha and add_ln at UniSRec's pre-concatenated titles
    of 159 tokens: a micro-batch's 880 with dropout (the backward kernels
-   too), a cache-fill chunk's 512 and an eval batch's 64 without)
+   too), a cache-fill chunk's 512 and an eval batch's 64 without; mha and
+   add_ln, forward and backward, at a cached-history micro-batch's 80
+   candidates, L = 128 and 32, with dropout; poly-attention under the
+   legacy 1e-30 fill, bf16 and fp32, with masked and no-click rows)
    against its plain PyTorch version on the same inputs (the tolerance is
    printed beside the error; the mha backward's dq, dk and dv each at the
    scale of its (sequence, head)'s gradient; with dropout the kernel's
@@ -106,10 +109,25 @@ Phases, each of which makes the script exit non-zero when it fails:
    ``pytorch_model.bin`` of HF key names) and ``--unisrec_pretrained_path``
    (a RecBole-layout ``.pth``), both written from a seed: every grafted
    tensor on the card equal to the file's, one micro-batch finite.
-9. parity: the full-width Miner in float32 over 64 news, on the card
+9. cached-history training: ``train_miner.txt`` and ``train_fastformer.txt``
+   with ``--his_cache_refresh 2 --his_cache_warmup_steps 1
+   --gradient_accumulation_steps 2`` for one epoch: 2 full-history
+   micro-batches (``*_warmup``), then 14 that send the 80 candidates alone
+   through the towers and gather the history rows from the news-embedding
+   cache of the train corpus, refilled from the live weights
+   (``*_refill``) at micro-steps 2, 4, 8 and 12, which must be JAX's rule;
+   the cached micro-batch's time (its refill apart) beside train's, each
+   refill's time; the Miner's cached micro-batches launch every Miner
+   kernel and both backward ones, the Fastformer's (towers frozen) no
+   backward one. lstm / legacy: ``train_miner.txt`` with ``--combine_type
+   lstm --legacy_poly_mask`` for one epoch and its eval (news vectors in
+   fp32, so poly-attention and lookup+score take their fp32 routes), then
+   ``serve_miner.txt`` with the same flags on its ``finalModel`` over HTTP.
+10. parity: the full-width Miner in float32 over 64 news, on the card
    through the kernels and on the CPU through the plain versions; the cache
    rows and the scores of one request batch must agree.
-10. train parity, Miner, Fastformer, UnBERT and UniSRec: one micro-batch of
+11. train parity, Miner, Fastformer, UnBERT, UniSRec and the Miner's
+   cached-history micro-batch (one cache, filled on the card): one micro-batch of
    one impression (UnBERT: two packed rows) in float32, dropout off, on the
    card and on the CPU: the loss and every trainable parameter's gradient
    must agree (UniSRec with ``--unisrec_train_all``, so the tower's too);
@@ -165,10 +183,14 @@ TRAIN_RATE = 0.1  # hidden_dropout and attention_dropout of the PLM
 # are taken as full, and the pretrain eval's 256 sequences a call as a
 # chunk of 512). Poly-attention and lookup+score are counted shape by
 # shape instead (LaunchCensus).
-TRAIN_PHASES = ("train", "fastformer_train", "warm_start")  # 880 sequences a micro-batch
-BWD_PHASES = ("train", "warm_start", "pretrain")  # the phases that differentiate the PLM
+TRAIN_PHASES = ("train", "fastformer_train", "warm_start",  # 880 sequences a micro-batch
+                "his_cache_warmup", "fastformer_his_cache_warmup", "lstm_legacy_train")
+# the phases that differentiate the PLM
+BWD_PHASES = ("train", "warm_start", "pretrain", "his_cache_warmup", "lstm_legacy_train")
 FILL_PHASES = ("eval", "serve", "fastformer_eval", "fastformer_serve", "warm_start_eval",
-               "pretrain_eval", "serve_cache", "serve_int8")
+               "pretrain_eval", "serve_cache", "serve_int8", "his_cache_refill",
+               "his_cache_eval", "fastformer_his_cache_refill", "fastformer_his_cache_eval",
+               "lstm_legacy_eval", "lstm_legacy_serve")
 # the mha kernels' training cases (N, L, dropout rate, dtype, phases): the
 # sapo shape with dropout (the main path's), without it (Philox's share), in
 # fp32 (--compute_dtype float32, the CUDA-core kernels); the title shape;
@@ -206,7 +228,24 @@ UNISREC_FILL_PHASES = ("unisrec_eval", "unisrec_train_all_eval", "unisrec_serve"
 UNISREC_MHA_CASES = ((TRAIN_N, UNISREC_L, TRAIN_RATE, torch.bfloat16, UNISREC_TRAIN_PHASES),
                      (CHUNK, UNISREC_L, 0.0, torch.bfloat16, UNISREC_FILL_PHASES),
                      (64, UNISREC_L, 0.0, torch.bfloat16, ()))
+# cached-history training (--his_cache_refresh): past the warmup a
+# micro-batch's PLM sees its 16 x (1 + 4) candidates alone, titles and sapos
+CACHED_N = 16 * 5
+CACHED_PHASES = ("his_cache_train", "fastformer_his_cache_train")
+CACHED_MHA_CASES = tuple((CACHED_N, L, TRAIN_RATE, torch.bfloat16, CACHED_PHASES)
+                         for L in (TRAIN_SAPO, TRAIN_TITLE))
+# the flags the cached-history phases add to train_miner.txt and
+# train_fastformer.txt: warmup 1 update, refresh every 2, accumulation 2, so
+# that one epoch of 16 micro-batches crosses the warmup switch and refills
+HIS_CACHE_FLAGS = ("--his_cache_refresh", "2", "--his_cache_warmup_steps", "1",
+                   "--gradient_accumulation_steps", "2")
+LSTM_LEGACY_FLAGS = ("--combine_type", "lstm", "--legacy_poly_mask")
 FF_HEADS = 16  # the Fastformer of word_embed_dim 256 (trainer: 16 if D % 16 == 0)
+# the phases each Fastformer attention case stands for (its batch: 16, 64, 32)
+FF_CASE_PHASES = {"train": ("fastformer_train", "fastformer_his_cache_train",
+                            "fastformer_his_cache_warmup"),
+                  "eval": ("fastformer_eval", "fastformer_his_cache_eval"),
+                  "serve": ("fastformer_serve",)}
 TRAIN_B, EVAL_B = 16, 64  # train_fastformer.txt's train and eval batches
 # the kernels each phase of the main path must launch (and, for the frozen
 # Fastformer training, must not)
@@ -245,6 +284,19 @@ REQUIRED = {
     "unisrec_serve_cache_loaded": (),
     "unisrec_serve_int8": PLM_FWD,
     "unisrec_serve_int8_loaded": (),
+    # cached-history training: the candidates' micro-steps differentiate the
+    # PLM as the full ones do; a refill is the PLM forward alone
+    "his_cache_train": MINER_KERNELS + PLM_BWD,
+    "his_cache_warmup": MINER_KERNELS + PLM_BWD,
+    "his_cache_refill": PLM_FWD,
+    "his_cache_eval": SERVE_KERNELS,
+    "fastformer_his_cache_train": FF_KERNELS,
+    "fastformer_his_cache_warmup": FF_KERNELS,
+    "fastformer_his_cache_refill": PLM_FWD,
+    "fastformer_his_cache_eval": FF_KERNELS,
+    "lstm_legacy_train": MINER_KERNELS + PLM_BWD,
+    "lstm_legacy_eval": SERVE_KERNELS,
+    "lstm_legacy_serve": SERVE_KERNELS,
 }
 FORBIDDEN = {"fastformer_train": PLM_BWD,
              "serve_cache_loaded": PLM_FWD,  # the cache comes from the file
@@ -258,7 +310,12 @@ FORBIDDEN = {"fastformer_train": PLM_BWD,
              "unisrec_train_all": TAIL_KERNELS,
              **{phase: TAIL_KERNELS + PLM_BWD for phase in UNISREC_FILL_PHASES},
              **{f"unisrec_serve_{c}_loaded": TAIL_KERNELS + PLM_FWD + PLM_BWD
-                for c in ("cache", "int8")}}
+                for c in ("cache", "int8")},
+             # the towers frozen, as train_fastformer.txt ships them
+             "fastformer_his_cache_train": PLM_BWD,
+             "fastformer_his_cache_warmup": PLM_BWD,
+             **{f"{f}his_cache_refill": TAIL_KERNELS + PLM_BWD
+                for f in ("", "fastformer_")}}
 # the libraries whose ptxas report names each entry (kernels built in
 # several variants)
 ENTRY_REPORTS = ("mha_fwd", "mha_bwd", "add_ln_bwd", "poly_attention_fwd",
@@ -440,16 +497,18 @@ def mha_cases(dev, g):
             phases=phases)
     # UniSRec's pre-concatenated titles, L = 159: a second query tile of 31
     # rows and a third key tile of 31 keys; the micro-batch with dropout (and
-    # the statistics), the cache fill's chunk and an eval batch without
-    for N, L, rate, dtype, phases in UNISREC_MHA_CASES:
-        seed, train = 2 ** 46 + N, rate > 0
+    # the statistics), the cache fill's chunk and an eval batch without; and
+    # a cached-history micro-batch's 80 candidates at L = 128 and 32
+    for N, L, rate, dtype, phases in UNISREC_MHA_CASES + CACHED_MHA_CASES:
+        seed, train = 2 ** 46 + N + L, rate > 0
         qkv, mask = _mha_inputs(dev, g, N, L, dtype)
         q, k, v = qkv.view(N, L, 3, HEADS, -1).permute(2, 0, 3, 1, 4)
         bool_mask = mask.bool()[:, None, None, :]
         out = torch.empty(N, L, HIDDEN, dtype=dtype, device=dev)
         stats = torch.empty(N, HEADS, L, 2, device=dev) if train else out[:0]
         yield dict(
-            case=f"unisrec bf16 N={N} L={L} dropout {rate}", dtype=dtype,
+            case=f"{'cached' if N == CACHED_N else 'unisrec'} bf16 N={N} L={L} dropout {rate}",
+            dtype=dtype,
             kernel=lambda: mha._launch_fwd(qkv, mask, HEADS, 1, rate, seed, train)[0],
             plain=lambda: mha.mha_reference(qkv, mask, HEADS, 1, rate, seed),
             library=lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -492,7 +551,7 @@ def mha_bwd_cases(dev, g):
     from miner_tpu_torch.ops import mha
 
     for N, L, rate, dtype, phases in TRAIN_MHA_CASES + tuple(
-            c for c in UNBERT_MHA_CASES + UNISREC_MHA_CASES if c[2] > 0):
+            c for c in UNBERT_MHA_CASES + UNISREC_MHA_CASES + CACHED_MHA_CASES if c[2] > 0):
         seed = 2 ** 41 + L
         qkv, mask = _mha_inputs(dev, g, N, L, dtype)
         dout = torch.randn(N, L, HIDDEN, device=dev, generator=g).to(dtype)
@@ -515,7 +574,8 @@ def mha_bwd_cases(dev, g):
             bound=bound_ms(_nbytes(qkv, out, dout, stats, mask, qkv), flops, dtype),
             main=N == TRAIN_N and L == TRAIN_SAPO and rate > 0 and dtype == torch.bfloat16,
             phases=tuple(p for p in phases
-                         if p in BWD_PHASES + ("unbert_train", "unisrec_train_all")))
+                         if p in BWD_PHASES + ("unbert_train", "unisrec_train_all",
+                                               "his_cache_train")))
 
 
 def _ln_inputs(dev, g, T, dtype):
@@ -578,13 +638,14 @@ def add_ln_cases(dev, g):
                            torch.float32),
             phases=phases)
     # UniSRec's rows: a micro-batch's 880 x 159 with dropout, a fill chunk's
-    # 512 x 159 without
-    for N, L, rate, dtype, phases in UNISREC_MHA_CASES[:2]:
+    # 512 x 159 without; a cached-history micro-batch's 80 x 128 and 80 x 32
+    for N, L, rate, dtype, phases in UNISREC_MHA_CASES[:2] + CACHED_MHA_CASES:
         T, seed = N * L, 2 ** 47 + N
         x, h, scale, bias = _ln_inputs(dev, g, T, dtype)
         scale_t, bias_t = scale.to(dtype), bias.to(dtype)
         yield dict(
-            case=f"unisrec bf16 T={T} dropout {rate}", dtype=dtype,
+            case=f"{'cached' if N == CACHED_N else 'unisrec'} bf16 T={T} dropout {rate}",
+            dtype=dtype,
             kernel=lambda: add_ln.fused_dropout_add_ln(x, h, scale, bias, rate, 1e-12,
                                                        seed),
             plain=lambda: add_ln.add_ln_reference(x, h, scale, bias, 1e-12, rate, seed),
@@ -605,7 +666,9 @@ def add_ln_bwd_cases(dev, g):
                         (PRETRAIN_N, TRAIN_TITLE, torch.bfloat16),
                         (UNBERT_TRAIN_B, UNBERT_WORD, torch.bfloat16),
                         (UNBERT_TRAIN_B, UNBERT_NEWS, torch.bfloat16),
-                        (TRAIN_N, UNISREC_L, torch.bfloat16)):
+                        (TRAIN_N, UNISREC_L, torch.bfloat16),
+                        (CACHED_N, TRAIN_SAPO, torch.bfloat16),
+                        (CACHED_N, TRAIN_TITLE, torch.bfloat16)):
         T, seed = N * L, 2 ** 43 + L
         x, h, scale, bias = _ln_inputs(dev, g, T, dtype)
         dy = torch.randn(T, HIDDEN, device=dev, generator=g).to(dtype)
@@ -633,6 +696,7 @@ def add_ln_bwd_cases(dev, g):
             phases=(() if dtype != torch.bfloat16 else ("pretrain",) if N == PRETRAIN_N
                     else ("unbert_train",) if N == UNBERT_TRAIN_B
                     else ("unisrec_train_all",) if L == UNISREC_L
+                    else ("his_cache_train",) if N == CACHED_N
                     else tuple(p for p in TRAIN_PHASES if p in BWD_PHASES)))
 
 
@@ -659,20 +723,28 @@ def poly_cases(dev, g):
     """Poly-attention at the batches its paths give it (16: a training
     micro-batch; 32: a full serving request batch; 64: an eval batch), in
     bf16 and, at 32, in fp32 and with a quarter of the rows fully masked
-    (users with no clicks: the mean of the 50 real history rows)."""
+    (users with no clicks: the mean of the 50 real history rows); and under
+    --legacy_poly_mask (the launch's fill 1e-30 in place of logits + bias:
+    pads keep a weight), bf16 and fp32 at 32 with a quarter of the rows
+    fully masked and the rest of random length."""
     from miner_tpu_torch.ops import poly_attention
 
-    for B, dtype, masked in ((TRAIN_B, torch.bfloat16, 0), (MAX_BATCH, torch.bfloat16, 0),
-                             (EVAL_B, torch.bfloat16, 0), (MAX_BATCH, torch.float32, 0),
-                             (MAX_BATCH, torch.bfloat16, MAX_BATCH // 4)):
-        args = _poly_inputs(dev, g, B, dtype, masked)
+    legacy = poly_attention.LEGACY_FILL
+    for B, dtype, masked, fill in (
+            (TRAIN_B, torch.bfloat16, 0, None), (MAX_BATCH, torch.bfloat16, 0, None),
+            (EVAL_B, torch.bfloat16, 0, None), (MAX_BATCH, torch.float32, 0, None),
+            (MAX_BATCH, torch.bfloat16, MAX_BATCH // 4, None),
+            (MAX_BATCH, torch.bfloat16, MAX_BATCH // 4, legacy),
+            (MAX_BATCH, torch.float32, MAX_BATCH // 4, legacy)):
+        args = _poly_inputs(dev, g, B, dtype, masked) + ((fill,) if fill else ())
         yield dict(
-            case=f"{str(dtype)[6:]} B={B}" + (f", {masked} rows fully masked" if masked else ""),
+            case=f"{str(dtype)[6:]} B={B}" + (f", {masked} rows fully masked" if masked else "")
+            + (" legacy fill" if fill else ""),
             dtype=dtype,
             kernel=lambda: poly_attention.poly_attention_fused(*args),
             plain=lambda: poly_attention.poly_attention_reference(*args),
             library=None,
-            bound=_poly_bound(args),
+            bound=_poly_bound(args[:5]),
             main=dtype == torch.bfloat16 and B == MAX_BATCH and not masked)
 
 
@@ -807,7 +879,7 @@ def ff_cases(dev, g):
             library=None,
             bound=bound_ms(nbytes, flops, dtype),
             main=dtype == torch.float32 and what == "train",
-            phases=(f"fastformer_{what}",) if dtype == torch.float32 and " " not in what
+            phases=FF_CASE_PHASES[what] if dtype == torch.float32 and " " not in what
             else ())
 
 
@@ -1539,8 +1611,18 @@ TRAIN_CONFIGS = {"miner": ("train", "train_miner.txt", "train", "eval"),
                  "unisrec": ("train_fastformer", "train_unisrec.txt", "unisrec_train",
                              "unisrec_eval"),
                  "unisrec_all": ("train_fastformer", "train_unisrec.txt", "unisrec_train_all",
-                                 "unisrec_train_all_eval")}
-PARITY_FAMILIES = ("miner", "fastformer", "unbert", "unisrec")
+                                 "unisrec_train_all_eval"),
+                 # HIS_CACHE_FLAGS on top of train_miner.txt and train_fastformer.txt
+                 "his_cache": ("train", "train_miner.txt", "his_cache_train", "his_cache_eval"),
+                 "fastformer_his_cache": ("train_fastformer", "train_fastformer.txt",
+                                          "fastformer_his_cache_train",
+                                          "fastformer_his_cache_eval"),
+                 # LSTM_LEGACY_FLAGS on top of train_miner.txt
+                 "lstm_legacy": ("train", "train_miner.txt", "lstm_legacy_train",
+                                 "lstm_legacy_eval")}
+# "his_cache": the Miner's cached-history micro-batch (the candidates through
+# the towers, the history from a cache filled on the card)
+PARITY_FAMILIES = ("miner", "fastformer", "unbert", "unisrec", "his_cache")
 # the flags each family's parity phase adds: UniSRec trains its PLM too, so
 # that every tower gradient is compared
 PARITY_FLAGS = {"unisrec": ("--unisrec_train_all",)}
@@ -1549,9 +1631,24 @@ PARITY_FLAGS = {"unisrec": ("--unisrec_train_all",)}
 TOKENIZERS = {"unbert": "hash:30522", "unisrec": "hash:30522", "unisrec_all": "hash:30522"}
 # serve_miner.txt's flags overridden for a family's checkpoint
 SERVE_FLAGS = {"fastformer_serve": ("--model_name", "fastformer"),
+               "lstm_legacy_serve": LSTM_LEGACY_FLAGS,
                "unisrec_serve": ("--model_name", "unisrec", "--plm_preset", "bert_base",
                                  "--pretrained_tokenizer", TOKENIZERS["unisrec"],
                                  "--combine_type", "pre-concat")}
+
+
+# the median micro-batch of each train phase, in ms (the cached-history
+# phases print theirs beside the full-history ones)
+MICRO_BATCH_MS = {}
+# the train phases whose last micro-batches torch.profiler traces: the
+# device's busy time a micro-batch against the median of the others, and
+# where it goes (the profiled micro-batches stay out of the median)
+PROFILED_PHASES = ("train", "fastformer_train", "his_cache_train", "fastformer_his_cache_train")
+PROFILED_STEPS = 3
+# substrings of the hand-written kernels' names in a trace (csrc's entry
+# points and the Triton add_ln forward)
+OWN_KERNELS = ("mha_fwd_", "mha_bwd_", "add_ln_fwd", "add_ln_bwd_kernel", "poly_attention_",
+               "lookup_score_", "fastformer_attn_fwd_kernel")
 
 
 def micro_batches(family: str) -> int:
@@ -1624,23 +1721,84 @@ def train_phase(corpus: str, out: str, family: str = "miner", *extra: str):
     held, after_fwd = [], []  # GiB allocated at each micro-batch's start, after its forward
     eval_name = "_run_pretrain_eval" if trainer.kind == "pretrain" else "_run_eval"
     train_step, run_eval = trainer.train_step, getattr(trainer, eval_name)
-    apply_and_loss = trainer._apply_and_loss
+    apply_and_loss, cached_loss = trainer._apply_and_loss, trainer._cached_his_loss
+    # cached-history training: each micro-batch's phase (``phase`` for the
+    # cached ones, ``{phase}_warmup`` for the full-history ones), the
+    # launches of each, and each cache refill's time and launches
+    # (``{phase}_refill``), apart from the micro-batch it sits in
+    step_phase, step_counts, refill_s, refill_in_step, caches = [], {}, [], [], []
+    sub_phase = lambda kind: f"{phase.rsplit('_train', 1)[0]}_{kind}"  # noqa: E731
+    # device memory peaks (bytes): before the first cached micro-batch (the
+    # stats are reset there), and of the micro-batches at the eval's start
+    peaks = {}
+    profile_from = (micro_batches(family) - PROFILED_STEPS if phase in PROFILED_PHASES
+                    else None)
+    profiler = []
+    make_cache, fill = trainer.make_history_cache, trainer.fill_history_cache
+
+    def captured_cache(*a, **k):
+        caches.append(make_cache(*a, **k))
+        return caches[-1]
+
+    ledger = {"phase": None, "at": None}
+
+    def charge(to):
+        """Charge the launches since the last call to the phase then
+        current, and make ``to`` current (None: no phase)."""
+        now = launch_counts()
+        if ledger["phase"] is not None:
+            counts = step_counts.setdefault(ledger["phase"], {n: 0 for n in now})
+            for n in now:
+                counts[n] += now[n] - ledger["at"][n]
+        ledger.update(phase=to, at=now)
+        CENSUS.phase = to or phase
+
+    def timed_fill(*a, **k):
+        torch.cuda.synchronize()
+        outer, t0 = ledger["phase"], time.perf_counter()
+        charge(sub_phase("refill"))
+        out = fill(*a, **k)
+        torch.cuda.synchronize()
+        refill_s.append(time.perf_counter() - t0)
+        charge(outer)
+        return out
 
     def measured_forward(*a, **k):
         out = apply_and_loss(*a, **k)
         after_fwd.append(torch.cuda.memory_allocated() / 2 ** 30)
         return out
 
+    def measured_cached_forward(*a, **k):
+        out = cached_loss(*a, **k)
+        after_fwd.append(torch.cuda.memory_allocated() / 2 ** 30)
+        return out
+
     def timed_step(*a, **k):
+        if len(step_s) == profile_from:
+            profiler.append(torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]))
+            profiler[0].__enter__()
         held.append(torch.cuda.memory_allocated() / 2 ** 30)
-        t0 = time.perf_counter()
+        cache = a[5] if len(a) > 5 else k.get("his_cache")
+        name = phase if cache is None or cache.cached(a[4]) else sub_phase("warmup")
+        if cache is not None and name == phase and "warmup" not in peaks:
+            peaks["warmup"] = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        step_phase.append(name)
+        charge(name)
+        fills, t0 = len(refill_s), time.perf_counter()
         loss = train_step(*a, **k)
         step_loss.append(float(loss))  # synchronises
         step_s.append(time.perf_counter() - t0)
+        refill_in_step.append(sum(refill_s[fills:]))
+        charge(None)
+        if profiler and len(step_s) == profile_from + PROFILED_STEPS:
+            profiler[0].__exit__(None, None, None)
         return loss
 
     def timed_eval(*a, **k):
         before_eval.update(launch_counts())
+        peaks.setdefault("steps", torch.cuda.max_memory_allocated())
         CENSUS.phase = eval_phase
         t0 = time.perf_counter()
         out = run_eval(*a, **k)
@@ -1671,6 +1829,9 @@ def train_phase(corpus: str, out: str, family: str = "miner", *extra: str):
     trainer.train_step = timed_step
     setattr(trainer, eval_name, timed_eval)
     trainer._apply_and_loss = measured_forward
+    trainer._cached_his_loss = measured_cached_forward
+    trainer.make_history_cache = captured_cache
+    trainer.fill_history_cache = timed_fill
     # what earlier phases left in reference cycles (their models and
     # optimizer states among them) is freed first, so the peak is this run's
     gc.collect()
@@ -1691,13 +1852,23 @@ def train_phase(corpus: str, out: str, family: str = "miner", *extra: str):
     # the loss column is empty under train_miner.txt's --evaluation_info metrics
     metrics = {k: float(v) for k, v in evals[-1].items()
                if k not in ("epoch", "step") and v != ""}
-    steady = sorted(step_s[1:])
+    (cache,) = caches
+    # a cached-history run's micro-batch is a cached one, its refill apart;
+    # the profiled ones are left out
+    unprofiled = len(step_s) if profile_from is None else profile_from
+    steady = sorted(step_s[1:unprofiled]) if cache is None else sorted(
+        t - r for t, r, n in zip(step_s[:unprofiled], refill_in_step, step_phase) if n == phase)
     mid = steady[len(steady) // 2]
+    MICRO_BATCH_MS[phase] = 1e3 * mid
     accum = args.gradient_accumulation_steps
     if trainer.kind == "pretrain":  # the positive, its variants, the negatives
         what = f"{args.train_batch_size * (1 + len(args.augmentations or ()) + args.npratio)} news"
     elif trainer.kind == "unbert":
         what = f"packed rows of {UNBERT_WORD} tokens and {UNBERT_NEWS} sentences"
+    elif cache is not None:
+        what = (f"{args.train_batch_size * (args.npratio + 1)} news through the towers past "
+                f"the warmup, {args.train_batch_size * (args.npratio + 1 + args.his_length)} "
+                "before")
     else:
         what = f"{args.train_batch_size * (args.npratio + 1 + args.his_length)} news"
     log(f"{phase}: {args.model_name if trainer.kind != 'pretrain' else 'pretrain'}, "
@@ -1712,8 +1883,8 @@ def train_phase(corpus: str, out: str, family: str = "miner", *extra: str):
         f"{args.train_batch_size / mid:.2f} examples/s, "
         f"{1 / (mid * accum):.3f} updates/s; "
         f"eval {eval_s[0]:.2f} s; whole train() {wall_s:.2f} s; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB on "
-        f"{torch.cuda.get_device_name(0)}")
+        f"{max(peaks.get('warmup', 0), torch.cuda.max_memory_allocated()) / 2 ** 30:.2f} "
+        f"GiB on {torch.cuda.get_device_name(0)}")
     log(f"{phase}: optimizer updates (clip, AdamW; in the micro-batch times above) "
         f"{[round(1e3 * t, 1) for t in update_s]} ms")
     log(f"{phase}: device memory of the last micro-batch: {held[-1]:.2f} GiB held "
@@ -1722,7 +1893,12 @@ def train_phase(corpus: str, out: str, family: str = "miner", *extra: str):
         f"of the eval, if any, come later)")
     log(f"{phase}: losses {[round(x, 4) for x in step_loss]}")
     log(f"{phase}: eval {metrics}")
-    per_batch = {k: before_eval[k] / len(step_s) for k in before_eval}
+    if profiler:
+        _report_profile(phase, profiler[0], 1e3 * mid)
+    if cache is not None:
+        _report_history_cache(phase, args, cache, step_s, step_phase, refill_s,
+                              refill_in_step, peaks, unprofiled)
+    per_batch = {k: step_counts[phase][k] / step_phase.count(phase) for k in step_counts[phase]}
     log(f"{phase}: kernel launches per micro-batch {per_batch}; in the eval "
         f"{eval_counts}")
     bad = [x for x in step_loss + list(metrics.values()) if not math.isfinite(x)]
@@ -1730,7 +1906,10 @@ def train_phase(corpus: str, out: str, family: str = "miner", *extra: str):
             or len(step_s) != micro_batches(family)):
         raise SystemExit(f"{phase} phase: non-finite {bad}, {run.optimizer.updates} "
                          f"updates, {len(step_s)} micro-batches")
-    _check_launches(phase, before_eval)
+    for name, c in step_counts.items():
+        if name != phase:
+            log(f"{name}: kernel launches {c}")
+        _check_launches(name, c)
     _check_launches(eval_phase, eval_counts)
     _check_per_batch(phase, per_batch)
     ckpt = os.path.join(run.run_dir, "ckpt")
@@ -1767,7 +1946,75 @@ def train_phase(corpus: str, out: str, family: str = "miner", *extra: str):
         if moved or not warm:
             raise SystemExit(f"{phase} phase: the warm-started encoder moved at learning "
                              f"rate 0: {moved[:5]}")
-    return {phase: before_eval, eval_phase: eval_counts}, final
+    return {**step_counts, eval_phase: eval_counts}, final
+
+
+def _report_profile(phase: str, prof, median_ms: float) -> None:
+    """The device's busy time a micro-batch over the profiled ones (the sum
+    of the kernels and copies the trace shows, one stream; the device-side
+    copies of annotated ranges, such as the optimizer's step, left out),
+    against the median micro-batch of the others, and the kernels that
+    take it: the hand-written ones, cuBLAS's products, the rest."""
+    per_name = {}
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            us, calls = per_name.get(e.name, (0.0, 0))
+            per_name[e.name] = (us + e.time_range.elapsed_us(), calls + 1)
+    per = lambda us: us / 1e3 / PROFILED_STEPS  # noqa: E731
+    total = per(sum(us for us, _ in per_name.values()))
+    if total == 0:
+        log(f"{phase}: torch.profiler saw no device time: device busy share not measured")
+        return
+    own = per(sum(us for n, (us, _) in per_name.items() if any(k in n for k in OWN_KERNELS)))
+    gemm = per(sum(us for n, (us, _) in per_name.items() if not any(k in n for k in OWN_KERNELS)
+                   and any(k in n.lower() for k in ("nvjet", "gemm", "xmma", "cutlass", "cublas"))))
+    log(f"{phase}: torch.profiler over the last {PROFILED_STEPS} micro-batches: device busy "
+        f"{total:.2f} ms a micro-batch against the {median_ms:.1f} ms median of the others "
+        f"(busy share {total / median_ms:.1%}): hand-written kernels {own:.2f} ms, "
+        f"cuBLAS products {gemm:.2f} ms, the rest {total - own - gemm:.2f} ms, over "
+        f"{sum(c for _, c in per_name.values()) / PROFILED_STEPS:.0f} launches a micro-batch")
+    for name, (us, calls) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        log(f"    {per(us):8.3f} ms, {calls / PROFILED_STEPS:6.1f} calls a micro-batch  "
+            f"{name[:90]}")
+
+
+def _report_history_cache(phase, args, cache, step_s, step_phase, refill_s,
+                          refill_in_step, peaks, unprofiled) -> None:
+    """A cached-history run's figures, and its refills against JAX's rule
+    (``miner_tpu/training/trainer.py:759-766``): micro-steps below the
+    warmup (W x accumulation) on the full history; the cache built at the
+    first cached micro-step (it starts empty) and rebuilt at every multiple
+    of K x accumulation."""
+    steps = len(step_s)
+    rule = [s for s in range(steps)
+            if s >= cache.warmup and (s == cache.warmup or s % cache.every == 0)]
+    cached = [(1e3 * (t - r), r > 0) for t, r, n in zip(step_s, refill_in_step, step_phase)
+              if n == phase]
+    timed = cached[:len(cached) - (steps - unprofiled)]  # the profiled ones apart
+    plain = sorted(ms for ms, refilled in timed if not refilled)
+    net = sorted(ms for ms, _ in timed)
+    full = [round(1e3 * t, 1) for t, n in zip(step_s, step_phase) if n != phase]
+    batch = args.train_batch_size
+    log(f"{phase}: --his_cache_refresh {args.his_cache_refresh} --his_cache_warmup_steps "
+        f"{args.his_cache_warmup_steps} at accumulation {args.gradient_accumulation_steps}: "
+        f"{steps - len(cached)} full-history micro-batches {full} ms (the first with kernel "
+        f"compiles), then {len(cached)} cached ({batch} x {args.npratio + 1} candidates "
+        f"through the PLM, {args.his_length} history rows a user from the cache)")
+    log(f"{phase}: cached micro-batch {net[len(net) // 2]:.1f} ms median of {len(net)} "
+        f"(its refill apart), {plain[len(plain) // 2]:.1f} ms median of the {len(plain)} "
+        f"without a refill; {1e3 * batch / net[len(net) // 2]:.2f} examples/s; "
+        f"train's full-history micro-batch {MICRO_BATCH_MS.get('train', float('nan')):.1f} "
+        f"ms, fastformer_train's {MICRO_BATCH_MS.get('fastformer_train', float('nan')):.1f} ms")
+    log(f"{phase}: cache refills at micro-steps {cache.fills} (JAX's rule: {rule}), "
+        f"{[round(1e3 * t, 1) for t in refill_s]} ms each, {cache.embeddings.shape[0]} "
+        f"news of {cache.embeddings.shape[1]} in {cache.embeddings.dtype}")
+    log(f"{phase}: peak memory {peaks['warmup'] / 2 ** 30:.2f} GiB up to the last "
+        f"full-history micro-batch, {peaks['steps'] / 2 ** 30:.2f} GiB over the cached ones "
+        f"and their refills")
+    if cache.fills != rule or len(refill_s) != len(rule):
+        raise SystemExit(f"{phase} phase: refills at {cache.fills} ({len(refill_s)} timed), "
+                         f"JAX's rule gives {rule}")
 
 
 def train_parity_phase(corpus: str, out: str, family: str = "miner") -> None:
@@ -1781,8 +2028,11 @@ def train_parity_phase(corpus: str, out: str, family: str = "miner") -> None:
     gradients are compared too, and its ``w_noise``, which only the
     training mode's gating noise reaches, has none on either device); for
     UnBERT also the serving scores of two slates of 4, within 1e-3 of their
-    scale. Tolerance: 1e-3 of each gradient's largest magnitude plus
-    1e-5 of the largest over all gradients, since float32 sums through 12
+    scale; "his_cache" is the Miner's cached-history micro-batch: the 5
+    candidates through the towers, the 50 history rows gathered from one
+    cache of the corpus (filled on the card, a copy on the CPU).
+    Tolerance: 1e-3 of each gradient's largest magnitude plus 1e-5 of the
+    largest over all gradients, since float32 sums through 12
     layers forward and back are taken in other orders by the kernels and
     cuBLAS than by the plain versions and the CPU's BLAS, and a gradient
     that is a small difference of large terms (the target-aware
@@ -1793,7 +2043,7 @@ def train_parity_phase(corpus: str, out: str, family: str = "miner") -> None:
 
     import numpy as np
 
-    result, scores = {}, {}
+    result, scores, cache_emb = {}, {}, None
     for device in ("cuda", "cpu"):
         trainer = Trainer(train_args(corpus, out, "--compute_dtype", "float32",
                                      "--device", device, *PARITY_FLAGS.get(family, ()),
@@ -1811,7 +2061,17 @@ def train_parity_phase(corpus: str, out: str, family: str = "miner") -> None:
         model = trainer.build_model().to(trainer.device).eval()
         if a.freeze_transformer:
             model.news_encoder.plm.requires_grad_(False)
-        loss, _ = trainer._apply_and_loss(model, trainer._make_table(store), batch, True)
+        table = trainer._make_table(store)
+        if family == "his_cache":
+            # one cache for both devices, filled on the card (its rows are
+            # held against the CPU's by the parity phase): the cached step's
+            # own arithmetic is compared
+            if cache_emb is None:
+                cache_emb = trainer.fill_history_cache(model, table)
+            loss, _ = trainer._cached_his_loss(model, table, batch,
+                                               cache_emb.to(trainer.device))
+        else:
+            loss, _ = trainer._apply_and_loss(model, table, batch, True)
         loss.backward()
         # a tensor the loss does not reach has no gradient on either
         # device (UniSRec's w_noise: no gating noise in eval mode)
@@ -2111,6 +2371,13 @@ def main(argv=None) -> int:
         all_counts, _ = train_phase(corpus, tmp, "unisrec_all", "--unisrec_train_all",
                                     "--gradient_accumulation_steps", "8")
         counts.update(all_counts)
+        hc_counts, _ = train_phase(corpus, tmp, "his_cache", *HIS_CACHE_FLAGS)
+        counts.update(hc_counts)
+        ff_hc_counts, _ = train_phase(corpus, tmp, "fastformer_his_cache", *HIS_CACHE_FLAGS)
+        counts.update(ff_hc_counts)
+        lstm_counts, lstm_model = train_phase(corpus, tmp, "lstm_legacy", *LSTM_LEGACY_FLAGS)
+        counts.update(lstm_counts)
+        counts["lstm_legacy_serve"] = serve_phase(corpus, lstm_model, "lstm_legacy_serve")
         hf_import_phase(corpus, tmp, tmp)
         write_corpus(os.path.join(tmp, "parity"), 64, seed=1)
         parity_phase(os.path.join(tmp, "parity"))

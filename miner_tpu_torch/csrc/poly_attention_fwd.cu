@@ -5,7 +5,7 @@
 // poly_attention_fused). Per batch row b, with emb (H, D), W (D, P) and
 // codes (K, P):
 //   proj    = tanh(emb @ W), rounded to emb's type      (H, P)
-//   logits  = proj @ codes^T + bias[b]; masked -> -1e9   (H, K)
+//   logits  = proj @ codes^T + bias[b]; masked -> fill   (H, K)
 //   weights = softmax over H (fp32), rounded to emb's type
 //   out     = weights^T @ emb                           (K, D)
 //
@@ -29,10 +29,13 @@
 //      distributed shared memory (every CTA gets the same sums), adds the
 //      bias, masks, and takes the softmax over H in fp32, rounded to bf16;
 //   4. out[:, its quarter of D] = weights^T @ emb on the mma.
+// The fill of a masked slot is the launch's mask_fill: -1e9 (masking), or
+// the reference's legacy 1e-30 (--legacy_poly_mask: a masked slot's logit
+// is ~0, so pads keep a weight), in place of logits + bias.
 // Padding: history rows past H are zero in emb and are left out of the
-// softmax (weight exactly 0), so a user with no clicks, whose H real rows
-// all hold the finite -1e9, gets the mean of the H real rows, as the plain
-// version does; P columns past P are zero in both W and the codes (tanh(0)
+// softmax (weight exactly 0, -inf whatever the fill), so a user with no
+// clicks, whose H real rows all hold the finite fill, gets the mean of the
+// H real rows (pads included), as the plain version does; P columns past P are zero in both W and the codes (tanh(0)
 // = 0 against a zero code); codes past K are zero and their rows of out
 // are not written. Nothing but out touches device memory.
 //
@@ -60,7 +63,7 @@ __global__ void __launch_bounds__(THREADS)
 poly_attention_fp32(const float* __restrict__ emb, const float* __restrict__ w,
                     const float* __restrict__ codes, const int* __restrict__ mask,
                     const float* __restrict__ bias, float* __restrict__ out, int H, int D,
-                    int P, int K) {
+                    int P, int K, float mask_fill) {
   extern __shared__ float smem[];
   float* sE = smem;                  // (H, D)
   float* sProj = sE + H * D;         // (H, P)
@@ -100,7 +103,7 @@ poly_attention_fp32(const float* __restrict__ emb, const float* __restrict__ w,
     float acc = 0.f;
     for (int p = 0; p < P; ++p) acc += pr[p] * cr[p];
     acc += bias[(long)b * H + h];
-    sW[idx] = mask[(long)b * H + h] != 0 ? acc : MASK_FILL;
+    sW[idx] = mask[(long)b * H + h] != 0 ? acc : mask_fill;
   }
   __syncthreads();
 
@@ -168,7 +171,7 @@ __global__ void __cluster_dims__(NC, 1, 1) __launch_bounds__(32 * TC_WARPS)
 poly_attention_bf16(const bf16* __restrict__ emb, const bf16* __restrict__ w,
                     const bf16* __restrict__ codes, const int* __restrict__ mask,
                     const float* __restrict__ bias, bf16* __restrict__ out, int H, int D,
-                    int P, int K) {
+                    int P, int K, float mask_fill) {
   extern __shared__ __align__(16) unsigned char smem_tc[];  // fp32's smem is a float[]
   const Layout lay(H, D, P, K);
   float* sPart = reinterpret_cast<float*>(smem_tc + lay.part);
@@ -253,8 +256,8 @@ poly_attention_bf16(const bf16* __restrict__ emb, const bf16* __restrict__ w,
   }
   cluster.sync();  // every CTA's partial logits are written
 
-  // 3. the cluster's sum of the partials, in rank order, with bias and mask;
-  // history rows past H get -inf: no weight at all
+  // 3. the cluster's sum of the partials, in rank order, with bias and mask
+  // (masked slots: mask_fill); history rows past H get -inf: no weight at all
   const float* parts[NC];
 #pragma unroll
   for (int r = 0; r < NC; ++r) parts[r] = cluster.map_shared_rank(sPart, r);
@@ -267,7 +270,7 @@ poly_attention_bf16(const bf16* __restrict__ emb, const bf16* __restrict__ w,
       float acc = 0.f;
 #pragma unroll
       for (int r = 0; r < NC; ++r) acc += parts[r][i];
-      v = mrow[h] != 0 ? acc + brow[h] : MASK_FILL;
+      v = mrow[h] != 0 ? acc + brow[h] : mask_fill;
     }
     sLog[h * lay.ldl + k] = v;
   }
@@ -322,7 +325,7 @@ poly_attention_bf16(const bf16* __restrict__ emb, const bf16* __restrict__ w,
 
 cudaError_t launch_bf16(const void* emb, const void* w, const void* codes, const void* mask,
                         const void* bias, void* out, int B, int H, int D, int P, int K,
-                        cudaStream_t stream) {
+                        float mask_fill, cudaStream_t stream) {
   if (D % 16 != 0 || P % 8 != 0) return cudaErrorInvalidValue;
   const size_t smem = Layout(H, D, P, K).bytes;
   cudaError_t err = cudaFuncSetAttribute(
@@ -331,13 +334,14 @@ cudaError_t launch_bf16(const void* emb, const void* w, const void* codes, const
   poly_attention_bf16<<<B * NC, 32 * TC_WARPS, smem, stream>>>(
       static_cast<const bf16*>(emb), static_cast<const bf16*>(w),
       static_cast<const bf16*>(codes), static_cast<const int*>(mask),
-      static_cast<const float*>(bias), static_cast<bf16*>(out), H, D, P, K);
+      static_cast<const float*>(bias), static_cast<bf16*>(out), H, D, P, K, mask_fill);
   return cudaGetLastError();
 }
 
 cudaError_t launch_fp32(const void* emb, const void* w, const void* codes,
                         const void* mask, const void* bias, void* out, int B,
-                        int H, int D, int P, int K, cudaStream_t stream) {
+                        int H, int D, int P, int K, float mask_fill,
+                        cudaStream_t stream) {
   const size_t smem = fp32_smem_bytes(H, D, P, K);
   cudaError_t err = cudaFuncSetAttribute(
       poly_attention_fp32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -345,7 +349,7 @@ cudaError_t launch_fp32(const void* emb, const void* w, const void* codes,
   poly_attention_fp32<<<B, THREADS, smem, stream>>>(
       static_cast<const float*>(emb), static_cast<const float*>(w),
       static_cast<const float*>(codes), static_cast<const int*>(mask),
-      static_cast<const float*>(bias), static_cast<float*>(out), H, D, P, K);
+      static_cast<const float*>(bias), static_cast<float*>(out), H, D, P, K, mask_fill);
   return cudaGetLastError();
 }
 
@@ -359,21 +363,22 @@ extern "C" long long poly_attention_smem_bytes(int H, int D, int P, int K, int d
 
 // emb (B, H, D), w (D, P), codes (K, P) and out (B, K, D) of one dtype;
 // mask (B, H) int32; bias (B, H) float32; all contiguous. bf16: D a
-// multiple of 16 and P of 8, emb, w and codes 16-byte aligned.
+// multiple of 16 and P of 8, emb, w and codes 16-byte aligned. mask_fill:
+// the logit of a masked slot.
 extern "C" int poly_attention_fwd(const void* emb, const void* w,
                                   const void* codes, const void* mask,
                                   const void* bias, void* out, int B, int H,
-                                  int D, int P, int K, int dtype, int device,
-                                  void* stream) {
+                                  int D, int P, int K, int dtype, float mask_fill,
+                                  int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (B <= 0 || H <= 0 || D <= 0 || P <= 0 || K <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case DTYPE_F32:
-      return launch_fp32(emb, w, codes, mask, bias, out, B, H, D, P, K, s);
+      return launch_fp32(emb, w, codes, mask, bias, out, B, H, D, P, K, mask_fill, s);
     case DTYPE_BF16:
-      return launch_bf16(emb, w, codes, mask, bias, out, B, H, D, P, K, s);
+      return launch_bf16(emb, w, codes, mask, bias, out, B, H, D, P, K, mask_fill, s);
     default:
       return cudaErrorInvalidValue;
   }

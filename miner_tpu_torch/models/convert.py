@@ -15,8 +15,11 @@ a ``TransformerPLM``). The layouts differ in three ways:
     ``weight``;
   * an unrolled layer stack ``layer_{i}`` becomes ``layers.{i}``, UnBERT's
     two stacks ``word_layer_{i}`` and ``news_layer_{i}`` become
-    ``word_layers.{i}`` and ``news_layers.{i}``, and UniSRec's
-    ``trm_layer_{i}`` become ``trm_layers.{i}``.
+    ``word_layers.{i}`` and ``news_layers.{i}``, UniSRec's
+    ``trm_layer_{i}`` become ``trm_layers.{i}``, and the lstm combine's
+    cells ``OptimizedLSTMCell_{j}`` (flax binds them to the combine, layer
+    i's forward cell at j = 2 i, its backward cell at 2 i + 1) become
+    ``cells.{j}``, their ``ii`` ... ``ho`` Dense kernels ``weight``s.
 
 Other leaves (LayerNorm and Dense ``bias``, poly-attention's
 ``proj_kernel`` and ``context_codes``, the Fastformer's
@@ -37,6 +40,7 @@ import numpy as np
 import torch
 
 _LAYER = re.compile(r"((?:word_|news_|trm_)?layer)_(\d+)$")
+_CELL = re.compile(r"OptimizedLSTMCell_(\d+)$")
 
 
 def params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
@@ -45,8 +49,9 @@ def params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     def walk(tree: Mapping, prefix: str) -> None:
         for name, value in tree.items():
             if isinstance(value, Mapping):
-                m = _LAYER.match(name)
-                sub = f"{m.group(1)}s.{m.group(2)}" if m else name
+                m, cell = _LAYER.match(name), _CELL.match(name)
+                sub = (f"{m.group(1)}s.{m.group(2)}" if m
+                       else f"cells.{cell.group(1)}" if cell else name)
                 walk(value, f"{prefix}{sub}.")
                 continue
             arr = np.asarray(value, dtype=np.float32)

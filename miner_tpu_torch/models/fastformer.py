@@ -176,8 +176,7 @@ class FastformerUserModel(nn.Module):
         self.fast_attn = Fastformer(cfg)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        normal_init_(self.news_encoder, self.news_encoder.plm_cfg.initializer_range,
-                     generator)
+        self.news_encoder.reset_parameters(generator)
         self.fast_attn.reset_parameters(generator)
 
     def encode_news(self, title_ids, title_mask, sapo_ids=None, sapo_mask=None,

@@ -25,9 +25,9 @@ import torch.nn.functional as F
 
 from miner_tpu_torch.models.dropout import DropoutRNG, dropout_active
 from miner_tpu_torch.models.news_encoder import NewsEncoder
-from miner_tpu_torch.models.plm import normal_init_
 from miner_tpu_torch.models.poly_attention import PolyAttention, TargetAwareAttention
 from miner_tpu_torch.ops.lookup_score import lookup_score_fused
+from miner_tpu_torch.parallel.news_cache import gathered_dtype
 from miner_tpu_torch.utils import pairwise_cosine_similarity
 
 
@@ -77,15 +77,14 @@ class Miner(nn.Module):
             self.category_embedding = CategoryEmbedding(
                 num_categories, cat_dim, category_pad_id, category_embed, dtype)
         self.poly_attn = PolyAttention(embed_dim, num_context_codes,
-                                       context_code_dim, legacy_mask)
+                                       context_code_dim, legacy_mask, dtype)
         if score_type == "weighted":
-            self.target_aware_attn = TargetAwareAttention(embed_dim)
+            self.target_aware_attn = TargetAwareAttention(embed_dim, dtype)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Random init from ``generator`` with the JAX package's schemes
         (the numbers differ from JAX's: its PRNG is another one)."""
-        normal_init_(self.news_encoder, self.news_encoder.plm_cfg.initializer_range,
-                     generator)
+        self.news_encoder.reset_parameters(generator)
         if self.use_category_bias:
             self.category_embedding.reset_parameters(generator)
         self.poly_attn.reset_parameters(generator)
@@ -133,8 +132,10 @@ class Miner(nn.Module):
         if self.score_type != "weighted":
             return self.aggregate_matching(interests, scores)
         proj = self.target_aware_attn.project(interests)
+        # JAX's promotion: the product with fp32 rows (the lstm combine's) is fp32
+        proj = proj.to(torch.promote_types(proj.dtype, gathered_dtype(cache)))
         return self.target_aware_attn.weigh(lookup_score_fused(cache, cand_idx, proj),
-                                            scores, proj.dtype)
+                                            scores)
 
     def tail(self, cand_repr: torch.Tensor, his_repr: torch.Tensor,
              cand_category: torch.Tensor, his_category: torch.Tensor,

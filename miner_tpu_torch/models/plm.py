@@ -308,10 +308,15 @@ def lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> N
 
 def cast_to_compute_(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Cast every parameter to the compute type except LayerNorm's, which
-    stay fp32 (the add_ln kernel takes fp32 gamma and beta)."""
+    stay fp32 (the add_ln kernel takes fp32 gamma and beta), and those under
+    a module whose ``fp32_params`` is True (the lstm combine: flax computes
+    its cells in fp32 from fp32 parameters, whatever the compute type)."""
+    keep = {id(p) for m in module.modules() if getattr(m, "fp32_params", False)
+            for p in m.parameters()}
     for m in module.modules():
         if isinstance(m, LayerNorm):
             continue
         for p in m.parameters(recurse=False):
-            p.data = p.data.to(dtype)
+            if id(p) not in keep:
+                p.data = p.data.to(dtype)
     return module

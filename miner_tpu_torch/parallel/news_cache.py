@@ -66,6 +66,13 @@ def gather_rows(table: Union[torch.Tensor, Int8Rows], idx: torch.Tensor) -> torc
     return table.index_select(0, idx.reshape(-1)).reshape(*idx.shape, *table.shape[1:])
 
 
+def gathered_dtype(table: Union[torch.Tensor, Int8Rows]) -> torch.dtype:
+    """The type of the rows ``gather_rows`` gives from ``table``."""
+    if isinstance(table, Int8Rows):
+        return _NAMED_DTYPES[table.dequant_dtype]
+    return table.dtype
+
+
 @dataclasses.dataclass
 class NewsEmbeddingCache:
     embeddings: Union[torch.Tensor, Int8Rows]  # (R, D) in the compute type, or int8 rows
@@ -160,10 +167,14 @@ class CacheFiller:
         self.encode_fn = encode_fn
         self.batch_size = batch_size
 
-    def fill(self, table: NewsTable) -> NewsEmbeddingCache:
+    def fill(self, table: NewsTable, inference: bool = True) -> NewsEmbeddingCache:
+        """Under ``torch.inference_mode()``, or ``torch.no_grad()`` when not
+        ``inference``: cached-history training gathers rows of the cache
+        into micro-steps that autograd records, and an inference tensor
+        cannot be saved for backward."""
         R = table.title.shape[0]
         chunks = []
-        with torch.inference_mode():
+        with torch.inference_mode() if inference else torch.no_grad():
             for start in range(0, R, self.batch_size):
                 t = table.title[start:start + self.batch_size]
                 tm = (t != table.pad_token_id).to(torch.int32)

@@ -20,7 +20,11 @@ each semantic:
     warmup), as optax's count starts at 0.
 
 Frozen parameters (``requires_grad`` False, ``--freeze_transformer``) are
-left out, as optax's ``set_to_zero`` leaves them out of the clipped norm.
+left out, as optax's ``set_to_zero`` leaves them out of the clipped norm. A
+trainable parameter that no micro-batch's loss reached (the lstm combine's
+last backward cell never sees a recurrent state) takes a zero gradient, as
+optax updates every leaf: its moments decay and weight decay applies, where
+``torch.optim.AdamW`` would skip it.
 """
 from __future__ import annotations
 
@@ -100,7 +104,10 @@ class Optimizer:
         self.mini_step += 1
         if self.mini_step < self.accum_steps:
             return False
-        grads = [p.grad for p in self.params if p.grad is not None]
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in self.params]
         with torch.no_grad():
             if self.accum_steps > 1:
                 for g in grads:

@@ -26,6 +26,13 @@ whatever ``--model_name`` says, trainer.py:111-112):
     weights of ``--hf_checkpoint`` (or a local ``--pretrained_embedding``)
     into the PLM and UniSRec's ``--unisrec_pretrained_path`` artifact;
     UniSRec trains its MoE adaptor alone unless ``--unisrec_train_all``;
+    cached-history training (``--his_cache_refresh K``, trainer.py:427-477,
+    694-710, 761-766; the Miner, Fastformer and UniSRec): after
+    ``--his_cache_warmup_steps`` optimizer steps of full-history
+    micro-batches, only the candidates go through the news encoder, and the
+    history rows are gathered from a news-embedding cache of the train table
+    (``HistoryCache``), rebuilt from the live weights every K optimizer
+    steps and held out of the gradient;
   * ``eval`` (trainer.py:1081-1130): the model restored from
     ``--saved_model_path`` over the eval behaviors, by default from the
     news-embedding cache (``--cached_eval``); UnBERT scores every packed
@@ -60,8 +67,8 @@ the CPU the ops run their plain versions, which is what the tests use.
 Parameters are fp32 masters and the model computes in ``--compute_dtype``.
 A micro-step's dropout is a pure function of (``--seed`` + 1, micro-step)
 (``models/dropout.py``), so a resumed run draws what the interrupted one
-would have. Flags whose paths come in later slices are refused, naming the
-feature of ROADMAP Queue 1 that brings them.
+would have. ``--param_dtype`` other than float32 is refused, as the JAX
+package refuses it, and so is ``--no-fused_kernels`` on a card.
 """
 from __future__ import annotations
 
@@ -156,10 +163,11 @@ class TrainRun(NamedTuple):
     run_dir: str
 
 
-def _refuse_unported(args, device: torch.device) -> None:
-    """Raise for a flag whose meaning this slice of the port cannot honour,
-    naming the feature of ROADMAP Queue 1 that brings it, instead of running
-    something else than was asked for."""
+def _refuse_flags(args, device: torch.device) -> None:
+    """Raise for an unknown ``--model_name``, for ``--param_dtype`` other
+    than float32 (the JAX package refuses it too, trainer.py:125-131) and
+    for ``--no-fused_kernels`` on a card, instead of running something else
+    than was asked for."""
     name = (args.model_name or "Miner").lower()
     if name not in _KINDS:
         raise ValueError(f"unknown --model_name {args.model_name!r}")
@@ -168,27 +176,41 @@ def _refuse_unported(args, device: torch.device) -> None:
             "--no-fused_kernels with a CUDA device: on the card every path "
             "always runs the port's kernels (the plain versions run on "
             "--device cpu)")
-    if args.use_sapo and args.combine_type == "lstm":
-        raise NotImplementedError(
-            "--combine_type 'lstm' is not ported yet (ROADMAP Queue 1: the "
-            "other combines); the port has the linear and pre-concat combines")
     if args.param_dtype != "float32":
         raise NotImplementedError(
             "--param_dtype only supports float32 (fp32 master weights); "
             "use --compute_dtype bfloat16 for mixed precision")
-    if getattr(args, "mode", None) not in ("train", "train_fastformer", "pretrain"):
-        return
-    if args.his_cache_refresh > 0:
-        raise NotImplementedError(
-            "--his_cache_refresh: cached-history training is not ported yet "
-            "(ROADMAP Queue 1: cached-history training)")
+
+
+class HistoryCache:
+    """Cached-history training's schedule and cache (``--his_cache_refresh
+    K``, ``--his_cache_warmup_steps W``; JAX trainer.py:694-710, 761-766),
+    counted in micro-steps as JAX counts them: micro-steps below ``warmup``
+    = W x accumulation train on the full history; from there on a micro-step
+    gathers its history rows from ``embeddings``, rebuilt from the live
+    weights before the micro-step when there is none yet (the first cached
+    micro-step, and the first after a ``--resume_from``) or when the
+    micro-step is a multiple of ``every`` = K x accumulation. ``fills``
+    records the micro-steps of the rebuilds."""
+
+    def __init__(self, refresh: int, warmup_steps: int, accum: int):
+        self.warmup = warmup_steps * accum
+        self.every = refresh * accum
+        self.embeddings: Optional[torch.Tensor] = None
+        self.fills = []
+
+    def cached(self, micro_step: int) -> bool:
+        return micro_step >= self.warmup
+
+    def due(self, micro_step: int) -> bool:
+        return self.embeddings is None or micro_step % self.every == 0
 
 
 class Trainer:
     def __init__(self, args):
         self.args = args
         self.device = resolve_device(getattr(args, "device", None))
-        _refuse_unported(args, self.device)
+        _refuse_flags(args, self.device)
         # the pretrain subcommand pretrains the news encoder alone whatever
         # --model_name says (its default is "Miner"; trainer.py:111-112)
         if getattr(args, "mode", None) == "pretrain":
@@ -293,10 +315,12 @@ class Trainer:
         encoder = NewsEncoder(plm, apply_reduce_dim=a.apply_reduce_dim,
                               word_embed_dim=a.word_embed_dim,
                               use_sapo=a.use_sapo, combine_type=a.combine_type,
-                              dropout=a.dropout, dtype=self.compute_dtype)
+                              dropout=a.dropout,
+                              lstm_num_layers=getattr(a, "lstm_num_layers", 1),
+                              lstm_dropout=getattr(a, "lstm_dropout", 0.0),
+                              dtype=self.compute_dtype)
         if self.kind == "pretrain":
-            normal_init_(encoder, plm.initializer_range,
-                         torch.Generator().manual_seed(a.seed))
+            encoder.reset_parameters(torch.Generator().manual_seed(a.seed))
             return encoder
         if self.kind == "vanilla":
             D = encoder.embed_dim
@@ -649,16 +673,89 @@ class Trainer:
 
     def train_step(self, model: nn.Module, table: NewsTable,
                    batch: Dict[str, np.ndarray], optimizer: Optimizer,
-                   micro_step: int) -> torch.Tensor:
+                   micro_step: int, his_cache: Optional[HistoryCache] = None
+                   ) -> torch.Tensor:
         """One micro-batch (trainer.py:410-425): forward with the dropout of
         ``micro_step``, backward into the accumulated gradients, and the
-        optimizer's update when one is due. Returns the loss, on the
-        device."""
+        optimizer's update when one is due. Past ``his_cache``'s warmup the
+        forward is the cached-history one (``_cached_his_loss``), the cache
+        rebuilt first when it is due. Returns the loss, on the device."""
         rng = DropoutRNG(self.args.seed + 1, micro_step, self.device)
-        loss, _ = self._apply_and_loss(model, table, batch, True, rng)
+        if his_cache is not None and his_cache.cached(micro_step):
+            if his_cache.due(micro_step):
+                his_cache.embeddings = self.fill_history_cache(model, table)
+                his_cache.fills.append(micro_step)
+            loss, _ = self._cached_his_loss(model, table, batch, his_cache.embeddings, rng)
+        else:
+            loss, _ = self._apply_and_loss(model, table, batch, True, rng)
         loss.backward()
         optimizer.step()
         return loss.detach()
+
+    def fill_history_cache(self, model: nn.Module, table: NewsTable) -> torch.Tensor:
+        """The (R, D) news embeddings of every row of the train table from
+        the live weights, as the eval cache is built (trainer.py:763-765):
+        the model in eval mode (no dropout, no draw from any micro-step's
+        stream), then back in its own mode; under ``no_grad``, so that the
+        rows a micro-step gathers from it are ordinary tensors."""
+        was_training = model.training
+        model.eval()
+        try:
+            return CacheFiller(model.encode_news).fill(table, inference=False).embeddings
+        finally:
+            model.train(was_training)
+
+    def _cached_his_loss(self, model: nn.Module, table: NewsTable,
+                         batch: Dict[str, np.ndarray], cache_emb: torch.Tensor,
+                         rng: Optional[DropoutRNG] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(loss, logits) of a cached-history micro-batch
+        (``_make_cached_his_train_step``, trainer.py:427-477): the B x C
+        candidates through the news encoder with the step's dropout; the
+        history rows gathered from ``cache_emb``, held out of the gradient
+        and cast to the candidates' type; the history categories and mask
+        from the table; the model's tail with dropout; the kind's training
+        loss."""
+        cand_idx, his_idx = self._index(batch["cand_idx"]), self._index(batch["his_idx"])
+        cand = table.lookup_candidates(cand_idx)
+        B, C = cand_idx.shape
+        sapo = sapo_mask = None
+        if "cand_sapo" in cand:  # the table holds sapos iff the model reads them
+            sapo, sapo_mask = cand["cand_sapo"].flatten(0, 1), cand["cand_sapo_mask"].flatten(0, 1)
+        cand_repr = model.encode_news(cand["cand_title"].flatten(0, 1),
+                                      cand["cand_title_mask"].flatten(0, 1), sapo, sapo_mask,
+                                      rng).reshape(B, C, -1)
+        his_repr = gather_rows(cache_emb, his_idx).detach().to(cand_repr.dtype)
+        his_cat = gather_rows(table.category, his_idx)
+        his_mask = (his_cat != table.category_pad_id).to(torch.int32)
+        label = torch.as_tensor(batch["label"], device=self.device)
+        if self.kind == "miner":
+            interests, logits = model.tail(cand_repr, his_repr, cand["cand_category"], his_cat,
+                                           his_mask, rng)
+        else:
+            interests, logits = None, model.tail(cand_repr, his_repr, his_mask, rng)
+        return self._loss(interests, logits, label, True), logits
+
+    def make_history_cache(self, log: Optional[logging.Logger] = None) -> Optional[HistoryCache]:
+        """The ``HistoryCache`` of ``--his_cache_refresh`` for the kinds with
+        a news-embedding cache (the Miner, Fastformer and UniSRec,
+        ``_supports_cached_eval``, trainer.py:863-864); for UnBERT and the
+        pretrain kind a warning and None (they train as usual), and a
+        warning for ``--his_cache_warmup_steps`` without
+        ``--his_cache_refresh`` (trainer.py:694-700)."""
+        a = self.args
+        log = log or logging.getLogger("miner_tpu_torch")
+        refresh = int(getattr(a, "his_cache_refresh", 0) or 0)
+        warmup = int(getattr(a, "his_cache_warmup_steps", 0) or 0)
+        if refresh > 0 and self.kind not in ("miner", "vanilla"):
+            log.warning("--his_cache_refresh ignored for model kind %r", self.kind)
+            return None
+        if refresh <= 0:
+            if warmup:
+                log.warning("--his_cache_warmup_steps has no effect without "
+                            "--his_cache_refresh")
+            return None
+        return HistoryCache(refresh, warmup, max(1, a.gradient_accumulation_steps))
 
     def _payload(self, model: nn.Module, optimizer: Optimizer, micro_step: int) -> Dict:
         grad_acc = None
@@ -748,6 +845,12 @@ class Trainer:
         # the partial epoch's consumed batches fast-forwarded
         start_epoch = min(global_step // steps_per_epoch, a.num_train_epochs)
         skip_batches = global_step % steps_per_epoch
+        # a resumed run starts without a cache, as JAX's (rebuilt at its
+        # first cached micro-step)
+        his_cache = self.make_history_cache(log)
+        if his_cache is not None:
+            log.info("cached-history training: %d full-history micro-steps, then the "
+                     "cache rebuilt every %d micro-steps", his_cache.warmup, his_cache.every)
 
         run_eval = lambda epoch, step: self._run_eval(  # noqa: E731
             model, eval_table, eval_store, eval_log, logger, epoch, step)
@@ -772,7 +875,7 @@ class Trainer:
             for i, batch in enumerate(batcher.batches(block, epoch)):
                 if epoch == start_epoch and i < skip_batches:
                     continue
-                loss = self.train_step(model, table, batch, optimizer, global_step)
+                loss = self.train_step(model, table, batch, optimizer, global_step, his_cache)
                 global_step += 1
                 ex_counter += a.train_batch_size
                 epoch_losses.append(loss)
@@ -800,6 +903,8 @@ class Trainer:
             logger.log_epoch(epoch, mean_loss, time.time() - t_epoch)
         checkpoint.save(os.path.join(ckpt_dir, "finalModel"),
                         self._payload(model, optimizer, global_step))
+        if his_cache is not None:
+            log.info("history cache rebuilt at micro-steps %s", his_cache.fills)
         log.info("training complete: %d steps", global_step)
         return TrainRun(model, optimizer, global_step, logger.run_dir)
 

@@ -472,8 +472,8 @@ def test_dropout_is_a_function_of_seed_and_step(pair):
 
 def test_train_fastformer_config_parses_and_refusals(fixture_dir):
     """config/train_fastformer.txt, config/train_unbert.txt and
-    config/train_unisrec.txt parse unchanged; train_fastformer runs train's
-    refusals; UnBERT and UniSRec take their kinds (tests/test_torch_unbert.py,
+    config/train_unisrec.txt parse unchanged; train_fastformer takes
+    --his_cache_refresh as train does; UnBERT and UniSRec take their kinds (tests/test_torch_unbert.py,
     tests/test_torch_unisrec.py)."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     a = make_parser().parse_args(
@@ -482,10 +482,10 @@ def test_train_fastformer_config_parses_and_refusals(fixture_dir):
             a.gradient_accumulation_steps, a.dropout) == (
         "fastformer", "roberta_base", 256, 16, 8, 0.2)
     assert a.freeze_transformer and a.remat and a.compute_dtype == "bfloat16"
-    with pytest.raises(NotImplementedError, match="cached-history training"):
-        Trainer(make_parser().parse_args(
-            ["train_fastformer", *_flags(fixture_dir), "--device", "cpu",
-             "--his_cache_refresh", "2"]))
+    cached = Trainer(make_parser().parse_args(
+        ["train_fastformer", *_flags(fixture_dir), "--device", "cpu",
+         "--his_cache_refresh", "2"])).make_history_cache()
+    assert (cached.warmup, cached.every) == (0, 2)  # accumulation 1
     u = make_parser().parse_args(
         ["train_fastformer", "@" + os.path.join(repo, "config", "train_unbert.txt")])
     assert (u.model_name, u.plm_preset, u.augmentation_mode, u.train_batch_size,

@@ -448,11 +448,12 @@ def test_dropout_mask_matches_plain_on_card(rng, op, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("op", ["mha", "add_ln", "poly", "ff"])
+@pytest.mark.parametrize("op", ["mha", "add_ln", "poly", "poly_legacy", "ff"])
 def test_gradients_through_functions_match_plain_on_card(rng, op):
     """A loss through each op's autograd Function on the card has the
     gradients of the same loss through the plain version (float32, 1e-4 of
-    the gradients' scale): no gradient is cut."""
+    the gradients' scale): no gradient is cut. Poly-attention also under
+    the legacy 1e-30 fill, which its backward recomputes with."""
     dev = _card()
     put = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
     if op == "mha":
@@ -466,12 +467,14 @@ def test_gradients_through_functions_match_plain_on_card(rng, op):
                   put(1 + 0.1 * rng.normal(size=96)), put(0.1 * rng.normal(size=96))]
         kernel = lambda *a: add_ln.fused_dropout_add_ln(*a, 0.1, 1e-5, 3)
         plain = lambda *a: add_ln.add_ln_reference(*a, 1e-5, 0.1, 3)
-    elif op == "poly":
+    elif op.startswith("poly"):
         mask = put(rng.random((3, 10)) > 0.3).to(torch.int32)
+        fill = poly_attention.LEGACY_FILL if op == "poly_legacy" else poly_attention.NEG_INF
         inputs = [put(rng.normal(size=(3, 10, 32))), put(rng.normal(size=(32, 24)) * 0.1),
                   put(rng.normal(size=(6, 24)) * 0.1), put(rng.normal(size=(3, 10)))]
-        kernel = lambda e, w, c, b: poly_attention.poly_attention_fused(e, w, c, mask, b)
-        plain = lambda e, w, c, b: poly_attention.poly_attention_reference(e, w, c, mask, b)
+        kernel = lambda e, w, c, b: poly_attention.poly_attention_fused(e, w, c, mask, b, fill)
+        plain = lambda e, w, c, b: poly_attention.poly_attention_reference(e, w, c, mask, b,
+                                                                           fill)
     else:  # Fastformer attention: q, k and the four attention weights
         xs, mask = _ff_inputs(rng, 3, 12, 64, 16)
         inputs, mask = [put(x) for x in xs], put(mask).to(torch.int32)
@@ -1124,3 +1127,87 @@ def test_unisrec_forward_on_card_matches_cpu(rng, legacy):
     assert counts["add_ln_fwd"] - before["add_ln_fwd"] == 4
     assert torch.isfinite(got).all()
     assert (got - want).abs().max().item() <= 1e-4 * max(1.0, want.abs().max().item())
+
+
+# ----------------------------------------------- the legacy poly-attention fill
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_poly_attention_legacy_fill_on_card(rng, dtype):
+    """--legacy_poly_mask at the main shape (H = 50, D = 256, P = 200, K =
+    32): a masked slot's logit is the launch's 1e-30 in place of logits +
+    bias. Against the plain version with the same fill; a user with no
+    clicks gets the mean of all 50 rows (the bf16 kernel's rows past H,
+    padding to 64, still get no weight); a partly masked row gives its pads
+    a weight, so it differs from the -1e9 fill's."""
+    dev = _card()
+    B, H, D, P, K = 6, 50, 256, 200, 32
+    emb = torch.as_tensor(rng.normal(size=(B, H, D)), device=dev).to(dtype)
+    w = torch.as_tensor(rng.normal(size=(D, P)) / 16, device=dev).to(dtype)
+    codes = torch.as_tensor(rng.normal(size=(K, P)) / 4, device=dev).to(dtype)
+    lengths = torch.tensor([50, 0, 1, 37, 12, 50], device=dev)
+    mask = (torch.arange(H, device=dev)[None] < lengths[:, None]).to(torch.int32)
+    bias = torch.as_tensor(rng.normal(size=(B, H)), device=dev).float()
+    fill = poly_attention.LEGACY_FILL
+    before = launch_counts()["poly_attention_fwd"]
+    got = poly_attention.poly_attention_fused(emb, w, codes, mask, bias, fill)
+    want = poly_attention.poly_attention_reference(emb, w, codes, mask, bias, fill)
+    masked = poly_attention.poly_attention_fused(emb, w, codes, mask, bias)
+    torch.cuda.synchronize()
+    assert launch_counts()["poly_attention_fwd"] == before + 2
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= _tol(dtype, want)
+    mean = emb[1].float().mean(dim=0).expand(K, D)
+    assert (got[1].float() - mean).abs().max().item() <= _tol(dtype, mean)
+    for row in (2, 3, 4):  # partly masked: the pads take a weight
+        assert (got[row].float() - masked[row].float()).abs().max().item() > 1e-2
+    for row in (0, 5):  # no pads: the fill never enters
+        assert torch.equal(got[row], masked[row])
+
+
+# ------------------- the PLM kernels at a cached-history micro-batch (N = 80)
+CACHED_N = 16 * 5  # train_miner.txt's micro-batch of 16 x (1 + 4) candidates
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", [32, 128])
+def test_plm_kernels_at_the_cached_candidate_batch_on_card(rng, L, dtype):
+    """Under --his_cache_refresh the PLM sees a micro-batch's candidates
+    alone: 80 sequences of titles (32) or sapos (128), roberta-base's 12
+    heads of 64, dropout 0.1. mha forward and backward and add_ln forward
+    and backward (80 L rows of 768) against their plain versions, one
+    launch each; the mha backward per (sequence, head), dh's zeros bit for
+    bit where the add_ln Philox mask drops."""
+    dev = _card()
+    N, H, Dh, rate = CACHED_N, 12, 64, 0.1
+    qkv = torch.as_tensor(rng.normal(size=(N, L, 3 * H * Dh)) * 0.5, device=dev).to(dtype)
+    lengths = torch.as_tensor(rng.integers(1, L + 1, size=N), device=dev)
+    mask = (torch.arange(L, device=dev)[None] < lengths[:, None]).to(torch.int32)
+    dout = torch.as_tensor(rng.normal(size=(N, L, H * Dh)), device=dev).to(dtype)
+    seed = 2 ** 36 + L
+    before = launch_counts()
+    out, stats = mha._launch_fwd(qkv, mask, H, 1, rate, seed, True)
+    want = mha.mha_reference(qkv, mask, H, 1, rate, seed)
+    assert out.dtype == dtype and torch.isfinite(out).all()
+    assert (out.float() - want.float()).abs().max().item() <= _tol(dtype, want)
+    got = mha.mha_backward(qkv, mask, dout, H, rate, seed, 1, out, stats)
+    _assert_mha_grad_close(got, mha.mha_backward_reference(qkv, mask, dout, H, 1, rate, seed),
+                           H, dtype)
+    T, D = N * L, H * Dh
+    x, h, dy = (torch.as_tensor(rng.normal(size=(T, D)), device=dev).to(dtype)
+                for _ in range(3))
+    g = torch.as_tensor(1 + 0.1 * rng.normal(size=D), device=dev).float()
+    b = torch.as_tensor(0.1 * rng.normal(size=D), device=dev).float()
+    y = add_ln.fused_dropout_add_ln(x, h, g, b, rate, 1e-5, seed)
+    want = add_ln.add_ln_reference(x, h, g, b, 1e-5, rate, seed)
+    assert (y.float() - want.float()).abs().max().item() <= _tol(dtype, want)
+    grads = add_ln.add_ln_backward(x, h, g, dy, 1e-5, rate, seed)
+    keep = philox.keep_mask(philox.add_ln_bits(seed, T, D, dev), rate)
+    assert torch.equal(grads[1] != 0, keep)
+    for a, w in zip(grads, add_ln.add_ln_backward_reference(x, h, g, dy, 1e-5, rate, seed)):
+        assert torch.isfinite(a).all()
+        assert (a.float() - w.float()).abs().max().item() <= _tol(dtype, w)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    for name in ("mha_fwd", "mha_bwd", "add_ln_fwd", "add_ln_bwd"):
+        assert counts[name] == before[name] + 1, name

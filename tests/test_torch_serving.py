@@ -205,24 +205,10 @@ def test_cuda_without_a_card_raises(tmp_path, monkeypatch):
         Trainer(_args(tmp_path))  # --device unset means cuda
 
 
-@pytest.mark.parametrize("extra, match", [
-    (["--combine_type", "lstm"], "combine_type"),
-])
-def test_unported_flags_are_refused(tmp_path, extra, match):
-    with pytest.raises(NotImplementedError, match=match):
-        Trainer(_args(tmp_path, "--device", "cpu", *extra))
-
-
 def test_no_fused_kernels_on_a_card_is_refused(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     with pytest.raises(ValueError, match="always runs the port's kernels"):
         Trainer(_args(tmp_path, "--no-fused_kernels"))
-
-
-def test_legacy_poly_mask_is_refused(tmp_path):
-    trainer = Trainer(_args(tmp_path, "--device", "cpu", "--legacy_poly_mask"))
-    with pytest.raises(NotImplementedError, match="legacy_poly_mask"):
-        trainer.build_model()
 
 
 def test_same_seed_same_weights_on_any_device(tmp_path):

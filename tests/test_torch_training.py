@@ -9,8 +9,8 @@ JAX's ``_make_train_step`` against the port's ``Trainer.train_step``, and the
 cached eval after them. Both run in float32 with dropout off; every op of
 the port runs its plain version on the CPU. Also: the CLI end to end
 (``train``, ``eval`` from ``bestAucModel``, serving from ``finalModel``),
-an exact ``--resume_from``, remat with dropout, and the refusals of flags
-whose paths come later.
+an exact ``--resume_from``, remat with dropout, and the refusal of
+``--param_dtype`` other than float32 (JAX refuses it too).
 """
 import glob
 import os
@@ -540,8 +540,6 @@ def test_train_and_eval_configs_parse_unchanged():
 
 
 @pytest.mark.parametrize("extra, match", [
-    (["--his_cache_refresh", "2"], "cached-history training"),
-    (["--combine_type", "lstm"], "the other combines"),
     (["--param_dtype", "bfloat16"], "float32"),
 ])
 def test_training_flags_of_later_slices_are_refused(fixture_dir, extra, match):
