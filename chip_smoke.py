@@ -27,7 +27,10 @@ Phases, each of which makes the script exit non-zero when it fails:
    too), a cache-fill chunk's 512 and an eval batch's 64 without; mha and
    add_ln, forward and backward, at a cached-history micro-batch's 80
    candidates, L = 128 and 32, with dropout; poly-attention under the
-   legacy 1e-30 fill, bf16 and fp32, with masked and no-click rows)
+   legacy 1e-30 fill, bf16 and fp32, with masked and no-click rows; the
+   fp32 mha kernels (split TF32) at the sapo shape with and without
+   dropout, the title shape, 80 candidates and 159 tokens, forward and
+   backward)
    against its plain PyTorch version on the same inputs (the tolerance is
    printed beside the error; the mha backward's dq, dk and dv each at the
    scale of its (sequence, head)'s gradient; with dropout the kernel's
@@ -37,7 +40,8 @@ Phases, each of which makes the script exit non-zero when it fails:
    is one (for lookup+score, which has none, the calls index_select and
    bmm, for int8 rows with the cast and the scales' product, as a
    yardstick), and its bound on an H100 SXM (3.35 TB/s; 989
-   TFLOP/s bf16, 67 TFLOP/s fp32). A kernel's time is its device time,
+   TFLOP/s bf16, 165 TFLOP/s fp32: the TF32 rate over three passes). A
+   kernel's time is its device time,
    from calls captured in a CUDA graph and replayed; the time of a call
    back to back, host included, is printed beside it.
 3. train: the launch counts are set to 0 and ``Trainer.train()`` runs the
@@ -123,6 +127,11 @@ Phases, each of which makes the script exit non-zero when it fails:
    lstm --legacy_poly_mask`` for one epoch and its eval (news vectors in
    fp32, so poly-attention and lookup+score take their fp32 routes), then
    ``serve_miner.txt`` with the same flags on its ``finalModel`` over HTTP.
+   fp32 train: ``train_miner.txt`` with ``--compute_dtype float32`` at full
+   width for 4 micro-batches at accumulation 4 (one update): the median
+   micro-batch, the peak memory, and where the device's time goes (mha,
+   cuBLAS, the rest; ``torch.profiler`` over the last 3). Both fp32 mha
+   kernels must launch.
 10. parity: the full-width Miner in float32 over 64 news, on the card
    through the kernels and on the CPU through the plain versions; the cache
    rows and the scores of one request batch must agree.
@@ -134,9 +143,11 @@ Phases, each of which makes the script exit non-zero when it fails:
    for UnBERT also the serving scores of two slates.
 
 After the phases, every shape at which the main path launched
-poly-attention or lookup+score (a census of their launches) is timed, and
-each kernel's launch-weighted gap, launches x (time - bound) summed over
-the shapes it was launched at, goes into its row.
+poly-attention, lookup+score or an fp32 mha kernel (a census of their
+launches: fp32_train's and the parity phases') is timed, and each kernel's
+launch-weighted gap, launches x (time - bound) summed over the shapes it
+was launched at, goes into its row (mha's fp32 share also into the row's
+``fp32`` entry).
 
 Prints the card's name and power limit, one JSON line of kernel results,
 and last ``{"ok": true, "device": {...}}``.
@@ -160,7 +171,11 @@ import time
 import torch
 
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# fp32: the dense TF32 rate over three passes, the cost of fp32-accurate
+# products on the tensor cores (split TF32, as the fp32 mha kernels run
+# them); the CUDA cores' 67 TFLOP/s is no longer the least time the card
+# could take
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
 # kernel vs plain version: float32 differs by summation order only; a
 # bfloat16 output may differ by rounding of the output and of the
 # intermediates the kernels round (proj, softmax weights): a few ulps
@@ -192,12 +207,10 @@ FILL_PHASES = ("eval", "serve", "fastformer_eval", "fastformer_serve", "warm_sta
                "his_cache_eval", "fastformer_his_cache_refill", "fastformer_his_cache_eval",
                "lstm_legacy_eval", "lstm_legacy_serve")
 # the mha kernels' training cases (N, L, dropout rate, dtype, phases): the
-# sapo shape with dropout (the main path's), without it (Philox's share), in
-# fp32 (--compute_dtype float32, the CUDA-core kernels); the title shape;
-# the pretrain micro-batch's two shapes
+# sapo shape with dropout (the main path's), without it (Philox's share);
+# the title shape; the pretrain micro-batch's two shapes
 TRAIN_MHA_CASES = ((TRAIN_N, TRAIN_SAPO, TRAIN_RATE, torch.bfloat16, TRAIN_PHASES),
                    (TRAIN_N, TRAIN_SAPO, 0.0, torch.bfloat16, ()),
-                   (TRAIN_N, TRAIN_SAPO, TRAIN_RATE, torch.float32, ()),
                    (TRAIN_N, TRAIN_TITLE, TRAIN_RATE, torch.bfloat16, TRAIN_PHASES),
                    (PRETRAIN_N, TRAIN_SAPO, TRAIN_RATE, torch.bfloat16, ("pretrain",)),
                    (PRETRAIN_N, TRAIN_TITLE, TRAIN_RATE, torch.bfloat16, ("pretrain",)))
@@ -234,6 +247,19 @@ CACHED_N = 16 * 5
 CACHED_PHASES = ("his_cache_train", "fastformer_his_cache_train")
 CACHED_MHA_CASES = tuple((CACHED_N, L, TRAIN_RATE, torch.bfloat16, CACHED_PHASES)
                          for L in (TRAIN_SAPO, TRAIN_TITLE))
+# the fp32 mha cases (--compute_dtype float32: the split-TF32 kernels): the
+# sapo shape with dropout (the fp32 route's entry in the row) and without,
+# the title shape, a cached-history micro-batch's 80 candidates and
+# UniSRec's 159 tokens. Their launches (fp32_train, the parity phases) are
+# counted and timed shape by shape (LaunchCensus), so they stand for no phase
+FP32_MHA_CASES = ((TRAIN_N, TRAIN_SAPO, TRAIN_RATE, torch.float32, ()),
+                  (TRAIN_N, TRAIN_SAPO, 0.0, torch.float32, ()),
+                  (TRAIN_N, TRAIN_TITLE, TRAIN_RATE, torch.float32, ()),
+                  (CACHED_N, TRAIN_SAPO, TRAIN_RATE, torch.float32, ()),
+                  (TRAIN_N, UNISREC_L, TRAIN_RATE, torch.float32, ()))
+# fp32_train: train_miner.txt in float32 for this many micro-batches at
+# accumulation 4 (one update), the first a warm-up, the rest traced
+FP32_MICRO_BATCHES = 4
 # the flags the cached-history phases add to train_miner.txt and
 # train_fastformer.txt: warmup 1 update, refresh every 2, accumulation 2, so
 # that one epoch of 16 micro-batches crosses the warmup switch and refills
@@ -297,6 +323,9 @@ REQUIRED = {
     "lstm_legacy_train": MINER_KERNELS + PLM_BWD,
     "lstm_legacy_eval": SERVE_KERNELS,
     "lstm_legacy_serve": SERVE_KERNELS,
+    # --compute_dtype float32: the fp32 routes of the PLM kernels (and of
+    # poly-attention, the news vectors being fp32)
+    "fp32_train": MINER_KERNELS + PLM_BWD,
 }
 FORBIDDEN = {"fastformer_train": PLM_BWD,
              "serve_cache_loaded": PLM_FWD,  # the cache comes from the file
@@ -458,7 +487,7 @@ def mha_cases(dev, g):
     # Philox's share shows), bf16 and, as --compute_dtype float32 gives it,
     # fp32; under autograd the forward also writes the softmax statistics,
     # as here
-    for N, L, rate, dtype, phases in TRAIN_MHA_CASES:
+    for N, L, rate, dtype, phases in TRAIN_MHA_CASES + FP32_MHA_CASES:
         seed = 2 ** 40 + L
         qkv, mask = _mha_inputs(dev, g, N, L, dtype)
         q, k, v = qkv.view(N, L, 3, HEADS, -1).permute(2, 0, 3, 1, 4)
@@ -475,6 +504,7 @@ def mha_cases(dev, g):
             check=(lambda: mha_dropout_mask_check(qkv, mask, seed)) if rate else None,
             bound=bound_ms(_nbytes(qkv, mask, out, stats), flops, dtype),
             main=N == TRAIN_N and L == TRAIN_SAPO and rate > 0 and dtype == torch.bfloat16,
+            route="fp32" if (N, L, rate, dtype) == FP32_MHA_CASES[0][:4] else None,
             phases=phases)
     # UnBERT's shapes: training writes the softmax statistics for its
     # backward; eval and serving (inference mode) do not
@@ -550,7 +580,7 @@ def mha_grad_errors(got, want, rel):
 def mha_bwd_cases(dev, g):
     from miner_tpu_torch.ops import mha
 
-    for N, L, rate, dtype, phases in TRAIN_MHA_CASES + tuple(
+    for N, L, rate, dtype, phases in TRAIN_MHA_CASES + FP32_MHA_CASES + tuple(
             c for c in UNBERT_MHA_CASES + UNISREC_MHA_CASES + CACHED_MHA_CASES if c[2] > 0):
         seed = 2 ** 41 + L
         qkv, mask = _mha_inputs(dev, g, N, L, dtype)
@@ -573,6 +603,7 @@ def mha_bwd_cases(dev, g):
             # reads qkv, out, dout, stats and mask; writes dqkv
             bound=bound_ms(_nbytes(qkv, out, dout, stats, mask, qkv), flops, dtype),
             main=N == TRAIN_N and L == TRAIN_SAPO and rate > 0 and dtype == torch.bfloat16,
+            route="fp32" if (N, L, rate, dtype) == FP32_MHA_CASES[0][:4] else None,
             phases=tuple(p for p in phases
                          if p in BWD_PHASES + ("unbert_train", "unisrec_train_all",
                                                "his_cache_train")))
@@ -603,13 +634,18 @@ def add_ln_cases(dev, g):
                 bound=bound_ms(_nbytes(x, h, scale, bias, x), 8 * T * HIDDEN,
                                torch.float32),
                 phases=FILL_PHASES if dtype == torch.bfloat16 else ())
-    for N, L in ((TRAIN_N, TRAIN_SAPO), (TRAIN_N, TRAIN_TITLE), (PRETRAIN_N, TRAIN_SAPO),
-                 (PRETRAIN_N, TRAIN_TITLE)):
-        T, dtype, seed = N * L, torch.bfloat16, 2 ** 42 + L
+    # the training micro-batches; in fp32 those of fp32_train
+    for N, L, dtype in ((TRAIN_N, TRAIN_SAPO, torch.bfloat16),
+                        (TRAIN_N, TRAIN_TITLE, torch.bfloat16),
+                        (PRETRAIN_N, TRAIN_SAPO, torch.bfloat16),
+                        (PRETRAIN_N, TRAIN_TITLE, torch.bfloat16),
+                        (TRAIN_N, TRAIN_SAPO, torch.float32),
+                        (TRAIN_N, TRAIN_TITLE, torch.float32)):
+        T, seed = N * L, 2 ** 42 + L
         x, h, scale, bias = _ln_inputs(dev, g, T, dtype)
         scale_t, bias_t = scale.to(dtype), bias.to(dtype)
         yield dict(
-            case=f"bf16 T={T} dropout {TRAIN_RATE}", dtype=dtype,
+            case=f"{str(dtype)[6:]} T={T} dropout {TRAIN_RATE}", dtype=dtype,
             kernel=lambda: add_ln.fused_dropout_add_ln(x, h, scale, bias, TRAIN_RATE,
                                                        1e-5, seed),
             plain=lambda: add_ln.add_ln_reference(x, h, scale, bias, 1e-5,
@@ -619,8 +655,9 @@ def add_ln_cases(dev, g):
                 bias_t, 1e-5),
             bound=bound_ms(_nbytes(x, h, scale, bias, x), 9 * T * HIDDEN,
                            torch.float32),
-            main=N == TRAIN_N and L == TRAIN_SAPO,
-            phases=TRAIN_PHASES if N == TRAIN_N else ("pretrain",))
+            main=N == TRAIN_N and L == TRAIN_SAPO and dtype == torch.bfloat16,
+            phases=(("fp32_train",) if dtype == torch.float32 else
+                    TRAIN_PHASES if N == TRAIN_N else ("pretrain",)))
     # UnBERT's rows: a micro-batch's two levels with dropout, an eval batch's
     # (standing for the serving calls too) and the largest serving call's
     for N, L, rate, dtype, phases in UNBERT_MHA_CASES:
@@ -662,6 +699,7 @@ def add_ln_bwd_cases(dev, g):
     for N, L, dtype in ((TRAIN_N, TRAIN_SAPO, torch.bfloat16),
                         (TRAIN_N, TRAIN_TITLE, torch.bfloat16),
                         (TRAIN_N, TRAIN_SAPO, torch.float32),
+                        (TRAIN_N, TRAIN_TITLE, torch.float32),
                         (PRETRAIN_N, TRAIN_SAPO, torch.bfloat16),
                         (PRETRAIN_N, TRAIN_TITLE, torch.bfloat16),
                         (UNBERT_TRAIN_B, UNBERT_WORD, torch.bfloat16),
@@ -693,7 +731,8 @@ def add_ln_bwd_cases(dev, g):
             check=mask_check,
             bound=bound_ms(_nbytes(x, h, dy, x, h), 20 * T * HIDDEN, torch.float32),
             main=N == TRAIN_N and L == TRAIN_SAPO and dtype == torch.bfloat16,
-            phases=(() if dtype != torch.bfloat16 else ("pretrain",) if N == PRETRAIN_N
+            phases=(("fp32_train",) if dtype != torch.bfloat16
+                    else ("pretrain",) if N == PRETRAIN_N
                     else ("unbert_train",) if N == UNBERT_TRAIN_B
                     else ("unisrec_train_all",) if L == UNISREC_L
                     else ("his_cache_train",) if N == CACHED_N
@@ -966,7 +1005,7 @@ def kernel_phase(dev, names=None):
                                       "max_abs_err": max(e["max_err"] for e in errs),
                                       "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
                                       "bound_ms": b_ms, "bound_by": b_by,
-                                      "yardstick_ms": yard_ms}
+                                      "library_ms": library_ms, "yardstick_ms": yard_ms}
             del got, want
             torch.cuda.empty_cache()
         row.update(routes)
@@ -976,15 +1015,33 @@ def kernel_phase(dev, names=None):
     return rows, timed
 
 
-class LaunchCensus:
-    """The main path's launches of poly-attention and lookup+score by
-    shape and phase: their batch (and candidate count) follows the phase
-    and the serving batcher, and their time follows the shape. It reads the
-    C arguments each launch passes through ``common.launch`` while
-    ``phase`` is set, and launches and counts nothing itself."""
+def _mha_shape(args, first: int):
+    """An fp32 mha launch's (N, L, H, Dh, seqs, dropout rate, stats kept)
+    from its C arguments (N at ``first``), or None for another type."""
+    N, L, H, Dh, seqs = args[first:first + 5]
+    inv_keep, dropping, code = args[first + 7:first + 10]
+    if code != 0:  # common.DTYPE_CODES[torch.float32]
+        return None
+    rate = round(1.0 - 1.0 / inv_keep, 6) if dropping else 0.0
+    return N, L, H, Dh, seqs, rate, first == 7 or args[3] is not None
 
-    SHAPE = {"poly_attention_fwd": slice(6, 12),  # B, H, D, P, K, dtype code
-             "lookup_score_fwd": slice(5, 12)}  # N, B, C, K, D, cache, interests codes
+
+class LaunchCensus:
+    """The main path's launches of poly-attention, lookup+score and the
+    fp32 mha kernels by shape and phase: the batch (and candidate count) of
+    the first two follows the phase and the serving batcher, fp32 mha runs
+    at the shapes of fp32_train and of the parity phases' one impression,
+    and their time follows the shape. It reads the C arguments each launch
+    passes through ``common.launch`` while ``phase`` is set, and launches
+    and counts nothing itself. ``EVERY``: the kernels all of whose launches
+    it counts (mha's bf16 launches are counted by phase instead)."""
+
+    SHAPE = {"poly_attention_fwd": lambda a: tuple(a[6:12]),  # B, H, D, P, K, dtype code
+             # N, B, C, K, D, cache, interests codes
+             "lookup_score_fwd": lambda a: tuple(a[5:12]),
+             "mha_fwd": lambda a: _mha_shape(a, 4),
+             "mha_bwd": lambda a: _mha_shape(a, 7)}
+    EVERY = ("poly_attention_fwd", "lookup_score_fwd")
 
     def __init__(self):
         import collections
@@ -999,13 +1056,41 @@ class LaunchCensus:
 
         def counted(name, fn, *args):
             if self.phase is not None and name in self.SHAPE:
-                self.counts[(name, self.phase, tuple(args[self.SHAPE[name]]))] += 1
+                shape = self.SHAPE[name](args)
+                if shape is not None:
+                    self.counts[(name, self.phase, shape)] += 1
             return launch(name, fn, *args)
 
         common.launch = counted
 
+    def launched(self, name: str, phase: str) -> int:
+        return sum(n for (k, p, _), n in self.counts.items() if k == name and p == phase)
+
 
 CENSUS = LaunchCensus()
+
+
+def _census_mha(dev, g, name, shape):
+    """A call of an fp32 mha kernel at a census shape, and its bound."""
+    from miner_tpu_torch.ops import mha
+
+    N, L, H, Dh, seqs, rate, with_stats = shape
+    qkv = torch.randn(N, L, 3 * H * Dh, device=dev, generator=g)
+    lengths = torch.randint(1, L + 1, (N,), device=dev, generator=g)
+    mask = (torch.arange(L, device=dev)[None] < lengths[:, None]).to(torch.int32)
+    seed = 2 ** 48 + L
+    out, stats = mha._launch_fwd(qkv, mask, H, seqs, rate, seed, True)
+    flops = 4 * N * H * L * L * Dh
+    if name == "mha_fwd":
+        fn = lambda: mha._launch_fwd(qkv, mask, H, seqs, rate, seed, with_stats)  # noqa: E731
+        nbytes = _nbytes(qkv, mask, out, *((stats,) if with_stats else ()))
+    else:
+        dout = torch.randn_like(out)
+        fn = lambda: mha.mha_backward(qkv, mask, dout, H, rate, seed, seqs,  # noqa: E731
+                                      out, stats)
+        flops, nbytes = flops * 5 // 2, _nbytes(qkv, out, dout, stats, mask, qkv)
+    what = f"fp32 N={N} L={L} dropout {rate}" + (f" seqs {seqs}" if seqs > 1 else "")
+    return fn, bound_ms(nbytes, flops, torch.float32)[0], what
 
 
 def census_sweep(dev) -> dict:
@@ -1021,7 +1106,9 @@ def census_sweep(dev) -> dict:
         shapes.setdefault((name, shape), {})[phase] = n
     out = {}
     for (name, shape), by_phase in sorted(shapes.items()):
-        if name == "poly_attention_fwd":
+        if name in ("mha_fwd", "mha_bwd"):
+            fn, b_ms, what = _census_mha(dev, g, name, shape)
+        elif name == "poly_attention_fwd":
             B, H, D, P, K, code = shape
             args = _poly_inputs(dev, g, B, dtypes[code], 0, H, D, P, K)
             fn = lambda: poly_attention.poly_attention_fused(*args)
@@ -1043,17 +1130,36 @@ def census_sweep(dev) -> dict:
 
 def launch_weighted_gaps(rows, timed, sweep) -> None:
     """Each row's launches x (time - bound), summed over the shapes its
-    launches took: the census's shapes for poly-attention and lookup+score;
-    for the others each phase's launches at the cases standing for it."""
+    launches took: the census's shapes for the launches it counted (all of
+    poly-attention's and lookup+score's, mha's in fp32); for the rest, each
+    phase's launches at the cases standing for it. The launches of the
+    parity phases, which only the census counts, join the row's here."""
+    import collections
+
     for row in rows:
         name = row["name"]
-        if name in sweep:
-            row["shapes"] = sweep[name]
-            gap = sum(n * (s["ms"] - s["bound_ms"]) for s in sweep[name]
-                      for n in s["launches_by_phase"].values())
+        shapes = sweep.get(name, [])
+        census = collections.Counter()
+        for sh in shapes:
+            census.update(sh["launches_by_phase"])
+        gap = sum(n * (sh["ms"] - sh["bound_ms"]) for sh in shapes
+                  for n in sh["launches_by_phase"].values())
+        by_phase = row["launches_by_phase"]
+        for phase, n in census.items():
+            by_phase.setdefault(phase, n)
+        row["launches"] = sum(by_phase.values())
+        if name in LaunchCensus.EVERY:
+            if shapes:
+                row["shapes"] = shapes
         else:
-            gap = 0.0
-            for phase, n in row["launches_by_phase"].items():
+            if shapes:  # mha: its fp32 launches
+                row["fp32"].update(shapes=shapes, launches=sum(census.values()),
+                                   launches_by_phase=dict(census),
+                                   launch_weighted_gap_ms=gap)
+                log(f"  {name:18s} fp32: {sum(census.values())} launches, "
+                    f"launch-weighted gap {gap:.3f} ms")
+            for phase, n in by_phase.items():
+                n -= census[phase]
                 cases = [c for c in timed[name] if phase in c["phases"]]
                 if n and not cases:
                     raise SystemExit(f"{name}: no timed case stands for phase {phase}")
@@ -1949,19 +2055,21 @@ def train_phase(corpus: str, out: str, family: str = "miner", *extra: str):
     return {**step_counts, eval_phase: eval_counts}, final
 
 
-def _report_profile(phase: str, prof, median_ms: float) -> None:
-    """The device's busy time a micro-batch over the profiled ones (the sum
-    of the kernels and copies the trace shows, one stream; the device-side
-    copies of annotated ranges, such as the optimizer's step, left out),
-    against the median micro-batch of the others, and the kernels that
-    take it: the hand-written ones, cuBLAS's products, the rest."""
+def _report_profile(phase: str, prof, median_ms: float, steps: int = PROFILED_STEPS,
+                    against: str = "of the others") -> None:
+    """The device's busy time a micro-batch over the ``steps`` profiled ones
+    (the sum of the kernels and copies the trace shows, one stream; the
+    device-side copies of annotated ranges, such as the optimizer's step,
+    left out), against the median micro-batch ``against`` says, and the
+    kernels that take it: the hand-written ones (mha's forward and
+    backward apart), cuBLAS's products, the rest."""
     per_name = {}
     for e in prof.events():
         if (e.device_type == torch.autograd.DeviceType.CUDA
                 and not getattr(e, "is_user_annotation", False)):
             us, calls = per_name.get(e.name, (0.0, 0))
             per_name[e.name] = (us + e.time_range.elapsed_us(), calls + 1)
-    per = lambda us: us / 1e3 / PROFILED_STEPS  # noqa: E731
+    per = lambda us: us / 1e3 / steps  # noqa: E731
     total = per(sum(us for us, _ in per_name.values()))
     if total == 0:
         log(f"{phase}: torch.profiler saw no device time: device busy share not measured")
@@ -1969,13 +2077,16 @@ def _report_profile(phase: str, prof, median_ms: float) -> None:
     own = per(sum(us for n, (us, _) in per_name.items() if any(k in n for k in OWN_KERNELS)))
     gemm = per(sum(us for n, (us, _) in per_name.items() if not any(k in n for k in OWN_KERNELS)
                    and any(k in n.lower() for k in ("nvjet", "gemm", "xmma", "cutlass", "cublas"))))
-    log(f"{phase}: torch.profiler over the last {PROFILED_STEPS} micro-batches: device busy "
-        f"{total:.2f} ms a micro-batch against the {median_ms:.1f} ms median of the others "
-        f"(busy share {total / median_ms:.1%}): hand-written kernels {own:.2f} ms, "
-        f"cuBLAS products {gemm:.2f} ms, the rest {total - own - gemm:.2f} ms, over "
-        f"{sum(c for _, c in per_name.values()) / PROFILED_STEPS:.0f} launches a micro-batch")
+    mha = {k: per(sum(us for n, (us, _) in per_name.items() if f"mha_{k}_" in n))
+           for k in ("fwd", "bwd")}
+    log(f"{phase}: torch.profiler over the last {steps} micro-batches: device busy "
+        f"{total:.2f} ms a micro-batch against the {median_ms:.1f} ms median {against} "
+        f"(busy share {total / median_ms:.1%}): hand-written kernels {own:.2f} ms (mha "
+        f"forward {mha['fwd']:.2f}, backward {mha['bwd']:.2f}), cuBLAS products "
+        f"{gemm:.2f} ms, the rest {total - own - gemm:.2f} ms, over "
+        f"{sum(c for _, c in per_name.values()) / steps:.0f} launches a micro-batch")
     for name, (us, calls) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:8]:
-        log(f"    {per(us):8.3f} ms, {calls / PROFILED_STEPS:6.1f} calls a micro-batch  "
+        log(f"    {per(us):8.3f} ms, {calls / steps:6.1f} calls a micro-batch  "
             f"{name[:90]}")
 
 
@@ -2015,6 +2126,82 @@ def _report_history_cache(phase, args, cache, step_s, step_phase, refill_s,
     if cache.fills != rule or len(refill_s) != len(rule):
         raise SystemExit(f"{phase} phase: refills at {cache.fills} ({len(refill_s)} timed), "
                          f"JAX's rule gives {rule}")
+
+
+def fp32_train_phase(corpus: str, out: str) -> dict:
+    """``train_miner.txt`` with ``--compute_dtype float32`` at full width
+    (roberta-base towers, titles 32 / sapo 128, 50 history news, 1 + 4
+    candidates, batch 16, --remat, dropout) for ``FP32_MICRO_BATCHES``
+    micro-batches at accumulation 4, one optimizer update, through
+    ``Trainer.train_step``: the split-TF32 mha kernels' main path. The
+    first micro-batch warms up; the others are traced by torch.profiler
+    (mha's device time against cuBLAS's and the rest), and their median is
+    the micro-batch time. Both fp32 mha kernels must launch. Returns the
+    launch counts of the micro-batches."""
+    import gc
+
+    from miner_tpu_torch.data.samplers import OnlineSampler
+    from miner_tpu_torch.ops import launch_counts, reset_launch_counts
+    from miner_tpu_torch.training.trainer import Trainer
+
+    phase = "fp32_train"
+    trainer = Trainer(train_args(corpus, out, "--compute_dtype", "float32",
+                                 "--gradient_accumulation_steps",
+                                 str(FP32_MICRO_BATCHES)))
+    a = trainer.args
+    store = trainer._load_store(a.train_news_path)
+    block = OnlineSampler(trainer._load_log(a.train_behaviors_path, store), store, a.npratio,
+                          seed=a.seed).sample_epoch(0)
+    B = a.train_batch_size
+    model = trainer.initial_model().to(trainer.device).train()
+    table = trainer._make_table(store)
+    optimizer = trainer.make_optimizer(model, 1, 0)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    CENSUS.phase = phase
+    step_s, losses = [], []
+
+    def micro_batch(i):
+        rows = slice(i * B, (i + 1) * B)
+        batch = {"cand_idx": block.cand[rows], "his_idx": block.his[rows],
+                 "label": block.label[rows]}
+        t0 = time.perf_counter()
+        losses.append(float(trainer.train_step(model, table, batch, optimizer, i)))
+        step_s.append(time.perf_counter() - t0)
+
+    try:
+        micro_batch(0)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for i in range(1, FP32_MICRO_BATCHES):
+                micro_batch(i)
+    finally:
+        CENSUS.phase = None
+    counts = launch_counts()
+    traced = sorted(step_s[1:])
+    mid = 1e3 * traced[len(traced) // 2]
+    MICRO_BATCH_MS[phase] = mid
+    log(f"{phase}: Miner, {len(step_s)} micro-batches of {B} "
+        f"({B * (a.npratio + 1 + a.his_length)} news per micro-batch), "
+        f"{optimizer.updates} optimizer update at accumulation "
+        f"{a.gradient_accumulation_steps}, {a.compute_dtype}, --remat {a.remat}, dropout "
+        f"{a.dropout} / {TRAIN_RATE}: micro-batch {mid:.1f} ms median of the "
+        f"{len(traced)} traced (first {1e3 * step_s[0]:.1f} ms), {B / mid * 1e3:.2f} "
+        f"examples/s; peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+        f"on {torch.cuda.get_device_name(0)}; train_miner.txt's bf16 micro-batch "
+        f"{MICRO_BATCH_MS.get('train', float('nan')):.1f} ms")
+    log(f"{phase}: losses {[round(x, 4) for x in losses]}")
+    _report_profile(phase, prof, mid, steps=len(traced), against="of these")
+    fp32 = {k: CENSUS.launched(k, phase) for k in ("mha_fwd", "mha_bwd")}
+    log(f"{phase}: kernel launches {counts}; fp32 mha {fp32}")
+    if (not all(math.isfinite(x) for x in losses) or optimizer.updates != 1
+            or not all(fp32.values()) or fp32["mha_fwd"] != counts["mha_fwd"]):
+        raise SystemExit(f"{phase} phase: losses {losses}, {optimizer.updates} updates, "
+                         f"fp32 mha launches {fp32} of {counts}")
+    _check_launches(phase, counts)
+    return counts
 
 
 def train_parity_phase(corpus: str, out: str, family: str = "miner") -> None:
@@ -2062,6 +2249,7 @@ def train_parity_phase(corpus: str, out: str, family: str = "miner") -> None:
         if a.freeze_transformer:
             model.news_encoder.plm.requires_grad_(False)
         table = trainer._make_table(store)
+        CENSUS.phase = f"train_parity_{family}" if device == "cuda" else None
         if family == "his_cache":
             # one cache for both devices, filled on the card (its rows are
             # held against the CPU's by the parity phase): the cached step's
@@ -2083,6 +2271,7 @@ def train_parity_phase(corpus: str, out: str, family: str = "miner") -> None:
             his = np.stack([log_.history[0], log_.history[1]])
             scores[device] = trainer.serve_scores_unbert(
                 model, trainer._unbert_packer(store), cand, his)
+        CENSUS.phase = None
     if scores:
         got, want = scores["cuda"], scores["cpu"]
         err = float(np.abs(got - want).max())
@@ -2266,9 +2455,11 @@ def parity_phase(corpus: str) -> None:
     for device in ("cuda", "cpu"):
         trainer = Trainer(serve_args(corpus, "--compute_dtype", "float32",
                                      "--device", device))
+        CENSUS.phase = "parity" if device == "cuda" else None
         ctx = trainer.serving_context()
         out[device] = (ctx.cache.embeddings.float().cpu().numpy(),
                        trainer.serve_scores(ctx.model, ctx.cache, cand, his))
+        CENSUS.phase = None
     for what, i in (("cache rows", 0), ("scores", 1)):
         got, want = out["cuda"][i], out["cpu"][i]
         err = float(np.abs(got - want).max())
@@ -2315,13 +2506,25 @@ def main(argv=None) -> int:
     reports = common.build(common.CUDA_SOURCES if names is None
                            else [n for n in common.CUDA_SOURCES if n in names])
     log(f"build: {len(reports)} CUDA libraries in {time.perf_counter() - t0:.1f} s")
+    spills = []
     for name, report in reports.items():
         # each kernel's registers, spills and shared memory; for the kernels
         # built in several variants also the entry each line belongs to
         keys = ("registers", "spill") + (("Compiling entry",) if name in ENTRY_REPORTS else ())
+        entry = ""
         for line in report.splitlines():
+            if "Compiling entry" in line:
+                entry = line.split("'")[1] if "'" in line else line
             if any(k in line for k in keys):
                 log(f"  {name}: {line.strip()}")
+            if ("fp32" in entry and name.startswith("mha_") and "spill" in line
+                    and "0 bytes spill stores, 0 bytes spill loads" not in line):
+                spills.append(f"{entry}: {line.strip()}")
+    if spills:  # the split-TF32 kernels are sized to keep every fragment in registers
+        msg = "fp32 mha builds spill:\n  " + "\n  ".join(spills)
+        if names is None:
+            raise SystemExit(msg)
+        log(msg)  # another version's kernels, timed beside this one's
 
     log("kernels (kernel vs plain version on the same inputs):")
     rows, timed = kernel_phase(dev, names)
@@ -2378,6 +2581,7 @@ def main(argv=None) -> int:
         lstm_counts, lstm_model = train_phase(corpus, tmp, "lstm_legacy", *LSTM_LEGACY_FLAGS)
         counts.update(lstm_counts)
         counts["lstm_legacy_serve"] = serve_phase(corpus, lstm_model, "lstm_legacy_serve")
+        counts["fp32_train"] = fp32_train_phase(corpus, tmp)
         hf_import_phase(corpus, tmp, tmp)
         write_corpus(os.path.join(tmp, "parity"), 64, seed=1)
         parity_phase(os.path.join(tmp, "parity"))

@@ -135,7 +135,9 @@ def _add_common(p: argparse.ArgumentParser):
     p.add_argument("--matmul_precision", type=str, default=None,
                    choices=["default", "bfloat16", "bfloat16_3x", "float32"],
                    help=_TPU_ONLY + " (float32 matmuls on the card are full "
-                        "float32)")
+                        "float32; float32 attention runs the mha kernels' "
+                        "products in split TF32, three TF32 passes to about "
+                        "float32's accuracy)")
     p.add_argument("--compute_dtype", type=str, default="bfloat16",
                    choices=["float32", "bfloat16"])
     p.add_argument("--remat", action="store_true",
@@ -143,7 +145,8 @@ def _add_common(p: argparse.ArgumentParser):
                         "(torch.utils.checkpoint) to save device memory; "
                         "UnBERT's layers are never rematerialised, as in JAX")
     p.add_argument("--remat_policy", type=str, default="", choices=["", "dots"],
-                   help=_TPU_ONLY + " (--remat recomputes whole layers)")
+                   help=_TPU_ONLY + " (--remat recomputes whole layers); "
+                        "refused without --remat, as in JAX")
     p.add_argument("--scan_layers", action=argparse.BooleanOptionalAction,
                    default=False, help=_TPU_ONLY)
     p.add_argument("--plm_preset", type=str, default="tiny",

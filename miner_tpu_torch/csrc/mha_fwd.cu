@@ -25,35 +25,42 @@
 // Dh = 64) the kernel does 4 N H L^2 Dh = 44.3 GFLOP and must move 692 MB
 // (qkv read, out written), 64 FLOP per byte: far under the card's bf16
 // ridge of ~295, so the bound is the bytes (0.21 ms at 3.35 TB/s; 0.22 ms
-// with the 10.8 MB of statistics). With dropout, Philox's integer work
-// (N H L^2 / 4 = 43 M calls of 10 rounds) is the next largest cost.
+// with the 10.8 MB of statistics). In fp32 the bytes double (1.395 GB,
+// 0.42 ms) and the products run as three TF32 passes: 44.3 GFLOP at 495 / 3
+// = 165 TFLOP/s is 0.27 ms, so the bytes still bound it. With dropout,
+// Philox's integer work (N H L^2 / 4 = 43 M calls of 10 rounds) is the next
+// largest cost.
 //
-// bf16 design, on the tensor cores. One block per (sequence, head), K and V
-// read from device memory once: 8 warps, each owning 16 query rows as one
-// mma row tile, so 128 query rows per pass (longer sequences take further
-// passes of 128). Keys go through shared memory in tiles of 64, two stages
-// deep, by 16-byte cp.async; rows are padded by 8 bf16 so ldmatrix reads
-// them without bank conflicts. When L <= 64 a block takes several heads of
-// one sequence (L = 32: 4 heads, 2 warps each) with all their keys in one
-// tile, so no block is two warps. Per warp and key tile:
-//   S = Q K^T: mma.sync m16n8k16 bf16 -> fp32, Q fragments loaded once per
-//     pass with ldmatrix and held in registers, K fragments by ldmatrix;
+// Design, on the tensor cores, one kernel for both types. One block per
+// (sequence, head), K and V read from device memory once: 8 warps, each
+// owning 16 query rows as one mma row tile, so 128 query rows per pass
+// (longer sequences take further passes of 128). Keys go through shared
+// memory in tiles of 64, two stages deep, by 16-byte cp.async; rows are
+// padded by 16 bytes so the fragment reads fall on distinct banks. When
+// L <= 64 a block takes several heads of one sequence (L = 32: 4 heads, 2
+// warps each) with all their keys in one tile, so no block is two warps.
+// Per warp and key tile:
+//   S = Q K^T on the tensor cores, fp32 accumulators;
 //   masks and the online softmax (running max, rescale) in fp32 registers;
 //   dropout: one Philox call per lane gives the lane's four values of a
 //     16 x 16 block, (rows g, g+8) x (keys 2t+e, 2t+e+8);
-//   O += P V: P rounded to bf16 in registers (as the TPU kernel rounds it,
-//     mha.py:110) and reused as the A fragment (C -> A identity), V through
-//     ldmatrix.trans. The plain version keeps fp32 P; the bf16 tolerance
-//     (2^-6 of the output's scale) covers the rounding.
-// The epilogue writes stats and stages out through the warp's own Q rows in
-// shared memory for 16-byte coalesced stores.
-//
-// fp32 stays on the CUDA cores (one thread per query row, the design of the
-// first port): on the tensor cores fp32 operands would run as TF32, whose
-// 10-bit mantissa fails the 1e-4 fp32 tolerance and the card-vs-CPU parity
-// phases. Each type has exactly one kernel. A thread that owns one query
-// row uses two of a Philox call's four words (keys j and j + 8), so the
-// fp32 kernel makes N H L^2 / 2 calls, twice the bf16 kernel's.
+//   O += P V on the tensor cores, P taken from S's registers.
+// bf16: mma.sync m16n8k16, Q fragments loaded once per pass with ldmatrix
+// and held in registers, K by ldmatrix, V by ldmatrix.trans; P rounded to
+// bf16 (as the TPU kernel rounds it, mha.py:110) and reused as the A
+// fragment (C -> A identity). The plain version keeps fp32 P; the bf16
+// tolerance (2^-6 of the output's scale) covers the rounding.
+// fp32: mma.sync m16n8k8 in split TF32 (tensor_core.cuh: three TF32
+// passes, ~2^-21 of each product, against TF32's 2^-11 that alone fails the
+// 1e-4 fp32 tolerance), fragments read from shared memory by 32-bit loads
+// and split in registers, a tile attended 16 keys at a time (S in 24
+// registers fewer, so two blocks fit an SM with no spill); P stays fp32
+// and enters PV as the A fragment with its 8 keys read in the order (2t,
+// 2t+1) (tensor_core.cuh), V's rows likewise. A qkv view off a 16-byte
+// boundary (fp32 only; the wrapper refuses it in bf16) is copied by 4-byte
+// cp.async, chosen at launch.
+// The epilogue writes stats and stages out through the warp's own Q rows
+// in shared memory for 16-byte coalesced stores.
 #include "common.cuh"
 #include "philox.cuh"
 #include "tensor_core.cuh"
@@ -69,159 +76,32 @@ struct Dropout {
   int on;
 };
 
-// ---------------------------------------------------------------- float32
-constexpr int MAX_BQ = 64;  // query rows (threads) per block
-constexpr int BK = 32;      // keys per shared-memory tile
-
-template <int DH>
-__global__ void __launch_bounds__(MAX_BQ)
-mha_fwd_fp32(const float* __restrict__ qkv, const int* __restrict__ mask,
-             float* __restrict__ out, float2* __restrict__ stats, int L, int H,
-             int seqs, Dropout drop) {
-  const int n = blockIdx.x, h = blockIdx.y;
-  const int bq = blockDim.x;
-  const int q0 = blockIdx.z * bq;
-  const int tid = threadIdx.x;
-  const int D = H * DH;
-  const long row_stride = 3L * D;
-  const float* base = qkv + (long)n * L * row_stride + h * DH;
-  const int* row_mask = mask + (long)n * L;
-  const int sub = L / seqs;
-
-  __shared__ __align__(16) float sK[BK][DH];
-  __shared__ __align__(16) float sV[BK][DH];
-  __shared__ float sQO[MAX_BQ][DH + 1];  // padded: each thread reads its own row
-
-  for (int idx = tid; idx < bq * DH; idx += bq) {
-    const int r = idx / DH, d = idx % DH, i = q0 + r;
-    sQO[r][d] = i < L ? base[(long)i * row_stride + d] : 0.f;
-  }
-  __syncthreads();
-
-  const int i = q0 + tid;
-  const int my_seg = i / sub;
-  const float scale = 1.0f / sqrtf((float)DH);
-  float q[DH], o[DH];
-#pragma unroll
-  for (int d = 0; d < DH; ++d) {
-    q[d] = sQO[tid][d];
-    o[d] = 0.f;
-  }
-  float m = -INFINITY, l = 0.f;
-
-  for (int k0 = 0; k0 < L; k0 += BK) {
-    __syncthreads();  // the previous tile is fully consumed
-    for (int idx = tid; idx < BK * DH; idx += bq) {
-      const int r = idx / DH, d = idx % DH, j = k0 + r;
-      float kv = 0.f, vv = 0.f;
-      if (j < L) {
-        const float* row = base + (long)j * row_stride + d;
-        kv = row[D];
-        vv = row[2 * D];
-      }
-      sK[r][d] = kv;
-      sV[r][d] = vv;
-    }
-    __syncthreads();
-    const int nk = min(BK, L - k0);
-
-    float s[BK];
-    float tile_max = -INFINITY;
-#pragma unroll
-    for (int r = 0; r < BK; ++r) {
-      float acc = 0.f;
-      if (r < nk) {
-        const float4* kr = reinterpret_cast<const float4*>(&sK[r][0]);
-#pragma unroll
-        for (int d4 = 0; d4 < DH / 4; ++d4) {
-          const float4 kk = kr[d4];
-          acc += q[4 * d4] * kk.x + q[4 * d4 + 1] * kk.y +
-                 q[4 * d4 + 2] * kk.z + q[4 * d4 + 3] * kk.w;
-        }
-        acc *= scale;
-        const int j = k0 + r;
-        const bool valid = row_mask[j] != 0 && (seqs == 1 || j / sub == my_seg);
-        acc = valid ? acc : MASK_FILL;
-        tile_max = fmaxf(tile_max, acc);
-      }
-      s[r] = acc;
-    }
-    const float m_new = fmaxf(m, tile_max);
-    const float alpha = expf(m - m_new);  // first tile: exp(-inf) = 0
-    l *= alpha;
-#pragma unroll
-    for (int d = 0; d < DH; ++d) o[d] *= alpha;
-    // Keys in order; key r (bit 3 clear) draws its Philox call and keeps
-    // key r + 8's word for later. (Taking keys r and r + 8 together, as the
-    // backward does, ran slower here on the card.)
-    uint32_t upper[8];
-#pragma unroll
-    for (int r = 0; r < BK; ++r) {
-      if (r < nk) {
-        const float p = expf(s[r] - m_new);
-        l += p;
-        float pv = p;
-        if (drop.on) {
-          uint32_t word;  // key r's dropout bits
-          if ((r & 8) == 0) {
-            const uint2 pair = mha_row_pair_bits(i, (k0 + r) >> 4, r & 7, h, n, drop.seed);
-            word = pair.x;
-            upper[r & 7] = pair.y;
-          } else {
-            word = upper[r & 7];
-          }
-          pv = word >= drop.thresh ? p * drop.inv_keep : 0.f;
-        }
-        const float4* vr = reinterpret_cast<const float4*>(&sV[r][0]);
-#pragma unroll
-        for (int d4 = 0; d4 < DH / 4; ++d4) {
-          const float4 vv = vr[d4];
-          o[4 * d4] += pv * vv.x;
-          o[4 * d4 + 1] += pv * vv.y;
-          o[4 * d4 + 2] += pv * vv.z;
-          o[4 * d4 + 3] += pv * vv.w;
-        }
-      }
-    }
-    m = m_new;
-  }
-
-  __syncthreads();  // everyone is done reading sQO as Q
-  const float inv = 1.f / l;  // l >= 1: the row's max contributes exp(0)
-  if (stats != nullptr && i < L) stats[((long)n * H + h) * L + i] = make_float2(m, inv);
-#pragma unroll
-  for (int d = 0; d < DH; ++d) sQO[tid][d] = o[d] * inv;
-  __syncthreads();
-  float* obase = out + (long)n * L * D + h * DH;
-  for (int idx = tid; idx < bq * DH; idx += bq) {
-    const int r = idx / DH, d = idx % DH, ii = q0 + r;
-    if (ii < L) obase[(long)ii * D + d] = sQO[r][d];
-  }
-}
-
-template <int DH>
-cudaError_t launch_fp32(const void* qkv, const void* mask, void* out, void* stats,
-                        int N, int L, int H, int seqs, Dropout drop,
-                        cudaStream_t stream) {
-  const int bq = L <= 32 ? 32 : MAX_BQ;
-  const dim3 grid(N, H, (L + bq - 1) / bq);
-  mha_fwd_fp32<DH><<<grid, bq, 0, stream>>>(
-      static_cast<const float*>(qkv), static_cast<const int*>(mask),
-      static_cast<float*>(out), static_cast<float2*>(stats), L, H, seqs, drop);
-  return cudaGetLastError();
-}
-
-// --------------------------------------------------------------- bfloat16
 typedef __nv_bfloat16 bf16;
 
 constexpr int TC_WARPS = 8;
 constexpr int TC_ROWS = 16 * TC_WARPS;  // query rows of a pass; key rows staged
 constexpr int TC_BK = 64;               // keys per tile
 
-template <int DH>
+// row pitch in elements: rows padded by 16 bytes (ldmatrix's conflict-free
+// pitch in bf16; in fp32 the fragment reads' distinct banks)
+template <typename T, int DH>
+__host__ __device__ constexpr int row_pitch() {
+  return DH + 16 / (int)sizeof(T);
+}
+
+// keys a warp attends at a time: a 64-key tile in bf16; in fp32 one 16-key
+// block, so that S takes 24 registers fewer and the split-TF32 fragments fit
+// 128 registers, two blocks per SM, with no spill (at 32 keys the Dh = 64
+// build spilled 20 bytes; 16 cost 1.5% at the sapo shape on the card)
+template <typename T>
+__host__ __device__ constexpr int attend_keys() {
+  return sizeof(T) == 2 ? 64 : 16;
+}
+
+template <typename T, int DH>
 constexpr int tc_smem_bytes() {
   // Q, K (2 stages), V (2 stages) of TC_ROWS padded rows, key flags
-  return 3 * TC_ROWS * (DH + 8) * 2 + TC_ROWS * 4;
+  return 3 * TC_ROWS * row_pitch<T, DH>() * (int)sizeof(T) + TC_ROWS * 4;
 }
 
 template <int DH>
@@ -230,22 +110,37 @@ struct RowState {
   float m[2], l[2];    // rows g and g + 8; l is this lane's partial sum
 };
 
-// One key tile of (up to) 64 keys for the warp's 16 query rows. key_ok[j]:
-// 1 valid, 0 masked (-1e9), -1 past L (no key). k0: the tile's first key;
-// nblk: its 16-key blocks that hold keys; qt0: the warp's first query row
-// (k0 and qt0 are multiples of 16, which the dropout layout needs).
+// The warp's Q operand over a pass. bf16: fragments loaded once by
+// ldmatrix and held in registers; fp32: the warp's 16 rows in shared
+// memory, read and split at each tile (holding them split would take 2 DH
+// registers).
+template <typename T, int DH>
+struct QOperand;
+
 template <int DH>
-__device__ __forceinline__ void attend_tile(RowState<DH>& st,
-                                            const uint32_t (&qf)[DH / 16][4],
-                                            const bf16* sKt, const bf16* sVt,
-                                            const int* key_ok, int k0, int nblk,
-                                            int qt0, int sub, int seqs, int h, int n,
-                                            float scale, const Dropout& drop, int lane) {
-  constexpr int LD = DH + 8;
-  const int g = lane >> 2, t = lane & 3;
-  float s[8][4];
+struct QOperand<bf16, DH> {
+  uint32_t f[DH / 16][4];
+  __device__ __forceinline__ void load(const bf16* sQw, int lane) {
 #pragma unroll
-  for (int kb = 0; kb < 4; ++kb) {
+    for (int kc = 0; kc < DH / 16; ++kc)
+      ldsm_x4(f[kc], sQw + (lane & 15) * (DH + 8) + kc * 16 + (lane >> 4) * 8);
+  }
+};
+
+template <int DH>
+struct QOperand<float, DH> {
+  const float* rows;
+  __device__ __forceinline__ void load(const float* sQw, int) { rows = sQw; }
+};
+
+// s = Q K^T over the chunk's 16-key blocks kb < nblk (others left 0)
+template <int DH, int KB>
+__device__ __forceinline__ void tile_logits(float (&s)[KB / 8][4],
+                                            const QOperand<bf16, DH>& q, const bf16* sKt,
+                                            int nblk, int lane) {
+  constexpr int LD = row_pitch<bf16, DH>();
+#pragma unroll
+  for (int kb = 0; kb < KB / 16; ++kb) {
 #pragma unroll
     for (int x = 0; x < 4; ++x) s[2 * kb][x] = s[2 * kb + 1][x] = 0.f;
     if (kb < nblk) {
@@ -254,14 +149,95 @@ __device__ __forceinline__ void attend_tile(RowState<DH>& st,
         uint32_t b[4];  // keys kb*16.. as B = K^T: two n8 tiles
         ldsm_x4(b, sKt + (kb * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD + kc * 16 +
                        ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * kb], qf[kc], b[0], b[1]);
-        mma_bf16(s[2 * kb + 1], qf[kc], b[2], b[3]);
+        mma_bf16(s[2 * kb], q.f[kc], b[0], b[1]);
+        mma_bf16(s[2 * kb + 1], q.f[kc], b[2], b[3]);
       }
     }
   }
+}
+
+template <int DH, int KB>
+__device__ __forceinline__ void tile_logits(float (&s)[KB / 8][4],
+                                            const QOperand<float, DH>& q, const float* sKt,
+                                            int nblk, int lane) {
+  constexpr int LD = row_pitch<float, DH>();
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < KB / 8; ++nt)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) s[nt][x] = 0.f;
+#pragma unroll
+  for (int kc = 0; kc < DH / 8; ++kc) {
+    const float* qr = q.rows + g * LD + kc * 8 + t;
+    const FragA a = split_a(qr[0], qr[8 * LD], qr[4], qr[8 * LD + 4]);
+#pragma unroll
+    for (int nt = 0; nt < KB / 8; ++nt) {
+      if (nt / 2 < nblk) {  // B = K^T: b0 (d t, key g), b1 (d t+4, key g)
+        const float* kr = sKt + (nt * 8 + g) * LD + kc * 8 + t;
+        mma_3xtf32(s[nt], a, kr[0], kr[4]);
+      }
+    }
+  }
+}
+
+// o += P V over the chunk's 16-key blocks kb < nblk; s holds P (C layout)
+template <int DH, int KB>
+__device__ __forceinline__ void tile_values(float (&o)[DH / 8][4], const float (&s)[KB / 8][4],
+                                            const bf16* sVt, int nblk, int lane) {
+  constexpr int LD = row_pitch<bf16, DH>();
+#pragma unroll
+  for (int kb = 0; kb < KB / 16; ++kb) {
+    if (kb < nblk) {
+      const uint32_t a[4] = {pack_bf16(s[2 * kb][0], s[2 * kb][1]),
+                             pack_bf16(s[2 * kb][2], s[2 * kb][3]),
+                             pack_bf16(s[2 * kb + 1][0], s[2 * kb + 1][1]),
+                             pack_bf16(s[2 * kb + 1][2], s[2 * kb + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < DH / 16; ++dp) {
+        uint32_t b[4];  // V rows kb*16.., columns dp*16..: two n8 tiles
+        ldsm_x4_t(b, sVt + (kb * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + dp * 16 +
+                         (lane >> 4) * 8);
+        mma_bf16(o[2 * dp], a, b[0], b[1]);
+        mma_bf16(o[2 * dp + 1], a, b[2], b[3]);
+      }
+    }
+  }
+}
+
+template <int DH, int KB>
+__device__ __forceinline__ void tile_values(float (&o)[DH / 8][4], const float (&s)[KB / 8][4],
+                                            const float* sVt, int nblk, int lane) {
+  constexpr int LD = row_pitch<float, DH>();
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < KB / 8; ++nt) {
+    if (nt / 2 < nblk) {  // the 8 keys of n8 tile nt, read as (2t, 2t+1)
+      const FragA a = split_c_as_a(s[nt]);
+      const float* vr = sVt + (nt * 8 + 2 * t) * LD + g;
+#pragma unroll
+      for (int dt = 0; dt < DH / 8; ++dt) mma_3xtf32(o[dt], a, vr[dt * 8], vr[LD + dt * 8]);
+    }
+  }
+}
+
+// One chunk of (up to) attend_keys<T>() keys for the warp's 16 query rows,
+// holding at least one key. key_ok[j]: 1 valid, 0 masked (-1e9), -1 past L
+// (no key). k0: the chunk's first key; nblk: its 16-key blocks that hold
+// keys; qt0: the warp's first query row (k0 and qt0 are multiples of 16,
+// which the dropout layout needs).
+template <typename T, int DH>
+__device__ __forceinline__ void attend_tile(RowState<DH>& st, const QOperand<T, DH>& q,
+                                            const T* sKt, const T* sVt,
+                                            const int* key_ok, int k0, int nblk,
+                                            int qt0, int sub, int seqs, int h, int n,
+                                            float scale, const Dropout& drop, int lane) {
+  constexpr int KB = attend_keys<T>();
+  const int g = lane >> 2, t = lane & 3;
+  float s[KB / 8][4];
+  tile_logits<DH, KB>(s, q, sKt, nblk, lane);
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
+  for (int nt = 0; nt < KB / 8; ++nt) {
 #pragma unroll
     for (int x = 0; x < 4; ++x) {
       const int jl = nt * 8 + 2 * t + (x & 1);
@@ -278,7 +254,7 @@ __device__ __forceinline__ void attend_tile(RowState<DH>& st,
   for (int r = 0; r < 2; ++r) {
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    // every tile holds a key, so m_new is finite; first tile: exp2(-inf) = 0
+    // every chunk holds a key, so m_new is finite; first: exp2(-inf) = 0
     const float m_new = fmaxf(st.m[r], mx[r]);
     const float alpha = exp2f((st.m[r] - m_new) * LOG2E);
     st.m[r] = m_new;
@@ -290,7 +266,7 @@ __device__ __forceinline__ void attend_tile(RowState<DH>& st,
     }
   }
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
+  for (int nt = 0; nt < KB / 8; ++nt) {
 #pragma unroll
     for (int x = 0; x < 4; ++x) {
       const float p = exp2f((s[nt][x] - st.m[x >> 1]) * LOG2E);
@@ -300,7 +276,7 @@ __device__ __forceinline__ void attend_tile(RowState<DH>& st,
   }
   if (drop.on) {
 #pragma unroll
-    for (int kb = 0; kb < 4; ++kb) {
+    for (int kb = 0; kb < KB / 16; ++kb) {
       if (kb < nblk) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
@@ -317,32 +293,43 @@ __device__ __forceinline__ void attend_tile(RowState<DH>& st,
       }
     }
   }
-#pragma unroll
-  for (int kb = 0; kb < 4; ++kb) {
-    if (kb < nblk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kb][0], s[2 * kb][1]),
-                             pack_bf16(s[2 * kb][2], s[2 * kb][3]),
-                             pack_bf16(s[2 * kb + 1][0], s[2 * kb + 1][1]),
-                             pack_bf16(s[2 * kb + 1][2], s[2 * kb + 1][3])};
-#pragma unroll
-      for (int dp = 0; dp < DH / 16; ++dp) {
-        uint32_t b[4];  // V rows kb*16.., columns dp*16..: two n8 tiles
-        ldsm_x4_t(b, sVt + (kb * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + dp * 16 +
-                         (lane >> 4) * 8);
-        mma_bf16(st.o[2 * dp], a, b[0], b[1]);
-        mma_bf16(st.o[2 * dp + 1], a, b[2], b[3]);
-      }
-    }
+  tile_values<DH, KB>(st.o, s, sVt, nblk, lane);
+}
+
+// The tile's first nkeys keys (k0 the first), in chunks of attend_keys<T>():
+// one attend_tile in bf16, whose chunk is the tile; a loop in fp32 (a loop
+// in bf16 too cost its L <= 64 path 8% on the card).
+template <typename T, int DH>
+__device__ __forceinline__ void attend(RowState<DH>& st, const QOperand<T, DH>& q,
+                                       const T* sKt, const T* sVt, const int* key_ok, int k0,
+                                       int nkeys, int qt0, int sub, int seqs, int h, int n,
+                                       float scale, const Dropout& drop, int lane) {
+  constexpr int KB = attend_keys<T>(), LD = row_pitch<T, DH>();
+  if constexpr (KB == TC_BK) {
+    attend_tile(st, q, sKt, sVt, key_ok, k0, (nkeys + 15) / 16, qt0, sub, seqs, h, n, scale,
+                drop, lane);
+  } else {
+    for (int c0 = 0; c0 < nkeys; c0 += KB)
+      attend_tile(st, q, sKt + c0 * LD, sVt + c0 * LD, key_ok + c0, k0 + c0,
+                  (min(KB, nkeys - c0) + 15) / 16, qt0, sub, seqs, h, n, scale, drop, lane);
   }
+}
+
+// two output values of a row, adjacent columns, into shared memory as T
+__device__ __forceinline__ void put_pair(bf16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
+}
+__device__ __forceinline__ void put_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
 // Normalise, write stats, and store the warp's 16 rows through its own Q
 // rows of shared memory (sQw) with 16-byte stores.
-template <int DH>
-__device__ __forceinline__ void finish_rows(RowState<DH>& st, bf16* sQw, bf16* out,
+template <typename T, int DH>
+__device__ __forceinline__ void finish_rows(RowState<DH>& st, T* sQw, T* out,
                                             float2* stats, int n, int h, int H, int L,
                                             int qt0, int lane) {
-  constexpr int LD = DH + 8, CH = DH / 8;
+  constexpr int LD = row_pitch<T, DH>(), VEC = 16 / (int)sizeof(T), CH = DH / VEC;
   const int g = lane >> 2, t = lane & 3;
   float inv[2];
 #pragma unroll
@@ -359,24 +346,16 @@ __device__ __forceinline__ void finish_rows(RowState<DH>& st, bf16* sQw, bf16* o
   for (int dt = 0; dt < DH / 8; ++dt)
 #pragma unroll
     for (int r = 0; r < 2; ++r)
-      *reinterpret_cast<uint32_t*>(sQw + (g + 8 * r) * LD + dt * 8 + 2 * t) =
-          pack_bf16(st.o[dt][2 * r] * inv[r], st.o[dt][2 * r + 1] * inv[r]);
+      put_pair(sQw + (g + 8 * r) * LD + dt * 8 + 2 * t, st.o[dt][2 * r] * inv[r],
+               st.o[dt][2 * r + 1] * inv[r]);
   __syncwarp();
   const long D = (long)H * DH;
   for (int c = lane; c < 16 * CH; c += 32) {
     const int r = c / CH, ch = c % CH, i = qt0 + r;
     if (i < L)
-      *reinterpret_cast<uint4*>(out + ((long)n * L + i) * D + h * DH + ch * 8) =
-          *reinterpret_cast<const uint4*>(sQw + r * LD + ch * 8);
+      *reinterpret_cast<uint4*>(out + ((long)n * L + i) * D + h * DH + ch * VEC) =
+          *reinterpret_cast<const uint4*>(sQw + r * LD + ch * VEC);
   }
-}
-
-template <int DH>
-__device__ __forceinline__ void load_q_fragments(uint32_t (&qf)[DH / 16][4],
-                                                 const bf16* sQw, int lane) {
-#pragma unroll
-  for (int kc = 0; kc < DH / 16; ++kc)
-    ldsm_x4(qf[kc], sQw + (lane & 15) * (DH + 8) + kc * 16 + (lane >> 4) * 8);
 }
 
 template <int DH>
@@ -389,25 +368,26 @@ __device__ __forceinline__ void init_rows(RowState<DH>& st) {
   st.l[0] = st.l[1] = 0.f;
 }
 
-// grid (N, ceil(H / hpb)); blockDim 32 * warps. L <= 64: hpb heads per
-// block, ceil(L/16) warps each, one key tile. L > 64: hpb = 1, 8 warps.
-template <int DH>
-__global__ void __launch_bounds__(32 * TC_WARPS, 2)
-mha_fwd_bf16(const bf16* __restrict__ qkv, const int* __restrict__ mask,
-             bf16* __restrict__ out, float2* __restrict__ stats, int L, int H,
-             int seqs, int hpb, Dropout drop) {
-  constexpr int LD = DH + 8, CH = DH / 8;
+// The kernel body of both types. grid (N, ceil(H / hpb)); blockDim 32 *
+// warps. L <= 64: hpb heads per block, ceil(L/16) warps each, one key tile.
+// L > 64: hpb = 1, 8 warps. vec: qkv is 16-byte aligned (always, in bf16).
+template <typename T, int DH>
+__device__ __forceinline__ void mha_fwd_body(const T* __restrict__ qkv,
+                                             const int* __restrict__ mask, T* __restrict__ out,
+                                             float2* __restrict__ stats, int L, int H,
+                                             int seqs, int hpb, int vec, Dropout drop) {
+  constexpr int LD = row_pitch<T, DH>(), VEC = 16 / (int)sizeof(T), CH = DH / VEC;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + TC_ROWS * LD;
-  bf16* sV = sK + TC_ROWS * LD;
+  T* sQ = reinterpret_cast<T*>(smem);
+  T* sK = sQ + TC_ROWS * LD;
+  T* sV = sK + TC_ROWS * LD;
   int* sKey = reinterpret_cast<int*>(sV + TC_ROWS * LD);
 
   const int n = blockIdx.x, h0 = blockIdx.y * hpb;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int D = H * DH;
   const long rs = 3L * D;
-  const bf16* seq = qkv + (long)n * L * rs;
+  const T* seq = qkv + (long)n * L * rs;
   const int* mrow = mask + (long)n * L;
   const int sub = L / seqs;
   const float scale = 1.0f / sqrtf((float)DH);
@@ -415,14 +395,21 @@ mha_fwd_bf16(const bf16* __restrict__ qkv, const int* __restrict__ mask,
   const int Lp = (L + 15) & ~15;
   const int tph = multi ? Lp / 16 : TC_WARPS;  // warps per head
   const int h = h0 + warp / tph;
-  bf16* sQw = sQ + warp * 16 * LD;
+  T* sQw = sQ + warp * 16 * LD;
 
   // rows r0.. of one column block (col: element offset in a qkv row), rows
   // past L zero-filled
-  auto load_rows = [&](bf16* dst, int col, int r0, int rows) {
+  auto load_rows = [&](T* dst, int col, int r0, int rows) {
+    if (sizeof(T) == 4 && !vec) {  // fp32 off a 16-byte boundary: 4-byte copies
+      for (int c = threadIdx.x; c < rows * DH; c += blockDim.x) {
+        const int r = c / DH, d = c % DH, j = r0 + r;
+        cp_async4(dst + r * LD + d, seq + (long)min(j, L - 1) * rs + col + d, j < L ? 4 : 0);
+      }
+      return;
+    }
     for (int c = threadIdx.x; c < rows * CH; c += blockDim.x) {
       const int r = c / CH, ch = c % CH, j = r0 + r;
-      cp_async16(dst + r * LD + ch * 8, seq + (long)min(j, L - 1) * rs + col + ch * 8,
+      cp_async16(dst + r * LD + ch * VEC, seq + (long)min(j, L - 1) * rs + col + ch * VEC,
                  j < L ? 16 : 0);
     }
   };
@@ -434,7 +421,7 @@ mha_fwd_bf16(const bf16* __restrict__ qkv, const int* __restrict__ mask,
   };
 
   RowState<DH> st;
-  uint32_t qf[DH / 16][4];
+  QOperand<T, DH> q;
 
   if (multi) {
     for (int s = 0; s < hpb; ++s) {
@@ -451,9 +438,9 @@ mha_fwd_bf16(const bf16* __restrict__ qkv, const int* __restrict__ mask,
     if (h < H) {  // warp-uniform: the last block may hold fewer heads
       const int slot = warp / tph, qt0 = (warp % tph) * 16;
       init_rows(st);
-      load_q_fragments<DH>(qf, sQw, lane);
-      attend_tile(st, qf, sK + slot * Lp * LD, sV + slot * Lp * LD, sKey, 0, Lp / 16,
-                  qt0, sub, seqs, h, n, scale, drop, lane);
+      q.load(sQw, lane);
+      attend(st, q, sK + slot * Lp * LD, sV + slot * Lp * LD, sKey, 0, Lp, qt0, sub, seqs,
+             h, n, scale, drop, lane);
       finish_rows(st, sQw, out, stats, n, h, H, L, qt0, lane);
     }
     return;
@@ -483,10 +470,10 @@ mha_fwd_bf16(const bf16* __restrict__ qkv, const int* __restrict__ mask,
       }
       __syncthreads();  // this tile (and, first, Q) has landed
       if (active) {
-        if (k0 == 0) load_q_fragments<DH>(qf, sQw, lane);
-        attend_tile(st, qf, sK + stage * TC_BK * LD, sV + stage * TC_BK * LD,
-                    sKey + stage * TC_BK, k0, (min(TC_BK, L - k0) + 15) / 16, qt0, sub,
-                    seqs, h, n, scale, drop, lane);
+        if (k0 == 0) q.load(sQw, lane);
+        attend(st, q, sK + stage * TC_BK * LD, sV + stage * TC_BK * LD,
+               sKey + stage * TC_BK, k0, min(TC_BK, L - k0), qt0, sub, seqs, h, n, scale,
+               drop, lane);
       }
       __syncthreads();  // the stage is consumed before it is refilled
     }
@@ -494,13 +481,33 @@ mha_fwd_bf16(const bf16* __restrict__ qkv, const int* __restrict__ mask,
   }
 }
 
+// One entry point per type, so that each keeps its name in traces and in
+// the ptxas report, and its own register cap: 128 a thread, two blocks of
+// 8 warps per SM.
 template <int DH>
-cudaError_t launch_bf16(const void* qkv, const void* mask, void* out, void* stats,
-                        int N, int L, int H, int seqs, Dropout drop,
-                        cudaStream_t stream) {
-  constexpr int smem = tc_smem_bytes<DH>();
-  cudaError_t err = cudaFuncSetAttribute(
-      mha_fwd_bf16<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+__global__ void __launch_bounds__(32 * TC_WARPS, 2)
+mha_fwd_bf16(const bf16* __restrict__ qkv, const int* __restrict__ mask,
+             bf16* __restrict__ out, float2* __restrict__ stats, int L, int H, int seqs,
+             int hpb, int vec, Dropout drop) {
+  mha_fwd_body<bf16, DH>(qkv, mask, out, stats, L, H, seqs, hpb, vec, drop);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(32 * TC_WARPS, 2)
+mha_fwd_fp32(const float* __restrict__ qkv, const int* __restrict__ mask,
+             float* __restrict__ out, float2* __restrict__ stats, int L, int H, int seqs,
+             int hpb, int vec, Dropout drop) {
+  mha_fwd_body<float, DH>(qkv, mask, out, stats, L, H, seqs, hpb, vec, drop);
+}
+
+template <typename T, int DH>
+cudaError_t launch(const void* qkv, const void* mask, void* out, void* stats, int N,
+                   int L, int H, int seqs, Dropout drop, cudaStream_t stream) {
+  constexpr bool BF16 = sizeof(T) == 2;
+  constexpr int smem = tc_smem_bytes<T, DH>();
+  const auto kernel = BF16 ? (void*)mha_fwd_bf16<DH> : (void*)mha_fwd_fp32<DH>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   int hpb = 1, warps = TC_WARPS;
   if (L <= TC_BK) {
@@ -508,26 +515,27 @@ cudaError_t launch_bf16(const void* qkv, const void* mask, void* out, void* stat
     hpb = H < TC_WARPS / tph ? H : TC_WARPS / tph;  // min(H, 8 / tph) >= 1
     warps = hpb * tph;
   }
+  const int vec = (reinterpret_cast<uintptr_t>(qkv) & 15) == 0;
   const dim3 grid(N, (H + hpb - 1) / hpb);
-  mha_fwd_bf16<DH><<<grid, 32 * warps, smem, stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<const int*>(mask),
-      static_cast<bf16*>(out), static_cast<float2*>(stats), L, H, seqs, hpb, drop);
+  if (BF16)
+    mha_fwd_bf16<DH><<<grid, 32 * warps, smem, stream>>>(
+        static_cast<const bf16*>(qkv), static_cast<const int*>(mask),
+        static_cast<bf16*>(out), static_cast<float2*>(stats), L, H, seqs, hpb, vec, drop);
+  else
+    mha_fwd_fp32<DH><<<grid, 32 * warps, smem, stream>>>(
+        static_cast<const float*>(qkv), static_cast<const int*>(mask),
+        static_cast<float*>(out), static_cast<float2*>(stats), L, H, seqs, hpb, vec, drop);
   return cudaGetLastError();
 }
 
-template <bool BF16>
+template <typename T>
 cudaError_t dispatch_head_dim(const void* qkv, const void* mask, void* out,
                               void* stats, int N, int L, int H, int Dh,
                               int seqs, Dropout drop, cudaStream_t stream) {
   switch (Dh) {
-#define MHA_CASE(DH)                                                                   \
-  case DH:                                                                             \
-    return BF16 ? launch_bf16<DH>(qkv, mask, out, stats, N, L, H, seqs, drop, stream)  \
-                : launch_fp32<DH>(qkv, mask, out, stats, N, L, H, seqs, drop, stream);
-    MHA_CASE(16)
-    MHA_CASE(32)
-    MHA_CASE(64)
-#undef MHA_CASE
+    case 16: return launch<T, 16>(qkv, mask, out, stats, N, L, H, seqs, drop, stream);
+    case 32: return launch<T, 32>(qkv, mask, out, stats, N, L, H, seqs, drop, stream);
+    case 64: return launch<T, 64>(qkv, mask, out, stats, N, L, H, seqs, drop, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -535,7 +543,8 @@ cudaError_t dispatch_head_dim(const void* qkv, const void* mask, void* out,
 }  // namespace
 
 // qkv (N, L, 3*H*Dh) and out (N, L, H*Dh) of one dtype, mask (N, L) int32,
-// all contiguous (bf16: 16-byte aligned); Dh in {16, 32, 64}; L % seqs == 0.
+// all contiguous, out 16-byte aligned (qkv too in bf16); Dh in {16, 32,
+// 64}; L % seqs == 0.
 // stats: (N, H, L) float2 (row max, 1/row sum) or null. Dropout is on when
 // `dropping` is non-zero: keep iff bits >= thresh, kept values scaled by
 // inv_keep.
@@ -552,9 +561,9 @@ extern "C" int mha_fwd(const void* qkv, const void* mask, void* out,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case DTYPE_F32:
-      return dispatch_head_dim<false>(qkv, mask, out, stats, N, L, H, Dh, seqs, drop, s);
+      return dispatch_head_dim<float>(qkv, mask, out, stats, N, L, H, Dh, seqs, drop, s);
     case DTYPE_BF16:
-      return dispatch_head_dim<true>(qkv, mask, out, stats, N, L, H, Dh, seqs, drop, s);
+      return dispatch_head_dim<bf16>(qkv, mask, out, stats, N, L, H, Dh, seqs, drop, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -52,14 +52,6 @@ __device__ __forceinline__ Philox4 mha_block_bits(int qb, int qr, int kb, int kr
                        static_cast<uint32_t>(h), static_cast<uint32_t>(n), seed);
 }
 
-// Both words of row i's call for keys 16 kb + kr and 16 kb + kr + 8: the
-// pair a thread that owns query row i draws per call.
-__device__ __forceinline__ uint2 mha_row_pair_bits(int i, int kb, int kr, int h, int n,
-                                                   unsigned long long seed) {
-  const Philox4 b = mha_block_bits(i >> 4, i & 7, kb, kr, h, n, seed);
-  return (i & 8) ? make_uint2(b.w[2], b.w[3]) : make_uint2(b.w[0], b.w[1]);
-}
-
 // The add_ln layout: element (row r, column c) is word c % 4 of
 // philox(counter = (c / 4, r, 0, 0)). The call for columns 4 q .. 4 q + 3 of
 // row r: word w[i] is the bits of column 4 q + i.

@@ -13,12 +13,15 @@ The kernels are ``csrc/mha_fwd.cu`` and ``csrc/mha_bwd.cu``. Dropout keeps
 an element by its Philox4x32-10 bits (``ops/philox.py``: a function of the
 seed and (n, head, query, key)), so the forward, the backward and a
 rematerialised forward regenerate one mask and nothing random is stored.
-In bfloat16 the kernels run on the tensor cores and round P (into PV), Pd
-and dS (into the backward's products) to bf16, as the TPU kernels round
-them to the input type; the plain versions here keep them fp32, and the
-bf16 tolerance covers the difference. In float32 the kernels stay on the
-CUDA cores and the probabilities stay fp32 into every product, so kernel
-and plain version agree to rounding.
+Both types run on the tensor cores. In bfloat16 the kernels round P (into
+PV), Pd and dS (into the backward's products) to bf16, as the TPU kernels
+round them to the input type; the plain versions here keep them fp32, and
+the bf16 tolerance covers the difference. In float32 every product runs in
+split TF32 (three TF32 passes, hi/lo halves of each operand: about fp32's
+accuracy, where one TF32 pass would miss the 1e-4 tolerance) and the
+probabilities stay fp32 into every product, so kernel and plain version
+agree to rounding. A float32 qkv off a 16-byte boundary is taken (the
+kernels copy it 4 bytes at a time); a bfloat16 one is refused.
 
 Under autograd (grad mode on and ``qkv`` requiring grad) the op is a
 ``torch.autograd.Function``: on the card its forward kernel also saves each
@@ -181,7 +184,7 @@ def mha_backward(qkv: torch.Tensor, mask: torch.Tensor, dout: torch.Tensor,
                                     (ctypes.c_int,) * 5, ctypes.c_longlong)(
         N, L, num_heads, Dh, code)
     dqkv = torch.empty_like(qkv)
-    # fp32: dK|dV partials of each query tile; bf16 (L > 128): dQ sums
+    # bf16 at L > 128: dQ sums over key tiles (fp32 sums in dqkv itself)
     scratch = (torch.empty(floats, dtype=torch.float32, device=qkv.device)
                if floats else None)
     fn = common.kernel_function("mha_bwd", "mha_bwd", _BWD_ARGTYPES)

@@ -165,12 +165,19 @@ class TrainRun(NamedTuple):
 
 def _refuse_flags(args, device: torch.device) -> None:
     """Raise for an unknown ``--model_name``, for ``--param_dtype`` other
-    than float32 (the JAX package refuses it too, trainer.py:125-131) and
-    for ``--no-fused_kernels`` on a card, instead of running something else
+    than float32 (the JAX package refuses it too, trainer.py:125-131), for
+    ``--remat_policy`` without ``--remat`` (JAX's ``plm_config`` raises the
+    same error in every subcommand that builds a model) and for
+    ``--no-fused_kernels`` on a card, instead of running something else
     than was asked for."""
     name = (args.model_name or "Miner").lower()
     if name not in _KINDS:
         raise ValueError(f"unknown --model_name {args.model_name!r}")
+    policy = getattr(args, "remat_policy", "")
+    if policy and not getattr(args, "remat", False):
+        raise ValueError(
+            f"--remat_policy {policy!r} has no effect without "
+            "--remat; pass --remat (or drop --remat_policy)")
     if args.fused_kernels is False and device.type == "cuda":
         raise ValueError(
             "--no-fused_kernels with a CUDA device: on the card every path "

@@ -315,8 +315,8 @@ def _assert_mha_grad_close(got, want, H, dtype):
 @pytest.mark.parametrize("op", ["mha", "mha_seqs4", "mha_2_key_tiles", "add_ln"])
 def test_backward_kernel_matches_plain_on_card(rng, op, dtype, rate):
     """The backward kernels against the plain backward formulas (mha: one
-    key tile at L=40; at L=160 the bf16 kernel sums dQ over two key tiles
-    and the fp32 one sums dK, dV partials over three query tiles)."""
+    key tile at L=40; at L=160 both types sum dQ over two key tiles, bf16
+    in an fp32 scratch row, fp32 in its own output)."""
     dev = _card()
     before = launch_counts()
     if op.startswith("mha"):
@@ -445,6 +445,45 @@ def test_dropout_mask_matches_plain_on_card(rng, op, dtype):
         got = add_ln.fused_dropout_add_ln(x, h, g, b, rate, 1e-5, seed)
         want = add_ln.add_ln_reference(x, h, g, b, 1e-5, rate, seed)
     assert (got.float() - want.float()).abs().max().item() <= _tol(dtype, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Dh", [16, 32, 64])
+@pytest.mark.parametrize("L", [23, 159, 300])
+def test_fp32_mha_at_lengths_off_the_tiles_on_card(rng, L, Dh):
+    """The split-TF32 fp32 kernels, forward and backward with dropout 0.1,
+    at lengths off the 16-row tiles: UnBERT's 23 sentences (one key tile,
+    several heads a block), UniSRec's 159 (a 31-row query tile, a 31-key
+    tile) and UnBERT's 300 (three query passes, three key tiles of the
+    backward); a padded and a fully masked row, the block-diagonal band
+    where L divides (300: 4, 159: 3); the dropout mask bit for bit."""
+    dev = _card()
+    H, rate, seed = 3, 0.1, 2 ** 35 + L
+    qkv, mask, _ = _mha_inputs(rng, N=3, L=L, H=H, Dh=Dh)
+    mask[1, L // 2:] = 0
+    qkv = torch.as_tensor(qkv, device=dev)
+    mask = torch.as_tensor(mask, device=dev)
+    dout = torch.as_tensor(rng.normal(size=(3, L, H * Dh)).astype(np.float32), device=dev)
+    before = launch_counts()
+    bands = [1] + [s for s in (4, 3) if L % s == 0][:1]
+    for seqs in bands:
+        out, stats = mha._launch_fwd(qkv, mask, H, seqs, rate, seed, True)
+        want = mha.mha_reference(qkv, mask, H, seqs, rate, seed)
+        assert out.dtype == torch.float32 and torch.isfinite(out).all()
+        assert (out - want).abs().max().item() <= _tol(torch.float32, want)
+        got = mha.mha_backward(qkv, mask, dout, H, rate, seed, seqs, out, stats)
+        want = mha.mha_backward_reference(qkv, mask, dout, H, seqs, rate, seed)
+        assert torch.isfinite(got).all()
+        _assert_mha_grad_close(got, want, H, torch.float32)
+    torch.cuda.synchronize()
+    assert launch_counts()["mha_bwd"] == before["mha_bwd"] + len(bands)
+    # zero weights: dropped, or masked in a row that has a valid key (a
+    # fully masked row is uniform over its keys)
+    keep = philox.keep_mask(philox.mha_bits(seed, 3, H, L, dev), rate)
+    valid = mask.bool()
+    masked = ~valid & valid.any(-1, keepdim=True)
+    assert torch.equal(_mha_dropped(qkv, mask, H, rate, seed),
+                       ~keep | masked[:, None, None, :])
 
 
 @pytest.mark.gpu
