@@ -13,9 +13,10 @@ Phases, each of which makes the script exit non-zero when it fails:
    ``train_miner.txt`` micro-batch, with dropout on, and for mha also off,
    so that the dropout's share of the time shows, and in fp32, and a
    ``pretrain_miner.txt`` micro-batch; the add_ln backward also in fp32;
-   poly-attention at the train, serve and eval batches, in fp32, and with a
-   quarter of its rows fully masked; lookup+score at a slate (with
-   candidates in [-N, 0): wrapped, and outside [-N, N): NaN), the
+   poly-attention at the train, serve and eval batches in bf16 and fp32
+   (and fp32 at a single user and at the PLM's D = 768), and with a
+   quarter of its rows fully masked; lookup+score at a slate (with candidates in [-N, 0): wrapped,
+   and outside [-N, N): NaN), the
    whole-corpus top-k and an eval batch, in bf16 and fp32, and the top-k
    over a cache of MIND's size, then its int8 route at the same shapes with
    bf16 and fp32 interests; Fastformer attention at the train, eval and
@@ -349,6 +350,8 @@ FORBIDDEN = {"fastformer_train": PLM_BWD,
 # several variants)
 ENTRY_REPORTS = ("mha_fwd", "mha_bwd", "add_ln_bwd", "poly_attention_fwd",
                  "lookup_score_fwd", "fastformer_attn_fwd")
+# the libraries whose fp32 entries run split TF32: a spill there fails the run
+SPLIT_TF32 = ("mha_fwd", "mha_bwd", "poly_attention_fwd")
 # MIND (Wu et al., ACL 2020) counts 161,013 news: a cache of 161,014 rows
 # (row 0 the padding), and the corpus top-k's candidate bucket over it
 MIND_NEWS = 161013
@@ -761,30 +764,38 @@ def _poly_bound(inputs):
 def poly_cases(dev, g):
     """Poly-attention at the batches its paths give it (16: a training
     micro-batch; 32: a full serving request batch; 64: an eval batch), in
-    bf16 and, at 32, in fp32 and with a quarter of the rows fully masked
-    (users with no clicks: the mean of the 50 real history rows); and under
+    bf16 and fp32 (the fp32 route's own row entry at 32; at 1, a request
+    of one user), and at 32 with a quarter of the rows fully masked (users
+    with no clicks: the mean of the 50 real history rows); under
     --legacy_poly_mask (the launch's fill 1e-30 in place of logits + bias:
     pads keep a weight), bf16 and fp32 at 32 with a quarter of the rows
-    fully masked and the rest of random length."""
+    fully masked and the rest of random length; and fp32 at the PLM's D =
+    768 (a Miner without --apply_reduce_dim, which the lstm combine sends
+    down the fp32 route: D split across a cluster of 8) at 16 and 64."""
     from miner_tpu_torch.ops import poly_attention
 
     legacy = poly_attention.LEGACY_FILL
-    for B, dtype, masked, fill in (
-            (TRAIN_B, torch.bfloat16, 0, None), (MAX_BATCH, torch.bfloat16, 0, None),
-            (EVAL_B, torch.bfloat16, 0, None), (MAX_BATCH, torch.float32, 0, None),
-            (MAX_BATCH, torch.bfloat16, MAX_BATCH // 4, None),
-            (MAX_BATCH, torch.bfloat16, MAX_BATCH // 4, legacy),
-            (MAX_BATCH, torch.float32, MAX_BATCH // 4, legacy)):
-        args = _poly_inputs(dev, g, B, dtype, masked) + ((fill,) if fill else ())
+    f32, bf16 = torch.float32, torch.bfloat16
+    for B, dtype, masked, fill, D in (
+            (TRAIN_B, bf16, 0, None, DIM), (MAX_BATCH, bf16, 0, None, DIM),
+            (EVAL_B, bf16, 0, None, DIM), (1, f32, 0, None, DIM), (TRAIN_B, f32, 0, None, DIM),
+            (MAX_BATCH, f32, 0, None, DIM), (EVAL_B, f32, 0, None, DIM),
+            (MAX_BATCH, bf16, MAX_BATCH // 4, None, DIM),
+            (MAX_BATCH, f32, MAX_BATCH // 4, None, DIM),
+            (MAX_BATCH, bf16, MAX_BATCH // 4, legacy, DIM),
+            (MAX_BATCH, f32, MAX_BATCH // 4, legacy, DIM),
+            (TRAIN_B, f32, 0, None, HIDDEN), (EVAL_B, f32, 0, None, HIDDEN)):
+        args = _poly_inputs(dev, g, B, dtype, masked, D=D) + ((fill,) if fill else ())
         yield dict(
             case=f"{str(dtype)[6:]} B={B}" + (f", {masked} rows fully masked" if masked else "")
-            + (" legacy fill" if fill else ""),
+            + (" legacy fill" if fill else "") + (f", D={D}" if D != DIM else ""),
             dtype=dtype,
             kernel=lambda: poly_attention.poly_attention_fused(*args),
             plain=lambda: poly_attention.poly_attention_reference(*args),
             library=None,
             bound=_poly_bound(args[:5]),
-            main=dtype == torch.bfloat16 and B == MAX_BATCH and not masked)
+            main=dtype == bf16 and B == MAX_BATCH and not masked,
+            route="fp32" if dtype == f32 and B == MAX_BATCH and not masked else None)
 
 
 def _lookup_inputs(dev, g, N, B, C, K, D, cache_dt, int_dt):
@@ -1151,6 +1162,14 @@ def launch_weighted_gaps(rows, timed, sweep) -> None:
         if name in LaunchCensus.EVERY:
             if shapes:
                 row["shapes"] = shapes
+            if "fp32" in row:  # poly-attention: its fp32 route's share
+                f32 = [sh for sh in shapes if sh["shape"].startswith("float32")]
+                n32 = sum(sum(sh["launches_by_phase"].values()) for sh in f32)
+                gap32 = sum(n * (sh["ms"] - sh["bound_ms"]) for sh in f32
+                            for n in sh["launches_by_phase"].values())
+                row["fp32"].update(launches=n32, launch_weighted_gap_ms=gap32)
+                log(f"  {name:18s} fp32: {n32} launches, launch-weighted gap "
+                    f"{gap32:.3f} ms")
         else:
             if shapes:  # mha: its fp32 launches
                 row["fp32"].update(shapes=shapes, launches=sum(census.values()),
@@ -2517,11 +2536,11 @@ def main(argv=None) -> int:
                 entry = line.split("'")[1] if "'" in line else line
             if any(k in line for k in keys):
                 log(f"  {name}: {line.strip()}")
-            if ("fp32" in entry and name.startswith("mha_") and "spill" in line
+            if ("fp32" in entry and name in SPLIT_TF32 and "spill" in line
                     and "0 bytes spill stores, 0 bytes spill loads" not in line):
                 spills.append(f"{entry}: {line.strip()}")
     if spills:  # the split-TF32 kernels are sized to keep every fragment in registers
-        msg = "fp32 mha builds spill:\n  " + "\n  ".join(spills)
+        msg = "fp32 (split TF32) builds spill:\n  " + "\n  ".join(spills)
         if names is None:
             raise SystemExit(msg)
         log(msg)  # another version's kernels, timed beside this one's

@@ -12,10 +12,11 @@
 // What bounds it: at the main path's shapes (H = 50, D = 256, P = 200,
 // K = 32) a row reads 25.6 KB of bf16 emb and does ~6.1 MFLOP; W and codes
 // (~115 KB) are shared by every row and stay in L2. The least time for a
-// request batch (B = 32) is well under a microsecond; what a launch really
-// costs is its latency: how long the chain load -> three dependent
-// products -> softmax -> store takes for one row, and how few SMs share
-// the rows.
+// request batch (B = 32) is well under a microsecond (fp32: 1.3 us, by
+// its operations at 165 TFLOP/s, the TF32 rate over three passes); what a
+// launch really costs is its latency: how long the chain load -> three
+// dependent products -> softmax -> store takes for one row, and how few
+// SMs share the rows.
 //
 // bf16 design, on the tensor cores, one cluster of NC = 4 CTAs per batch
 // row (B = 32: 128 CTAs, where one block a row filled 32 of 132 SMs).
@@ -39,96 +40,40 @@
 // = 0 against a zero code); codes past K are zero and their rows of out
 // are not written. Nothing but out touches device memory.
 //
-// fp32 stays on the CUDA cores (the design of the first port: one block
-// per row, everything in shared memory, W streamed from L2 in chunks of 16
-// history rows): on the tensor cores fp32 operands would run as TF32,
-// whose 10-bit mantissa fails the 1e-4 fp32 tolerance and the card-vs-CPU
-// parity phases.
+// fp32 design (one block a row on the CUDA cores, the first port's, read
+// W from L2 inside its loop and left 100 of 132 SMs idle at B = 32): the
+// same four steps on a cluster of CTAs a row, the products on the tensor
+// cores in split TF32 (tensor_core.cuh: mma.sync m16n8k8, three TF32 passes
+// a product, ~2^-21 of each product; one TF32 pass alone misses the 1e-4
+// fp32 tolerance, tests/test_torch_poly_tf32.py). Each CTA of 16 warps
+// stages the row's emb whole, its mask and bias, and its slice of W's and
+// the codes' 8-column pieces of P by cp.async (16-byte copies when emb, W
+// and the codes are 16-byte aligned and D, P multiples of 4, else 4-byte
+// copies, chosen at launch), zero past H, D, P and K; proj stays fp32
+// (tanh) in the CTA's shared slice, its even and odd k-steps in two
+// accumulators (half the chain of dependent mma); the softmax runs a warp a
+// code; the weights^T enter out's product from shared memory. Rows are
+// padded so that every fragment read falls on distinct banks: the k order
+// of a product is free, and the ones whose operands pair up along k read
+// them as (2t, 2t + 1) by float2. The CTAs a row depend on the shapes
+// alone (fp32_plan), never on the batch, so a row's result does not depend
+// on how many rows share its launch: 3 (~185 KB a CTA at the main shapes,
+// one an SM; an H100 holds 39 such clusters at once, so B = 32 is one
+// wave), or 8 where a third of W's columns does not fit. Where emb whole
+// does not fit either (D = 768, a Miner without --apply_reduce_dim), D is
+// split across 8 CTAs: each stages its eighth of emb's columns and of W's
+// rows with all of W's columns, computes the partial proj over its D, and
+// the cluster sums the partials over distributed shared memory in rank
+// order before tanh, for each CTA's slice of P (one cluster barrier more);
+// out's columns are then the CTA's own emb columns. A shape that fits none
+// of these is refused (the wrapper raises). What sets the time is the
+// row's chain of latencies (~22 us a wave), not the work.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
 #include "tensor_core.cuh"
 
 namespace {
-
-// ---------------------------------------------------------------- float32
-constexpr int THREADS = 256;
-constexpr int HC = 16;  // history rows per pass over W
-
-size_t fp32_smem_bytes(int H, int D, int P, int K) {
-  return sizeof(float) * ((size_t)H * D + (size_t)H * P + (size_t)K * (P + 1) + (size_t)H * K);
-}
-
-__global__ void __launch_bounds__(THREADS)
-poly_attention_fp32(const float* __restrict__ emb, const float* __restrict__ w,
-                    const float* __restrict__ codes, const int* __restrict__ mask,
-                    const float* __restrict__ bias, float* __restrict__ out, int H, int D,
-                    int P, int K, float mask_fill) {
-  extern __shared__ float smem[];
-  float* sE = smem;                  // (H, D)
-  float* sProj = sE + H * D;         // (H, P)
-  float* sC = sProj + H * P;         // (K, P + 1), padded against bank conflicts
-  float* sW = sC + K * (P + 1);      // (H, K): logits, then weights
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const float* e = emb + (long)b * H * D;
-
-  for (int idx = tid; idx < H * D; idx += THREADS) sE[idx] = e[idx];
-  for (int idx = tid; idx < K * P; idx += THREADS)
-    sC[(idx / P) * (P + 1) + idx % P] = codes[idx];
-  __syncthreads();
-
-  // proj: one thread per column p; W's row d is read coalesced across p
-  for (int p = tid; p < P; p += THREADS) {
-    for (int h0 = 0; h0 < H; h0 += HC) {
-      float acc[HC];
-#pragma unroll
-      for (int hh = 0; hh < HC; ++hh) acc[hh] = 0.f;
-      for (int d = 0; d < D; ++d) {
-        const float wv = w[(long)d * P + p];
-#pragma unroll
-        for (int hh = 0; hh < HC; ++hh)
-          acc[hh] += sE[min(h0 + hh, H - 1) * D + d] * wv;
-      }
-#pragma unroll
-      for (int hh = 0; hh < HC; ++hh)
-        if (h0 + hh < H) sProj[(h0 + hh) * P + p] = tanhf(acc[hh]);
-    }
-  }
-  __syncthreads();
-
-  for (int idx = tid; idx < H * K; idx += THREADS) {
-    const int h = idx / K, k = idx % K;
-    const float* pr = sProj + h * P;
-    const float* cr = sC + k * (P + 1);
-    float acc = 0.f;
-    for (int p = 0; p < P; ++p) acc += pr[p] * cr[p];
-    acc += bias[(long)b * H + h];
-    sW[idx] = mask[(long)b * H + h] != 0 ? acc : mask_fill;
-  }
-  __syncthreads();
-
-  // softmax over the history axis, one thread per code
-  for (int k = tid; k < K; k += THREADS) {
-    float mx = -INFINITY;
-    for (int h = 0; h < H; ++h) mx = fmaxf(mx, sW[h * K + k]);
-    float sum = 0.f;
-    for (int h = 0; h < H; ++h) {
-      const float ex = expf(sW[h * K + k] - mx);
-      sW[h * K + k] = ex;
-      sum += ex;
-    }
-    for (int h = 0; h < H; ++h) sW[h * K + k] /= sum;
-  }
-  __syncthreads();
-
-  float* o = out + (long)b * K * D;
-  for (int idx = tid; idx < K * D; idx += THREADS) {
-    const int k = idx / D, d = idx % D;
-    float acc = 0.f;
-    for (int h = 0; h < H; ++h) acc += sW[h * K + k] * sE[h * D + d];
-    o[idx] = acc;
-  }
-}
 
 // --------------------------------------------------------------- bfloat16
 namespace cg = cooperative_groups;
@@ -172,7 +117,7 @@ poly_attention_bf16(const bf16* __restrict__ emb, const bf16* __restrict__ w,
                     const bf16* __restrict__ codes, const int* __restrict__ mask,
                     const float* __restrict__ bias, bf16* __restrict__ out, int H, int D,
                     int P, int K, float mask_fill) {
-  extern __shared__ __align__(16) unsigned char smem_tc[];  // fp32's smem is a float[]
+  extern __shared__ __align__(16) unsigned char smem_tc[];
   const Layout lay(H, D, P, K);
   float* sPart = reinterpret_cast<float*>(smem_tc + lay.part);
   float* sLog = reinterpret_cast<float*>(smem_tc + lay.logit);
@@ -338,33 +283,367 @@ cudaError_t launch_bf16(const void* emb, const void* w, const void* codes, const
   return cudaGetLastError();
 }
 
-cudaError_t launch_fp32(const void* emb, const void* w, const void* codes,
-                        const void* mask, const void* bias, void* out, int B,
-                        int H, int D, int P, int K, float mask_fill,
-                        cudaStream_t stream) {
-  const size_t smem = fp32_smem_bytes(H, D, P, K);
-  cudaError_t err = cudaFuncSetAttribute(
-      poly_attention_fp32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// ---------------------------------------------------------------- float32
+constexpr int F32_WARPS = 16;
+constexpr int MAX_CLUSTER = 8;  // the largest portable cluster
+constexpr size_t MAX_SMEM = 227 * 1024;
+
+// a row pitch of at least n floats (n a multiple of 8) that is 8 mod 16:
+// float2 reads of (row g, columns 2t, 2t + 1) by a half-warp, and scalar
+// reads of (rows t, t + 4, column g), fall on distinct banks
+__host__ __device__ inline int pitch_8_of_16(int n) { return n % 16 == 8 ? n : n + 8; }
+
+// Shared memory of one fp32 CTA with nc CTAs a batch row; every CTA of a
+// launch has the same layout, sized for the widest slices. D whole: a CTA
+// holds emb whole and its slice of W's columns. D split: a CTA holds its
+// slice of emb's columns and of W's rows, all of W's columns, and the
+// partial proj over its slice of D, which the cluster sums.
+struct F32Layout {
+  int Hp, Kp, Dp, Pp, ps, ds;  // H and K padded to 16, D and P to 8; the widest slices of P, D
+  int lde, ldw, ldc, ldq, ldl, ldt, ldp;  // pitches: emb, W, codes and proj slices, partial
+                                          // logits, logits, weights^T, partial proj
+  size_t part, logit, e, w, c, proj, wt, pp, mb, bytes;  // byte offsets
+  __host__ __device__ F32Layout(int H, int D, int P, int K, int nc, bool split) {
+    Hp = (H + 15) / 16 * 16;
+    Kp = (K + 15) / 16 * 16;
+    Dp = (D + 7) / 8 * 8;
+    Pp = (P + 7) / 8 * 8;
+    ps = 8 * ((Pp / 8 + nc - 1) / nc);
+    ds = split ? 8 * ((Dp / 8 + nc - 1) / nc) : Dp;
+    lde = pitch_8_of_16(ds);      // A of proj by (g, 2t) pairs; B of out by rows (t, t + 4)
+    ldw = (split ? Pp : ps) + 4;  // B of proj by rows (2t, 2t + 1): a pitch 4 mod 8
+    ldc = pitch_8_of_16(ps);      // proj and the codes: A and B of the logits by (g, 2t) pairs
+    ldq = pitch_8_of_16(Kp);      // C tiles stored by (g, 2t) pairs
+    ldl = Kp + 1;                 // read down a column, a lane a history row
+    ldt = Hp + 4;                 // A of out by (g, t): a pitch 4 mod 8
+    ldp = pitch_8_of_16(Pp);      // C tiles stored by (g, 2t) pairs
+    part = 0;                                       // (Hp, Kp) this CTA's partial logits
+    logit = part + sizeof(float) * Hp * ldq;        // (Hp, Kp) the summed logits
+    e = (logit + sizeof(float) * Hp * ldl + 15) / 16 * 16;  // (Hp, ds) emb or its slice
+    w = e + sizeof(float) * Hp * lde;               // (ds, ps) or (ds, Pp): W's slice
+    c = w + sizeof(float) * (size_t)ds * ldw;       // (Kp, ps) the codes' slice
+    proj = c + sizeof(float) * Kp * ldc;            // (Hp, ps) proj's slice
+    wt = proj + sizeof(float) * Hp * ldc;           // (Kp, Hp) weights^T
+    pp = wt + sizeof(float) * Kp * ldt;             // D split: (Hp, Pp) the partial proj
+    mb = pp + (split ? sizeof(float) * Hp * ldp : 0);  // (Hp,) mask, then (Hp,) bias
+    bytes = mb + 2 * sizeof(float) * Hp;
+  }
+};
+
+// The CTAs a batch row and the layout, from the shapes alone: the first of
+// 3 CTAs (emb whole, a third of W's columns each), 8 (an eighth), and 8
+// with D split (an eighth of emb's columns and W's rows each: D = 768)
+// whose CTA fits; nc = 0 where none does. ops/poly_attention.py:FP32_PLANS
+// lists the same.
+struct F32Plan {
+  int nc;
+  bool split;
+};
+constexpr F32Plan FP32_PLANS[] = {{3, false}, {MAX_CLUSTER, false}, {MAX_CLUSTER, true}};
+
+F32Plan fp32_plan(int H, int D, int P, int K) {
+  for (const F32Plan& p : FP32_PLANS)
+    if (F32Layout(H, D, P, K, p.nc, p.split).bytes <= MAX_SMEM) return p;
+  return {0, true};
+}
+
+// rows x cols floats (cols a multiple of 4) of src (row pitch sld) into dst
+// (row pitch dld) by cp.async, zero where row >= rmax or col >= cmax: 16-byte
+// copies when vec (src, sld and cmax multiples of 4 floats), else 4-byte
+__device__ __forceinline__ void stage(float* dst, int dld, const float* src, long sld,
+                                      int rows, int cols, int rmax, int cmax, bool vec) {
+  if (vec) {
+    const int c4 = cols / 4;
+    for (int i = threadIdx.x; i < rows * c4; i += blockDim.x) {
+      const int r = i / c4, col = 4 * (i - r * c4);
+      const bool ok = r < rmax && col < cmax;
+      cp_async16(dst + r * dld + col, ok ? src + r * sld + col : src, ok ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * cols; i += blockDim.x) {
+      const int r = i / cols, col = i - r * cols;
+      const bool ok = r < rmax && col < cmax;
+      cp_async4(dst + r * dld + col, ok ? src + r * sld + col : src, ok ? 4 : 0);
+    }
+  }
+}
+
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+// sum over the cluster's CTAs, in rank order, of the float at `off` in each
+// one's copy of `buf` (all the loads in flight before the first add)
+__device__ __forceinline__ float cluster_sum(const cg::cluster_group& cluster, float* buf,
+                                             int off, int nc) {
+  float part[MAX_CLUSTER];
+#pragma unroll
+  for (int r = 0; r < MAX_CLUSTER; ++r)
+    part[r] = r < nc ? cluster.map_shared_rank(buf, r)[off] : 0.f;
+  float acc = 0.f;
+#pragma unroll
+  for (int r = 0; r < MAX_CLUSTER; ++r) acc += part[r];
+  return acc;
+}
+
+// grid B * nc, cluster (nc, 1, 1) as fp32_plan gives them; any D, P; vec:
+// emb, w and codes 16-byte aligned and D, P multiples of 4
+template <bool SPLIT>
+__global__ void __launch_bounds__(32 * F32_WARPS, 1)
+poly_attention_fp32(const float* __restrict__ emb, const float* __restrict__ w,
+                    const float* __restrict__ codes, const int* __restrict__ mask,
+                    const float* __restrict__ bias, float* __restrict__ out, int H, int D,
+                    int P, int K, float mask_fill, int vec) {
+  extern __shared__ __align__(16) unsigned char smem_f32[];
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int nc = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const F32Layout lay(H, D, P, K, nc, SPLIT);
+  float* sPart = reinterpret_cast<float*>(smem_f32 + lay.part);
+  float* sLog = reinterpret_cast<float*>(smem_f32 + lay.logit);
+  float* sE = reinterpret_cast<float*>(smem_f32 + lay.e);
+  float* sW = reinterpret_cast<float*>(smem_f32 + lay.w);
+  float* sC = reinterpret_cast<float*>(smem_f32 + lay.c);
+  float* sProj = reinterpret_cast<float*>(smem_f32 + lay.proj);
+  float* sWt = reinterpret_cast<float*>(smem_f32 + lay.wt);
+  float* sPP = reinterpret_cast<float*>(smem_f32 + lay.pp);
+  int* sMask = reinterpret_cast<int*>(smem_f32 + lay.mb);
+  float* sBias = reinterpret_cast<float*>(sMask + lay.Hp);
+  const int b = blockIdx.x / nc;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int Hp = lay.Hp, Kp = lay.Kp, Dp = lay.Dp;
+  const int lde = lay.lde, ldw = lay.ldw, ldc = lay.ldc, ldt = lay.ldt;
+  // this CTA's 8-column pieces of P, and of D (out's columns; D split: also
+  // its columns of emb and rows of W)
+  const int np8 = lay.Pp / 8, nd8 = Dp / 8;
+  const int pc0 = rank * np8 / nc, npc = (rank + 1) * np8 / nc - pc0;
+  const int dc0 = rank * nd8 / nc, ndc = (rank + 1) * nd8 / nc - dc0;
+  const int p0 = 8 * pc0, d0 = SPLIT ? 8 * dc0 : 0;
+
+  // emb (D split: its slice of columns), the slice's W and codes, zero past
+  // H, D, P and K, in shared memory before any product
+  const float* e = emb + (long)b * H * D;
+  if (SPLIT) {
+    stage(sE, lde, e + d0, D, Hp, 8 * ndc, H, D - d0, vec);
+    stage(sW, ldw, w + (long)d0 * P, P, 8 * ndc, lay.Pp, D - d0, P, vec);
+  } else {
+    stage(sE, lde, e, D, Hp, Dp, H, D, vec);
+    stage(sW, ldw, w + p0, P, Dp, 8 * npc, D, P - p0, vec);
+  }
+  stage(sC, ldc, codes + p0, P, Kp, 8 * npc, K, P - p0, vec);
+  cp_async_commit();
+  for (int h = tid; h < H; h += blockDim.x) {
+    sMask[h] = mask[(long)b * H + h];
+    sBias[h] = bias[(long)b * H + h];
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // 1. D whole: proj slice = tanh(emb @ W slice). D split: the partial
+  // proj, emb slice @ W slice over this CTA's D, for all of P. A (16 rows,
+  // two 8-column pieces) unit a warp; k read in the order (2t, 2t + 1):
+  // emb's pairs by float2. Even and odd k-steps sum into two accumulators
+  // (added at the end), so that the chain of dependent mma is half as long.
+  const int npieces = SPLIT ? np8 : npc, nk = SPLIT ? ndc : nd8;
+  float* const dst = SPLIT ? sPP : sProj;
+  const int ldd = SPLIT ? lay.ldp : ldc;
+  const int pg = (npieces + 1) / 2;
+  for (int u = warp; u < (Hp / 16) * pg; u += F32_WARPS) {
+    const int mt = u / pg, pc = 2 * (u - mt * pg);
+    const bool two = pc + 1 < npieces;
+    float acc[2][4] = {}, odd[2][4] = {};
+    const float* ar = sE + (mt * 16 + g) * lde + 2 * t;
+    const float* br = sW + 2 * t * ldw + pc * 8 + g;
+    auto step = [&](float (&c)[2][4], int kc) {
+      const float2 x = ld2(ar + kc * 8), y = ld2(ar + 8 * lde + kc * 8);
+      const FragA a = split_a(x.x, y.x, x.y, y.y);
+      const float* bk = br + kc * 8 * ldw;
+      mma_3xtf32(c[0], a, bk[0], bk[ldw]);
+      if (two) mma_3xtf32(c[1], a, bk[8], bk[ldw + 8]);
+    };
+#pragma unroll 2
+    for (int kc = 0; kc + 1 < nk; kc += 2) {
+      step(acc, kc);
+      step(odd, kc + 1);
+    }
+    if (nk & 1) step(acc, nk - 1);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        acc[nt][x] += odd[nt][x];
+        if (!SPLIT) acc[nt][x] = tanhf(acc[nt][x]);
+      }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+      if (nt == 0 || two)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          *reinterpret_cast<float2*>(dst + (mt * 16 + g + 8 * r) * ldd + (pc + nt) * 8 +
+                                     2 * t) = make_float2(acc[nt][2 * r], acc[nt][2 * r + 1]);
+  }
+  if (SPLIT) {
+    cluster.sync();  // every CTA's partial proj is written
+    // proj slice = tanh(the cluster's sum of the partials, in rank order)
+    const int w8 = 8 * npc;
+    for (int i = tid; i < Hp * w8; i += blockDim.x) {
+      const int h = i / w8, p = i - h * w8;
+      sProj[h * ldc + p] = tanhf(cluster_sum(cluster, sPP, h * lay.ldp + p0 + p, nc));
+    }
+  }
+  __syncthreads();
+
+  // 2. partial logits = proj slice @ codes slice^T, (16 rows, 8 codes) a
+  // unit; k in the order (2t, 2t + 1) in both operands
+  const int kq = Kp / 8;
+  for (int u = warp; u < (Hp / 16) * kq; u += F32_WARPS) {
+    const int mt = u / kq, nt = u - mt * kq;
+    float acc[4] = {};
+    const float* ar = sProj + (mt * 16 + g) * ldc + 2 * t;
+    const float* br = sC + (nt * 8 + g) * ldc + 2 * t;
+    for (int kc = 0; kc < npc; ++kc) {
+      const float2 x = ld2(ar + kc * 8), y = ld2(ar + 8 * ldc + kc * 8);
+      const float2 bb = ld2(br + kc * 8);
+      mma_3xtf32(acc, split_a(x.x, y.x, x.y, y.y), bb.x, bb.y);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<float2*>(sPart + (mt * 16 + g + 8 * r) * lay.ldq + nt * 8 + 2 * t) =
+          make_float2(acc[2 * r], acc[2 * r + 1]);
+  }
+  cluster.sync();  // every CTA's partial logits are written
+
+  // 3. the cluster's sum of the partials, in rank order, with bias and mask
+  // (masked slots: mask_fill); history rows past H get -inf: no weight at all
+#pragma unroll 2
+  for (int i = tid; i < Hp * Kp; i += blockDim.x) {
+    const int h = i / Kp, k = i - h * Kp;
+    float v = -INFINITY;
+    if (h < H) {
+      const float acc = cluster_sum(cluster, sPart, h * lay.ldq + k, nc);
+      v = sMask[h] != 0 ? acc + sBias[h] : mask_fill;
+    }
+    sLog[h * lay.ldl + k] = v;
+  }
+  __syncthreads();
+  // this CTA reads no other's shared memory past here; none may leave while
+  // another still reads its partials (the wait is at the end)
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+
+  // 4. softmax over the history axis, a warp a code, into weights^T
+  for (int k = warp; k < Kp; k += F32_WARPS) {
+    float mx = -INFINITY;
+    for (int h = lane; h < Hp; h += 32) mx = fmaxf(mx, sLog[h * lay.ldl + k]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    float sum = 0.f;
+    for (int h = lane; h < Hp; h += 32) {
+      const float ex = expf(sLog[h * lay.ldl + k] - mx);  // -inf: 0
+      sLog[h * lay.ldl + k] = ex;
+      sum += ex;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    for (int h = lane; h < Hp; h += 32) sWt[k * ldt + h] = sLog[h * lay.ldl + k] / sum;
+  }
+  __syncthreads();
+
+  // 5. out[:, this CTA's 8-column pieces of D] = weights^T @ emb, (16 codes,
+  // two pieces) a unit
+  const int dg = (ndc + 1) / 2;
+  float* o = out + (long)b * K * D;
+  for (int u = warp; u < (Kp / 16) * dg; u += F32_WARPS) {
+    const int mt = u / dg, dc = dc0 + 2 * (u - mt * dg);
+    const bool two = dc + 1 < dc0 + ndc;
+    float acc[2][4] = {};
+    const float* ar = sWt + (mt * 16 + g) * ldt + t;
+    const float* br = sE + t * lde + dc * 8 - d0 + g;
+#pragma unroll 4
+    for (int kc = 0; kc < Hp / 8; ++kc) {
+      const float* ak = ar + kc * 8;
+      const FragA a = split_a(ak[0], ak[8 * ldt], ak[4], ak[8 * ldt + 4]);
+      const float* bk = br + kc * 8 * lde;
+      mma_3xtf32(acc[0], a, bk[0], bk[4 * lde]);
+      if (two) mma_3xtf32(acc[1], a, bk[8], bk[4 * lde + 8]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int k = mt * 16 + g + 8 * r;
+      if (k >= K) continue;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+        if (nt == 0 || two)
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            const int d = (dc + nt) * 8 + 2 * t + x;
+            if (d < D) o[(long)k * D + d] = acc[nt][2 * r + x];
+          }
+    }
+  }
+  __syncwarp();
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+cudaError_t launch_fp32(const void* emb, const void* w, const void* codes, const void* mask,
+                        const void* bias, void* out, int B, int H, int D, int P, int K,
+                        float mask_fill, cudaStream_t stream) {
+  const F32Plan plan = fp32_plan(H, D, P, K);
+  if (plan.nc == 0) return cudaErrorInvalidValue;
+  const auto kernel = plan.split ? poly_attention_fp32<true> : poly_attention_fp32<false>;
+  const size_t smem = F32Layout(H, D, P, K, plan.nc, plan.split).bytes;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  poly_attention_fp32<<<B, THREADS, smem, stream>>>(
-      static_cast<const float*>(emb), static_cast<const float*>(w),
-      static_cast<const float*>(codes), static_cast<const int*>(mask),
-      static_cast<const float*>(bias), static_cast<float*>(out), H, D, P, K, mask_fill);
-  return cudaGetLastError();
+  const int vec = ((reinterpret_cast<uintptr_t>(emb) | reinterpret_cast<uintptr_t>(w) |
+                    reinterpret_cast<uintptr_t>(codes)) % 16 == 0) &&
+                  D % 4 == 0 && P % 4 == 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * plan.nc);
+  cfg.blockDim = dim3(32 * F32_WARPS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = plan.nc;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const float*>(emb),
+                           static_cast<const float*>(w), static_cast<const float*>(codes),
+                           static_cast<const int*>(mask), static_cast<const float*>(bias),
+                           static_cast<float*>(out), H, D, P, K, mask_fill, vec);
+  const cudaError_t last = cudaGetLastError();
+  return err != cudaSuccess ? err : last;
 }
 
 }  // namespace
 
-// Shared memory a block of the kernel for `dtype` takes at these shapes.
-extern "C" long long poly_attention_smem_bytes(int H, int D, int P, int K, int dtype) {
+// Shared memory a CTA of the kernel for `dtype` takes at these shapes with
+// nc CTAs a row and D split across them or not (fp32; bf16 takes 4 CTAs a
+// row and D whole, whatever nc and split say).
+extern "C" long long poly_attention_layout_bytes(int H, int D, int P, int K, int dtype, int nc,
+                                                 int split) {
   return (long long)(dtype == DTYPE_BF16 ? Layout(H, D, P, K).bytes
-                                         : fp32_smem_bytes(H, D, P, K));
+                                         : F32Layout(H, D, P, K, nc, split != 0).bytes);
+}
+
+// Shared memory a CTA of the kernel for `dtype` takes at these shapes, in
+// the layout the launch takes (fp32: fp32_plan's; where none fits, that of
+// its last plan).
+extern "C" long long poly_attention_smem_bytes(int H, int D, int P, int K, int dtype) {
+  if (dtype == DTYPE_BF16) return (long long)Layout(H, D, P, K).bytes;
+  F32Plan plan = fp32_plan(H, D, P, K);
+  if (plan.nc == 0) plan = {MAX_CLUSTER, true};
+  return (long long)F32Layout(H, D, P, K, plan.nc, plan.split).bytes;
 }
 
 // emb (B, H, D), w (D, P), codes (K, P) and out (B, K, D) of one dtype;
 // mask (B, H) int32; bias (B, H) float32; all contiguous. bf16: D a
-// multiple of 16 and P of 8, emb, w and codes 16-byte aligned. mask_fill:
-// the logit of a masked slot.
+// multiple of 16 and P of 8, emb, w and codes 16-byte aligned; fp32: any
+// shape whose CTA fits in shared memory (poly_attention_smem_bytes).
+// mask_fill: the logit of a masked slot.
 extern "C" int poly_attention_fwd(const void* emb, const void* w,
                                   const void* codes, const void* mask,
                                   const void* bias, void* out, int B, int H,

@@ -8,16 +8,22 @@ Counterpart of ``miner_tpu/ops/poly_attention.py:poly_attention_fused``:
     out     = weights^T @ emb            # (B, K, D)
 
 The kernel is ``csrc/poly_attention_fwd.cu``; it keeps every intermediate in
-shared memory. In bf16 its three products run on the tensor cores, a
-cluster of four blocks per batch row (D must be a multiple of 16 and P of
-8, emb, W and codes 16-byte aligned); fp32 runs on the CUDA cores, any
-shape. W and codes must be in emb's type (the TPU kernel casts them to it).
-The bias is the (B, H) mean over candidates, computed by the caller. A
-masked slot's logit is ``mask_fill`` in place of logits + bias: ``NEG_INF``
-(-1e9, masking), or the reference's legacy ``LEGACY_FILL`` (1e-30,
-``--legacy_poly_mask``; ``miner_tpu/models/poly_attention.py:54-55``), under
-which pads keep a weight. The JAX package sends the legacy fill down its
-XLA path; here the kernel takes the fill as a launch argument.
+shared memory and spreads a batch row over a cluster of CTAs (:func:`plan`),
+its three products on the tensor cores. In bf16 the cluster is four CTAs
+(D must be a multiple of 16 and P of 8, emb, W and codes 16-byte aligned).
+In fp32 the products run in split TF32 (three TF32 passes a product, about
+fp32's accuracy) on three CTAs a row, eight where a CTA's third of W does
+not fit in shared memory, and eight with D split across them where emb
+whole does not fit (D = 768); the shapes alone choose, never the batch.
+Any D and P, any alignment (4-byte copies off a 16-byte boundary). A
+shape whose CTA does not fit is refused. W and codes must be in emb's type
+(the TPU kernel casts them to it). The bias is the (B, H) mean over
+candidates, computed by the caller. A masked slot's logit is
+``mask_fill`` in place of logits + bias: ``NEG_INF`` (-1e9, masking), or
+the reference's legacy ``LEGACY_FILL`` (1e-30, ``--legacy_poly_mask``;
+``miner_tpu/models/poly_attention.py:54-55``), under which pads keep a
+weight. The JAX package sends the legacy fill down its XLA path; here the
+kernel takes the fill as a launch argument.
 
 Under autograd (grad mode on and an input requiring grad) a CUDA tensor
 goes through a ``torch.autograd.Function``: the forward is the kernel, the
@@ -31,7 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -86,11 +92,36 @@ def poly_attention_fused(emb: torch.Tensor, w: torch.Tensor, codes: torch.Tensor
     return _launch(emb, w, codes, mask, bias, mask_fill)
 
 
+# the fp32 kernel's (CTAs a batch row, D split across them), in the order it
+# takes the first whose CTA fits (csrc/poly_attention_fwd.cu:FP32_PLANS)
+FP32_PLANS = ((3, False), (8, False), (8, True))
+
+
 @functools.lru_cache(maxsize=None)
-def _smem_bytes(H: int, D: int, P: int, K: int, code: int) -> int:
-    """Shared memory a block of the kernel takes at these shapes."""
-    return common.kernel_function("poly_attention_fwd", "poly_attention_smem_bytes",
-                                  (ctypes.c_int,) * 5, ctypes.c_longlong)(H, D, P, K, code)
+def _layout_bytes(H: int, D: int, P: int, K: int, code: int, nc: int, split: bool) -> int:
+    """Shared memory a CTA of the kernel takes at these shapes with ``nc``
+    CTAs a row, D split or not, from the kernel's own layout."""
+    return common.kernel_function("poly_attention_fwd", "poly_attention_layout_bytes",
+                                  (ctypes.c_int,) * 7, ctypes.c_longlong)(
+                                      H, D, P, K, code, nc, int(split))
+
+
+def plan(H: int, D: int, P: int, K: int, dtype: torch.dtype) -> Tuple[int, bool, int]:
+    """(CTAs a batch row, D split across them, bytes a CTA), from the
+    shapes alone, as the kernel takes them: bf16 4 CTAs, D whole; fp32 the
+    first of :data:`FP32_PLANS` whose CTA fits: 3 (emb whole and a third
+    of W's columns each), 8 (an eighth), 8 with D split (an eighth of
+    emb's columns and W's rows each, the partial proj summed over the
+    cluster: D = 768). Raises when none fits: no fallback."""
+    code = common.DTYPE_CODES[dtype]
+    plans = FP32_PLANS if dtype == torch.float32 else ((4, False),)
+    for nc, split in plans:
+        smem = _layout_bytes(H, D, P, K, code, nc, split)
+        if smem <= _MAX_SMEM:
+            return nc, split, smem
+    raise ValueError(f"poly-attention at H={H}, D={D}, P={P}, K={K} needs {smem} "
+                     f"bytes of shared memory per CTA at {nc} CTAs a row, more "
+                     f"than {_MAX_SMEM}")
 
 
 def _launch(emb, w, codes, mask, bias, mask_fill) -> torch.Tensor:
@@ -112,10 +143,7 @@ def _launch(emb, w, codes, mask, bias, mask_fill) -> torch.Tensor:
                              f"P a multiple of 8, got D = {D}, P = {P}")
         for what, t in (("emb", emb), ("w", w), ("codes", codes)):
             common.check_aligned(what, t)
-    smem = _smem_bytes(H, D, P, K, code)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"poly-attention shapes need {smem} bytes of shared "
-                         f"memory per block, more than {_MAX_SMEM}")
+    plan(H, D, P, K, emb.dtype)
     out = torch.empty((B, K, D), dtype=emb.dtype, device=dev)
     fn = common.kernel_function("poly_attention_fwd", "poly_attention_fwd",
                                 _ARGTYPES)

@@ -12,6 +12,8 @@ Tolerance on the card: float32 differs by summation order only (1e-4 of the
 values' scale); bfloat16 by the rounding of the output and of the
 intermediates the kernels round (2**-6 of the scale, a few ulps).
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -659,6 +661,136 @@ def test_poly_attention_refuses_bf16_shapes_off_the_tiles():
             poly_attention.poly_attention_fused(emb, w, codes, mask)
         out = poly_attention.poly_attention_fused(emb.float(), w.float(), codes.float(), mask)
         assert out.shape == (2, 3, D) and torch.isfinite(out).all()
+
+
+def _poly_fp32_inputs(rng, dev, B, H, D, P, K, put=None):
+    """fp32 poly-attention inputs scaled as chip_smoke.py makes them; row 1
+    (when there is one) has no click, the rest a random length."""
+    put = put or (lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev))
+    lengths = rng.integers(1, H + 1, size=B)
+    lengths[1:2] = 0
+    mask = torch.as_tensor((np.arange(H)[None] < lengths[:, None]).astype(np.int32),
+                           device=dev)
+    return (put(rng.normal(size=(B, H, D))), put(rng.normal(size=(D, P)) / 16),
+            put(rng.normal(size=(K, P)) / 4), mask,
+            torch.as_tensor(rng.normal(size=(B, H)), device=dev).float())
+
+
+def _c_smem_bytes(H, D, P, K, dtype):
+    """The bytes a CTA takes in the layout the kernel's launch chooses."""
+    return common.kernel_function("poly_attention_fwd", "poly_attention_smem_bytes",
+                                  (ctypes.c_int,) * 5, ctypes.c_longlong)(
+                                      H, D, P, K, common.DTYPE_CODES[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D, P, K", [(256, 200, 32), (252, 196, 3), (250, 198, 32),
+                                     (768, 200, 32), (766, 198, 3)])
+@pytest.mark.parametrize("H", [1, 50, 64])
+@pytest.mark.parametrize("B", [1, 16, 32, 64, 133])
+def test_poly_attention_fp32_cluster_matches_plain_on_card(rng, B, H, D, P, K):
+    """The fp32 route (split TF32) at the batches the paths give it and
+    past one wave of the card (133 rows), one history row to the padding's
+    64, at the main shape (3 CTAs a row), at D and P multiples of 4 off the
+    8-column pieces (16-byte copies, the last piece zero-filled) and off 4
+    (4-byte copies), with 3 codes (K padded to 16), and at the PLM's D =
+    768 (a Miner without --apply_reduce_dim: 8 CTAs a row, D split across
+    them from H = 50); a no-click row is the mean of its H rows."""
+    dev = _card()
+    args = _poly_fp32_inputs(rng, dev, B, H, D, P, K)
+    nc, split, smem = poly_attention.plan(H, D, P, K, torch.float32)
+    assert (nc, split) == ((8, H > 1) if D > 512 else (3, False))
+    assert smem == _c_smem_bytes(H, D, P, K, torch.float32)
+    before = launch_counts()["poly_attention_fwd"]
+    got = poly_attention.poly_attention_fused(*args)
+    want = poly_attention.poly_attention_reference(*args)
+    torch.cuda.synchronize()
+    assert launch_counts()["poly_attention_fwd"] == before + 1
+    assert got.shape == (B, K, D) and torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= _tol(torch.float32, want)
+    if B > 1:
+        mean = args[0][1].mean(dim=0).expand(K, D)
+        assert (got[1] - mean).abs().max().item() <= _tol(torch.float32, mean)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [256, 768])
+def test_poly_attention_fp32_views_off_16_bytes_on_card(rng, D):
+    """emb, W and the codes as views 4 bytes past a 16-byte boundary at the
+    main shape and at D = 768 (D split): the launch takes 4-byte copies,
+    and the result is the aligned tensors' bit for bit."""
+    dev = _card()
+
+    def off(a):
+        a = np.asarray(a, np.float32)
+        base = torch.empty(a.size + 1, device=dev)
+        view = base[1:].view(a.shape)
+        view.copy_(torch.as_tensor(a))
+        assert view.data_ptr() % 16 == 4
+        return view
+
+    args = _poly_fp32_inputs(rng, dev, 8, 50, D, 200, 32, off)
+    got = poly_attention.poly_attention_fused(*args)
+    aligned = poly_attention.poly_attention_fused(*(a.clone() for a in args))
+    want = poly_attention.poly_attention_reference(*args)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= _tol(torch.float32, want)
+    assert torch.equal(got, aligned)
+
+
+@pytest.mark.gpu
+def test_poly_attention_fp32_plan_on_card(rng):
+    """The plan is the launch's own layout, from the shapes alone: the main
+    shape takes 3 CTAs a row (200,960 bytes a CTA); H = 64, D = 256, P =
+    256, K = 64 and D = 512, P = 400 take 8, where a third of W's columns
+    does not fit beside emb whole (a row of 8 against its plain version);
+    D = 768 at the main H, P, K takes 8 with D split (199,424 bytes); at H
+    = 64, D = 768, P = 256, K = 64 none fits and the launch raises (no
+    fallback)."""
+    dev = _card()
+    f32 = torch.float32
+    for shape, want in (((50, 256, 200, 32), (3, False, 200_960)),
+                        ((64, 256, 256, 64), (8, False, 177_920)),
+                        ((16, 512, 400, 8), (8, False, 167_360)),
+                        ((50, 768, 200, 32), (8, True, 199_424))):
+        assert poly_attention.plan(*shape, f32) == want
+        assert _c_smem_bytes(*shape, f32) == want[2]
+    args = _poly_fp32_inputs(rng, dev, 3, 16, 512, 400, 8)
+    before = launch_counts()["poly_attention_fwd"]
+    got = poly_attention.poly_attention_fused(*args)
+    want = poly_attention.poly_attention_reference(*args)
+    torch.cuda.synchronize()
+    assert launch_counts()["poly_attention_fwd"] == before + 1
+    assert (got - want).abs().max().item() <= _tol(torch.float32, want)
+    big = _poly_fp32_inputs(rng, dev, 2, 64, 768, 256, 64)
+    with pytest.raises(ValueError, match="shared memory"):
+        poly_attention.poly_attention_fused(*big)
+
+
+def test_poly_plan_refuses_a_cta_that_does_not_fit(monkeypatch):
+    """The plan takes the first layout whose CTA fits, in the kernel's own
+    order (its sizes stand-ins here, asked for with emb's type code): fp32
+    3 CTAs a row, else 8, else 8 with D split; bf16 4. Where none fits it
+    raises: no fallback."""
+    asked = []
+    sizes = {(3, False): 300, (8, False): 250, (8, True): 200, (4, False): 260}
+
+    def layout_bytes(H, D, P, K, code, nc, split):
+        asked.append((code, nc, split))
+        return sizes[nc, split] * D
+
+    monkeypatch.setattr(poly_attention, "_layout_bytes", layout_bytes)
+    f32, bf16 = common.DTYPE_CODES[torch.float32], common.DTYPE_CODES[torch.bfloat16]
+    assert poly_attention.plan(50, 256, 200, 32, torch.float32) == (3, False, 76_800)
+    assert poly_attention.plan(50, 900, 200, 32, torch.float32) == (8, False, 225_000)
+    assert poly_attention.plan(50, 1000, 200, 32, torch.float32) == (8, True, 200_000)
+    assert poly_attention.plan(50, 256, 200, 32, torch.bfloat16) == (4, False, 66_560)
+    assert asked == [(f32, 3, False), (f32, 3, False), (f32, 8, False), (f32, 3, False),
+                     (f32, 8, False), (f32, 8, True), (bf16, 4, False)]
+    with pytest.raises(ValueError, match="shared memory"):
+        poly_attention.plan(50, 1200, 200, 32, torch.float32)
+    with pytest.raises(ValueError, match="shared memory"):
+        poly_attention.plan(50, 900, 200, 32, torch.bfloat16)
 
 
 # ---------------------------------------------------------------- lookup+score
