@@ -31,7 +31,9 @@ Phases, each of which makes the script exit non-zero when it fails:
    legacy 1e-30 fill, bf16 and fp32, with masked and no-click rows; the
    fp32 mha kernels (split TF32) at the sapo shape with and without
    dropout, the title shape, 80 candidates and 159 tokens, forward and
-   backward)
+   backward; bf16 poly-attention at the PLM's D = 768 (8 CTAs a row, D
+   split) at 1, 16, 32 and 64 under both fills, and lookup+score with bf16
+   and int8 rows at D = 768)
    against its plain PyTorch version on the same inputs (the tolerance is
    printed beside the error; the mha backward's dq, dk and dv each at the
    scale of its (sequence, head)'s gradient; with dropout the kernel's
@@ -99,6 +101,13 @@ Phases, each of which makes the script exit non-zero when it fails:
    warm-up reaches 32 slates of bucket 16, 512 packed rows a call; 64
    slates of 10 from 16 clients over HTTP; a whole-corpus request and a
    slate above ``--serve_max_slate`` are refused (400).
+   reference_roundtrip: the train, Fastformer and UnBERT ``finalModel``s
+   exported to the reference's format by ``python -m
+   miner_tpu_torch.tools.export_to_reference`` and imported back by
+   ``import_reference_checkpoint``: every parameter bit-equal; the
+   re-imported Miner served (``roundtrip_serve``) answers the serve cache
+   phase's requests, one at a time, with its fresh start's replies bit
+   for bit.
 8. UniSRec train: ``config/train_unisrec.txt`` (under ``train_fastformer``;
    bert-base over pre-concatenated titles of 159 tokens, the MoE adaptor
    alone trains, bf16, --remat) for one epoch: 16 micro-batches of one
@@ -133,6 +142,19 @@ Phases, each of which makes the script exit non-zero when it fails:
    micro-batch, the peak memory, and where the device's time goes (mha,
    cuBLAS, the rest; ``torch.profiler`` over the last 3). Both fp32 mha
    kernels must launch.
+   no_reduce: ``train_miner.txt`` without ``--apply_reduce_dim`` (a
+   configuration derived from it, written by the script), the first 32
+   impressions (2 micro-batches at accumulation 2), its eval, then
+   ``serve_miner.txt`` without the flag on its ``finalModel`` for 16
+   requests: news vectors of the PLM's D = 768, so bf16 poly-attention
+   must launch at D = 768 in the micro-batches, the eval and the serving.
+   remat_dots: ``train_miner.txt`` with ``--remat_policy dots``, 4
+   micro-batches at accumulation 4, the last 3 traced: the micro-batch and
+   the peak memory beside train's (``--remat`` alone), 24 mha forwards a
+   micro-batch as train's.
+   Under ``--remat`` (train, warm_start, no_reduce, remat_dots) a
+   micro-batch launches mha_fwd 24 times, once a layer of the two tower
+   calls: the recompute takes the saved attention context.
 10. parity: the full-width Miner in float32 over 64 news, on the card
    through the kernels and on the CPU through the plain versions; the cache
    rows and the scores of one request batch must agree.
@@ -200,13 +222,16 @@ TRAIN_RATE = 0.1  # hidden_dropout and attention_dropout of the PLM
 # chunk of 512). Poly-attention and lookup+score are counted shape by
 # shape instead (LaunchCensus).
 TRAIN_PHASES = ("train", "fastformer_train", "warm_start",  # 880 sequences a micro-batch
-                "his_cache_warmup", "fastformer_his_cache_warmup", "lstm_legacy_train")
+                "his_cache_warmup", "fastformer_his_cache_warmup", "lstm_legacy_train",
+                "no_reduce_train", "remat_dots_train")
 # the phases that differentiate the PLM
-BWD_PHASES = ("train", "warm_start", "pretrain", "his_cache_warmup", "lstm_legacy_train")
+BWD_PHASES = ("train", "warm_start", "pretrain", "his_cache_warmup", "lstm_legacy_train",
+              "no_reduce_train", "remat_dots_train")
 FILL_PHASES = ("eval", "serve", "fastformer_eval", "fastformer_serve", "warm_start_eval",
                "pretrain_eval", "serve_cache", "serve_int8", "his_cache_refill",
                "his_cache_eval", "fastformer_his_cache_refill", "fastformer_his_cache_eval",
-               "lstm_legacy_eval", "lstm_legacy_serve")
+               "lstm_legacy_eval", "lstm_legacy_serve", "no_reduce_eval", "no_reduce_serve",
+               "remat_dots_eval", "roundtrip_serve")
 # the mha kernels' training cases (N, L, dropout rate, dtype, phases): the
 # sapo shape with dropout (the main path's), without it (Philox's share);
 # the title shape; the pretrain micro-batch's two shapes
@@ -327,6 +352,14 @@ REQUIRED = {
     # --compute_dtype float32: the fp32 routes of the PLM kernels (and of
     # poly-attention, the news vectors being fp32)
     "fp32_train": MINER_KERNELS + PLM_BWD,
+    # a Miner without --apply_reduce_dim: poly-attention at D = 768
+    "no_reduce_train": MINER_KERNELS + PLM_BWD,
+    "no_reduce_eval": SERVE_KERNELS,
+    "no_reduce_serve": SERVE_KERNELS,
+    "remat_dots_train": MINER_KERNELS + PLM_BWD,
+    "remat_dots_eval": SERVE_KERNELS,
+    # the train phase's finalModel out to the reference's format and back
+    "roundtrip_serve": SERVE_KERNELS,
 }
 FORBIDDEN = {"fastformer_train": PLM_BWD,
              "serve_cache_loaded": PLM_FWD,  # the cache comes from the file
@@ -771,7 +804,10 @@ def poly_cases(dev, g):
     pads keep a weight), bf16 and fp32 at 32 with a quarter of the rows
     fully masked and the rest of random length; and fp32 at the PLM's D =
     768 (a Miner without --apply_reduce_dim, which the lstm combine sends
-    down the fp32 route: D split across a cluster of 8) at 16 and 64."""
+    down the fp32 route: D split across a cluster of 8) at 16 and 64; and
+    bf16 at D = 768 (a Miner without --apply_reduce_dim, the no_reduce
+    phases: D split across a cluster of 8) at 1, 16, 32 and 64, under
+    both fills (the B = 32 -1e9 case is the row's ``bf16_d768`` entry)."""
     from miner_tpu_torch.ops import poly_attention
 
     legacy = poly_attention.LEGACY_FILL
@@ -784,7 +820,9 @@ def poly_cases(dev, g):
             (MAX_BATCH, f32, MAX_BATCH // 4, None, DIM),
             (MAX_BATCH, bf16, MAX_BATCH // 4, legacy, DIM),
             (MAX_BATCH, f32, MAX_BATCH // 4, legacy, DIM),
-            (TRAIN_B, f32, 0, None, HIDDEN), (EVAL_B, f32, 0, None, HIDDEN)):
+            (TRAIN_B, f32, 0, None, HIDDEN), (EVAL_B, f32, 0, None, HIDDEN),
+            *((B, bf16, 0, fill, HIDDEN) for B in (1, TRAIN_B, MAX_BATCH, EVAL_B)
+              for fill in (None, legacy))):
         args = _poly_inputs(dev, g, B, dtype, masked, D=D) + ((fill,) if fill else ())
         yield dict(
             case=f"{str(dtype)[6:]} B={B}" + (f", {masked} rows fully masked" if masked else "")
@@ -794,8 +832,10 @@ def poly_cases(dev, g):
             plain=lambda: poly_attention.poly_attention_reference(*args),
             library=None,
             bound=_poly_bound(args[:5]),
-            main=dtype == bf16 and B == MAX_BATCH and not masked,
-            route="fp32" if dtype == f32 and B == MAX_BATCH and not masked else None)
+            main=dtype == bf16 and B == MAX_BATCH and not masked and D == DIM and not fill,
+            route=("fp32" if dtype == f32 and B == MAX_BATCH and not masked and D == DIM
+                   else "bf16_d768" if dtype == bf16 and B == MAX_BATCH and D == HIDDEN
+                   and not fill else None))
 
 
 def _lookup_inputs(dev, g, N, B, C, K, D, cache_dt, int_dt):
@@ -865,8 +905,10 @@ def lookup_cases(dev, g):
     and the top-k over a cache of MIND's size (161,014 rows, 82 MB in bf16,
     more than the 50 MB L2) at B = 8. Then the int8 route
     (``--serve_cache_int8``) at the same shapes, with bf16 interests (the
-    tensor cores) and fp32 (the CUDA cores). Beside each bf16 and int8 case
-    the yardstick of the PyTorch calls computing the same function."""
+    tensor cores) and fp32 (the CUDA cores); and bf16 and int8 rows at the
+    PLM's D = 768 (the no_reduce phases: bf16 rows in one gather buffer) at
+    the three serving shapes. Beside each bf16 and int8 case the yardstick
+    of the PyTorch calls computing the same function."""
     from miner_tpu_torch.ops import lookup_score
     from miner_tpu_torch.utils import candidate_bucket
 
@@ -877,21 +919,27 @@ def lookup_cases(dev, g):
     cases += [(torch.int8, int_dt, NUM_NEWS + 1, B, C)
               for int_dt in (torch.bfloat16, torch.float32) for B, C in shapes]
     cases.append((torch.int8, torch.bfloat16, MIND_NEWS + 1, 8, candidate_bucket(MIND_NEWS)))
-    for cache_dt, int_dt, N, B, C in cases:
-        args, nbytes = _lookup_inputs(dev, g, N, B, C, CODES, DIM, cache_dt, int_dt)
+    cases = [case + (DIM,) for case in cases]
+    # the PLM's D = 768 (the no_reduce phases): one gather buffer for bf16 rows
+    cases += [(cache_dt, torch.bfloat16, NUM_NEWS + 1, B, C, HIDDEN)
+              for cache_dt in (torch.bfloat16, torch.int8) for B, C in shapes]
+    for cache_dt, int_dt, N, B, C, D in cases:
+        args, nbytes = _lookup_inputs(dev, g, N, B, C, CODES, D, cache_dt, int_dt)
         topk = N == NUM_NEWS + 1 and C == candidate_bucket(NUM_NEWS)
         yield dict(
-            case=f"{str(cache_dt)[6:]}/{str(int_dt)[6:]} N={N} B={B} C={C}", dtype=int_dt,
+            case=f"{str(cache_dt)[6:]}/{str(int_dt)[6:]} N={N} B={B} C={C}"
+            + (f" D={D}" if D != DIM else ""), dtype=int_dt,
             kernel=lambda: lookup_score.lookup_score_fused(*args),
             plain=lambda: lookup_score.lookup_score_reference(*args),
             library=None,
             yardstick=(_lookup_yardstick(*args)
                        if cache_dt in (torch.bfloat16, torch.int8) else None),
             check=(lambda: lookup_nan_check(*args)) if C == 16 else None,
-            bound=bound_ms(nbytes, 2 * B * C * CODES * DIM, int_dt),
-            main=cache_dt == torch.bfloat16 and topk,
-            route="int8" if cache_dt == torch.int8 and int_dt == torch.bfloat16 and topk
-            else None)
+            bound=bound_ms(nbytes, 2 * B * C * CODES * D, int_dt),
+            main=cache_dt == torch.bfloat16 and topk and D == DIM,
+            route=("int8" if cache_dt == torch.int8 and int_dt == torch.bfloat16 and topk
+                   and D == DIM else "bf16_d768" if cache_dt == torch.bfloat16 and topk
+                   and D == HIDDEN else None))
 
 
 def ff_cases(dev, g):
@@ -1104,6 +1152,18 @@ def _census_mha(dev, g, name, shape):
     return fn, bound_ms(nbytes, flops, torch.float32)[0], what
 
 
+def _width(D: int) -> str:
+    return f" D={D}" if D != DIM else ""
+
+
+# the route entries of a row that take their share of the census's shapes,
+# by the shape's label: poly-attention's fp32 route, and poly-attention's
+# and lookup+score's bf16 launches at the PLM's D = 768
+ROUTE_SHAPES = {"fp32": lambda what: what.startswith("float32"),
+                "bf16_d768": lambda what: what.startswith("bfloat16")
+                and what.endswith(f"D={HIDDEN}")}
+
+
 def census_sweep(dev) -> dict:
     """Every shape the census saw, timed on fresh inputs of that shape:
     per kernel a list of (shape, launches by phase, ms, bound ms)."""
@@ -1123,14 +1183,14 @@ def census_sweep(dev) -> dict:
             B, H, D, P, K, code = shape
             args = _poly_inputs(dev, g, B, dtypes[code], 0, H, D, P, K)
             fn = lambda: poly_attention.poly_attention_fused(*args)
-            (b_ms, _), what = _poly_bound(args), f"{str(dtypes[code])[6:]} B={B}"
+            (b_ms, _), what = _poly_bound(args), f"{str(dtypes[code])[6:]} B={B}{_width(D)}"
         else:
             N, B, C, K, D, code, int_code = shape
             cache_dt = torch.int8 if code == common.INT8_CODE else dtypes[code]
             args, nbytes = _lookup_inputs(dev, g, N, B, C, K, D, cache_dt, dtypes[int_code])
             fn = lambda: lookup_score.lookup_score_fused(*args)
             b_ms, _ = bound_ms(nbytes, 2 * B * C * K * D, dtypes[int_code])
-            what = f"{str(cache_dt)[6:]} B={B} C={C}"
+            what = f"{str(cache_dt)[6:]} B={B} C={C}{_width(D)}"
         ms, call_ms = graph_ms(fn), device_ms(fn, 0.05)
         out.setdefault(name, []).append(dict(shape=what, launches_by_phase=by_phase,
                                              ms=ms, call_ms=call_ms, bound_ms=b_ms))
@@ -1162,14 +1222,16 @@ def launch_weighted_gaps(rows, timed, sweep) -> None:
         if name in LaunchCensus.EVERY:
             if shapes:
                 row["shapes"] = shapes
-            if "fp32" in row:  # poly-attention: its fp32 route's share
-                f32 = [sh for sh in shapes if sh["shape"].startswith("float32")]
-                n32 = sum(sum(sh["launches_by_phase"].values()) for sh in f32)
-                gap32 = sum(n * (sh["ms"] - sh["bound_ms"]) for sh in f32
+            for route, picks in ROUTE_SHAPES.items():  # a route's share
+                if route not in row:
+                    continue
+                sub = [sh for sh in shapes if picks(sh["shape"])]
+                n_r = sum(sum(sh["launches_by_phase"].values()) for sh in sub)
+                gap_r = sum(n * (sh["ms"] - sh["bound_ms"]) for sh in sub
                             for n in sh["launches_by_phase"].values())
-                row["fp32"].update(launches=n32, launch_weighted_gap_ms=gap32)
-                log(f"  {name:18s} fp32: {n32} launches, launch-weighted gap "
-                    f"{gap32:.3f} ms")
+                row[route].update(launches=n_r, launch_weighted_gap_ms=gap_r)
+                log(f"  {name:18s} {route}: {n_r} launches, launch-weighted gap "
+                    f"{gap_r:.3f} ms")
         else:
             if shapes:  # mha: its fp32 launches
                 row["fp32"].update(shapes=shapes, launches=sum(census.values()),
@@ -1218,20 +1280,19 @@ def write_corpus(root: str, num_news: int, seed: int) -> None:
         json.dump({"unk": 0}, f)
 
 
-def serve_args(corpus: str, *extra: str):
+def serve_args(corpus: str, *extra: str, drop=()):
     """``config/serve_miner.txt`` as it stands, on the synthetic corpus, with
     the hash tokenizer over roberta-base's vocabulary size (no tokenizer
     files here). Its checkpoint and persisted cache are dropped: the caller
     names a checkpoint of the train phase in ``extra``, or none for random
     weights from the seed, and a cache file in the temporary directory, or
     none to encode the corpus at every start."""
-    from miner_tpu_torch.config import convert_arg_line_to_args, make_parser
+    from miner_tpu_torch.config import make_parser
 
     here = os.path.dirname(os.path.abspath(__file__))
-    words = []
-    with open(os.path.join(here, "config", "serve_miner.txt")) as f:
-        for line in f:
-            words += convert_arg_line_to_args(line)
+    path = (derived_config(os.path.dirname(corpus), "serve_miner.txt", drop) if drop
+            else os.path.join(here, "config", "serve_miner.txt"))
+    words = _config_words(path)
     for flag in ("--saved_model_path", "--serve_cache_path"):
         i = words.index(flag)
         del words[i:i + 2]
@@ -1265,9 +1326,31 @@ def _check_launches(phase: str, counts: dict) -> None:
 
 
 # UniSRec's one tower call a micro-batch: 12 layers of two add_ln sites;
-# its backward (--unisrec_train_all) the same in reverse
+# its backward (--unisrec_train_all) the same in reverse. The Miner's two
+# tower calls (titles, sapos) under --remat: 24 mha forwards, one a layer
+# (the recompute takes the saved context, as JAX's remat does), 24 backwards
 PER_BATCH = {"unisrec_train": {"mha_fwd": 12, "add_ln_fwd": 24},
-             "unisrec_train_all": {"mha_bwd": 12, "add_ln_bwd": 24}}
+             "unisrec_train_all": {"mha_bwd": 12, "add_ln_bwd": 24},
+             **{phase: {"mha_fwd": 24, "mha_bwd": 24}
+                for phase in ("train", "no_reduce_train", "remat_dots_train")}}
+
+
+def _check_d768(phase: str) -> None:
+    """Fail the phase unless it launched bf16 poly-attention at the PLM's
+    D = 768 (the census: B, H, D, P, K, dtype code); log those launches and
+    lookup+score's at that width."""
+    from miner_tpu_torch.ops import common
+
+    bf16 = common.DTYPE_CODES[torch.bfloat16]
+    width = {"poly_attention_fwd": 2, "lookup_score_fwd": 4}  # D's place in the shape
+    shapes = {(name, shape): n for (name, p, shape), n in CENSUS.counts.items()
+              if p == phase and name in width and shape[width[name]] == HIDDEN}
+    poly = sum(n for (name, shape), n in shapes.items()
+               if name == "poly_attention_fwd" and shape[5] == bf16)
+    log(f"{phase}: launches at D = {HIDDEN}: {poly} bf16 poly_attention_fwd; by shape "
+        f"{ {f'{name} {shape}': n for (name, shape), n in sorted(shapes.items())} }")
+    if not poly:
+        raise SystemExit(f"{phase} phase: no bf16 poly_attention_fwd launch at D = {HIDDEN}")
 
 
 def _check_per_batch(phase: str, per_batch: dict) -> None:
@@ -1336,7 +1419,8 @@ def serve_phase(corpus: str, checkpoint: str, phase: str = "serve",
     from miner_tpu_torch.serving import ScoringService
     from miner_tpu_torch.training.trainer import Trainer
 
-    args = serve_args(corpus, "--saved_model_path", checkpoint, *SERVE_FLAGS.get(phase, ()))
+    args = serve_args(corpus, "--saved_model_path", checkpoint, *SERVE_FLAGS.get(phase, ()),
+                      drop=DERIVED.get(phase, ()))
     reset_launch_counts()
     CENSUS.phase = phase
     t0 = time.perf_counter()
@@ -1393,6 +1477,10 @@ def _cache_arrays(cache):
     emb = cache.embeddings
     rows = (emb.values, emb.scales) if isinstance(emb, Int8Rows) else (emb,)
     return rows + (cache.category,)
+
+
+# the requests of serve_cache_phase's fresh bf16 start and its replies
+SERVED = {}
 
 
 def serve_cache_phase(corpus: str, checkpoint: str, tmp: str, family: str = "") -> dict:
@@ -1464,11 +1552,82 @@ def serve_cache_phase(corpus: str, checkpoint: str, tmp: str, family: str = "") 
                              f"{launched['mha_fwd']}; caches equal {same_cache}; replies "
                              f"equal {bodies0 == bodies1}")
         arrays[int8] = arrays0
+        if not int8:
+            SERVED[f"{prefix}serve_cache"] = (reqs, bodies0)
         log(f"{phase}: start-up fresh {fresh_s:.2f} s, loaded {loaded_s:.2f} s; the loaded "
             f"cache and its {len(reqs)} replies equal the fresh ones bit for bit")
     nbytes = {k: sum(_nbytes(a) for a in v[:-1]) for k, v in arrays.items()}
     log(f"{prefix}serve_cache: cache bytes (rows and scales) int8 {nbytes[True]}, "
         f"{arrays[False][0].dtype} {nbytes[False]} ({nbytes[True] / nbytes[False]:.3f}x)")
+    return counts
+
+
+def reference_roundtrip_phase(corpus: str, tmp: str, finals: dict) -> dict:
+    """Checkpoints to the reference (MrRobot2211/miner) and back, through
+    the port's tools: each train phase's ``finalModel`` in ``finals``
+    (family: path; Miner, Fastformer, UnBERT) exported by ``python -m
+    miner_tpu_torch.tools.export_to_reference`` and the file imported by
+    ``import_reference_checkpoint`` (``--force_layout_mismatch`` for the
+    position-sensitive families: the weights are what is compared); every
+    parameter must come back bit for bit. Host work; then the re-imported
+    Miner is served (``serve_miner.txt``, the cache encoded at start-up)
+    and must answer the serve_cache phase's requests, one at a time, with
+    its fresh start's replies bit for bit. Returns the serving launch
+    counts."""
+    from miner_tpu_torch.ops import launch_counts, reset_launch_counts
+    from miner_tpu_torch.serving import ScoringService
+    from miner_tpu_torch.tools import export_to_reference, import_reference_checkpoint
+    from miner_tpu_torch.training import checkpoint
+    from miner_tpu_torch.training.trainer import Trainer
+
+    back = {}
+    for family, final in finals.items():
+        ref = os.path.join(tmp, f"{family}_reference.pt")
+        back[family] = os.path.join(tmp, f"{family}_reimported")
+        gate = () if family == "miner" else ("--force_layout_mismatch",)
+        t0 = time.perf_counter()
+        export_to_reference.main(["--ckpt", final, "--model_name", family, "--out", ref,
+                                  *gate])
+        export_s = time.perf_counter() - t0
+        want = checkpoint.load(final)["params"]
+        layers = sum(k.startswith("news_encoder.plm.layers.") and k.endswith(".qkv.weight")
+                     for k in want)  # the tower's depth (UnBERT's is read from the file)
+        import_reference_checkpoint.main(["--torch_ckpt", ref, "--model_name", family,
+                                          "--num_layers", str(max(layers, 1)), "--out",
+                                          back[family], *gate])
+        import_s = time.perf_counter() - t0 - export_s
+        got = checkpoint.load(back[family])["params"]
+        moved = [k for k in want if k not in got or not torch.equal(got[k], want[k])]
+        n_ref = len(torch.load(ref, weights_only=True))
+        log(f"reference_roundtrip: {family}: {len(want)} tensors "
+            f"({sum(v.numel() for v in want.values()) / 1e6:.1f} M values) -> {n_ref} "
+            f"reference tensors ({os.path.getsize(ref) / 2 ** 20:.0f} MiB) in "
+            f"{export_s:.2f} s -> {len(got)} back in {import_s:.2f} s; "
+            f"{len(want) - len(moved)} bit-equal")
+        if moved or set(got) != set(want):
+            raise SystemExit(f"reference_roundtrip phase: {family}: changed {moved[:5]}, "
+                             f"extra {sorted(set(got) - set(want))[:5]}")
+    reqs, want_bodies = SERVED["serve_cache"]
+    args = serve_args(corpus, "--saved_model_path", back["miner"])
+    reset_launch_counts()
+    CENSUS.phase = "roundtrip_serve"
+    t0 = time.perf_counter()
+    service = ScoringService(Trainer(args))
+    torch.cuda.synchronize()
+    startup_s = time.perf_counter() - t0
+    try:
+        replies, _ = _serve_requests(service, args, reqs, 1, "roundtrip_serve")
+        counts = launch_counts()
+    finally:
+        CENSUS.phase = None
+        service.close()
+    same = [body for _, body, _ in replies] == want_bodies
+    log(f"roundtrip_serve: the re-imported Miner: start-up {startup_s:.2f} s; {len(reqs)} "
+        f"requests one at a time, replies bit-equal to serve_cache's: {same}; launches "
+        f"{counts}")
+    _check_launches("roundtrip_serve", counts)
+    if not same:
+        raise SystemExit("roundtrip_serve phase: the re-imported Miner's replies differ")
     return counts
 
 
@@ -1744,7 +1903,22 @@ TRAIN_CONFIGS = {"miner": ("train", "train_miner.txt", "train", "eval"),
                                           "fastformer_his_cache_eval"),
                  # LSTM_LEGACY_FLAGS on top of train_miner.txt
                  "lstm_legacy": ("train", "train_miner.txt", "lstm_legacy_train",
-                                 "lstm_legacy_eval")}
+                                 "lstm_legacy_eval"),
+                 # train_miner.txt without --apply_reduce_dim (DERIVED)
+                 "no_reduce": ("train", "train_miner.txt", "no_reduce_train", "no_reduce_eval"),
+                 # train_miner.txt with --remat_policy dots (SHORT_FLAGS)
+                 "remat_dots": ("train", "train_miner.txt", "remat_dots_train",
+                                "remat_dots_eval")}
+# the flags a derived configuration drops from the file it is derived from
+# (each on a line of its own there): a Miner without --apply_reduce_dim,
+# whose news vectors keep the PLM's D = 768, trained and served
+DERIVED = {"no_reduce": ("--apply_reduce_dim",), "no_reduce_serve": ("--apply_reduce_dim",)}
+# the depth of the epoch of the phases cut for time: their impressions (16
+# a micro-batch) and the flags they add; no_reduce 2 micro-batches at
+# accumulation 2 (one update), remat_dots 4 at accumulation 4 (one update)
+SHORT_IMPRESSIONS = {"no_reduce": 32, "remat_dots": 64}
+SHORT_FLAGS = {"no_reduce": ("--gradient_accumulation_steps", "2"),
+               "remat_dots": ("--remat_policy", "dots", "--gradient_accumulation_steps", "4")}
 # "his_cache": the Miner's cached-history micro-batch (the candidates through
 # the towers, the history from a cache filled on the card)
 PARITY_FAMILIES = ("miner", "fastformer", "unbert", "unisrec", "his_cache")
@@ -1763,12 +1937,13 @@ SERVE_FLAGS = {"fastformer_serve": ("--model_name", "fastformer"),
 
 
 # the median micro-batch of each train phase, in ms (the cached-history
-# phases print theirs beside the full-history ones)
-MICRO_BATCH_MS = {}
+# phases print theirs beside the full-history ones), and its peak memory
+MICRO_BATCH_MS, PEAK_GIB = {}, {}
 # the train phases whose last micro-batches torch.profiler traces: the
 # device's busy time a micro-batch against the median of the others, and
 # where it goes (the profiled micro-batches stay out of the median)
-PROFILED_PHASES = ("train", "fastformer_train", "his_cache_train", "fastformer_his_cache_train")
+PROFILED_PHASES = ("train", "fastformer_train", "his_cache_train", "fastformer_his_cache_train",
+                   "remat_dots_train")
 PROFILED_STEPS = 3
 # substrings of the hand-written kernels' names in a trace (csrc's entry
 # points and the Triton add_ln forward)
@@ -1777,10 +1952,45 @@ OWN_KERNELS = ("mha_fwd_", "mha_bwd_", "add_ln_fwd", "add_ln_bwd_kernel", "poly_
 
 
 def micro_batches(family: str) -> int:
-    """One epoch's micro-batches of 16 over the 256 train impressions: one
-    a impression, or for UnBERT five packed rows an impression (one
-    candidate drawn per visit, five visits)."""
-    return TRAIN_IMPRESSIONS * (5 if family == "unbert" else 1) // 16
+    """One epoch's micro-batches of 16 over the 256 train impressions (the
+    phases cut for time: their ``SHORT_IMPRESSIONS``): one a impression, or
+    for UnBERT five packed rows an impression (one candidate drawn per
+    visit, five visits)."""
+    impressions = SHORT_IMPRESSIONS.get(family, TRAIN_IMPRESSIONS)
+    return impressions * (5 if family == "unbert" else 1) // 16
+
+
+def derived_config(directory: str, name: str, drop) -> str:
+    """``config/<name>`` without the lines of the flags in ``drop``, written
+    to ``directory`` (``config/`` stays as it is); returns its path."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "config", name)) as f:
+        lines = [line for line in f if line.split()[:1] not in ([flag] for flag in drop)]
+    path = os.path.join(directory, name.replace(".txt", "_derived.txt"))
+    with open(path, "w") as f:
+        f.writelines(lines)
+    return path
+
+
+def _config_words(path: str):
+    from miner_tpu_torch.config import convert_arg_line_to_args
+
+    words = []
+    with open(path) as f:
+        for line in f:
+            words += convert_arg_line_to_args(line)
+    return words
+
+
+def write_short_behaviors(corpus: str) -> None:
+    """The first ``SHORT_IMPRESSIONS`` lines of the train behaviors, for
+    each phase cut for time, under ``train_<family>/``."""
+    with open(os.path.join(corpus, "train", "behaviors.tsv")) as f:
+        lines = f.readlines()
+    for family, n in SHORT_IMPRESSIONS.items():
+        os.makedirs(os.path.join(corpus, f"train_{family}"), exist_ok=True)
+        with open(os.path.join(corpus, f"train_{family}", "behaviors.tsv"), "w") as f:
+            f.writelines(lines[:n])
 
 
 def train_args(corpus: str, out: str, *extra: str, family: str = "miner"):
@@ -1791,27 +2001,32 @@ def train_args(corpus: str, out: str, *extra: str, family: str = "miner"):
     and "unisrec" / "unisrec_all" ``config/train_unisrec.txt`` under
     ``train_fastformer``) as it stands, on the synthetic corpus and
     behaviors, with the hash tokenizer over the PLM's vocabulary
-    (``TOKENIZERS``), random init, and one epoch."""
-    from miner_tpu_torch.config import convert_arg_line_to_args, make_parser
+    (``TOKENIZERS``), random init, and one epoch; a ``DERIVED`` family reads
+    a configuration derived from the file, written under ``out``; one cut
+    for time (``SHORT_IMPRESSIONS``) trains on its first impressions with
+    its ``SHORT_FLAGS``."""
+    from miner_tpu_torch.config import make_parser
 
     mode, config = TRAIN_CONFIGS[family][:2]
     here = os.path.dirname(os.path.abspath(__file__))
-    words = []
-    with open(os.path.join(here, "config", config)) as f:
-        for line in f:
-            words += convert_arg_line_to_args(line)
+    path = (derived_config(out, config, DERIVED[family]) if family in DERIVED
+            else os.path.join(here, "config", config))
+    words = _config_words(path)
+    behaviors = (os.path.join(corpus, f"train_{family}", "behaviors.tsv")
+                 if family in SHORT_IMPRESSIONS else os.path.join(corpus, "train", "behaviors.tsv"))
     for flag, value in (
             ("--pretrained_tokenizer", TOKENIZERS.get(family, "hash:50265")),
             ("--user2id_path", os.path.join(corpus, "user2id.json")),
             ("--category2id_path", os.path.join(corpus, "category2id.json")),
-            ("--train_behaviors_path", os.path.join(corpus, "train", "behaviors.tsv")),
+            ("--train_behaviors_path", behaviors),
             ("--train_news_path", os.path.join(corpus, "news.tsv")),
             ("--eval_behaviors_path", os.path.join(corpus, "valid", "behaviors.tsv")),
             ("--eval_news_path", os.path.join(corpus, "news.tsv")),
             ("--num_train_epochs", "1")):
         words[words.index(flag) + 1] = value
     return make_parser().parse_args([mode, *words, "--train_path",
-                                     os.path.join(out, family), *extra])
+                                     os.path.join(out, family),
+                                     *SHORT_FLAGS.get(family, ()), *extra])
 
 
 def train_phase(corpus: str, out: str, family: str = "miner", *extra: str):
@@ -1981,10 +2196,13 @@ def train_phase(corpus: str, out: str, family: str = "miner", *extra: str):
     # a cached-history run's micro-batch is a cached one, its refill apart;
     # the profiled ones are left out
     unprofiled = len(step_s) if profile_from is None else profile_from
-    steady = sorted(step_s[1:unprofiled]) if cache is None else sorted(
+    # a phase cut to fewer micro-batches than it profiles takes the median
+    # of the profiled ones (the first, with the compiles, apart)
+    steady = (sorted(step_s[1:unprofiled]) or sorted(step_s[1:])) if cache is None else sorted(
         t - r for t, r, n in zip(step_s[:unprofiled], refill_in_step, step_phase) if n == phase)
     mid = steady[len(steady) // 2]
     MICRO_BATCH_MS[phase] = 1e3 * mid
+    PEAK_GIB[phase] = max(peaks.get("warmup", 0), torch.cuda.max_memory_allocated()) / 2 ** 30
     accum = args.gradient_accumulation_steps
     if trainer.kind == "pretrain":  # the positive, its variants, the negatives
         what = f"{args.train_batch_size * (1 + len(args.augmentations or ()) + args.npratio)} news"
@@ -2008,8 +2226,7 @@ def train_phase(corpus: str, out: str, family: str = "miner", *extra: str):
         f"{args.train_batch_size / mid:.2f} examples/s, "
         f"{1 / (mid * accum):.3f} updates/s; "
         f"eval {eval_s[0]:.2f} s; whole train() {wall_s:.2f} s; peak memory "
-        f"{max(peaks.get('warmup', 0), torch.cuda.max_memory_allocated()) / 2 ** 30:.2f} "
-        f"GiB on {torch.cuda.get_device_name(0)}")
+        f"{PEAK_GIB[phase]:.2f} GiB on {torch.cuda.get_device_name(0)}")
     log(f"{phase}: optimizer updates (clip, AdamW; in the micro-batch times above) "
         f"{[round(1e3 * t, 1) for t in update_s]} ms")
     log(f"{phase}: device memory of the last micro-batch: {held[-1]:.2f} GiB held "
@@ -2037,6 +2254,14 @@ def train_phase(corpus: str, out: str, family: str = "miner", *extra: str):
         _check_launches(name, c)
     _check_launches(eval_phase, eval_counts)
     _check_per_batch(phase, per_batch)
+    if family in DERIVED:  # poly-attention in bf16 at the PLM's D = 768
+        for name in (phase, eval_phase):
+            _check_d768(name)
+    if phase == "remat_dots_train":
+        log(f"{phase}: --remat_policy dots against --remat alone (the train phase): "
+            f"micro-batch {MICRO_BATCH_MS[phase]:.1f} ms against "
+            f"{MICRO_BATCH_MS.get('train', float('nan')):.1f} ms, peak {PEAK_GIB[phase]:.2f} "
+            f"GiB against {PEAK_GIB.get('train', float('nan')):.2f} GiB")
     ckpt = os.path.join(run.run_dir, "ckpt")
     final = os.path.join(ckpt, "finalModel")
     if trainer.kind == "pretrain" and sorted(os.listdir(ckpt)) != ["bestLossModel", "finalModel"]:
@@ -2565,6 +2790,7 @@ def main(argv=None) -> int:
         corpus = os.path.join(tmp, "corpus")
         write_corpus(corpus, NUM_NEWS, seed=0)
         write_behaviors(corpus, NUM_NEWS, seed=3)
+        write_short_behaviors(corpus)
         counts, final_model = train_phase(corpus, tmp)
         counts["serve"] = serve_phase(corpus, final_model)
         counts.update(serve_cache_phase(corpus, final_model, tmp))
@@ -2586,6 +2812,8 @@ def main(argv=None) -> int:
         counts.update(ub_counts)
         counts["unbert_eval_standalone"] = unbert_eval_phase(corpus, tmp, ub_model)
         counts["unbert_serve"] = unbert_serve_phase(corpus, ub_model)
+        counts["roundtrip_serve"] = reference_roundtrip_phase(
+            corpus, tmp, {"miner": final_model, "fastformer": ff_model, "unbert": ub_model})
         us_counts, us_model = train_phase(corpus, tmp, "unisrec")
         counts.update(us_counts)
         counts["unisrec_serve"] = serve_phase(corpus, us_model, "unisrec_serve")
@@ -2601,6 +2829,12 @@ def main(argv=None) -> int:
         counts.update(lstm_counts)
         counts["lstm_legacy_serve"] = serve_phase(corpus, lstm_model, "lstm_legacy_serve")
         counts["fp32_train"] = fp32_train_phase(corpus, tmp)
+        nr_counts, nr_model = train_phase(corpus, tmp, "no_reduce")
+        counts.update(nr_counts)
+        counts["no_reduce_serve"] = serve_phase(corpus, nr_model, "no_reduce_serve", 12, 4)
+        _check_d768("no_reduce_serve")
+        rd_counts, _ = train_phase(corpus, tmp, "remat_dots")
+        counts.update(rd_counts)
         hf_import_phase(corpus, tmp, tmp)
         write_corpus(os.path.join(tmp, "parity"), 64, seed=1)
         parity_phase(os.path.join(tmp, "parity"))

@@ -6,8 +6,9 @@ flags, as in JAX), ``eval`` and ``eval_fastformer``, ``serve`` (HTTP
 scoring server) and ``recommend`` (one-shot ranking). ``@config/file.txt``
 argument files with ``#`` comments parse unchanged (every shipped file of
 ``config/``). The JAX package's TPU settings (mesh
-shape, compilation cache, PRNG implementation, layer scan, remat policy,
-matmul precision) are accepted and ignored, each saying so in ``--help``.
+shape, compilation cache, PRNG implementation, layer scan, matmul
+precision) are accepted and ignored, each saying so in ``--help``;
+``--remat_policy`` is honoured under ``--remat``.
 The ``Trainer`` refuses ``--param_dtype`` other than float32, as the JAX
 package does, and ``--no-fused_kernels`` on a card.
 """
@@ -142,11 +143,16 @@ def _add_common(p: argparse.ArgumentParser):
                    choices=["float32", "bfloat16"])
     p.add_argument("--remat", action="store_true",
                    help="rematerialise each PLM layer in the backward "
-                        "(torch.utils.checkpoint) to save device memory; "
-                        "UnBERT's layers are never rematerialised, as in JAX")
+                        "(torch.utils.checkpoint) to save device memory, "
+                        "keeping the attention context, as JAX does: the "
+                        "recompute launches no mha forward; UnBERT's layers "
+                        "are never rematerialised, as in JAX")
     p.add_argument("--remat_policy", type=str, default="", choices=["", "dots"],
-                   help=_TPU_ONLY + " (--remat recomputes whole layers); "
-                        "refused without --remat, as in JAX")
+                   help="under --remat, 'dots' also keeps the output of every "
+                        "product with no batch dims (qkv, out, ffn_in, "
+                        "ffn_out), so the recompute runs no matmul, for ~9 x "
+                        "hidden x tokens x 2 bytes more a layer; refused "
+                        "without --remat, as in JAX")
     p.add_argument("--scan_layers", action=argparse.BooleanOptionalAction,
                    default=False, help=_TPU_ONLY)
     p.add_argument("--plm_preset", type=str, default="tiny",
@@ -311,7 +317,7 @@ def add_eval_arguments(p: argparse.ArgumentParser):
 
 def plm_config(preset: str, vocab_size: Optional[int] = None,
                gelu_approx: Optional[bool] = None,
-               remat: bool = False) -> PLMConfig:
+               remat: bool = False, remat_policy: str = "") -> PLMConfig:
     if preset == "roberta_base":
         cfg = PLMConfig.roberta_base()
     elif preset == "bert_base":
@@ -328,5 +334,5 @@ def plm_config(preset: str, vocab_size: Optional[int] = None,
     if gelu_approx is not None:
         cfg = dc.replace(cfg, gelu_approx=gelu_approx)
     if remat:
-        cfg = dc.replace(cfg, remat=True)
+        cfg = dc.replace(cfg, remat=True, remat_policy=remat_policy)
     return cfg

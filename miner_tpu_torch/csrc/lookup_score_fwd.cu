@@ -25,6 +25,10 @@
 // stages the row's interests once, and gathers each tile's rows into
 // shared memory by 16-byte cp.async into a double buffer (the next tile
 // gathered while one is scored), as the TPU kernel's two DMA groups were.
+// Where two buffers do not fit (a bf16 cache at the PLM's D = 768, a Miner
+// without --apply_reduce_dim: ~251 KB a block), one takes them: the next
+// tile is gathered once every warp has scored the last (~157 KB). An fp32
+// cache at D = 768 fits in neither and is refused.
 // Scores go through shared memory and leave as 16-byte stores of the
 // contiguous (tile, K) block of out. Blocks are numbered batch row
 // fastest, so the blocks that gather one candidate tile for every batch
@@ -71,7 +75,10 @@ typedef __nv_bfloat16 bf16;
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int TC = 64;  // candidates a tile
-constexpr int STAGES = 2;  // gather buffers: one tile in flight while one is scored
+// gather buffers: one tile in flight while one is scored (on the tensor
+// cores, one buffer where two do not fit: a bf16 cache at D = 768)
+constexpr int STAGES = 2;
+constexpr size_t MAX_SMEM = 227 * 1024;
 
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) / 16 * 16; }
 __host__ __device__ inline int round_up(int n, int m) { return (n + m - 1) / m * m; }
@@ -83,7 +90,7 @@ struct Layout {
   int kp, ldi, ldr;  // interest rows (K padded); interest and gathered-row strides, in elements
   size_t in, rows, stage, red, out, idx, bytes;
   __host__ __device__ Layout(int K, int D, bool tensor_core, int cache_elem, int out_elem,
-                             int tiles) {
+                             int tiles, int stages = STAGES) {
     if (tensor_core && cache_elem == 1) {
       // int8 rows padded by 16 bytes and bf16 interests by 16 elements: the
       // 8 rows of an ldmatrix and the 16 lanes of an 8-byte load of B each
@@ -103,7 +110,7 @@ struct Layout {
     in = 0;
     rows = in + align16((size_t)kp * ldi * out_elem);
     stage = align16((size_t)TC * ldr * cache_elem);
-    red = rows + STAGES * stage;
+    red = rows + stages * stage;
     // int8 on the tensor cores: one warp's partial sums a 16-candidate
     // piece, 16 floats a lane
     out = red + (tensor_core && cache_elem == 1 ? (size_t)(TC / 16) * 16 * 32 * 4 : 0);
@@ -167,10 +174,16 @@ struct Run {
   }
 };
 
-// tile t's rows have landed: the next tile's group, when there is one, may
-// still be in flight
-__device__ __forceinline__ void wait_tile(int t, const Run& run) {
-  if (t + 1 < run.t1)
+// the gather buffers a tensor-core launch takes: two where they fit, else one
+inline int stages_for(int K, int D, bool tensor_core, int cache_elem, int out_elem,
+                      int tiles) {
+  return Layout(K, D, tensor_core, cache_elem, out_elem, tiles).bytes <= MAX_SMEM ? STAGES : 1;
+}
+
+// tile t's rows have landed: the next tile's group, when there is one (two
+// buffers), may still be in flight
+__device__ __forceinline__ void wait_tile(int t, const Run& run, int stages) {
+  if (stages > 1 && t + 1 < run.t1)
     cp_async_wait<1>();
   else
     cp_async_wait<0>();
@@ -214,14 +227,15 @@ __device__ __forceinline__ float row_scale(const float* scales, int row) {
 
 // ------------------------------------------------------- tensor cores
 // TCache bf16, or int8_t with scales: its rows widened to bf16 in registers
-template <typename TCache>
+template <typename TCache, int NSTAGES>
 __global__ void __launch_bounds__(THREADS)
 lookup_score_tc(const TCache* __restrict__ cache, const float* __restrict__ scales,
                 const int* __restrict__ cand_idx, const bf16* __restrict__ interests,
                 bf16* __restrict__ out, int N, int B, int C, int K, int D, int tiles) {
+  constexpr int stages = NSTAGES;
   constexpr bool kInt8 = sizeof(TCache) == 1;
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout lay(K, D, true, sizeof(TCache), 2, tiles);
+  const Layout lay(K, D, true, sizeof(TCache), 2, tiles, stages);
   bf16* sI = reinterpret_cast<bf16*>(smem + lay.in);
   bf16* sOut = reinterpret_cast<bf16*>(smem + lay.out);
   int* sIdx = reinterpret_cast<int*>(smem + lay.idx);
@@ -234,7 +248,7 @@ lookup_score_tc(const TCache* __restrict__ cache, const float* __restrict__ scal
   load_indices(run, cand_idx, sIdx, C, N);
   __syncthreads();  // sIdx
   auto stage_rows = [&](int t) {
-    return reinterpret_cast<TCache*>(smem + lay.rows + (t % STAGES) * lay.stage);
+    return reinterpret_cast<TCache*>(smem + lay.rows + (t % stages) * lay.stage);
   };
   auto tile_size = [&](int t) { return min(TC, C - t * TC); };
   auto fetch = [&](int t) {
@@ -247,8 +261,8 @@ lookup_score_tc(const TCache* __restrict__ cache, const float* __restrict__ scal
   fetch(run.t0);  // in the interests' group
   const int ktiles = lay.kp / 16;
   for (int t = run.t0; t < run.t1; ++t) {
-    if (t + 1 < run.t1) fetch(t + 1);  // into the buffer of t - 1
-    wait_tile(t, run);
+    if (stages > 1 && t + 1 < run.t1) fetch(t + 1);  // into the buffer of t - 1
+    wait_tile(t, run, stages);
     __syncthreads();
     const TCache* rows = stage_rows(t);
     const int* tIdx = sIdx + (t - run.t0) * TC;
@@ -335,6 +349,7 @@ lookup_score_tc(const TCache* __restrict__ cache, const float* __restrict__ scal
       }
     }
     __syncthreads();
+    if (stages == 1 && t + 1 < run.t1) fetch(t + 1);  // every warp is done with the buffer
     write_out(out + ((long)run.b * C + (long)t * TC) * K, sOut, nc * K);
   }
 }
@@ -397,7 +412,7 @@ lookup_score_cc(const TCache* __restrict__ cache, const float* __restrict__ scal
   fetch(run.t0);  // in the interests' group
   for (int t = run.t0; t < run.t1; ++t) {
     if (t + 1 < run.t1) fetch(t + 1);
-    wait_tile(t, run);
+    wait_tile(t, run, STAGES);
     __syncthreads();
     const TCache* rows = stage_rows(t);
     const int* tIdx = sIdx + (t - run.t0) * TC;
@@ -447,11 +462,13 @@ template <typename TCache>
 cudaError_t launch_tc(const void* cache, const void* scales, const void* cand_idx,
                       const void* interests, void* out, int N, int B, int C, int K, int D,
                       int tiles, int blocks, cudaStream_t stream) {
-  const size_t smem = Layout(K, D, true, sizeof(TCache), 2, tiles).bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      lookup_score_tc<TCache>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const int stages = stages_for(K, D, true, sizeof(TCache), 2, tiles);
+  const auto kernel = stages == STAGES ? lookup_score_tc<TCache, STAGES> : lookup_score_tc<TCache, 1>;
+  const size_t smem = Layout(K, D, true, sizeof(TCache), 2, tiles, stages).bytes;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  lookup_score_tc<TCache><<<blocks, THREADS, smem, stream>>>(
+  kernel<<<blocks, THREADS, smem, stream>>>(
       static_cast<const TCache*>(cache), static_cast<const float*>(scales),
       static_cast<const int*>(cand_idx), static_cast<const bf16*>(interests),
       static_cast<bf16*>(out), N, B, C, K, D, tiles);
@@ -492,12 +509,13 @@ cudaError_t dispatch_cc(const void* cache, const void* scales, const void* cand_
 }  // namespace
 
 // Shared memory a block takes at these shapes, for the route the types and
-// D pick, with runs of `tiles` tiles.
+// D pick, with runs of `tiles` tiles, in the buffers the launch takes.
 extern "C" long long lookup_score_smem_bytes(int K, int D, int cache_dtype,
                                             int interests_dtype, int tiles) {
-  return (long long)Layout(K, D, tensor_core_route(D, cache_dtype, interests_dtype),
-                           elem_size(cache_dtype), elem_size(interests_dtype), tiles)
-      .bytes;
+  const bool tc = tensor_core_route(D, cache_dtype, interests_dtype);
+  const int ce = elem_size(cache_dtype), oe = elem_size(interests_dtype);
+  return (long long)Layout(K, D, tc, ce, oe, tiles,
+                           tc ? stages_for(K, D, tc, ce, oe, tiles) : STAGES).bytes;
 }
 
 // cache (N, D) in cache_dtype, with scales (N, 1) float32 for an int8 cache

@@ -30,6 +30,17 @@
 //      distributed shared memory (every CTA gets the same sums), adds the
 //      bias, masks, and takes the softmax over H in fp32, rounded to bf16;
 //   4. out[:, its quarter of D] = weights^T @ emb on the mma.
+// Where emb whole does not fit beside a quarter of W (D = 768, a Miner
+// without --apply_reduce_dim: ~245 KB a CTA), D is split across a cluster of
+// 8 (the fp32 route's D split): each CTA stages its eighth of emb's
+// 16-column chunks and the same rows of W with all of W's columns, computes
+// the partial proj over its D in fp32 for all of P, and after a cluster
+// barrier sums the eight partials of its slice of P over distributed shared
+// memory in rank order before tanh and the rounding to bf16 (~136 KB a CTA
+// at H = 50, P = 200, K = 32); steps 2 and 3 follow on its eighth of P, and
+// out's columns are the CTA's own emb columns. The plan (bf16_plan: 4 CTAs,
+// else 8 with D split) comes from the shapes alone, never the batch, so a
+// row's result does not depend on its batch.
 // The fill of a masked slot is the launch's mask_fill: -1e9 (masking), or
 // the reference's legacy 1e-30 (--legacy_poly_mask: a masked slot's logit
 // is ~0, so pads keep a weight), in place of logits + bias.
@@ -79,90 +90,149 @@ namespace {
 namespace cg = cooperative_groups;
 typedef __nv_bfloat16 bf16;
 
-constexpr int NC = 4;        // CTAs a batch row: one cluster
+constexpr int NC = 4;           // CTAs a batch row, D whole: one cluster
+constexpr int MAX_CLUSTER = 8;  // the largest portable cluster
+constexpr size_t MAX_SMEM = 227 * 1024;
 constexpr int TC_WARPS = 8;
 
-// Shared memory of one CTA; every CTA of a launch has the same layout, sized
-// for the widest P slice. Rows of bf16 are padded by 8 values so ldmatrix
-// reads them without bank conflicts.
+// a row pitch of at least n floats (n a multiple of 8) that is 8 mod 16:
+// float2 reads of (row g, columns 2t, 2t + 1) by a half-warp, and scalar
+// reads of (rows t, t + 4, column g), fall on distinct banks
+__host__ __device__ inline int pitch_8_of_16(int n) { return n % 16 == 8 ? n : n + 8; }
+
+// CTAs a batch row, and D split across them or not
+struct Plan {
+  int nc;
+  bool split;
+};
+
+// Shared memory of one bf16 CTA with nc CTAs a row; every CTA of a launch
+// has the same layout, sized for the widest slices. Rows of bf16 are padded
+// by 8 values (an odd number of 16-byte units) so ldmatrix reads them
+// without bank conflicts. D whole: emb whole and the CTA's slice of W's
+// columns. D split: the CTA's slice of emb's columns and of W's rows with
+// all of W's columns, and the partial proj over its D (fp32), which the
+// cluster sums.
 struct Layout {
-  int Hp, Kp, pchunks, ps;  // H and K padded to 16; P in 16-column chunks; slice width
-  int lde, ldw, ldt, ldl;   // row strides: emb, W / codes / proj slices, weights^T, logits
-  size_t part, logit, e, w, c, proj, wt, bytes;  // byte offsets
-  __host__ __device__ Layout(int H, int D, int P, int K) {
+  int Hp, Kp, pchunks, ps, ds;  // H and K padded to 16; P in 16-column chunks; the widest
+                                // slices of P and D
+  int lde, ldw, ldc, ldt, ldl, ldp;  // row strides: emb, W, codes / proj slices, weights^T,
+                                     // logits, partial proj
+  size_t part, logit, e, w, c, proj, wt, pp, bytes;  // byte offsets
+  __host__ __device__ Layout(int H, int D, int P, int K, int nc, bool split) {
     Hp = (H + 15) / 16 * 16;
     Kp = (K + 15) / 16 * 16;
     pchunks = (P + 15) / 16;
-    ps = 16 * ((pchunks + NC - 1) / NC);
-    lde = D + 8;
-    ldw = ps + 8;
+    ps = 16 * ((pchunks + nc - 1) / nc);
+    ds = split ? 16 * ((D / 16 + nc - 1) / nc) : D;
+    lde = ds + 8;
+    ldw = (split ? 16 * pchunks : ps) + 8;
+    ldc = ps + 8;
     ldt = Hp + 8;
     ldl = Kp + 1;
+    ldp = pitch_8_of_16(16 * pchunks);
     part = 0;                                       // (Hp, Kp) fp32: this CTA's partial logits
     logit = part + sizeof(float) * Hp * Kp;         // (Hp, Kp + 1) fp32: the summed logits
-    e = logit + sizeof(float) * Hp * ldl;           // (Hp, D + 8) emb
+    e = logit + sizeof(float) * Hp * ldl;           // (Hp, ds + 8) emb or its slice
     e = (e + 15) / 16 * 16;
-    w = e + sizeof(bf16) * Hp * lde;                // (D, ps + 8) W's slice
-    c = w + sizeof(bf16) * (size_t)D * ldw;         // (Kp, ps + 8) the codes' slice
-    proj = c + sizeof(bf16) * Kp * ldw;             // (Hp, ps + 8) proj's slice
-    wt = proj + sizeof(bf16) * Hp * ldw;            // (Kp, Hp + 8) weights^T
-    bytes = wt + sizeof(bf16) * Kp * ldt;
+    w = e + sizeof(bf16) * Hp * lde;                // (ds, ldw) W's slice
+    c = w + sizeof(bf16) * (size_t)ds * ldw;        // (Kp, ps + 8) the codes' slice
+    proj = c + sizeof(bf16) * Kp * ldc;             // (Hp, ps + 8) proj's slice
+    wt = proj + sizeof(bf16) * Hp * ldc;            // (Kp, Hp + 8) weights^T
+    pp = (wt + sizeof(bf16) * Kp * ldt + 15) / 16 * 16;  // D split: (Hp, ldp) partial proj
+    bytes = split ? pp + sizeof(float) * Hp * ldp : wt + sizeof(bf16) * Kp * ldt;
   }
 };
 
-// grid B * NC, cluster (NC, 1, 1); D a multiple of 16, P of 8, the rows of
-// emb, W and the codes 16-byte aligned
-__global__ void __cluster_dims__(NC, 1, 1) __launch_bounds__(32 * TC_WARPS)
-poly_attention_bf16(const bf16* __restrict__ emb, const bf16* __restrict__ w,
-                    const bf16* __restrict__ codes, const int* __restrict__ mask,
-                    const float* __restrict__ bias, bf16* __restrict__ out, int H, int D,
-                    int P, int K, float mask_fill) {
-  extern __shared__ __align__(16) unsigned char smem_tc[];
-  const Layout lay(H, D, P, K);
-  float* sPart = reinterpret_cast<float*>(smem_tc + lay.part);
-  float* sLog = reinterpret_cast<float*>(smem_tc + lay.logit);
-  bf16* sE = reinterpret_cast<bf16*>(smem_tc + lay.e);
-  bf16* sW = reinterpret_cast<bf16*>(smem_tc + lay.w);
-  bf16* sC = reinterpret_cast<bf16*>(smem_tc + lay.c);
-  bf16* sProj = reinterpret_cast<bf16*>(smem_tc + lay.proj);
-  bf16* sWt = reinterpret_cast<bf16*>(smem_tc + lay.wt);
+// the bf16 kernel's plans, in the order it takes the first whose CTA fits:
+// 4 CTAs a row (emb whole), 8 with D split (D = 768).
+// ops/poly_attention.py:BF16_PLANS lists the same.
+constexpr Plan BF16_PLANS[] = {{NC, false}, {MAX_CLUSTER, true}};
+
+Plan bf16_plan(int H, int D, int P, int K) {
+  for (const Plan& p : BF16_PLANS)
+    if (Layout(H, D, P, K, p.nc, p.split).bytes <= MAX_SMEM) return p;
+  return {0, true};
+}
+
+// One CTA of the bf16 kernel; grid B * NCT, cluster (NCT, 1, 1); D a
+// multiple of 16, P of 8, the rows of emb, W and the codes 16-byte aligned.
+template <bool SPLIT>
+__device__ __forceinline__ void poly_bf16_cta(unsigned char* smem, const bf16* __restrict__ emb,
+                                              const bf16* __restrict__ w,
+                                              const bf16* __restrict__ codes,
+                                              const int* __restrict__ mask,
+                                              const float* __restrict__ bias,
+                                              bf16* __restrict__ out, int H, int D, int P,
+                                              int K, float mask_fill) {
+  constexpr int NCT = SPLIT ? MAX_CLUSTER : NC;
+  const Layout lay(H, D, P, K, NCT, SPLIT);
+  float* sPart = reinterpret_cast<float*>(smem + lay.part);
+  float* sLog = reinterpret_cast<float*>(smem + lay.logit);
+  bf16* sE = reinterpret_cast<bf16*>(smem + lay.e);
+  bf16* sW = reinterpret_cast<bf16*>(smem + lay.w);
+  bf16* sC = reinterpret_cast<bf16*>(smem + lay.c);
+  bf16* sProj = reinterpret_cast<bf16*>(smem + lay.proj);
+  bf16* sWt = reinterpret_cast<bf16*>(smem + lay.wt);
+  float* sPP = reinterpret_cast<float*>(smem + lay.pp);
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
-  const int b = blockIdx.x / NC;
+  const int b = blockIdx.x / NCT;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int Hp = lay.Hp, Kp = lay.Kp;
-  // this CTA's 16-column chunks of P
-  const int c0 = rank * lay.pchunks / NC, nchunk = (rank + 1) * lay.pchunks / NC - c0;
+  const int ldc = SPLIT ? lay.ldc : lay.ldw;  // the codes' and proj's pitch (D whole: W's)
+  // this CTA's 16-column chunks of P; D split: of D too (its columns of
+  // emb and rows of W, and out's columns); D whole: all of D in emb
+  const int c0 = rank * lay.pchunks / NCT, nchunk = (rank + 1) * lay.pchunks / NCT - c0;
   const int p0 = 16 * c0, np8 = 2 * nchunk;  // first column, 8-column pieces
+  const int ec0 = SPLIT ? rank * (D / 16) / NCT : 0;
+  const int nec = SPLIT ? (rank + 1) * (D / 16) / NCT - ec0 : D / 16;
 
   const bf16* e = emb + (long)b * H * D;
-  const int d8 = D / 8;
-  for (int i = tid; i < Hp * d8; i += blockDim.x) {
-    const int r = i / d8, ch = i % d8;
-    const bool ok = r < H;
-    cp_async16(sE + r * lay.lde + ch * 8, ok ? e + (long)r * D + ch * 8 : e, ok ? 16 : 0);
-  }
-  for (int i = tid; i < D * np8; i += blockDim.x) {
-    const int d = i / np8, p = p0 + 8 * (i % np8);
-    const bool ok = p < P;
-    cp_async16(sW + d * lay.ldw + (p - p0), ok ? w + (long)d * P + p : w, ok ? 16 : 0);
+  if (SPLIT) {
+    const int e8 = 2 * nec, w8 = 2 * lay.pchunks;
+    for (int i = tid; i < Hp * e8; i += blockDim.x) {
+      const int r = i / e8, ch = i % e8;
+      const bool ok = r < H;
+      cp_async16(sE + r * lay.lde + ch * 8, ok ? e + (long)r * D + 16 * ec0 + ch * 8 : e,
+                 ok ? 16 : 0);
+    }
+    for (int i = tid; i < 16 * nec * w8; i += blockDim.x) {
+      const int d = i / w8, p = 8 * (i % w8);
+      const bool ok = p < P;
+      cp_async16(sW + d * lay.ldw + p, ok ? w + (long)(16 * ec0 + d) * P + p : w, ok ? 16 : 0);
+    }
+  } else {
+    const int d8 = D / 8;
+    for (int i = tid; i < Hp * d8; i += blockDim.x) {
+      const int r = i / d8, ch = i % d8;
+      const bool ok = r < H;
+      cp_async16(sE + r * lay.lde + ch * 8, ok ? e + (long)r * D + ch * 8 : e, ok ? 16 : 0);
+    }
+    for (int i = tid; i < D * np8; i += blockDim.x) {
+      const int d = i / np8, p = p0 + 8 * (i % np8);
+      const bool ok = p < P;
+      cp_async16(sW + d * lay.ldw + (p - p0), ok ? w + (long)d * P + p : w, ok ? 16 : 0);
+    }
   }
   for (int i = tid; i < Kp * np8; i += blockDim.x) {
     const int k = i / np8, p = p0 + 8 * (i % np8);
     const bool ok = k < K && p < P;
-    cp_async16(sC + k * lay.ldw + (p - p0), ok ? codes + (long)k * P + p : codes,
-               ok ? 16 : 0);
+    cp_async16(sC + k * ldc + (p - p0), ok ? codes + (long)k * P + p : codes, ok ? 16 : 0);
   }
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
 
-  // 1. proj slice = tanh(emb @ W slice), a (16 rows, 16 columns) unit a warp
-  for (int u = warp; u < (Hp / 16) * nchunk; u += TC_WARPS) {
-    const int mt = u / nchunk, pc = u % nchunk;
+  // 1. D whole: proj slice = tanh(emb @ W slice). D split: the partial proj,
+  // emb slice @ W slice over this CTA's D, for all of P (fp32). A (16 rows,
+  // 16 columns) unit a warp.
+  const int nunit = SPLIT ? lay.pchunks : nchunk;
+  for (int u = warp; u < (Hp / 16) * nunit; u += TC_WARPS) {
+    const int mt = u / nunit, pc = u % nunit;
     float acc[2][4] = {};
-    for (int kc = 0; kc < D / 16; ++kc) {
+    for (int kc = 0; kc < nec; ++kc) {
       uint32_t a[4], bw[4];
       ldsm_x4(a, sE + (mt * 16 + (lane & 15)) * lay.lde + kc * 16 + (lane >> 4) * 8);
       ldsm_x4_t(bw, sW + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * lay.ldw + pc * 16 +
@@ -173,10 +243,34 @@ poly_attention_bf16(const bf16* __restrict__ emb, const bf16* __restrict__ w,
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-      for (int r = 0; r < 2; ++r)
-        *reinterpret_cast<uint32_t*>(sProj + (mt * 16 + g + 8 * r) * lay.ldw + pc * 16 +
-                                     nt * 8 + 2 * t) =
-            pack_bf16(tanhf(acc[nt][2 * r]), tanhf(acc[nt][2 * r + 1]));
+      for (int r = 0; r < 2; ++r) {
+        const int row = mt * 16 + g + 8 * r, col = pc * 16 + nt * 8 + 2 * t;
+        if (SPLIT)
+          *reinterpret_cast<float2*>(sPP + row * lay.ldp + col) =
+              make_float2(acc[nt][2 * r], acc[nt][2 * r + 1]);
+        else
+          *reinterpret_cast<uint32_t*>(sProj + row * ldc + col) =
+              pack_bf16(tanhf(acc[nt][2 * r]), tanhf(acc[nt][2 * r + 1]));
+      }
+  }
+  if (SPLIT) {
+    cluster.sync();  // every CTA's partial proj is written
+    // proj slice = tanh(the cluster's sum of the partials, in rank order),
+    // rounded to bf16; all the loads in flight before the first add
+    const float* pparts[NCT];
+#pragma unroll
+    for (int r = 0; r < NCT; ++r) pparts[r] = cluster.map_shared_rank(sPP, r);
+    const int w16 = 16 * nchunk;
+    for (int i = tid; i < Hp * w16; i += blockDim.x) {
+      const int h = i / w16, p = i % w16, off = h * lay.ldp + p0 + p;
+      float part[NCT];
+#pragma unroll
+      for (int r = 0; r < NCT; ++r) part[r] = pparts[r][off];
+      float acc = 0.f;
+#pragma unroll
+      for (int r = 0; r < NCT; ++r) acc += part[r];
+      sProj[h * ldc + p] = __float2bfloat16_rn(tanhf(acc));
+    }
   }
   __syncthreads();
 
@@ -186,8 +280,8 @@ poly_attention_bf16(const bf16* __restrict__ emb, const bf16* __restrict__ w,
     float acc[2][4] = {};
     for (int pc = 0; pc < nchunk; ++pc) {
       uint32_t a[4], bc[4];
-      ldsm_x4(a, sProj + (mt * 16 + (lane & 15)) * lay.ldw + pc * 16 + (lane >> 4) * 8);
-      ldsm_x4(bc, sC + (kt * 16 + (lane & 7) + ((lane >> 4) << 3)) * lay.ldw + pc * 16 +
+      ldsm_x4(a, sProj + (mt * 16 + (lane & 15)) * ldc + pc * 16 + (lane >> 4) * 8);
+      ldsm_x4(bc, sC + (kt * 16 + (lane & 7) + ((lane >> 4) << 3)) * ldc + pc * 16 +
                       ((lane >> 3) & 1) * 8);
       mma_bf16(acc[0], a, bc[0], bc[1]);
       mma_bf16(acc[1], a, bc[2], bc[3]);
@@ -203,9 +297,9 @@ poly_attention_bf16(const bf16* __restrict__ emb, const bf16* __restrict__ w,
 
   // 3. the cluster's sum of the partials, in rank order, with bias and mask
   // (masked slots: mask_fill); history rows past H get -inf: no weight at all
-  const float* parts[NC];
+  const float* parts[NCT];
 #pragma unroll
-  for (int r = 0; r < NC; ++r) parts[r] = cluster.map_shared_rank(sPart, r);
+  for (int r = 0; r < NCT; ++r) parts[r] = cluster.map_shared_rank(sPart, r);
   const int* mrow = mask + (long)b * H;
   const float* brow = bias + (long)b * H;
   for (int i = tid; i < Hp * Kp; i += blockDim.x) {
@@ -214,7 +308,7 @@ poly_attention_bf16(const bf16* __restrict__ emb, const bf16* __restrict__ w,
     if (h < H) {
       float acc = 0.f;
 #pragma unroll
-      for (int r = 0; r < NC; ++r) acc += parts[r][i];
+      for (int r = 0; r < NCT; ++r) acc += parts[r][i];
       v = mrow[h] != 0 ? acc + brow[h] : mask_fill;
     }
     sLog[h * lay.ldl + k] = v;
@@ -242,7 +336,7 @@ poly_attention_bf16(const bf16* __restrict__ emb, const bf16* __restrict__ w,
 
   // 4. out[:, this CTA's columns] = weights^T @ emb, (16 codes, 16 columns) a unit
   const int dchunks = D / 16;
-  const int dc0 = rank * dchunks / NC, ndc = (rank + 1) * dchunks / NC - dc0;
+  const int dc0 = rank * dchunks / NCT, ndc = (rank + 1) * dchunks / NCT - dc0;
   bf16* o = out + (long)b * K * D;
   for (int u = warp; u < (Kp / 16) * ndc; u += TC_WARPS) {
     const int mt = u / ndc, dc = dc0 + u % ndc;
@@ -250,8 +344,8 @@ poly_attention_bf16(const bf16* __restrict__ emb, const bf16* __restrict__ w,
     for (int kc = 0; kc < Hp / 16; ++kc) {
       uint32_t a[4], be[4];
       ldsm_x4(a, sWt + (mt * 16 + (lane & 15)) * lay.ldt + kc * 16 + (lane >> 4) * 8);
-      ldsm_x4_t(be, sE + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * lay.lde + dc * 16 +
-                        (lane >> 4) * 8);
+      ldsm_x4_t(be, sE + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * lay.lde +
+                        (dc - ec0) * 16 + (lane >> 4) * 8);
       mma_bf16(acc[0], a, be[0], be[1]);
       mma_bf16(acc[1], a, be[2], be[3]);
     }
@@ -268,15 +362,37 @@ poly_attention_bf16(const bf16* __restrict__ emb, const bf16* __restrict__ w,
   }
 }
 
+// the two bf16 entries: names of their own in traces and in the ptxas report
+__global__ void __cluster_dims__(NC, 1, 1) __launch_bounds__(32 * TC_WARPS)
+poly_attention_bf16(const bf16* __restrict__ emb, const bf16* __restrict__ w,
+                    const bf16* __restrict__ codes, const int* __restrict__ mask,
+                    const float* __restrict__ bias, bf16* __restrict__ out, int H, int D,
+                    int P, int K, float mask_fill) {
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  poly_bf16_cta<false>(smem_tc, emb, w, codes, mask, bias, out, H, D, P, K, mask_fill);
+}
+
+__global__ void __cluster_dims__(MAX_CLUSTER, 1, 1) __launch_bounds__(32 * TC_WARPS)
+poly_attention_bf16_dsplit(const bf16* __restrict__ emb, const bf16* __restrict__ w,
+                           const bf16* __restrict__ codes, const int* __restrict__ mask,
+                           const float* __restrict__ bias, bf16* __restrict__ out, int H,
+                           int D, int P, int K, float mask_fill) {
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  poly_bf16_cta<true>(smem_tc, emb, w, codes, mask, bias, out, H, D, P, K, mask_fill);
+}
+
 cudaError_t launch_bf16(const void* emb, const void* w, const void* codes, const void* mask,
                         const void* bias, void* out, int B, int H, int D, int P, int K,
                         float mask_fill, cudaStream_t stream) {
   if (D % 16 != 0 || P % 8 != 0) return cudaErrorInvalidValue;
-  const size_t smem = Layout(H, D, P, K).bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      poly_attention_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const Plan plan = bf16_plan(H, D, P, K);
+  if (plan.nc == 0) return cudaErrorInvalidValue;
+  const auto kernel = plan.split ? poly_attention_bf16_dsplit : poly_attention_bf16;
+  const size_t smem = Layout(H, D, P, K, plan.nc, plan.split).bytes;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  poly_attention_bf16<<<B * NC, 32 * TC_WARPS, smem, stream>>>(
+  kernel<<<B * plan.nc, 32 * TC_WARPS, smem, stream>>>(
       static_cast<const bf16*>(emb), static_cast<const bf16*>(w),
       static_cast<const bf16*>(codes), static_cast<const int*>(mask),
       static_cast<const float*>(bias), static_cast<bf16*>(out), H, D, P, K, mask_fill);
@@ -285,13 +401,6 @@ cudaError_t launch_bf16(const void* emb, const void* w, const void* codes, const
 
 // ---------------------------------------------------------------- float32
 constexpr int F32_WARPS = 16;
-constexpr int MAX_CLUSTER = 8;  // the largest portable cluster
-constexpr size_t MAX_SMEM = 227 * 1024;
-
-// a row pitch of at least n floats (n a multiple of 8) that is 8 mod 16:
-// float2 reads of (row g, columns 2t, 2t + 1) by a half-warp, and scalar
-// reads of (rows t, t + 4, column g), fall on distinct banks
-__host__ __device__ inline int pitch_8_of_16(int n) { return n % 16 == 8 ? n : n + 8; }
 
 // Shared memory of one fp32 CTA with nc CTAs a batch row; every CTA of a
 // launch has the same layout, sized for the widest slices. D whole: a CTA
@@ -335,14 +444,10 @@ struct F32Layout {
 // with D split (an eighth of emb's columns and W's rows each: D = 768)
 // whose CTA fits; nc = 0 where none does. ops/poly_attention.py:FP32_PLANS
 // lists the same.
-struct F32Plan {
-  int nc;
-  bool split;
-};
-constexpr F32Plan FP32_PLANS[] = {{3, false}, {MAX_CLUSTER, false}, {MAX_CLUSTER, true}};
+constexpr Plan FP32_PLANS[] = {{3, false}, {MAX_CLUSTER, false}, {MAX_CLUSTER, true}};
 
-F32Plan fp32_plan(int H, int D, int P, int K) {
-  for (const F32Plan& p : FP32_PLANS)
+Plan fp32_plan(int H, int D, int P, int K) {
+  for (const Plan& p : FP32_PLANS)
     if (F32Layout(H, D, P, K, p.nc, p.split).bytes <= MAX_SMEM) return p;
   return {0, true};
 }
@@ -588,7 +693,7 @@ poly_attention_fp32(const float* __restrict__ emb, const float* __restrict__ w,
 cudaError_t launch_fp32(const void* emb, const void* w, const void* codes, const void* mask,
                         const void* bias, void* out, int B, int H, int D, int P, int K,
                         float mask_fill, cudaStream_t stream) {
-  const F32Plan plan = fp32_plan(H, D, P, K);
+  const Plan plan = fp32_plan(H, D, P, K);
   if (plan.nc == 0) return cudaErrorInvalidValue;
   const auto kernel = plan.split ? poly_attention_fp32<true> : poly_attention_fp32<false>;
   const size_t smem = F32Layout(H, D, P, K, plan.nc, plan.split).bytes;
@@ -621,28 +726,27 @@ cudaError_t launch_fp32(const void* emb, const void* w, const void* codes, const
 }  // namespace
 
 // Shared memory a CTA of the kernel for `dtype` takes at these shapes with
-// nc CTAs a row and D split across them or not (fp32; bf16 takes 4 CTAs a
-// row and D whole, whatever nc and split say).
+// nc CTAs a row and D split across them or not.
 extern "C" long long poly_attention_layout_bytes(int H, int D, int P, int K, int dtype, int nc,
                                                  int split) {
-  return (long long)(dtype == DTYPE_BF16 ? Layout(H, D, P, K).bytes
+  return (long long)(dtype == DTYPE_BF16 ? Layout(H, D, P, K, nc, split != 0).bytes
                                          : F32Layout(H, D, P, K, nc, split != 0).bytes);
 }
 
 // Shared memory a CTA of the kernel for `dtype` takes at these shapes, in
-// the layout the launch takes (fp32: fp32_plan's; where none fits, that of
-// its last plan).
+// the layout the launch takes (bf16_plan's or fp32_plan's; where none fits,
+// that of its last plan).
 extern "C" long long poly_attention_smem_bytes(int H, int D, int P, int K, int dtype) {
-  if (dtype == DTYPE_BF16) return (long long)Layout(H, D, P, K).bytes;
-  F32Plan plan = fp32_plan(H, D, P, K);
+  Plan plan = dtype == DTYPE_BF16 ? bf16_plan(H, D, P, K) : fp32_plan(H, D, P, K);
   if (plan.nc == 0) plan = {MAX_CLUSTER, true};
-  return (long long)F32Layout(H, D, P, K, plan.nc, plan.split).bytes;
+  return poly_attention_layout_bytes(H, D, P, K, dtype, plan.nc, plan.split);
 }
 
 // emb (B, H, D), w (D, P), codes (K, P) and out (B, K, D) of one dtype;
 // mask (B, H) int32; bias (B, H) float32; all contiguous. bf16: D a
-// multiple of 16 and P of 8, emb, w and codes 16-byte aligned; fp32: any
-// shape whose CTA fits in shared memory (poly_attention_smem_bytes).
+// multiple of 16 and P of 8, emb, w and codes 16-byte aligned; fp32 any
+// shape; either type at a shape whose CTA fits in shared memory in one of
+// its plans (poly_attention_smem_bytes).
 // mask_fill: the logit of a masked slot.
 extern "C" int poly_attention_fwd(const void* emb, const void* w,
                                   const void* codes, const void* mask,

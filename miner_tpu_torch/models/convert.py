@@ -13,7 +13,10 @@ a ``TransformerPLM``). The layouts differ in three ways:
     whose rows stay in q|k|v order;
   * flax ``Embed`` tables (``embedding``) and LayerNorm ``scale`` become
     ``weight``;
-  * an unrolled layer stack ``layer_{i}`` becomes ``layers.{i}``, UnBERT's
+  * an unrolled layer stack ``layer_{i}`` becomes ``layers.{i}``, and so
+    does the i-th slice of a ``--scan_layers`` stack (``layers`` holding
+    one ``layer`` subtree whose leaves carry the layer axis first,
+    ``miner_tpu/models/plm.py:448-456``); UnBERT's
     two stacks ``word_layer_{i}`` and ``news_layer_{i}`` become
     ``word_layers.{i}`` and ``news_layers.{i}``, UniSRec's
     ``trm_layer_{i}`` become ``trm_layers.{i}``, and the lstm combine's
@@ -48,6 +51,11 @@ def params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
 
     def walk(tree: Mapping, prefix: str) -> None:
         for name, value in tree.items():
+            if name == "layers" and isinstance(value, Mapping) and set(value) == {"layer"}:
+                stacked = value["layer"]
+                for i in range(_depth(stacked)):
+                    walk(_slice(stacked, i), f"{prefix}layers.{i}.")
+                continue
             if isinstance(value, Mapping):
                 m, cell = _LAYER.match(name), _CELL.match(name)
                 sub = (f"{m.group(1)}s.{m.group(2)}" if m
@@ -63,6 +71,19 @@ def params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
 
     walk(params, "")
     return state
+
+
+def _depth(stacked: Mapping) -> int:
+    """The layer count of a scanned stack: its leaves' first axis."""
+    leaf = stacked
+    while isinstance(leaf, Mapping):
+        leaf = next(iter(leaf.values()))
+    return int(np.shape(leaf)[0])
+
+
+def _slice(stacked: Mapping, i: int) -> Dict:
+    return {k: _slice(v, i) if isinstance(v, Mapping) else np.asarray(v)[i]
+            for k, v in stacked.items()}
 
 
 miner_params_from_jax = params_from_jax

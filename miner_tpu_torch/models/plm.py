@@ -24,15 +24,22 @@ package's ``deterministic=True``): ``hidden_dropout`` after the embedding
 LayerNorm (plm.py:400) and on the residual branch of both add_ln sites of
 every layer (in the add_ln kernel), ``attention_dropout`` on the attention
 probabilities (in the mha kernel). ``remat`` rematerialises each layer in
-the backward with ``torch.utils.checkpoint`` (JAX: ``nn.remat``,
-plm.py:430-452); the layer's kernel seeds are drawn before it and passed
-in, so the recompute draws the same masks.
+the backward with ``torch.utils.checkpoint`` and keeps what JAX's
+``nn.remat`` keeps (plm.py:430-452, :class:`Remat`): the attention context
+and the softmax statistics of the mha forward (JAX's ``"attn_ctx"``; the
+port's backward kernel reads both), so the recompute launches no mha
+forward; under ``remat_policy="dots"`` also the output of every product
+with no batch dims (qkv, out, ffn_in, ffn_out; JAX's
+``dots_with_no_batch_dims_saveable``), so it runs no matmul either. The
+rest (the add_ln sites, GELU, the weight casts) is recomputed under both.
+The layer's kernel seeds are drawn before it and passed in, so the
+recompute draws the same masks.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -42,6 +49,8 @@ from torch.utils.checkpoint import checkpoint
 from miner_tpu_torch.models.dropout import DropoutRNG, dropout_active
 from miner_tpu_torch.ops.add_ln import fused_dropout_add_ln
 from miner_tpu_torch.ops.mha import fused_mha
+
+REMAT_POLICIES = ("", "dots")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,14 +74,20 @@ class PLMConfig:
     pad_token_id: int = 1
     position_offset: int = 2
     initializer_range: float = 0.02
-    # rematerialise every layer in the backward (--remat)
+    # rematerialise every layer in the backward (--remat), saving the
+    # attention context, and with "dots" every product (--remat_policy)
     remat: bool = False
+    remat_policy: str = ""
     # tanh-approximate gelu; the trainer turns it on for bf16 compute
     gelu_approx: bool = False
     # the mha and add_ln kernels (True), or the unfused layer of plain
     # products under an additive bias of any broadcastable shape (False;
     # JAX's path with fused_attention and fused_ln off, plm.py:215-236)
     fused: bool = True
+
+    def __post_init__(self):
+        if self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat_policy {self.remat_policy!r} (use '' or 'dots')")
 
     @property
     def head_dim(self) -> int:
@@ -112,12 +127,66 @@ class LayerNorm(nn.Module):
                             self.bias.float(), self.eps).to(x.dtype)
 
 
+class Remat:
+    """What one rematerialised layer call keeps of its forward for its
+    recompute (``--remat``): a slot for each kept op, in call order. The
+    forward (the first run) fills each slot with the op's outputs; the
+    recompute (each later run) hands them back in the same order, so the
+    op runs no kernel and no product again. Each op's autograd Function
+    saves the same tensors in both runs, as ``torch.utils.checkpoint``
+    requires. ``dots`` keeps the products' outputs as well as the mha
+    forward's."""
+
+    def __init__(self, dots: bool):
+        self.dots = dots
+        self.slots: List[list] = []
+        self.at: Optional[int] = None
+
+    def run(self, layer: nn.Module, *args) -> torch.Tensor:
+        self.at = 0 if self.slots else None  # None: the first run, filling slots
+        return layer(*args, remat=self)
+
+    def slot(self) -> list:
+        if self.at is None:
+            self.slots.append([])
+            return self.slots[-1]
+        self.at += 1
+        return self.slots[self.at - 1]
+
+
+class _KeptLinear(torch.autograd.Function):
+    """``F.linear`` whose output a rematerialised layer keeps (``--remat
+    --remat_policy dots``): the first run computes it into the slot, the
+    recompute returns the kept one; the backward is linear's (the input's
+    and the weight's gradients by one product each, the bias's a sum)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, kept):
+        if not kept:
+            kept.append(F.linear(x, weight, bias))
+        ctx.save_for_backward(x, weight)
+        ctx.has_bias = bias is not None
+        return kept[0].detach()
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        gx = (g2 @ weight).reshape(x.shape) if ctx.needs_input_grad[0] else None
+        gw = g2.t() @ x.reshape(-1, x.shape[-1]) if ctx.needs_input_grad[1] else None
+        gb = g2.sum(0) if ctx.has_bias and ctx.needs_input_grad[2] else None
+        return gx, gw, gb, None
+
+
 class Dense(nn.Linear):
     """``nn.Linear`` computing in its input's type: the fp32 master weight
-    is cast at use, as flax's ``Dense(dtype=...)`` does."""
+    is cast at use, as flax's ``Dense(dtype=...)`` does. Under ``--remat
+    --remat_policy dots`` its output is kept for the recompute (``remat``)."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, remat: Optional[Remat] = None) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
+        if remat is not None and remat.dots:
+            return _KeptLinear.apply(x, self.weight.to(x.dtype), bias, remat.slot())
         return F.linear(x, self.weight.to(x.dtype), bias)
 
 
@@ -143,8 +212,10 @@ class SelfAttention(nn.Module):
         self.out = Dense(cfg.hidden_size, cfg.hidden_size)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor, rate: float = 0.0,
-                seed: int = 0) -> torch.Tensor:
-        return self.out(fused_mha(self.qkv(x), mask, self.num_heads, rate, 1, seed))
+                seed: int = 0, remat: Optional[Remat] = None) -> torch.Tensor:
+        ctx = fused_mha(self.qkv(x, remat), mask, self.num_heads, rate, 1, seed,
+                        None if remat is None else remat.slot())
+        return self.out(ctx, remat)
 
     def plain(self, x: torch.Tensor, bias: torch.Tensor, rate: float = 0.0,
               rng: Optional[DropoutRNG] = None) -> torch.Tensor:
@@ -192,10 +263,12 @@ class TransformerLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
                 seeds: Optional[Sequence[int]] = None,
-                rng: Optional[DropoutRNG] = None) -> torch.Tensor:
+                rng: Optional[DropoutRNG] = None,
+                remat: Optional[Remat] = None) -> torch.Tensor:
         """Fused: ``mask`` (B, L) int32 and ``seeds`` (three kernel seeds)
-        turn dropout on, None is deterministic. Unfused: ``mask`` is the
-        additive bias and ``rng`` draws the dropout in training mode."""
+        turn dropout on, None is deterministic; ``remat``: the record of a
+        rematerialised call. Unfused: ``mask`` is the additive bias and
+        ``rng`` draws the dropout in training mode."""
         if not self.fused:
             return self._plain(x, mask, rng)
         p_attn = p_hid = 0.0
@@ -203,8 +276,8 @@ class TransformerLayer(nn.Module):
         if seeds is not None:
             p_attn, p_hid = self.attention_dropout, self.hidden_dropout
             s_attn, s_ln1, s_ln2 = seeds
-        x = self.attention_ln(x, self.attention(x, mask, p_attn, s_attn), p_hid, s_ln1)
-        h = self.ffn_out(F.gelu(self.ffn_in(x), approximate=self.gelu))
+        x = self.attention_ln(x, self.attention(x, mask, p_attn, s_attn, remat), p_hid, s_ln1)
+        h = self.ffn_out(F.gelu(self.ffn_in(x, remat), approximate=self.gelu), remat)
         return self.ffn_ln(x, h, p_hid, s_ln2)
 
     def _plain(self, x: torch.Tensor, bias: torch.Tensor,
@@ -278,8 +351,8 @@ class TransformerPLM(nn.Module):
             if remat:
                 # the seeds are arguments, so the recompute drops the same
                 # elements; no global RNG state is read inside the layer
-                x = checkpoint(layer, x, mask, seeds, use_reentrant=False,
-                               preserve_rng_state=False)
+                x = checkpoint(Remat(cfg.remat_policy == "dots").run, layer, x, mask, seeds,
+                               use_reentrant=False, preserve_rng_state=False)
             else:
                 x = layer(x, mask, seeds)
         return x

@@ -27,7 +27,11 @@ Under autograd (grad mode on and ``qkv`` requiring grad) the op is a
 ``torch.autograd.Function``: on the card its forward kernel also saves each
 row's softmax statistics and its backward is the backward kernel; on the CPU
 both halves are the plain versions below, the backward written as formulas
-(as the TPU kernel computes it), not as autograd of the forward.
+(as the TPU kernel computes it), not as autograd of the forward. Under
+``--remat`` it keeps its context and statistics for the layer's recompute
+(``kept``), as JAX's remat saves the kernel's context by name
+(``miner_tpu/models/plm.py:211-213, 430-446``): the recompute launches no
+mha forward.
 """
 from __future__ import annotations
 
@@ -199,14 +203,19 @@ def mha_backward(qkv: torch.Tensor, mask: torch.Tensor, dout: torch.Tensor,
 
 class _FusedMHA(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, qkv, mask, num_heads, rate, seed, seqs):
-        if qkv.device.type == "cpu":
+    def forward(ctx, qkv, mask, num_heads, rate, seed, seqs, kept):
+        if kept:  # a rematerialised layer's recompute: the forward's own outputs
+            out, stats = kept
+        elif qkv.device.type == "cpu":
             out, stats = mha_reference(qkv, mask, num_heads, seqs, rate, seed), None
         else:
             out, stats = _launch_fwd(qkv, mask, num_heads, seqs, rate, seed, True)
+        if kept is not None and not kept:
+            kept.extend((out, stats))
         ctx.save_for_backward(qkv, mask, out, stats)
         ctx.args = (num_heads, rate, seed, seqs)
-        return out
+        # kept: an alias, so that the kept tensor stays out of the graph
+        return out if kept is None else out.detach()
 
     @staticmethod
     def backward(ctx, dout):
@@ -214,18 +223,24 @@ class _FusedMHA(torch.autograd.Function):
         num_heads, rate, seed, seqs = ctx.args
         dqkv = mha_backward(qkv, mask, dout.to(qkv.dtype).contiguous(), num_heads,
                             rate, seed, seqs, out, stats)
-        return dqkv, None, None, None, None, None
+        return dqkv, None, None, None, None, None, None
 
 
 def fused_mha(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int,
               dropout_rate: float = 0.0, seqs: int = 1,
-              seed: int = 0) -> torch.Tensor:
+              seed: int = 0, kept: Optional[list] = None) -> torch.Tensor:
     """Attention context (N, L, D) from qkv (N, L, 3D) and mask (N, L),
     with dropout at ``dropout_rate`` from the 64-bit ``seed``.
 
     A CPU tensor takes :func:`mha_reference`; a CUDA tensor launches the
     kernel (qkv float32 or bfloat16, mask int32, head dim 16, 32 or 64) or
-    raises. Under autograd the op goes through its Function (above)."""
+    raises. Under autograd the op goes through its Function (above).
+
+    ``kept``, under autograd: a rematerialised layer's record of this call
+    (``models/plm.py:Remat``). Empty, the call keeps its context and
+    statistics in it; holding them, the call is the layer's recompute: it
+    launches nothing, returns the kept context and saves for the backward
+    what the first call saved."""
     if qkv.dim() != 3 or qkv.shape[-1] % 3:
         raise ValueError(f"qkv must be (N, L, 3D), got {tuple(qkv.shape)}")
     N, L, D3 = qkv.shape
@@ -240,7 +255,7 @@ def fused_mha(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int,
         raise ValueError(f"dropout rate {dropout_rate} is not in [0, 1)")
     philox.split_seed(seed)
     if torch.is_grad_enabled() and qkv.requires_grad:
-        return _FusedMHA.apply(qkv, mask, num_heads, dropout_rate, seed, seqs)
+        return _FusedMHA.apply(qkv, mask, num_heads, dropout_rate, seed, seqs, kept)
     if qkv.device.type == "cpu":
         return mha_reference(qkv, mask, num_heads, seqs, dropout_rate, seed)
     return _launch_fwd(qkv, mask, num_heads, seqs, dropout_rate, seed, False)[0]

@@ -9,8 +9,11 @@ Counterpart of ``miner_tpu/ops/poly_attention.py:poly_attention_fused``:
 
 The kernel is ``csrc/poly_attention_fwd.cu``; it keeps every intermediate in
 shared memory and spreads a batch row over a cluster of CTAs (:func:`plan`),
-its three products on the tensor cores. In bf16 the cluster is four CTAs
-(D must be a multiple of 16 and P of 8, emb, W and codes 16-byte aligned).
+its three products on the tensor cores. In bf16 the cluster is four CTAs,
+or eight with D split across them where emb whole does not fit (D = 768,
+a Miner without --apply_reduce_dim: the partial proj summed over the
+cluster in rank order before tanh); D must be a multiple of 16 and P of 8,
+emb, W and codes 16-byte aligned.
 In fp32 the products run in split TF32 (three TF32 passes a product, about
 fp32's accuracy) on three CTAs a row, eight where a CTA's third of W does
 not fit in shared memory, and eight with D split across them where emb
@@ -92,8 +95,9 @@ def poly_attention_fused(emb: torch.Tensor, w: torch.Tensor, codes: torch.Tensor
     return _launch(emb, w, codes, mask, bias, mask_fill)
 
 
-# the fp32 kernel's (CTAs a batch row, D split across them), in the order it
-# takes the first whose CTA fits (csrc/poly_attention_fwd.cu:FP32_PLANS)
+# the kernel's (CTAs a batch row, D split across them), in the order it takes
+# the first whose CTA fits (csrc/poly_attention_fwd.cu:BF16_PLANS, FP32_PLANS)
+BF16_PLANS = ((4, False), (8, True))
 FP32_PLANS = ((3, False), (8, False), (8, True))
 
 
@@ -108,13 +112,14 @@ def _layout_bytes(H: int, D: int, P: int, K: int, code: int, nc: int, split: boo
 
 def plan(H: int, D: int, P: int, K: int, dtype: torch.dtype) -> Tuple[int, bool, int]:
     """(CTAs a batch row, D split across them, bytes a CTA), from the
-    shapes alone, as the kernel takes them: bf16 4 CTAs, D whole; fp32 the
-    first of :data:`FP32_PLANS` whose CTA fits: 3 (emb whole and a third
-    of W's columns each), 8 (an eighth), 8 with D split (an eighth of
-    emb's columns and W's rows each, the partial proj summed over the
-    cluster: D = 768). Raises when none fits: no fallback."""
+    shapes alone, as the kernel takes them: the first plan of the type
+    whose CTA fits. bf16 (:data:`BF16_PLANS`): 4 CTAs (emb whole and a
+    quarter of W's columns each), 8 with D split (an eighth of emb's
+    columns and W's rows each, the partial proj summed over the cluster:
+    D = 768); fp32 (:data:`FP32_PLANS`): 3 (a third of W's columns), 8 (an
+    eighth), 8 with D split. Raises when none fits: no fallback."""
     code = common.DTYPE_CODES[dtype]
-    plans = FP32_PLANS if dtype == torch.float32 else ((4, False),)
+    plans = FP32_PLANS if dtype == torch.float32 else BF16_PLANS
     for nc, split in plans:
         smem = _layout_bytes(H, D, P, K, code, nc, split)
         if smem <= _MAX_SMEM:

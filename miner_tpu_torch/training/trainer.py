@@ -299,7 +299,8 @@ class Trainer:
         if gelu_approx is None:
             gelu_approx = self.compute_dtype == torch.bfloat16
         plm = plm_config(a.plm_preset, vocab_size=self.tokenizer.vocab_size,
-                         gelu_approx=gelu_approx, remat=a.remat)
+                         gelu_approx=gelu_approx, remat=a.remat,
+                         remat_policy=getattr(a, "remat_policy", ""))
         if self.kind == "unbert":
             # two token types, and a position table covering the packed row
             # (the tiny preset's 256 < 300)
@@ -774,7 +775,7 @@ class Trainer:
                 "grad_acc": grad_acc, "args": _plain(vars(self.args))}
 
     def _resume(self, path: str, model: nn.Module, optimizer: Optimizer) -> int:
-        payload = checkpoint.load(path)
+        payload = checkpoint.optimizer_payload(path)
         model.load_state_dict(payload["params"], strict=True)
         optimizer.load_state_dict(payload["optimizer"])
         for name, p in model.named_parameters():

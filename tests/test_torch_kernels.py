@@ -767,30 +767,96 @@ def test_poly_attention_fp32_plan_on_card(rng):
         poly_attention.poly_attention_fused(*big)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("fill", ["mask", "legacy"])
+@pytest.mark.parametrize("B", [1, 16, 32, 64])
+def test_poly_attention_bf16_dsplit_matches_plain_on_card(rng, B, fill):
+    """bf16 at the PLM's D = 768 (a Miner without --apply_reduce_dim: 8
+    CTAs a row, D split, the partial proj summed over the cluster in rank
+    order before tanh) at the batches the paths give it, under the -1e9
+    and the legacy 1e-30 fill: against the plain version; a no-click row
+    is the mean of its 50 rows; and each row's result is the same bit for
+    bit whatever batch it is launched in."""
+    dev = _card()
+    H, D, P, K = 50, 768, 200, 32
+    put = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev).to(torch.bfloat16)
+    emb, w, codes, mask, bias = _poly_fp32_inputs(rng, dev, B, H, D, P, K, put)
+    args = (emb, w, codes, mask, bias) + ((poly_attention.LEGACY_FILL,) if fill == "legacy"
+                                          else ())
+    assert poly_attention.plan(H, D, P, K, torch.bfloat16) == (8, True, 139_008)
+    assert _c_smem_bytes(H, D, P, K, torch.bfloat16) == 139_008
+    before = launch_counts()["poly_attention_fwd"]
+    got = poly_attention.poly_attention_fused(*args)
+    want = poly_attention.poly_attention_reference(*args)
+    alone = [poly_attention.poly_attention_fused(emb[r:r + 1], w, codes, mask[r:r + 1],
+                                                 bias[r:r + 1], *args[5:])
+             for r in range(min(B, 3))]
+    torch.cuda.synchronize()
+    assert launch_counts()["poly_attention_fwd"] == before + 1 + len(alone)
+    assert got.shape == (B, K, D) and got.dtype == torch.bfloat16
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= _tol(torch.bfloat16, want)
+    for r, row in enumerate(alone):
+        assert torch.equal(got[r:r + 1], row)
+    if B > 1:
+        mean = emb[1].float().mean(dim=0).expand(K, D)
+        assert (got[1].float() - mean).abs().max().item() <= _tol(torch.bfloat16, mean)
+
+
+@pytest.mark.gpu
+def test_poly_attention_bf16_plan_on_card(rng):
+    """The bf16 plan is the launch's own layout, from the shapes alone: 4
+    CTAs a row at the main shape (105,728 bytes a CTA) and at D = 768 with
+    3 codes (232,192: it still fits); 8 with D split at D = 768, P = 200,
+    K = 32 (139,008) and H = 64, P = 256, K = 64 (184,064; a launch against
+    its plain version); none at P = 1024, where the launch raises (no
+    fallback)."""
+    dev = _card()
+    bf16 = torch.bfloat16
+    for shape, want in (((50, 256, 200, 32), (4, False, 105_728)),
+                        ((50, 768, 200, 3), (4, False, 232_192)),
+                        ((50, 768, 200, 32), (8, True, 139_008)),
+                        ((64, 768, 256, 64), (8, True, 184_064))):
+        assert poly_attention.plan(*shape, bf16) == want
+        assert _c_smem_bytes(*shape, bf16) == want[2]
+    put = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev).to(bf16)
+    args = _poly_fp32_inputs(rng, dev, 3, 64, 768, 256, 64, put)
+    got = poly_attention.poly_attention_fused(*args)
+    want = poly_attention.poly_attention_reference(*args)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= _tol(bf16, want)
+    big = _poly_fp32_inputs(rng, dev, 2, 64, 768, 1024, 64, put)
+    with pytest.raises(ValueError, match="shared memory"):
+        poly_attention.poly_attention_fused(*big)
+
+
 def test_poly_plan_refuses_a_cta_that_does_not_fit(monkeypatch):
     """The plan takes the first layout whose CTA fits, in the kernel's own
     order (its sizes stand-ins here, asked for with emb's type code): fp32
-    3 CTAs a row, else 8, else 8 with D split; bf16 4. Where none fits it
-    raises: no fallback."""
+    3 CTAs a row, else 8, else 8 with D split; bf16 4, else 8 with D
+    split. Where none fits it raises: no fallback."""
+    f32, bf16 = common.DTYPE_CODES[torch.float32], common.DTYPE_CODES[torch.bfloat16]
     asked = []
-    sizes = {(3, False): 300, (8, False): 250, (8, True): 200, (4, False): 260}
+    sizes = {(f32, 3, False): 300, (f32, 8, False): 250, (f32, 8, True): 200,
+             (bf16, 4, False): 260, (bf16, 8, True): 220}
 
     def layout_bytes(H, D, P, K, code, nc, split):
         asked.append((code, nc, split))
-        return sizes[nc, split] * D
+        return sizes[code, nc, split] * D
 
     monkeypatch.setattr(poly_attention, "_layout_bytes", layout_bytes)
-    f32, bf16 = common.DTYPE_CODES[torch.float32], common.DTYPE_CODES[torch.bfloat16]
     assert poly_attention.plan(50, 256, 200, 32, torch.float32) == (3, False, 76_800)
     assert poly_attention.plan(50, 900, 200, 32, torch.float32) == (8, False, 225_000)
     assert poly_attention.plan(50, 1000, 200, 32, torch.float32) == (8, True, 200_000)
     assert poly_attention.plan(50, 256, 200, 32, torch.bfloat16) == (4, False, 66_560)
+    assert poly_attention.plan(50, 900, 200, 32, torch.bfloat16) == (8, True, 198_000)
     assert asked == [(f32, 3, False), (f32, 3, False), (f32, 8, False), (f32, 3, False),
-                     (f32, 8, False), (f32, 8, True), (bf16, 4, False)]
+                     (f32, 8, False), (f32, 8, True), (bf16, 4, False), (bf16, 4, False),
+                     (bf16, 8, True)]
     with pytest.raises(ValueError, match="shared memory"):
         poly_attention.plan(50, 1200, 200, 32, torch.float32)
     with pytest.raises(ValueError, match="shared memory"):
-        poly_attention.plan(50, 900, 200, 32, torch.bfloat16)
+        poly_attention.plan(50, 1100, 200, 32, torch.bfloat16)
 
 
 # ---------------------------------------------------------------- lookup+score
@@ -888,6 +954,40 @@ def test_lookup_score_runs_match_plain_on_card(rng, dtype, B, C, tiles):
     got = lookup_score.lookup_score_fused(*args)
     want = lookup_score.lookup_score_reference(*args)
     assert (got.float() - want.float()).abs().max().item() <= _tol(dtype, want)
+
+
+def _c_lookup_smem_bytes(K, D, cache_dt, int_dt, tiles):
+    return lookup_score._smem_bytes(K, D, lookup_score.CACHE_CODES[cache_dt],
+                                    common.DTYPE_CODES[int_dt], tiles)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [1, 10, 100, 4096])
+@pytest.mark.parametrize("cache_dt", [torch.bfloat16, torch.int8])
+def test_lookup_score_at_the_plm_width_on_card(rng, cache_dt, C):
+    """The PLM's D = 768 (a Miner without --apply_reduce_dim) with bf16
+    interests: a bf16 cache takes one gather buffer (two need ~251 KB a
+    block: 157,184 bytes at runs of 16 tiles), an int8 cache still two;
+    over one candidate, a slate, a count off the tile and a corpus top-k
+    (runs of several tiles, each gathered after the last is scored),
+    against the plain version. An fp32 cache at D = 768 fits in neither
+    and is refused."""
+    dev = _card()
+    bf16 = torch.bfloat16
+    if cache_dt == bf16:
+        assert _c_lookup_smem_bytes(32, 768, bf16, bf16, 16) == 157_184
+    assert _c_lookup_smem_bytes(32, 768, cache_dt, bf16, 16) <= 227 * 1024
+    args = _lookup_case(rng, dev, 5000, 3, C, 32, 768, cache_dt, bf16)
+    before = launch_counts()["lookup_score_fwd"]
+    got = lookup_score.lookup_score_fused(*args)
+    want = lookup_score.lookup_score_reference(*args)
+    torch.cuda.synchronize()
+    assert launch_counts()["lookup_score_fwd"] == before + 1
+    assert got.shape == (3, C, 32) and torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= _tol(bf16, want)
+    f32 = _lookup_case(rng, dev, 50, 2, 10, 32, 768, torch.float32, torch.float32)
+    with pytest.raises(ValueError, match="shared memory"):
+        lookup_score.lookup_score_fused(*f32)
 
 
 @pytest.mark.gpu
@@ -1382,3 +1482,44 @@ def test_plm_kernels_at_the_cached_candidate_batch_on_card(rng, L, dtype):
     counts = launch_counts()
     for name in ("mha_fwd", "mha_bwd", "add_ln_fwd", "add_ln_bwd"):
         assert counts[name] == before[name] + 1, name
+
+
+# ------------------------------------------------ --remat: the saved context
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("policy", ["", "dots"])
+def test_remat_saves_the_mha_kernel_s_context_on_card(rng, monkeypatch, policy, dtype):
+    """The tiny PLM (2 layers of 4 heads of 16) on the card with --remat,
+    dropout on, in both policies: a forward and backward launch mha_fwd
+    once a layer (the recompute takes the saved context and statistics),
+    mha_bwd once a layer, and never the plain version (it raises here); the
+    gradients equal those of the same step with no remat (to 1e-6: the
+    same kernels on the same inputs, sums in the same order)."""
+    import dataclasses as dc
+
+    from miner_tpu_torch.models import PLMConfig
+    from miner_tpu_torch.models.dropout import DropoutRNG
+    from miner_tpu_torch.models.plm import TransformerPLM, normal_init_
+
+    dev = _card()
+    ids = torch.as_tensor(rng.integers(1, 1000, size=(6, 32)), device=dev)
+    mask = torch.ones_like(ids)
+    mask[1, 20:] = 0
+    grads = []
+    for remat in (False, True):
+        cfg = dc.replace(PLMConfig.tiny(), remat=remat, remat_policy=policy if remat else "")
+        plm = TransformerPLM(cfg, dtype)
+        normal_init_(plm, 0.02, torch.Generator().manual_seed(0))
+        plm = plm.to(dev).train()
+        with monkeypatch.context() as m:
+            m.setattr(mha, "mha_reference", None)  # a call of the plain version raises
+            before = launch_counts()
+            out = plm(ids, mask, rng=DropoutRNG(5, 1, dev))
+            out.float().square().mean().backward()
+            torch.cuda.synchronize()
+            after = launch_counts()
+        assert after["mha_fwd"] - before["mha_fwd"] == cfg.num_layers
+        assert after["mha_bwd"] - before["mha_bwd"] == cfg.num_layers
+        grads.append({n: p.grad for n, p in plm.named_parameters()})
+    for n, g in grads[0].items():
+        torch.testing.assert_close(grads[1][n], g, rtol=1e-6, atol=1e-7, msg=n)
