@@ -33,7 +33,11 @@ Phases, each of which makes the script exit non-zero when it fails:
    dropout, the title shape, 80 candidates and 159 tokens, forward and
    backward; bf16 poly-attention at the PLM's D = 768 (8 CTAs a row, D
    split) at 1, 16, 32 and 64 under both fills, and lookup+score with bf16
-   and int8 rows at D = 768)
+   and int8 rows at D = 768, and with fp32 rows there (32-candidate
+   tiles); a rank's shapes over a mesh of two (row entries ``w2``): mha
+   and add_ln, forward and backward, at 440 sequences, poly-attention at
+   B = 8 (and 32, the serving case), lookup+score at a data rank's half
+   eval batch and on a table rank's half of the cache)
    against its plain PyTorch version on the same inputs (the tolerance is
    printed beside the error; the mha backward's dq, dk and dv each at the
    scale of its (sequence, head)'s gradient; with dropout the kernel's
@@ -88,9 +92,10 @@ Phases, each of which makes the script exit non-zero when it fails:
    add_ln_fwd (cache fill) and fastformer_attn_fwd.
 7. UnBERT train: ``config/train_unbert.txt`` (under ``train_fastformer``;
    bert-base word and news towers, the hash tokenizer over bert-base's
-   vocabulary, bf16, dropout, accumulation 8) for one epoch: 1,280 packed
-   rows of 300 tokens (5 visits of each of the 256 impressions), 80
-   micro-batches, 10 updates, and its end-of-epoch eval over 2,560 packed
+   vocabulary, bf16, dropout, accumulation 8) for one epoch of its first
+   96 impressions (cut for time): 480 packed rows of 300 tokens (5 visits
+   of each), 30 micro-batches, 3 updates, and its end-of-epoch eval over
+   2,560 packed
    eval rows. mha and add_ln forward and backward launched, never
    poly-attention, lookup+score or Fastformer attention. The host's
    packing time is printed.
@@ -164,6 +169,25 @@ Phases, each of which makes the script exit non-zero when it fails:
    card and on the CPU: the loss and every trainable parameter's gradient
    must agree (UniSRec with ``--unisrec_train_all``, so the tower's too);
    for UnBERT also the serving scores of two slates.
+12. mesh (each launched by ``python -m torch.distributed.run --standalone``
+   as subprocesses of this script, ``--mesh_rank``, so that each rank runs
+   the port's CLI; the counts set to 0 in each rank just before it; a rank
+   that fails, or a launcher past ``MESH_TIMEOUT_S``, fails the run):
+   mesh_train, ``train_miner.txt --mesh_data 2`` at full width for 8
+   micro-batches at accumulation 4, without its eval (every Miner kernel on
+   each rank, finite losses, both ranks' parameters bit-identical; the
+   micro-batch, global examples/s, each update and the gradient sum's
+   share, peak memory a rank, the backend, ranks a card); mesh_parity_fp32,
+   the same in float32 with dropout off, 2 micro-batches at accumulation
+   2, at W = 2 against W = 1 (losses, the update's gradient norm before
+   the clip and its clipped gradients, each within its stated tolerance);
+   table_eval,
+   ``eval_miner.txt`` on the train phase's ``finalModel`` with
+   ``--mesh_table 2`` against a one-rank eval, bit for bit, lookup+score
+   on each rank's shard; mesh_his_cache, ``--mesh_data 2 --mesh_table 2``
+   (4 ranks) with the cached-history flags for 6 micro-batches (rebuilds
+   at micro-steps 2 and 4, on sharded caches). On one card the ranks
+   share it (gloo); where each has a card, NCCL.
 
 After the phases, every shape at which the main path launched
 poly-attention, lookup+score or an fp32 mha kernel (a census of their
@@ -231,15 +255,24 @@ FILL_PHASES = ("eval", "serve", "fastformer_eval", "fastformer_serve", "warm_sta
                "pretrain_eval", "serve_cache", "serve_int8", "his_cache_refill",
                "his_cache_eval", "fastformer_his_cache_refill", "fastformer_his_cache_eval",
                "lstm_legacy_eval", "lstm_legacy_serve", "no_reduce_eval", "no_reduce_serve",
-               "remat_dots_eval", "roundtrip_serve")
+               "remat_dots_eval", "roundtrip_serve", "table_eval", "table_eval_one")
 # the mha kernels' training cases (N, L, dropout rate, dtype, phases): the
 # sapo shape with dropout (the main path's), without it (Philox's share);
 # the title shape; the pretrain micro-batch's two shapes
+# over a mesh with a data axis of 2 (mesh_train, mesh_his_cache's warmup) a
+# rank's micro-batch is half of it: 440 sequences a field, 8 users; its
+# eval batch 32 rows; a table rank's cache half the corpus and a zero row
+MESH_N, MESH_B, MESH_EVAL_B = TRAIN_N // 2, 8, 32
+MESH_PHASES = ("mesh_train", "mesh_his_cache")
+# the phases the fp32 add_ln cases (880 sequences) stand for
+FP32_LN_PHASES = ("fp32_train", "mesh_parity_fp32", "mesh_parity_fp32_one")
 TRAIN_MHA_CASES = ((TRAIN_N, TRAIN_SAPO, TRAIN_RATE, torch.bfloat16, TRAIN_PHASES),
                    (TRAIN_N, TRAIN_SAPO, 0.0, torch.bfloat16, ()),
                    (TRAIN_N, TRAIN_TITLE, TRAIN_RATE, torch.bfloat16, TRAIN_PHASES),
                    (PRETRAIN_N, TRAIN_SAPO, TRAIN_RATE, torch.bfloat16, ("pretrain",)),
-                   (PRETRAIN_N, TRAIN_TITLE, TRAIN_RATE, torch.bfloat16, ("pretrain",)))
+                   (PRETRAIN_N, TRAIN_TITLE, TRAIN_RATE, torch.bfloat16, ("pretrain",)),
+                   (MESH_N, TRAIN_SAPO, TRAIN_RATE, torch.bfloat16, MESH_PHASES),
+                   (MESH_N, TRAIN_TITLE, TRAIN_RATE, torch.bfloat16, MESH_PHASES))
 # UnBERT (config/train_unbert.txt, eval_unbert.txt, serve_unbert.txt): packed
 # rows of 300 tokens at the word level, 3 + 20 sentences at the news level;
 # 16 rows a micro-batch, 64 an eval batch, up to 32 x 16 = 512 a serving call
@@ -279,7 +312,9 @@ CACHED_MHA_CASES = tuple((CACHED_N, L, TRAIN_RATE, torch.bfloat16, CACHED_PHASES
 # UniSRec's 159 tokens. Their launches (fp32_train, the parity phases) are
 # counted and timed shape by shape (LaunchCensus), so they stand for no phase
 FP32_MHA_CASES = ((TRAIN_N, TRAIN_SAPO, TRAIN_RATE, torch.float32, ()),
-                  (TRAIN_N, TRAIN_SAPO, 0.0, torch.float32, ()),
+                  # the census sees no rank: mesh_parity_fp32's ranks (440
+                  # sequences, dropout off) stand here
+                  (TRAIN_N, TRAIN_SAPO, 0.0, torch.float32, ("mesh_parity_fp32",)),
                   (TRAIN_N, TRAIN_TITLE, TRAIN_RATE, torch.float32, ()),
                   (CACHED_N, TRAIN_SAPO, TRAIN_RATE, torch.float32, ()),
                   (TRAIN_N, UNISREC_L, TRAIN_RATE, torch.float32, ()))
@@ -360,6 +395,12 @@ REQUIRED = {
     "remat_dots_eval": SERVE_KERNELS,
     # the train phase's finalModel out to the reference's format and back
     "roundtrip_serve": SERVE_KERNELS,
+    # over a mesh of ranks, each rank's launches (start_mesh)
+    "mesh_train": MINER_KERNELS + PLM_BWD,
+    "mesh_parity_fp32": MINER_KERNELS + PLM_BWD,
+    "mesh_parity_fp32_one": MINER_KERNELS + PLM_BWD,
+    "table_eval": SERVE_KERNELS,
+    "mesh_his_cache": MINER_KERNELS + PLM_BWD,
 }
 FORBIDDEN = {"fastformer_train": PLM_BWD,
              "serve_cache_loaded": PLM_FWD,  # the cache comes from the file
@@ -393,21 +434,27 @@ MIND_NEWS = 161013
 AUGMENTATIONS = ("changed_topic_text", "enhanced_text", "semi_enhanced_text")
 
 
+T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """``msg`` after the seconds since the script started."""
+    print(f"[{time.perf_counter() - T0:.0f} s] {msg}", flush=True)
 
 
-def device_ms(fn, target_s: float = 0.2) -> float:
+def device_ms(fn, target_s: float = 0.05) -> float:
     """Mean time of ``fn()`` on the card in ms, from CUDA events around a
-    run of launches after a warm-up."""
-    for _ in range(2):
-        fn()
+    run of launches after a warm-up; a call of ``target_s`` or more (the
+    plain versions at the training shapes) is timed once, after one."""
+    fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     fn()
     end.record()
     end.synchronize()
+    if start.elapsed_time(end) >= target_s * 1e3:
+        return start.elapsed_time(end)
     iters = max(3, min(200, int(target_s * 1e3 / max(start.elapsed_time(end), 1e-3))))
     start.record()
     for _ in range(iters):
@@ -540,7 +587,8 @@ def mha_cases(dev, g):
             check=(lambda: mha_dropout_mask_check(qkv, mask, seed)) if rate else None,
             bound=bound_ms(_nbytes(qkv, mask, out, stats), flops, dtype),
             main=N == TRAIN_N and L == TRAIN_SAPO and rate > 0 and dtype == torch.bfloat16,
-            route="fp32" if (N, L, rate, dtype) == FP32_MHA_CASES[0][:4] else None,
+            route=("fp32" if (N, L, rate, dtype) == FP32_MHA_CASES[0][:4]
+                   else "w2" if (N, L) == (MESH_N, TRAIN_SAPO) else None),
             phases=phases)
     # UnBERT's shapes: training writes the softmax statistics for its
     # backward; eval and serving (inference mode) do not
@@ -639,10 +687,12 @@ def mha_bwd_cases(dev, g):
             # reads qkv, out, dout, stats and mask; writes dqkv
             bound=bound_ms(_nbytes(qkv, out, dout, stats, mask, qkv), flops, dtype),
             main=N == TRAIN_N and L == TRAIN_SAPO and rate > 0 and dtype == torch.bfloat16,
-            route="fp32" if (N, L, rate, dtype) == FP32_MHA_CASES[0][:4] else None,
+            route=("fp32" if (N, L, rate, dtype) == FP32_MHA_CASES[0][:4]
+                   else "w2" if (N, L) == (MESH_N, TRAIN_SAPO) else None),
             phases=tuple(p for p in phases
-                         if p in BWD_PHASES + ("unbert_train", "unisrec_train_all",
-                                               "his_cache_train")))
+                         if p in BWD_PHASES + MESH_PHASES + ("unbert_train", "unisrec_train_all",
+                                                             "his_cache_train",
+                                                             "mesh_parity_fp32")))
 
 
 def _ln_inputs(dev, g, T, dtype):
@@ -676,7 +726,9 @@ def add_ln_cases(dev, g):
                         (PRETRAIN_N, TRAIN_SAPO, torch.bfloat16),
                         (PRETRAIN_N, TRAIN_TITLE, torch.bfloat16),
                         (TRAIN_N, TRAIN_SAPO, torch.float32),
-                        (TRAIN_N, TRAIN_TITLE, torch.float32)):
+                        (TRAIN_N, TRAIN_TITLE, torch.float32),
+                        (MESH_N, TRAIN_SAPO, torch.bfloat16),
+                        (MESH_N, TRAIN_TITLE, torch.bfloat16)):
         T, seed = N * L, 2 ** 42 + L
         x, h, scale, bias = _ln_inputs(dev, g, T, dtype)
         scale_t, bias_t = scale.to(dtype), bias.to(dtype)
@@ -692,8 +744,10 @@ def add_ln_cases(dev, g):
             bound=bound_ms(_nbytes(x, h, scale, bias, x), 9 * T * HIDDEN,
                            torch.float32),
             main=N == TRAIN_N and L == TRAIN_SAPO and dtype == torch.bfloat16,
-            phases=(("fp32_train",) if dtype == torch.float32 else
-                    TRAIN_PHASES if N == TRAIN_N else ("pretrain",)))
+            route="w2" if (N, L) == (MESH_N, TRAIN_SAPO) else None,
+            phases=(FP32_LN_PHASES if dtype == torch.float32 else
+                    TRAIN_PHASES if N == TRAIN_N else MESH_PHASES if N == MESH_N
+                    else ("pretrain",)))
     # UnBERT's rows: a micro-batch's two levels with dropout, an eval batch's
     # (standing for the serving calls too) and the largest serving call's
     for N, L, rate, dtype, phases in UNBERT_MHA_CASES:
@@ -742,7 +796,9 @@ def add_ln_bwd_cases(dev, g):
                         (UNBERT_TRAIN_B, UNBERT_NEWS, torch.bfloat16),
                         (TRAIN_N, UNISREC_L, torch.bfloat16),
                         (CACHED_N, TRAIN_SAPO, torch.bfloat16),
-                        (CACHED_N, TRAIN_TITLE, torch.bfloat16)):
+                        (CACHED_N, TRAIN_TITLE, torch.bfloat16),
+                        (MESH_N, TRAIN_SAPO, torch.bfloat16),
+                        (MESH_N, TRAIN_TITLE, torch.bfloat16)):
         T, seed = N * L, 2 ** 43 + L
         x, h, scale, bias = _ln_inputs(dev, g, T, dtype)
         dy = torch.randn(T, HIDDEN, device=dev, generator=g).to(dtype)
@@ -767,7 +823,9 @@ def add_ln_bwd_cases(dev, g):
             check=mask_check,
             bound=bound_ms(_nbytes(x, h, dy, x, h), 20 * T * HIDDEN, torch.float32),
             main=N == TRAIN_N and L == TRAIN_SAPO and dtype == torch.bfloat16,
-            phases=(("fp32_train",) if dtype != torch.bfloat16
+            route="w2" if (N, L) == (MESH_N, TRAIN_SAPO) else None,
+            phases=(FP32_LN_PHASES if dtype != torch.bfloat16
+                    else MESH_PHASES if N == MESH_N
                     else ("pretrain",) if N == PRETRAIN_N
                     else ("unbert_train",) if N == UNBERT_TRAIN_B
                     else ("unisrec_train_all",) if L == UNISREC_L
@@ -822,7 +880,8 @@ def poly_cases(dev, g):
             (MAX_BATCH, f32, MAX_BATCH // 4, legacy, DIM),
             (TRAIN_B, f32, 0, None, HIDDEN), (EVAL_B, f32, 0, None, HIDDEN),
             *((B, bf16, 0, fill, HIDDEN) for B in (1, TRAIN_B, MAX_BATCH, EVAL_B)
-              for fill in (None, legacy))):
+              for fill in (None, legacy)),
+            (MESH_B, bf16, 0, None, DIM)):  # a data rank's 32 eval rows: the B = 32 case
         args = _poly_inputs(dev, g, B, dtype, masked, D=D) + ((fill,) if fill else ())
         yield dict(
             case=f"{str(dtype)[6:]} B={B}" + (f", {masked} rows fully masked" if masked else "")
@@ -835,7 +894,7 @@ def poly_cases(dev, g):
             main=dtype == bf16 and B == MAX_BATCH and not masked and D == DIM and not fill,
             route=("fp32" if dtype == f32 and B == MAX_BATCH and not masked and D == DIM
                    else "bf16_d768" if dtype == bf16 and B == MAX_BATCH and D == HIDDEN
-                   and not fill else None))
+                   and not fill else "w2" if B == MESH_B else None))
 
 
 def _lookup_inputs(dev, g, N, B, C, K, D, cache_dt, int_dt):
@@ -920,9 +979,16 @@ def lookup_cases(dev, g):
               for int_dt in (torch.bfloat16, torch.float32) for B, C in shapes]
     cases.append((torch.int8, torch.bfloat16, MIND_NEWS + 1, 8, candidate_bucket(MIND_NEWS)))
     cases = [case + (DIM,) for case in cases]
-    # the PLM's D = 768 (the no_reduce phases): one gather buffer for bf16 rows
-    cases += [(cache_dt, torch.bfloat16, NUM_NEWS + 1, B, C, HIDDEN)
-              for cache_dt in (torch.bfloat16, torch.int8) for B, C in shapes]
+    # the PLM's D = 768 (the no_reduce phases): one gather buffer for bf16 rows;
+    # fp32 rows (the lstm combine's) in tiles of 32 candidates, one buffer
+    cases += [(cache_dt, int_dt, NUM_NEWS + 1, B, C, HIDDEN)
+              for cache_dt, int_dt in ((torch.bfloat16, torch.bfloat16),
+                                       (torch.int8, torch.bfloat16),
+                                       (torch.float32, torch.float32)) for B, C in shapes]
+    # a rank's shapes over a mesh: a data rank's half eval batch, and a
+    # table rank's shard (half the corpus and a zero row) at a whole one
+    cases += [(torch.bfloat16, torch.bfloat16, NUM_NEWS + 1, MESH_EVAL_B, 1, DIM),
+              (torch.bfloat16, torch.bfloat16, NUM_NEWS // 2 + 2, EVAL_B, 1, DIM)]
     for cache_dt, int_dt, N, B, C, D in cases:
         args, nbytes = _lookup_inputs(dev, g, N, B, C, CODES, D, cache_dt, int_dt)
         topk = N == NUM_NEWS + 1 and C == candidate_bucket(NUM_NEWS)
@@ -939,7 +1005,8 @@ def lookup_cases(dev, g):
             main=cache_dt == torch.bfloat16 and topk and D == DIM,
             route=("int8" if cache_dt == torch.int8 and int_dt == torch.bfloat16 and topk
                    and D == DIM else "bf16_d768" if cache_dt == torch.bfloat16 and topk
-                   and D == HIDDEN else None))
+                   and D == HIDDEN else "fp32_d768" if cache_dt == torch.float32 and topk
+                   and D == HIDDEN else "w2" if N == NUM_NEWS // 2 + 2 else None))
 
 
 def ff_cases(dev, g):
@@ -1014,7 +1081,14 @@ def kernel_phase(dev, names=None):
         row, routes = None, {}
         timed[name] = []
         for c in cases(dev, g):
-            got, want = _outputs(c["kernel"]()), _outputs(c["plain"]())
+            try:
+                got = _outputs(c["kernel"]())
+            except ValueError as e:  # another version's plan refuses the shape
+                if names is None:
+                    raise
+                log(f"  {name:18s} {c['case']:30s} refused: {e}")
+                continue
+            want = _outputs(c["plain"]())
             torch.cuda.synchronize()
             errs = c.get("errors", output_errors)(got, want, REL_TOL[c["dtype"]])
             worst = max(errs, key=lambda e: e["err"] / e["tol"])
@@ -1908,17 +1982,35 @@ TRAIN_CONFIGS = {"miner": ("train", "train_miner.txt", "train", "eval"),
                  "no_reduce": ("train", "train_miner.txt", "no_reduce_train", "no_reduce_eval"),
                  # train_miner.txt with --remat_policy dots (SHORT_FLAGS)
                  "remat_dots": ("train", "train_miner.txt", "remat_dots_train",
-                                "remat_dots_eval")}
+                                "remat_dots_eval"),
+                 # over a mesh of ranks (MESH_PHASES): --mesh_data 2, its eval;
+                 # float32 at W = 2 and at W = 1; --mesh_data 2 --mesh_table 2
+                 "mesh": ("train", "train_miner.txt", "mesh_train", None),
+                 "mesh_parity": ("train", "train_miner.txt", "mesh_parity_fp32", None),
+                 "mesh_his_cache": ("train", "train_miner.txt", "mesh_his_cache", None)}
 # the flags a derived configuration drops from the file it is derived from
 # (each on a line of its own there): a Miner without --apply_reduce_dim,
 # whose news vectors keep the PLM's D = 768, trained and served
 DERIVED = {"no_reduce": ("--apply_reduce_dim",), "no_reduce_serve": ("--apply_reduce_dim",)}
 # the depth of the epoch of the phases cut for time: their impressions (16
 # a micro-batch) and the flags they add; no_reduce 2 micro-batches at
-# accumulation 2 (one update), remat_dots 4 at accumulation 4 (one update)
-SHORT_IMPRESSIONS = {"no_reduce": 32, "remat_dots": 64}
+# accumulation 2 (one update), remat_dots 4 at accumulation 4 (one update),
+# unbert 30 (3 updates; 5 packed rows an impression); the mesh phases: mesh
+# 8 micro-batches at accumulation 4 (2 updates), mesh_parity 2 at
+# accumulation 2 (one update, at the full rate: no warmup) in float32 with
+# dropout off (the PLM's rates too: MESH_NO_DROPOUT), mesh_his_cache 6 at
+# accumulation 2 (the cache built at micro-step 2, rebuilt at 4)
+SHORT_IMPRESSIONS = {"no_reduce": 32, "remat_dots": 64, "mesh": 128, "mesh_parity": 32,
+                     "mesh_his_cache": 96, "unbert": 96}
 SHORT_FLAGS = {"no_reduce": ("--gradient_accumulation_steps", "2"),
-               "remat_dots": ("--remat_policy", "dots", "--gradient_accumulation_steps", "4")}
+               "remat_dots": ("--remat_policy", "dots", "--gradient_accumulation_steps", "4"),
+               "mesh": ("--gradient_accumulation_steps", "4"),
+               "mesh_parity": ("--gradient_accumulation_steps", "2", "--compute_dtype",
+                               "float32", "--dropout", "0", "--warmup_steps", "0"),
+               "mesh_his_cache": HIS_CACHE_FLAGS}
+# the families trained without their config's eval (and its best
+# checkpoint: 1.5 GB fewer written to disk each)
+NO_EVAL = ("mesh", "mesh_parity", "mesh_his_cache")
 # "his_cache": the Miner's cached-history micro-batch (the candidates through
 # the towers, the history from a cache filled on the card)
 PARITY_FAMILIES = ("miner", "fastformer", "unbert", "unisrec", "his_cache")
@@ -1994,6 +2086,13 @@ def write_short_behaviors(corpus: str) -> None:
 
 
 def train_args(corpus: str, out: str, *extra: str, family: str = "miner"):
+    """The parsed :func:`train_words`."""
+    from miner_tpu_torch.config import make_parser
+
+    return make_parser().parse_args(train_words(corpus, out, *extra, family=family))
+
+
+def train_words(corpus: str, out: str, *extra: str, family: str = "miner"):
     """``config/train_miner.txt`` (or for ``family`` "fastformer"
     ``config/train_fastformer.txt`` under ``train_fastformer``, "pretrain"
     ``config/pretrain_miner.txt`` under ``pretrain``, "hard"
@@ -2004,9 +2103,8 @@ def train_args(corpus: str, out: str, *extra: str, family: str = "miner"):
     (``TOKENIZERS``), random init, and one epoch; a ``DERIVED`` family reads
     a configuration derived from the file, written under ``out``; one cut
     for time (``SHORT_IMPRESSIONS``) trains on its first impressions with
-    its ``SHORT_FLAGS``."""
-    from miner_tpu_torch.config import make_parser
-
+    its ``SHORT_FLAGS``; a family of ``NO_EVAL`` runs no eval. The
+    subcommand and its words."""
     mode, config = TRAIN_CONFIGS[family][:2]
     here = os.path.dirname(os.path.abspath(__file__))
     path = (derived_config(out, config, DERIVED[family]) if family in DERIVED
@@ -2024,9 +2122,33 @@ def train_args(corpus: str, out: str, *extra: str, family: str = "miner"):
             ("--eval_news_path", os.path.join(corpus, "news.tsv")),
             ("--num_train_epochs", "1")):
         words[words.index(flag) + 1] = value
-    return make_parser().parse_args([mode, *words, "--train_path",
-                                     os.path.join(out, family),
-                                     *SHORT_FLAGS.get(family, ()), *extra])
+    if family in NO_EVAL:
+        at = words.index("--eval_behaviors_path")
+        del words[at:at + 2]
+    return [mode, *words, "--train_path", os.path.join(out, family),
+            *SHORT_FLAGS.get(family, ()), *extra]
+
+
+def linking_repeats(save):
+    """``checkpoint.save`` for one training run, in which a checkpoint saved
+    at the micro-step of the one saved last (finalModel after the epoch's
+    eval, bestAucModel beside bestLossModel: the same payload) becomes a
+    hard link to that file. The card's machine stops a call at 45 GiB
+    written to its disk, deleted files included, and a full-width
+    checkpoint (fp32 masters and Adam's moments) takes 1.5 GB; the port
+    itself writes every checkpoint in full."""
+    last = {}
+
+    def linking(path, payload):
+        if "path" in last and last["step"] == payload["micro_step"]:
+            tmp = f"{path}.link"
+            os.link(last["path"], tmp)
+            os.replace(tmp, path)
+        else:
+            save(path, payload)
+        last.update(step=payload["micro_step"], path=path)
+
+    return linking
 
 
 def train_phase(corpus: str, out: str, family: str = "miner", *extra: str):
@@ -2178,12 +2300,14 @@ def train_phase(corpus: str, out: str, family: str = "miner", *extra: str):
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     CENSUS.phase = phase
+    save, checkpoint.save = checkpoint.save, linking_repeats(checkpoint.save)
     t0 = time.perf_counter()
     try:
         run = trainer.train()
         torch.cuda.synchronize()
     finally:
         CENSUS.phase = None
+        checkpoint.save = save
     wall_s = time.perf_counter() - t0
     counts = launch_counts()
     eval_counts = {k: counts[k] - before_eval[k] for k in counts}
@@ -2503,7 +2627,7 @@ def train_parity_phase(corpus: str, out: str, family: str = "miner") -> None:
             loss, _ = trainer._cached_his_loss(model, table, batch,
                                                cache_emb.to(trainer.device))
         else:
-            loss, _ = trainer._apply_and_loss(model, table, batch, True)
+            loss, _ = trainer._apply_and_loss(model, table, batch)
         loss.backward()
         # a tensor the loss does not reach has no gradient on either
         # device (UniSRec's w_noise: no gating noise in eval mode)
@@ -2715,9 +2839,490 @@ def parity_phase(corpus: str) -> None:
 
 
 # ------------------------------------------------------------------- main
+# ------------------------------------------------------------------ mesh
+# the mesh phases, launched through ``python -m torch.distributed.run
+# --standalone`` as subprocesses of this script (``--mesh_rank``), so that
+# the port's CLI is the entry point each rank runs; the ranks of one launch
+# run its phases one after another (a rank's start-up, 13-20 s, paid once);
+# both launches start beside the CPU halves of the train parity phases, the
+# timed one held at its first micro-batch until they are done; a launcher
+# that outlives MESH_TIMEOUT_S (its ranks included) fails the run
+MESH_TIMEOUT_S = 600
+# the phases whose ranks train with the PLM's dropout rates at 0 too
+MESH_NO_DROPOUT = ("mesh_parity_fp32",)
+MESH_RANK = "MESH_RANK "  # the prefix of a rank's report line
+
+
+def mesh_rank_main(jobs_path: str) -> int:
+    """One rank of a mesh launch, under ``torch.distributed.run``: the
+    process group started as the port starts it, then for each job of the
+    JSON list at ``jobs_path`` (``{"phase", "argv", "grads"}``) the port's
+    ``miner_tpu_torch.cli.main(argv)`` with the launch counts set to 0 just
+    before it, each micro-batch and optimizer update timed (the card
+    synchronised around them), the launches of an eval apart from the
+    micro-batches', then one line ``MESH_RANK {json}``: the rank, the world,
+    the backend, the launch counts, the global losses, the times, the
+    gradient sum's time an update, the peak memory, the history cache's
+    rebuilds and a checksum of the final parameters (sha256 of their
+    bytes), printed and written to ``<phase>.rank<r>.json``
+    beside ``jobs_path`` (ranks printing together can share a line). With
+    ``grads`` set, rank 0 saves there the gradients the first update
+    applies (summed over the data group, divided, clipped); each update's
+    global gradient norm before the clip is reported."""
+    import dataclasses
+    import hashlib
+
+    import miner_tpu_torch.training.trainer as port_trainer
+    from miner_tpu_torch import cli
+    from miner_tpu_torch.ops import launch_counts, reset_launch_counts
+    from miner_tpu_torch.parallel import mesh
+    from miner_tpu_torch.training.optim import Optimizer
+
+    entry = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with open(jobs_path) as f:
+        jobs = json.load(f)
+    backend = mesh.maybe_initialize_distributed()
+    Trainer = port_trainer.Trainer
+    train_step, run_eval, train = Trainer.train_step, Trainer._run_eval, Trainer.train
+    make_cache, opt_step, plm_config = (Trainer.make_history_cache, Optimizer.step,
+                                        port_trainer.plm_config)
+    rep, job = {}, {}
+
+    def timed_step(self, *a, **k):
+        if "first_step" not in rep["at"]:
+            go = os.environ.get("CHIP_SMOKE_GO")
+            while go and not os.path.exists(go):  # held until this script says go
+                time.sleep(0.05)
+            rep["at"]["first_step"] = time.time()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = train_step(self, *a, **k)
+        rep["losses"].append(float(loss))  # synchronises
+        rep["step_s"].append(time.perf_counter() - t0)
+        return loss
+
+    def timed_update(self):
+        if job.get("grads") and not rep.get("grads") and self.mini_step + 1 == self.accum_steps:
+            adamw_step = self.adamw.step
+
+            def saving(*x, **kw):
+                if mesh.is_writer():
+                    torch.save([p.grad.detach().cpu() for p in self.params], job["grads"])
+                rep["grads"] = job["grads"]
+                return adamw_step(*x, **kw)
+
+            self.adamw.step = saving
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        applied = opt_step(self)
+        torch.cuda.synchronize()
+        if applied:
+            rep["update_s"].append(time.perf_counter() - t0)
+            rep["sum_s"] = list(self.sum_seconds)
+            rep["grad_norms"].append(float(self.grad_norm))
+        return applied
+
+    def counted_eval(self, *a, **k):
+        before = launch_counts()
+        out = run_eval(self, *a, **k)
+        rep["eval_counts"] = {n: c - before[n] for n, c in launch_counts().items()}
+        return out
+
+    def captured_cache(self, *a, **k):
+        cache = make_cache(self, *a, **k)
+        if cache is not None:
+            rep["cache"] = cache
+        return cache
+
+    def summed_train(self):
+        run = train(self)
+        rep["at"]["trained"] = time.time()
+        h = hashlib.sha256()
+        for name, t in run.model.state_dict().items():
+            h.update(name.encode())
+            h.update(t.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+        rep.update(checksum=h.hexdigest(), run_dir=run.run_dir, updates=run.optimizer.updates,
+                   mesh=self.mesh.shape, device=str(self.device))
+        return run
+
+    Trainer.train_step, Trainer._run_eval, Trainer.train = timed_step, counted_eval, summed_train
+    Trainer.make_history_cache, Optimizer.step = captured_cache, timed_update
+    for j in jobs:
+        job.clear()
+        job.update(j)
+        rep.clear()
+        rep.update(phase=j["phase"], step_s=[], losses=[], update_s=[], sum_s=[], grad_norms=[],
+                   eval_counts=None, fills=[], checksum=None, rank=mesh.this_rank(),
+                   world=mesh.world_size(), backend=backend, cards=torch.cuda.device_count(),
+                   at={"entry": entry, "job": time.time()})
+        port_trainer.plm_config = plm_config
+        if j["phase"] in MESH_NO_DROPOUT:
+            port_trainer.plm_config = lambda *a, **k: dataclasses.replace(
+                plm_config(*a, **k), hidden_dropout=0.0, attention_dropout=0.0)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        cli.main(j["argv"])
+        counts = launch_counts()
+        evals = rep["eval_counts"] or {n: 0 for n in counts}
+        rep["train_counts"] = {n: c - evals[n] for n, c in counts.items()}
+        if "cache" in rep:
+            rep["fills"] = rep.pop("cache").fills
+        rep["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        rep["at"]["exit"] = time.time()
+        line = MESH_RANK + json.dumps(rep)
+        print(line, flush=True)
+        with open(os.path.join(os.path.dirname(jobs_path),
+                               f"{j['phase']}.rank{rep['rank']}.json"), "w") as f:
+            f.write(line + "\n")
+        entry = rep["at"]["exit"]
+    mesh.destroy_distributed()
+    return 0
+
+
+def start_mesh(world: int, jobs, go=None) -> dict:
+    """Start ``jobs``, each ``(phase, cli words, grads file or None)``, one
+    after another on ``world`` ranks of ``python -m torch.distributed.run
+    --standalone`` (:func:`mesh_rank_main`), the port of this checkout; with
+    ``go`` the ranks wait at their first micro-batch until that file is
+    there. Returns the launch, for :func:`finish_mesh`."""
+    import tempfile
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    reports_dir = tempfile.mkdtemp(prefix="mesh_")
+    jobs_path = os.path.join(reports_dir, "jobs.json")
+    with open(jobs_path, "w") as f:
+        json.dump([{"phase": p, "argv": argv, "grads": grads} for p, argv, grads in jobs], f)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(world), os.path.join(here, "chip_smoke.py"), "--mesh_rank", jobs_path]
+    env = dict(os.environ, **({"CHIP_SMOKE_GO": go} if go else {}))
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    # to a file: a pipe this script does not read while it works would fill
+    with open(os.path.join(reports_dir, "out.log"), "w") as out:
+        proc = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT, env=env, cwd=here,
+                                start_new_session=True)
+    return dict(world=world, jobs=jobs, dir=reports_dir, proc=proc, t0=time.perf_counter(),
+                launched=time.time(), names="+".join(p for p, _, _ in jobs))
+
+
+def stop_mesh(launches: dict) -> None:
+    """Stop every process of the launches in ``launches`` still running."""
+    import signal
+
+    for launch in launches.values():
+        if isinstance(launch, dict) and "proc" in launch:
+            try:
+                os.killpg(launch["proc"].pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+
+
+def finish_mesh(launch: dict) -> dict:
+    """Wait for a launch of :func:`start_mesh` and return each phase's rank
+    reports in rank order. Fails the run if a rank exits non-zero or does
+    not report, or the launcher outlives ``MESH_TIMEOUT_S`` from its start;
+    every process it started is stopped."""
+    import shutil
+    import signal
+
+    proc, names, world = launch["proc"], launch["names"], launch["world"]
+    try:
+        proc.wait(timeout=max(1.0, MESH_TIMEOUT_S - (time.perf_counter() - launch["t0"])))
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    with open(os.path.join(launch["dir"], "out.log"), errors="replace") as f:
+        out = f.read()
+    if proc.returncode == -signal.SIGKILL:
+        raise SystemExit(f"{names}: the ranks outlived {MESH_TIMEOUT_S} s:\n{out[-6000:]}")
+    wall_s = time.perf_counter() - launch["t0"]
+    results = {}
+    for phase, _, _ in launch["jobs"]:
+        reports = []
+        for r in range(world):
+            path = os.path.join(launch["dir"], f"{phase}.rank{r}.json")
+            if os.path.exists(path):
+                with open(path) as f:
+                    reports.append(json.loads(f.read()[len(MESH_RANK):]))
+        results[phase] = reports
+    shutil.rmtree(launch["dir"])
+    if proc.returncode != 0 or any(len(r) != world for r in results.values()):
+        raise SystemExit(f"{names}: the launcher exited {proc.returncode} with "
+                         f"{ {p: len(r) for p, r in results.items()} } of {world} ranks "
+                         f"reporting:\n{out[-6000:]}")
+    log(f"{names}: the launcher's {wall_s:.1f} s; on rank 0 "
+        + "; ".join(f"{p}: " + ", ".join(f"{k} +{t - launch['launched']:.1f} s"
+                                        for k, t in results[p][0]["at"].items())
+                    for p, _, _ in launch["jobs"]))
+    return results
+
+
+def _check_ranks(phase: str, reports, micro_batches_: int) -> dict:
+    """Every rank launched its phase's kernels (``REQUIRED``), took
+    ``micro_batches_`` micro-batches with finite losses, the same global
+    losses and the same final parameters bit for bit as rank 0. Logs the
+    backend, the ranks a card, the micro-batch and update times, the
+    gradient sum's share of each update and the peak memory a rank.
+    Returns the launch counts of the micro-batches, summed over the ranks."""
+    r0 = reports[0]
+    for r in reports:
+        _check_launches(phase, r["train_counts"])
+        bad = [x for x in r["losses"] if not math.isfinite(x)]
+        if bad or len(r["losses"]) != micro_batches_:
+            raise SystemExit(f"{phase}: rank {r['rank']}: {len(r['losses'])} micro-batches, "
+                             f"non-finite losses {bad}")
+        if r["losses"] != r0["losses"] or r["checksum"] != r0["checksum"]:
+            raise SystemExit(f"{phase}: rank {r['rank']}'s losses or final parameters differ "
+                             f"from rank 0's: {r['losses']} against {r0['losses']}, "
+                             f"{r['checksum']} against {r0['checksum']}")
+    steps = sorted(t for r in reports for t in r["step_s"][1:])
+    mid = steps[len(steps) // 2] if steps else float("nan")
+    share = [s / u for u, s in zip(r0["update_s"], r0["sum_s"])]
+    log(f"{phase}: {r0['world']} ranks, mesh {r0['mesh']}, backend {r0['backend']}, "
+        f"{r0['world'] / max(1, r0['cards']):g} ranks a card ({r0['cards']} card(s)), "
+        f"rank 0 on {r0['device']}; all ranks' final parameters bit-identical "
+        f"(sha256 {r0['checksum'][:16]}); losses {[round(x, 4) for x in r0['losses']]}")
+    log(f"{phase}: micro-batch {1e3 * mid:.1f} ms median over the ranks (the first apart), "
+        f"{r0['updates']} updates of {[round(1e3 * t, 1) for t in r0['update_s']]} ms on rank "
+        f"0, of which the gradient sum over the data group "
+        f"{[round(1e3 * t, 1) for t in r0['sum_s']]} ms ({[round(x, 3) for x in share]} of "
+        f"the update); peak memory a rank {[round(r['peak_gib'], 2) for r in reports]} GiB")
+    counts = {n: sum(r["train_counts"][n] for r in reports) for n in r0["train_counts"]}
+    log(f"{phase}: kernel launches summed over the ranks {counts}")
+    return {phase: counts}
+
+
+def start_mesh_phases(corpus: str, out: str, final_model: str) -> dict:
+    """Start the mesh phases' two launches (their checks:
+    :func:`finish_mesh_phases`).
+
+    One launch of 2 ranks, held at its first micro-batch until ``go``,
+    runs one after another:
+
+    * mesh_train: ``config/train_miner.txt --mesh_data 2`` at full width
+      (roberta-base, bf16, dropout, --remat), 8 micro-batches at
+      accumulation 4, without its eval (table_eval runs the cached eval
+      over a mesh);
+    * mesh_parity_fp32: the same path in float32 with every dropout off
+      (the PLM's rates too), 2 micro-batches at accumulation 2 (one update,
+      at lr 2e-5: no warmup);
+    * table_eval: ``config/eval_miner.txt`` on the train phase's
+      ``finalModel`` with ``--mesh_table 2``.
+
+    One launch of 4 ranks, run at once (correctness alone: its times are
+    taken beside other work), mesh_his_cache: the cached-history flags
+    over ``--mesh_data 2 --mesh_table 2``, 6 micro-batches: 2 on the full
+    history, then 4 whose history rows come from the train corpus's cache,
+    row-sharded over the table axis and rebuilt at micro-steps 2 and 4."""
+    parity = os.path.join(out, "mesh_parity")
+    os.makedirs(parity, exist_ok=True)
+    grads, go = os.path.join(parity, "grads.pt"), os.path.join(out, "mesh_go")
+    four = start_mesh(4, [("mesh_his_cache", train_words(
+        corpus, out, "--mesh_data", "2", "--mesh_table", "2", family="mesh_his_cache"), None)])
+    two = start_mesh(2, [
+        ("mesh_train", train_words(corpus, out, "--mesh_data", "2", family="mesh"), None),
+        ("mesh_parity_fp32", train_words(corpus, parity, "--mesh_data", "2",
+                                         family="mesh_parity"), grads),
+        ("table_eval", eval_words(corpus, os.path.join(out, "table_eval"), final_model,
+                                  "--mesh_table", "2"), None)], go=go)
+    return dict(two=two, four=four, go=go, grads=grads, parity=parity)
+
+
+def finish_mesh_phases(corpus: str, out: str, final_model: str, launches: dict) -> dict:
+    """The mesh phases' checks. mesh_his_cache first: every rank launched
+    its kernels, finite losses, every rank's parameters bit-identical, the
+    cache rebuilt at micro-steps 2 and 4 (JAX's rule). Then ``go`` for the
+    2 ranks, on a card this script no longer shares: mesh_train launched
+    every Miner kernel on each rank, finite losses, both ranks' parameters
+    bit-identical; its micro-batch, global examples/s (the 16 rows of a
+    micro-batch over the time the ranks take for theirs), each update's
+    time and the gradient sum's share of it, the peak memory a rank, the
+    backend and the ranks a card; mesh_parity_fp32 against W = 1
+    (:func:`mesh_parity_check`); table_eval against one rank
+    (:func:`table_eval_check`). Returns the launch counts of each phase."""
+    import gc
+
+    four = finish_mesh(launches["four"])["mesh_his_cache"]
+    counts = _check_ranks("mesh_his_cache", four, micro_batches("mesh_his_cache"))
+    fills = {tuple(r["fills"]) for r in four}
+    log(f"mesh_his_cache: the cache rebuilt at micro-steps {sorted(fills)} on every rank "
+        "(its times were taken beside the train parity phases)")
+    if fills != {(2, 4)}:
+        raise SystemExit(f"mesh_his_cache: rebuilds at {fills}, JAX's rule gives (2, 4)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    with open(launches["go"], "w"):
+        pass
+    two = finish_mesh(launches["two"])
+    counts.update(_check_ranks("mesh_train", two["mesh_train"], micro_batches("mesh")))
+    args = train_args(corpus, out, family="mesh")
+    steps = sorted(t for r in two["mesh_train"] for t in r["step_s"][1:])
+    mid = steps[len(steps) // 2]
+    MICRO_BATCH_MS["mesh_train"] = 1e3 * mid
+    PEAK_GIB["mesh_train"] = max(r["peak_gib"] for r in two["mesh_train"])
+    log(f"mesh_train: {args.train_batch_size / mid:.2f} global examples/s "
+        f"({args.train_batch_size} rows a micro-batch, {args.train_batch_size // 2} a rank); "
+        f"one card's train phase {MICRO_BATCH_MS.get('train', float('nan')):.1f} ms a "
+        f"micro-batch")
+    counts.update(_check_ranks("mesh_parity_fp32", two["mesh_parity_fp32"],
+                               micro_batches("mesh_parity")))
+    counts.update(mesh_parity_check(corpus, launches["parity"], two["mesh_parity_fp32"][0],
+                                    launches["grads"]))
+    counts.update(table_eval_check(corpus, out, final_model, two["table_eval"]))
+    return counts
+
+
+def mesh_parity_check(corpus: str, out: str, two: dict, grads: str) -> dict:
+    """mesh_parity_fp32's W = 2 run (rank 0's report ``two``, its update's
+    gradients in ``grads``) against W = 1 in this process: ``train()``'s
+    batches, model and optimizer through ``Trainer.train_step`` (no
+    checkpoint written), the PLM's dropout rates at 0 as in the ranks. The
+    global losses to 1e-4 of their size; the update's global gradient norm
+    before the clip (the ranks' shares summed over the data group, divided)
+    to 1e-4 of its size: a sum off by a factor moves it by that factor,
+    where the clip (1.0) hides the factor from the clipped gradients; and
+    the clipped gradients AdamW takes to the card-vs-CPU parity's
+    tolerance (1e-3 of each gradient's largest magnitude plus 1e-5 of the
+    largest over all: float32 summation order). The norm and the clipped
+    gradients together hold the summed gradient before the clip: equal
+    norms give equal clip factors."""
+    import dataclasses
+
+    import miner_tpu_torch.training.trainer as port_trainer
+    from miner_tpu_torch.data.batcher import Batcher
+    from miner_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    make = port_trainer.plm_config
+    port_trainer.plm_config = lambda *a, **k: dataclasses.replace(
+        make(*a, **k), hidden_dropout=0.0, attention_dropout=0.0)
+    try:
+        trainer = port_trainer.Trainer(train_args(corpus, os.path.join(out, "w1"),
+                                                  family="mesh_parity"))
+        a = trainer.args
+        store = trainer._load_store(a.train_news_path, a.augmentations)
+        block = trainer._train_sampler(trainer._load_log(a.train_behaviors_path, store),
+                                       store).sample_epoch(0)
+        model = trainer.initial_model().to(trainer.device).train()
+        table = trainer._make_table(store)
+        optimizer = trainer.make_optimizer(model, 1, 0)
+        kept, adamw_step = {}, optimizer.adamw.step
+
+        def keeping(*x, **k):
+            kept["grads"] = [p.grad.detach().clone() for p in optimizer.params]
+            return adamw_step(*x, **k)
+
+        optimizer.adamw.step = keeping
+        reset_launch_counts()
+        CENSUS.phase = "mesh_parity_fp32_one"
+        batches = Batcher(a.train_batch_size, drop_last=True, shuffle=True,
+                          seed=a.seed).batches(block, 0)
+        losses = [float(trainer.train_step(model, table, batch, optimizer, i))
+                  for i, batch in enumerate(batches)]
+    finally:
+        CENSUS.phase = None
+        port_trainer.plm_config = make
+    counts = {"mesh_parity_fp32_one": launch_counts()}
+    _check_launches("mesh_parity_fp32_one", counts["mesh_parity_fp32_one"])
+    loss_err = max(abs(x - y) / abs(y) for x, y in zip(two["losses"], losses))
+    want, got = kept["grads"], [g.to(trainer.device) for g in torch.load(grads)]
+    top = max(float(w.abs().max()) for w in want)
+    ratios = [float((g - w).abs().max()) / (1e-3 * float(w.abs().max()) + 1e-5 * top)
+              for g, w in zip(got, want)]
+    worst = max(range(len(ratios)), key=ratios.__getitem__)
+    norm_err = abs(two["grad_norms"][0] - float(optimizer.grad_norm)) / float(optimizer.grad_norm)
+    log(f"mesh_parity_fp32: W = 2 against W = 1 (this process) on the card: losses "
+        f"{[round(x, 5) for x in two['losses']]} and {[round(x, 5) for x in losses]}, "
+        f"{loss_err:.3g} of their size (tol 1e-4); the update's gradient norm before the clip "
+        f"{two['grad_norms'][0]:.7g} and {float(optimizer.grad_norm):.7g}, {norm_err:.3g} of "
+        f"its size (tol 1e-4); the clipped gradients at worst {ratios[worst]:.3g} of their "
+        f"tolerance (tensor {worst} of {len(ratios)}, shape {tuple(want[worst].shape)}; tol "
+        f"1e-3 of each gradient's largest magnitude + 1e-5 of the largest, {top:.3g})")
+    if (len(losses) != len(two["losses"]) or optimizer.updates != 1
+            or len(two["grad_norms"]) != 1 or loss_err > 1e-4 or norm_err > 1e-4
+            or ratios[worst] > 1):
+        raise SystemExit("mesh_parity_fp32: W = 2 disagrees with W = 1")
+    return counts
+
+
+def eval_words(corpus: str, out: str, checkpoint: str, *extra: str):
+    """``config/eval_miner.txt`` as it stands on the synthetic corpus and its
+    eval behaviors, the hash tokenizer over roberta-base's vocabulary,
+    ``--saved_model_path`` the given checkpoint, the run under ``out``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    words = _config_words(os.path.join(here, "config", "eval_miner.txt"))
+    for flag, value in (
+            ("--pretrained_tokenizer", "hash:50265"),
+            ("--user2id_path", os.path.join(corpus, "user2id.json")),
+            ("--category2id_path", os.path.join(corpus, "category2id.json")),
+            ("--eval_behaviors_path", os.path.join(corpus, "valid", "behaviors.tsv")),
+            ("--eval_news_path", os.path.join(corpus, "news.tsv")),
+            ("--saved_model_path", checkpoint)):
+        words[words.index(flag) + 1] = value
+    return ["eval", *words, "--eval_path", out, *extra]
+
+
+def _eval_files(path: str):
+    import glob
+    import pickle
+
+    (run,) = glob.glob(os.path.join(path, "*"))
+    with open(os.path.join(run, "preds.pkl"), "rb") as f:
+        preds = pickle.load(f)
+    with open(os.path.join(run, "eval.csv")) as f:
+        return preds, f.read()
+
+
+def table_eval_check(corpus: str, out: str, final_model: str, reports) -> dict:
+    """table_eval's ranks (``reports``: ``eval_miner.txt`` on the train
+    phase's ``finalModel`` with ``--mesh_table 2``, each rank keeping half
+    of the news-embedding cache's rows and a zero row, every gather and
+    lookup+score run on the rank's shard and summed over the two) against
+    a one-rank eval in this process: the metrics, the eval loss and every
+    prediction bit for bit, and lookup+score launched on each rank."""
+    from miner_tpu_torch.config import make_parser
+    from miner_tpu_torch.ops import launch_counts, reset_launch_counts
+    from miner_tpu_torch.training.trainer import Trainer
+
+    one_dir, two_dir = os.path.join(out, "table_eval_one"), os.path.join(out, "table_eval")
+    reset_launch_counts()
+    CENSUS.phase = "table_eval_one"
+    t0 = time.perf_counter()
+    try:
+        want = Trainer(make_parser().parse_args(eval_words(corpus, one_dir, final_model))).eval()
+    finally:
+        CENSUS.phase = None
+    one_s = time.perf_counter() - t0
+    one_counts = launch_counts()
+    _check_launches("table_eval", one_counts)
+    for r in reports:
+        _check_launches("table_eval", r["eval_counts"])
+    (p1, csv1), (p2, csv2) = _eval_files(one_dir), _eval_files(two_dir)
+    same = (csv1 == csv2 and p1["impression_id"] == p2["impression_id"]
+            and all(a.tobytes() == b.tobytes() if hasattr(a, "tobytes") else a == b
+                    for a, b in zip(p1["pred"], p2["pred"])))
+    at = reports[0]["at"]
+    log(f"table_eval: {reports[0]['world']} ranks, backend {reports[0]['backend']}, each "
+        f"with half of the cache's rows: {at['exit'] - at['job']:.1f} s on rank 0; one "
+        f"rank's eval {one_s:.1f} s in this process; {len(p1['pred'])} predictions; metrics "
+        f"and eval loss {'bit-equal' if same else 'DIFFER'}: {want}")
+    if not same:
+        raise SystemExit(f"table_eval: the table-sharded eval differs from one rank's:\n"
+                         f"{csv1}\n{csv2}")
+    return {"table_eval_one": one_counts,
+            "table_eval": {n: sum(r["eval_counts"][n] for r in reports) for n in one_counts}}
+
+
 def main(argv=None) -> int:
     import argparse
 
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--mesh_rank"]:  # a rank of a mesh launch (start_mesh)
+        return mesh_rank_main(argv[1])
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--kernels", help="comma-separated kernel names: build and run "
                         "only their kernel phase, print their rows and stop")
@@ -2838,12 +3443,23 @@ def main(argv=None) -> int:
         hf_import_phase(corpus, tmp, tmp)
         write_corpus(os.path.join(tmp, "parity"), 64, seed=1)
         parity_phase(os.path.join(tmp, "parity"))
-        for family in PARITY_FAMILIES:
-            train_parity_phase(corpus, tmp, family)
+        # over a mesh of ranks: the counts set to 0 in each rank just before
+        # the port's CLI runs there (mesh_rank_main); the ranks start beside
+        # the CPU halves of the train parity phases
+        launches = start_mesh_phases(corpus, tmp, final_model)
+        try:
+            for family in PARITY_FAMILIES:
+                train_parity_phase(corpus, tmp, family)
+            counts.update(finish_mesh_phases(corpus, tmp, final_model, launches))
+        finally:
+            stop_mesh(launches)
     for row in rows:
         row["launches_by_phase"] = {phase: c[row["name"]] for phase, c in counts.items()}
         row["launches"] = sum(row["launches_by_phase"].values())
     for row in rows:
+        if "w2" in row:  # a rank's shapes over a mesh: the mesh phases' launches
+            row["w2"]["launches"] = sum(row["launches_by_phase"][p] for p in (
+                ("table_eval",) if row["name"] == "lookup_score_fwd" else MESH_PHASES))
         if "int8" in row:  # the int8 route's share of lookup+score's launches
             row["int8"]["launches"] = sum(
                 n for (name, _, shape), n in CENSUS.counts.items()

@@ -5,10 +5,13 @@ subcommand: ``train``, ``train_fastformer`` and ``pretrain`` (the same
 flags, as in JAX), ``eval`` and ``eval_fastformer``, ``serve`` (HTTP
 scoring server) and ``recommend`` (one-shot ranking). ``@config/file.txt``
 argument files with ``#`` comments parse unchanged (every shipped file of
-``config/``). The JAX package's TPU settings (mesh
-shape, compilation cache, PRNG implementation, layer scan, matmul
-precision) are accepted and ignored, each saying so in ``--help``;
-``--remat_policy`` is honoured under ``--remat``.
+``config/``). The JAX package's TPU settings (compilation cache, PRNG
+implementation, layer scan, matmul precision) are accepted and ignored,
+each saying so in ``--help``; ``--remat_policy`` is honoured under
+``--remat``. The mesh flags are honoured under a launcher
+(``python -m torch.distributed.run``, one process a rank): ``--mesh_data``
+and ``--mesh_table`` as in JAX, ``--mesh_model`` above 1 refused by the
+``Trainer`` (tensor parallelism is not ported yet).
 The ``Trainer`` refuses ``--param_dtype`` other than float32, as the JAX
 package does, and ``--no-fused_kernels`` on a card.
 """
@@ -128,9 +131,18 @@ def _add_common(p: argparse.ArgumentParser):
                         "ranking evaluator and bestAucModel")
     p.add_argument("--device", type=str, default=None,
                    help="cuda (default) or cpu; cuda without a card raises")
-    p.add_argument("--mesh_data", type=int, default=-1, help=_TPU_ONLY)
-    p.add_argument("--mesh_table", type=int, default=1, help=_TPU_ONLY)
-    p.add_argument("--mesh_model", type=int, default=1, help=_TPU_ONLY)
+    p.add_argument("--mesh_data", type=int, default=-1,
+                   help="ranks on the data axis (-1: every rank not on another axis); "
+                        "each rank takes its rows of every global batch and the "
+                        "gradients are summed over them at each update. Ranks are "
+                        "processes of python -m torch.distributed.run; the mesh must "
+                        "cover them")
+    p.add_argument("--mesh_table", type=int, default=1,
+                   help="ranks on the table axis: the news-embedding cache's rows "
+                        "are sharded over them (cached eval, --his_cache_refresh)")
+    p.add_argument("--mesh_model", type=int, default=1,
+                   help="ranks on the tensor-parallel axis: only 1 (tensor "
+                        "parallelism is not ported yet)")
     p.add_argument("--param_dtype", type=str, default="float32",
                    help="float32 only: fp32 master weights")
     p.add_argument("--matmul_precision", type=str, default=None,

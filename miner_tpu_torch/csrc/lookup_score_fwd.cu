@@ -27,8 +27,14 @@
 // gathered while one is scored), as the TPU kernel's two DMA groups were.
 // Where two buffers do not fit (a bf16 cache at the PLM's D = 768, a Miner
 // without --apply_reduce_dim: ~251 KB a block), one takes them: the next
-// tile is gathered once every warp has scored the last (~157 KB). An fp32
-// cache at D = 768 fits in neither and is refused.
+// tile is gathered once every warp has scored the last (~157 KB). On the
+// CUDA cores, where a 64-candidate tile does not fit in two buffers (fp32
+// rows at D = 768, the lstm combine without --apply_reduce_dim: ~500 KB
+// a block; one buffer would still take ~304 KB), a tile is 32 candidates,
+// in two buffers where they fit, else in one (fp32 rows at D = 768: ~203
+// KB a block). The tile and the buffers are template parameters: the
+// wrapper's plan picks the tile (ops/lookup_score.py:plan), the launch
+// the buffers (stages_for); a shape that fits in none is refused.
 // Scores go through shared memory and leave as 16-byte stores of the
 // contiguous (tile, K) block of out. Blocks are numbered batch row
 // fastest, so the blocks that gather one candidate tile for every batch
@@ -74,7 +80,8 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int TC = 64;  // candidates a tile
+constexpr int TC = 64;  // candidates a tile (the CUDA cores take 32 where 64 do not fit)
+constexpr int TC_SMALL = 32;
 // gather buffers: one tile in flight while one is scored (on the tensor
 // cores, one buffer where two do not fit: a bf16 cache at D = 768)
 constexpr int STAGES = 2;
@@ -83,14 +90,14 @@ constexpr size_t MAX_SMEM = 227 * 1024;
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) / 16 * 16; }
 __host__ __device__ inline int round_up(int n, int m) { return (n + m - 1) / m * m; }
 
-// Shared memory of one block, in bytes: the row's interests, the two
-// buffers of gathered rows, the scores of a tile in the output type, the
-// run's indices.
+// Shared memory of one block, in bytes: the row's interests, the buffers
+// of gathered rows, the scores of a tile in the output type, the run's
+// indices; tiles of `tc` candidates.
 struct Layout {
   int kp, ldi, ldr;  // interest rows (K padded); interest and gathered-row strides, in elements
   size_t in, rows, stage, red, out, idx, bytes;
   __host__ __device__ Layout(int K, int D, bool tensor_core, int cache_elem, int out_elem,
-                             int tiles, int stages = STAGES) {
+                             int tiles, int stages = STAGES, int tc = TC) {
     if (tensor_core && cache_elem == 1) {
       // int8 rows padded by 16 bytes and bf16 interests by 16 elements: the
       // 8 rows of an ldmatrix and the 16 lanes of an 8-byte load of B each
@@ -109,13 +116,13 @@ struct Layout {
     }
     in = 0;
     rows = in + align16((size_t)kp * ldi * out_elem);
-    stage = align16((size_t)TC * ldr * cache_elem);
+    stage = align16((size_t)tc * ldr * cache_elem);
     red = rows + stages * stage;
     // int8 on the tensor cores: one warp's partial sums a 16-candidate
     // piece, 16 floats a lane
     out = red + (tensor_core && cache_elem == 1 ? (size_t)(TC / 16) * 16 * 32 * 4 : 0);
-    idx = out + align16((size_t)TC * K * out_elem);
-    bytes = idx + align16(sizeof(int) * (size_t)tiles * TC);
+    idx = out + align16((size_t)tc * K * out_elem);
+    bytes = idx + align16(sizeof(int) * (size_t)tiles * tc);
   }
 };
 
@@ -164,20 +171,26 @@ __device__ __forceinline__ float nan_unless(bool ok, float v) {
   return ok ? v : __int_as_float(0x7fc00000);
 }
 
-// The block's batch row and its run of tiles [t0, t1), batch row fastest.
+// The block's batch row and its run of tiles [t0, t1) of `tc` candidates,
+// batch row fastest.
 struct Run {
   int b, t0, t1;
-  __device__ __forceinline__ Run(int B, int C, int tiles) {
+  __device__ __forceinline__ Run(int B, int C, int tiles, int tc = TC) {
     b = blockIdx.x % B;
     t0 = blockIdx.x / B * tiles;
-    t1 = min(t0 + tiles, (C + TC - 1) / TC);
+    t1 = min(t0 + tiles, (C + tc - 1) / tc);
   }
 };
 
-// the gather buffers a tensor-core launch takes: two where they fit, else one
-inline int stages_for(int K, int D, bool tensor_core, int cache_elem, int out_elem,
-                      int tiles) {
-  return Layout(K, D, tensor_core, cache_elem, out_elem, tiles).bytes <= MAX_SMEM ? STAGES : 1;
+// the gather buffers a launch takes: two where they fit, else one (always
+// two for the CUDA cores' 64-candidate tiles, which the plan takes only
+// where two fit)
+inline int stages_for(int K, int D, bool tensor_core, int cache_elem, int out_elem, int tiles,
+                      int tc = TC) {
+  if (!tensor_core && tc == TC) return STAGES;
+  return Layout(K, D, tensor_core, cache_elem, out_elem, tiles, STAGES, tc).bytes <= MAX_SMEM
+             ? STAGES
+             : 1;
 }
 
 // tile t's rows have landed: the next tile's group, when there is one (two
@@ -192,10 +205,10 @@ __device__ __forceinline__ void wait_tile(int t, const Run& run, int stages) {
 // the run's rows into sIdx: an index in [-N, 0) wrapped to N + index, -1
 // for one outside [-N, N) and past C
 __device__ __forceinline__ void load_indices(const Run& run, const int* cand_idx, int* sIdx,
-                                             int C, int N) {
-  const int* idx = cand_idx + (long)run.b * C + (long)run.t0 * TC;
-  const int n = min((run.t1 - run.t0) * TC, C - run.t0 * TC);
-  for (int i = threadIdx.x; i < (run.t1 - run.t0) * TC; i += THREADS) {
+                                             int C, int N, int tc = TC) {
+  const int* idx = cand_idx + (long)run.b * C + (long)run.t0 * tc;
+  const int n = min((run.t1 - run.t0) * tc, C - run.t0 * tc);
+  for (int i = threadIdx.x; i < (run.t1 - run.t0) * tc; i += THREADS) {
     int row = i < n ? idx[i] : -1;
     if (i < n && row < 0) row = row >= -N ? row + N : -1;
     sIdx[i] = row < N ? row : -1;
@@ -375,65 +388,71 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
 }
 
-// one block an SM at fp32 rows (~170 KB of shared memory): no register cap
-template <typename TCache, typename TI>
+// one block an SM at fp32 rows (~170 KB of shared memory): no register
+// cap. Tiles of TCC candidates (64 or 32) in NSTAGES buffers; a thread
+// scores TCC / 32 candidates x 4 interests at a time
+template <typename TCache, typename TI, int TCC, int NSTAGES>
 __global__ void __launch_bounds__(THREADS, 1)
 lookup_score_cc(const TCache* __restrict__ cache, const float* __restrict__ scales,
                 const int* __restrict__ cand_idx, const TI* __restrict__ interests,
                 TI* __restrict__ out, int N, int B, int C, int K, int D, int tiles) {
+  constexpr int CPT = TCC / 32;
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout lay(K, D, false, sizeof(TCache), sizeof(TI), tiles);
+  const Layout lay(K, D, false, sizeof(TCache), sizeof(TI), tiles, NSTAGES, TCC);
   TI* sI = reinterpret_cast<TI*>(smem + lay.in);
   TI* sOut = reinterpret_cast<TI*>(smem + lay.out);
   int* sIdx = reinterpret_cast<int*>(smem + lay.idx);
   const int tid = threadIdx.x;
-  const int kg = tid & 7, cgp = tid >> 3;  // interests kg + 8 i; candidates cgp, cgp + 32
+  const int kg = tid & 7, cgp = tid >> 3;  // interests kg + 8 i; candidates cgp + 32 j
   const int D4 = round_up(D, 4);
   const bool vec = reinterpret_cast<uintptr_t>(cache) % 16 == 0 &&
                    (D * sizeof(TCache)) % 16 == 0;
   const bool vec_i = reinterpret_cast<uintptr_t>(interests) % 16 == 0 &&
                      (D * sizeof(TI)) % 16 == 0;
 
-  const Run run(B, C, tiles);
+  const Run run(B, C, tiles, TCC);
   gather(sI, lay.ldi, interests + (long)run.b * K * D, nullptr, K, lay.kp, K, D, vec_i);
-  load_indices(run, cand_idx, sIdx, C, N);
+  load_indices(run, cand_idx, sIdx, C, N, TCC);
   __syncthreads();  // sIdx
   auto stage_rows = [&](int t) {
-    return reinterpret_cast<TCache*>(smem + lay.rows + (t % STAGES) * lay.stage);
+    return reinterpret_cast<TCache*>(smem + lay.rows + (t % NSTAGES) * lay.stage);
   };
-  auto tile_size = [&](int t) { return min(TC, C - t * TC); };
+  auto tile_size = [&](int t) { return min(TCC, C - t * TCC); };
   auto fetch = [&](int t) {
     const int nc = tile_size(t);
-    gather(stage_rows(t), lay.ldr, cache, sIdx + (t - run.t0) * TC, nc,
-           min(TC, round_up(nc, 16)), N, D, vec);
+    gather(stage_rows(t), lay.ldr, cache, sIdx + (t - run.t0) * TCC, nc,
+           min(TCC, round_up(nc, 16)), N, D, vec);
     cp_async_commit();
   };
 
   fetch(run.t0);  // in the interests' group
   for (int t = run.t0; t < run.t1; ++t) {
-    if (t + 1 < run.t1) fetch(t + 1);
-    wait_tile(t, run, STAGES);
+    if (NSTAGES > 1 && t + 1 < run.t1) fetch(t + 1);  // into the buffer of t - 1
+    wait_tile(t, run, NSTAGES);
     __syncthreads();
     const TCache* rows = stage_rows(t);
-    const int* tIdx = sIdx + (t - run.t0) * TC;
+    const int* tIdx = sIdx + (t - run.t0) * TCC;
     const int nc = tile_size(t);
     if (cgp < nc) {  // candidate cgp + 32 < nc only if cgp < nc
+      // two named rows, not an array of CPT: with an array the 64-candidate
+      // tile took 2 registers fewer and ran 1.3% slower (int8 rows, fp32
+      // interests, H100)
       const TCache* r0 = rows + cgp * lay.ldr;
-      const TCache* r1 = rows + (cgp + 32) * lay.ldr;
+      const TCache* r1 = rows + (cgp + 32) * lay.ldr;  // read with 64-candidate tiles
       for (int k0 = 0; k0 < K; k0 += 32) {
-        float acc[2][4] = {};
+        float acc[CPT][4] = {};
         const TI* ib = sI + (k0 + kg) * lay.ldi;
         for (int d = 0; d < D4; d += 4) {
-          const float4 x0 = load4(r0 + d), x1 = load4(r1 + d);
+          const float4 x0 = load4(r0 + d), x1 = CPT == 2 ? load4(r1 + d) : x0;
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const float4 w = load4(ib + 8 * i * lay.ldi + d);
             acc[0][i] = dot4(x0, w, acc[0][i]);
-            acc[1][i] = dot4(x1, w, acc[1][i]);
+            if constexpr (CPT == 2) acc[1][i] = dot4(x1, w, acc[1][i]);
           }
         }
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
+        for (int j = 0; j < CPT; ++j) {
           const int c = cgp + 32 * j;
           if (c >= nc) continue;
           const bool ok = tIdx[c] >= 0;
@@ -447,7 +466,8 @@ lookup_score_cc(const TCache* __restrict__ cache, const float* __restrict__ scal
       }
     }
     __syncthreads();
-    write_out(out + ((long)run.b * C + (long)t * TC) * K, sOut, nc * K);
+    if (NSTAGES == 1 && t + 1 < run.t1) fetch(t + 1);  // every warp is done with the buffer
+    write_out(out + ((long)run.b * C + (long)t * TCC) * K, sOut, nc * K);
   }
 }
 
@@ -478,12 +498,16 @@ cudaError_t launch_tc(const void* cache, const void* scales, const void* cand_id
 template <typename TCache, typename TI>
 cudaError_t launch_cc(const void* cache, const void* scales, const void* cand_idx,
                       const void* interests, void* out, int N, int B, int C, int K, int D,
-                      int tiles, int blocks, cudaStream_t stream) {
-  const size_t smem = Layout(K, D, false, sizeof(TCache), sizeof(TI), tiles).bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      lookup_score_cc<TCache, TI>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                      int tc, int tiles, int blocks, cudaStream_t stream) {
+  const int stages = stages_for(K, D, false, sizeof(TCache), sizeof(TI), tiles, tc);
+  const auto kernel = tc == TC ? lookup_score_cc<TCache, TI, TC, STAGES>
+                      : stages == STAGES ? lookup_score_cc<TCache, TI, TC_SMALL, STAGES>
+                                         : lookup_score_cc<TCache, TI, TC_SMALL, 1>;
+  const size_t smem = Layout(K, D, false, sizeof(TCache), sizeof(TI), tiles, stages, tc).bytes;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  lookup_score_cc<TCache, TI><<<blocks, THREADS, smem, stream>>>(
+  kernel<<<blocks, THREADS, smem, stream>>>(
       static_cast<const TCache*>(cache), static_cast<const float*>(scales),
       static_cast<const int*>(cand_idx), static_cast<const TI*>(interests),
       static_cast<TI*>(out), N, B, C, K, D, tiles);
@@ -493,14 +517,15 @@ cudaError_t launch_cc(const void* cache, const void* scales, const void* cand_id
 template <typename TCache>
 cudaError_t dispatch_cc(const void* cache, const void* scales, const void* cand_idx,
                         const void* interests, void* out, int N, int B, int C, int K, int D,
-                        int interests_dtype, int tiles, int blocks, cudaStream_t stream) {
+                        int interests_dtype, int tc, int tiles, int blocks,
+                        cudaStream_t stream) {
   switch (interests_dtype) {
     case DTYPE_F32:
       return launch_cc<TCache, float>(cache, scales, cand_idx, interests, out, N, B, C, K, D,
-                                      tiles, blocks, stream);
+                                      tc, tiles, blocks, stream);
     case DTYPE_BF16:
       return launch_cc<TCache, bf16>(cache, scales, cand_idx, interests, out, N, B, C, K, D,
-                                     tiles, blocks, stream);
+                                     tc, tiles, blocks, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -509,34 +534,38 @@ cudaError_t dispatch_cc(const void* cache, const void* scales, const void* cand_
 }  // namespace
 
 // Shared memory a block takes at these shapes, for the route the types and
-// D pick, with runs of `tiles` tiles, in the buffers the launch takes.
+// D pick, with runs of `tiles` tiles of `tile` candidates (64; 32 on the
+// CUDA cores), in the buffers the launch takes.
 extern "C" long long lookup_score_smem_bytes(int K, int D, int cache_dtype,
-                                            int interests_dtype, int tiles) {
+                                            int interests_dtype, int tiles, int tile) {
   const bool tc = tensor_core_route(D, cache_dtype, interests_dtype);
   const int ce = elem_size(cache_dtype), oe = elem_size(interests_dtype);
-  return (long long)Layout(K, D, tc, ce, oe, tiles,
-                           tc ? stages_for(K, D, tc, ce, oe, tiles) : STAGES).bytes;
+  return (long long)Layout(K, D, tc, ce, oe, tiles, stages_for(K, D, tc, ce, oe, tiles, tile),
+                           tile).bytes;
 }
 
 // cache (N, D) in cache_dtype, with scales (N, 1) float32 for an int8 cache
 // (null for the others); cand_idx (B, C) int32; interests (B, K, D) and out
 // (B, C, K) in interests_dtype; all contiguous; a block scores a run of
-// `tiles` tiles of 64 candidates. The tensor-core route (bf16 interests with
-// a bf16 cache, D a multiple of 16, or an int8 one, D a multiple of 32)
-// takes cache and interests 16-byte aligned.
+// `tiles` tiles of `tile` candidates (64, or 32 on the CUDA-core route).
+// The tensor-core route (bf16 interests with a bf16 cache, D a multiple of
+// 16, or an int8 one, D a multiple of 32) takes cache and interests
+// 16-byte aligned.
 extern "C" int lookup_score_fwd(const void* cache, const void* scales, const void* cand_idx,
                                 const void* interests, void* out, int N, int B, int C,
                                 int K, int D, int cache_dtype, int interests_dtype,
-                                int tiles, int device, void* stream) {
+                                int tiles, int tile, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (N <= 0 || B <= 0 || C <= 0 || K <= 0 || D <= 0 || tiles <= 0)
     return cudaErrorInvalidValue;
   if ((cache_dtype == DTYPE_I8) != (scales != nullptr)) return cudaErrorInvalidValue;
-  const long long blocks = (long long)B * (((C + TC - 1) / TC + tiles - 1) / tiles);
+  const bool tensor_core = tensor_core_route(D, cache_dtype, interests_dtype);
+  if (tile != TC && (tensor_core || tile != TC_SMALL)) return cudaErrorInvalidValue;
+  const long long blocks = (long long)B * (((C + tile - 1) / tile + tiles - 1) / tiles);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tensor_core_route(D, cache_dtype, interests_dtype)) {
+  if (tensor_core) {
     if ((reinterpret_cast<uintptr_t>(cache) | reinterpret_cast<uintptr_t>(interests)) % 16)
       return cudaErrorMisalignedAddress;
     if (cache_dtype == DTYPE_I8)
@@ -548,13 +577,13 @@ extern "C" int lookup_score_fwd(const void* cache, const void* scales, const voi
   switch (cache_dtype) {
     case DTYPE_F32:
       return dispatch_cc<float>(cache, scales, cand_idx, interests, out, N, B, C, K, D,
-                                interests_dtype, tiles, (int)blocks, s);
+                                interests_dtype, tile, tiles, (int)blocks, s);
     case DTYPE_BF16:
       return dispatch_cc<bf16>(cache, scales, cand_idx, interests, out, N, B, C, K, D,
-                               interests_dtype, tiles, (int)blocks, s);
+                               interests_dtype, tile, tiles, (int)blocks, s);
     case DTYPE_I8:
       return dispatch_cc<int8_t>(cache, scales, cand_idx, interests, out, N, B, C, K, D,
-                                 interests_dtype, tiles, (int)blocks, s);
+                                 interests_dtype, tile, tiles, (int)blocks, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -18,17 +18,27 @@ contract with two ``torch.Generator``s seeded from (seed, step):
     trainer.py:414), each outside any checkpointed region.
 
 A resumed run therefore draws exactly what the interrupted one would have.
+
+Over a mesh with a data axis above 1, the sequence takes the rank's data
+coordinate as a third word, ``[seed, step, data_rank]``: data ranks draw
+different masks for their different rows, and ranks that share rows (the
+same data coordinate) draw the same ones. Without one it stays ``[seed,
+step]``, so a single device's masks do not change. JAX's masks do not
+depend on the mesh; the port's do under a data axis (ROADMAP Queue 3).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
 
 
 class DropoutRNG:
-    def __init__(self, seed: int, step: int, device: torch.device):
-        host_seed, device_seed = np.random.SeedSequence(
-            [int(seed), int(step)]).generate_state(2, np.uint64)
+    def __init__(self, seed: int, step: int, device: torch.device,
+                 data_rank: Optional[int] = None):
+        words = [int(seed), int(step)] + ([] if data_rank is None else [int(data_rank)])
+        host_seed, device_seed = np.random.SeedSequence(words).generate_state(2, np.uint64)
         device = torch.device(device)
         self.host = torch.Generator().manual_seed(int(host_seed))
         self.device = torch.Generator(device=device).manual_seed(int(device_seed))

@@ -12,6 +12,9 @@ Also: examples/s counters recorded into ``throughput.csv``. (The JAX
 package's ``jax.profiler`` trace context is left out: the port has no
 profiler hook yet.)
 
+Under a process group every rank takes rank 0's run directory, and rank 0
+alone writes the files; the other ranks log warnings to stdout.
+
 The port's own copy of ``miner_tpu/observability/logging.py``.
 """
 from __future__ import annotations
@@ -24,22 +27,34 @@ import os
 import sys
 from typing import Dict, Iterable, Optional, Sequence
 
+import torch.distributed as dist
+
+from miner_tpu_torch.parallel import mesh
+
 
 class RunLogger:
     def __init__(self, base_dir: str, name: str = "train", args: Optional[dict] = None):
         ts = datetime.datetime.now().strftime("%Y%m%d-%H%M%S")
+        if mesh.world_size() > 1:  # rank 0's directory on every rank
+            box = [ts]
+            dist.broadcast_object_list(box, src=0)
+            ts = box[0]
+        self.writer = mesh.is_writer()
         self.run_dir = os.path.join(base_dir, ts)
-        os.makedirs(os.path.join(self.run_dir, "log"), exist_ok=True)
 
         self.logger = logging.getLogger(f"miner_tpu_torch.{name}.{ts}")
         self.logger.setLevel(logging.INFO)
         self.logger.handlers.clear()
         fmt = logging.Formatter("%(asctime)s %(levelname)s %(message)s")
-        fh = logging.FileHandler(os.path.join(self.run_dir, "log", "all.log"))
-        fh.setFormatter(fmt)
         sh = logging.StreamHandler(sys.stdout)
         sh.setFormatter(fmt)
-        self.logger.addHandler(fh)
+        if self.writer:
+            os.makedirs(os.path.join(self.run_dir, "log"), exist_ok=True)
+            fh = logging.FileHandler(os.path.join(self.run_dir, "log", "all.log"))
+            fh.setFormatter(fmt)
+            self.logger.addHandler(fh)
+        else:
+            sh.setLevel(logging.WARNING)
         self.logger.addHandler(sh)
         self.logger.propagate = False
 
@@ -49,10 +64,14 @@ class RunLogger:
             self.dump_args(args)
 
     def dump_args(self, args: dict):
+        if not self.writer:
+            return
         with open(os.path.join(self.run_dir, "args.json"), "w") as f:
             json.dump({k: _jsonable(v) for k, v in args.items()}, f, indent=2)
 
     def enable_tensorboard(self, tb_dir: Optional[str] = None):
+        if not self.writer:
+            return
         try:
             from torch.utils.tensorboard import SummaryWriter
 
@@ -65,6 +84,8 @@ class RunLogger:
             self._tb.add_scalar(tag, value, step)
 
     def csv_row(self, name: str, header: Sequence[str], row: Iterable):
+        if not self.writer:
+            return
         path = os.path.join(self.run_dir, f"{name}.csv")
         new = not os.path.exists(path)
         with open(path, "a", newline="") as f:

@@ -13,7 +13,8 @@ scale and writes the interests' type, as the TPU kernel's fp32 route does.
 :func:`plan` names its route: bfloat16 interests with a bfloat16 cache
 and D a multiple of 16, or an int8 cache and D a multiple of 32, run on
 the tensor cores (both 16-byte aligned), every other pair on the CUDA
-cores; neither falls back to the plain version. The op has no gradient, in the JAX package either: on the
+cores, in tiles of 32 candidates where 64 do not fit in shared memory
+(float32 rows at the PLM's D = 768); neither falls back to the plain version. The op has no gradient, in the JAX package either: on the
 card it raises when an input requires grad under grad mode, so a gradient
 is never dropped quietly.
 """
@@ -25,24 +26,28 @@ import functools
 import torch
 
 from miner_tpu_torch.ops import common
-from miner_tpu_torch.parallel.news_cache import Int8Rows, gather_rows
+from miner_tpu_torch.parallel.news_cache import Int8Rows, ShardedRows, gather_rows
 
 TILE = 64  # candidates a tile, as in the kernel
+SMALL_TILE = 32  # the CUDA cores' tile where 64 candidates do not fit
+# candidates a tile of each route
+TILES = {"tensor_core": TILE, "cuda_core": TILE, "cuda_core_32": SMALL_TILE}
 MAX_RUN = 16  # the most tiles a block scores
 SM_SMEM = 228 * 1024  # shared memory of an SM (H100), 1 KB of it kept per block
 _MAX_SMEM = 227 * 1024
-_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 9 + (ctypes.c_void_p,)
+_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 10 + (ctypes.c_void_p,)
 # the kernel's cache types: its interests' types and int8 rows
 CACHE_CODES = {**common.DTYPE_CODES, torch.int8: common.INT8_CODE}
 
 
 @functools.lru_cache(maxsize=None)
-def _smem_bytes(K: int, D: int, cache_code: int, interests_code: int, tiles: int) -> int:
+def _smem_bytes(K: int, D: int, cache_code: int, interests_code: int, tiles: int,
+                tile: int = TILE) -> int:
     """Shared memory a block of the kernel takes at these shapes, types and
-    run of tiles, from the kernel's own layout."""
+    run of tiles of ``tile`` candidates, from the kernel's own layout."""
     return common.kernel_function(
-        "lookup_score_fwd", "lookup_score_smem_bytes", (ctypes.c_int,) * 5,
-        ctypes.c_longlong)(K, D, cache_code, interests_code, tiles)
+        "lookup_score_fwd", "lookup_score_smem_bytes", (ctypes.c_int,) * 6,
+        ctypes.c_longlong)(K, D, cache_code, interests_code, tiles, tile)
 
 
 def plan(B: int, C: int, K: int, D: int, cache_dtype: torch.dtype,
@@ -50,10 +55,12 @@ def plan(B: int, C: int, K: int, D: int, cache_dtype: torch.dtype,
     """(route, tiles a block, shared-memory bytes a block) of a launch on a
     card of ``sms`` SMs: "tensor_core" for bfloat16 interests with a
     bfloat16 cache and D a multiple of 16 or an int8 cache and D a multiple
-    of 32, else "cuda_core". A block's
+    of 32, else "cuda_core", or "cuda_core_32" where a tile of 64
+    candidates does not fit in shared memory (:data:`TILES`). A block's
     run of tiles is the shortest (up to :data:`MAX_RUN`) that makes the grid
     about one wave of the blocks the SMs hold. Raises on a type the kernel
-    does not take or shapes that do not fit in shared memory."""
+    does not take, or where even a 32-candidate tile does not fit, naming
+    the bytes it needs."""
     for what, dt, codes in (("cache", cache_dtype, CACHE_CODES),
                             ("interests", interests_dtype, common.DTYPE_CODES)):
         if dt not in codes:
@@ -61,16 +68,18 @@ def plan(B: int, C: int, K: int, D: int, cache_dtype: torch.dtype,
     tensor_core = interests_dtype == torch.bfloat16 and (
         (cache_dtype == torch.bfloat16 and D % 16 == 0)
         or (cache_dtype == torch.int8 and D % 32 == 0))
-    size = lambda n: _smem_bytes(K, D, CACHE_CODES[cache_dtype],
-                                 common.DTYPE_CODES[interests_dtype], n)
-    ntiles = -(-C // TILE)
+    codes = (K, D, CACHE_CODES[cache_dtype], common.DTYPE_CODES[interests_dtype])
+    route, size = "tensor_core" if tensor_core else "cuda_core", lambda n: _smem_bytes(*codes, n)
+    if not tensor_core and size(1) > _MAX_SMEM:
+        route, size = "cuda_core_32", lambda n: _smem_bytes(*codes, n, SMALL_TILE)
+    ntiles = -(-C // TILES[route])
     per_sm = max(1, SM_SMEM // (size(MAX_RUN) + 1024))
     tiles = min(MAX_RUN, ntiles, max(1, -(-B * ntiles // (per_sm * sms))))
     smem = size(tiles)
     if smem > _MAX_SMEM:
         raise ValueError(f"lookup shapes K={K}, D={D} need {smem} bytes of "
                          f"shared memory per block, more than {_MAX_SMEM}")
-    return ("tensor_core" if tensor_core else "cuda_core"), tiles, smem
+    return route, tiles, smem
 
 
 @functools.lru_cache(maxsize=None)
@@ -105,7 +114,13 @@ def lookup_score_fused(cache, cand_idx: torch.Tensor,
     """(B, C, K) scores from a (N, D) cache tensor or an ``Int8Rows``. A CPU
     tensor takes :func:`lookup_score_reference`; a CUDA tensor launches the
     kernel (a float32 or bfloat16 cache, or int8 rows with float32 scales;
-    interests float32 or bfloat16; cand_idx int32) or raises."""
+    interests float32 or bfloat16; cand_idx int32) or raises. A table
+    rank's ``ShardedRows`` scores its own shard, each index mapped to its
+    local row or to the zero row, and the scores are summed over the table
+    group (exact: one rank's term is not zero)."""
+    if isinstance(cache, ShardedRows):
+        return cache.sum(lookup_score_fused(cache.local, cache.local_index(cand_idx),
+                                            interests))
     rows = _rows(cache)
     if rows.dim() != 2 or cand_idx.dim() != 2 or interests.dim() != 3:
         raise ValueError("cache must be (N, D), cand_idx (B, C), interests (B, K, D)")
@@ -148,7 +163,7 @@ def _launch(cache, cand_idx, interests) -> torch.Tensor:
     common.launch("lookup_score_fwd", fn, rows.data_ptr(), scales, cand_idx.data_ptr(),
                   interests.data_ptr(), out.data_ptr(), N, B, C, K, D,
                   CACHE_CODES[rows.dtype], common.DTYPE_CODES[interests.dtype], tiles,
-                  dev.index, common.stream_of(rows))
+                  TILES[route], dev.index, common.stream_of(rows))
     lookup_score_fused.launches += 1
     return out
 

@@ -1,4 +1,5 @@
-"""The news-embedding cache, on one device.
+"""The news-embedding cache, on one device or row-sharded over the mesh's
+table axis.
 
 Counterpart of ``miner_tpu/parallel/news_cache.py``: the news encoder runs
 once over the whole corpus, producing a (N, D) table of news embeddings;
@@ -7,8 +8,16 @@ tail (zero PLM calls per request). ``CacheFiller`` encodes the corpus in
 chunks of 512 news with a Python loop (the JAX package's ``lax.scan``).
 ``Int8Rows`` stores the table as int8 rows with a scale each (half the
 bytes of bf16); ``save_cache`` / ``load_cache`` persist a serving cache so
-that a restart skips the corpus encode. Mesh placement is not ported yet
-(ROADMAP Queue 1: multi-GPU).
+that a restart skips the corpus encode.
+
+Under a mesh with a table axis of T > 1 (``CacheFiller.fill(..., mesh)``,
+JAX's ``_place_on_mesh``) the rows are padded to a multiple of T, and
+table rank t keeps rows [t R_pad / T, (t + 1) R_pad / T) and one zero row
+(``ShardedRows``). :func:`gather_rows` and the lookup+score op map each
+index to its local row, or to the zero row where another rank owns it,
+work on the local shard and sum over the table group: one rank's term is
+the row's, the others' are zeros, so the sum is exact and a sharded cache
+gives what one device's gives, bit for bit.
 """
 from __future__ import annotations
 
@@ -19,8 +28,10 @@ from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from miner_tpu_torch.data.device_table import NewsTable
+from miner_tpu_torch.parallel.mesh import TABLE_AXIS, Mesh
 
 _DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 _NAMED_DTYPES = {name: dt for dt, name in _DTYPE_NAMES.items()}
@@ -56,18 +67,89 @@ def quantize_rows(emb: torch.Tensor) -> Int8Rows:
     return Int8Rows(values, scales, _DTYPE_NAMES[emb.dtype])
 
 
-def gather_rows(table: Union[torch.Tensor, Int8Rows], idx: torch.Tensor) -> torch.Tensor:
+@dataclasses.dataclass
+class ShardedRows:
+    """This table rank's shard of a (R, ...) table row-sharded over the
+    mesh's table axis: ``local`` holds rows [``start``, ``start`` +
+    ``per_shard``) of the table padded to ``per_shard`` x T rows (pad rows
+    zero, an int8 pad row's scale 1), then one zero row. ``num_rows`` is R,
+    ``group`` the table group."""
+
+    local: Union[torch.Tensor, Int8Rows]
+    start: int
+    per_shard: int
+    num_rows: int
+    group: object
+
+    @property
+    def shape(self):
+        return (self.num_rows, *self.local.shape[1:])
+
+    def local_index(self, idx: torch.Tensor) -> torch.Tensor:
+        """Each index's row in ``local``: an index in [-R, 0) wrapped to R +
+        index, a row of this shard to its place, any other row to the zero
+        row (``per_shard``), and an index outside [-R, R) on table rank 0
+        to ``per_shard + 1``, outside the local table (NaN scores, as one
+        device gives them)."""
+        R, S = self.num_rows, self.per_shard
+        row = torch.where(idx < 0, idx + R, idx)
+        local = row - self.start
+        mine = (local >= 0) & (local < S)
+        out = torch.where(mine, local, S)
+        if self.start == 0:
+            out = torch.where((row < 0) | (row >= R), S + 1, out)
+        return out.to(idx.dtype)
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the table group, in place."""
+        dist.all_reduce(x, group=self.group)
+        return x
+
+
+def shard_rows(table: Union[torch.Tensor, Int8Rows], mesh: Mesh
+               ) -> Union[torch.Tensor, Int8Rows, ShardedRows]:
+    """This rank's :class:`ShardedRows` of a whole (R, ...) table, as JAX
+    places a cache on the mesh (``_place_on_mesh``: rows padded to a
+    multiple of T, int8 pad rows with scale 1), plus the zero row; the table
+    itself without a table axis above 1."""
+    T = mesh.shape[TABLE_AXIS]
+    if T == 1:
+        return table
+    R = table.shape[0]
+    S = -(-R // T)
+    start = mesh.table_rank * S
+
+    def part(x, fill=0.0):
+        out = torch.full((S + 1, *x.shape[1:]), fill, dtype=x.dtype, device=x.device)
+        rows = x[start:start + S]
+        out[:len(rows)] = rows
+        return out
+
+    if isinstance(table, Int8Rows):
+        local = Int8Rows(part(table.values), part(table.scales, 1.0), table.dequant_dtype)
+    else:
+        local = part(table)
+    return ShardedRows(local, start, S, R, mesh.table_group)
+
+
+def gather_rows(table: Union[torch.Tensor, Int8Rows, ShardedRows], idx: torch.Tensor
+                ) -> torch.Tensor:
     """Rows of a (R, ...) table for an index tensor of any shape; the rows
     of an :class:`Int8Rows` table dequantized to its ``dequant_dtype`` as
-    ``q.to(dt) * s.to(dt)``."""
+    ``q.to(dt) * s.to(dt)``; those of a :class:`ShardedRows` from the shard
+    that holds each, summed over the table group."""
+    if isinstance(table, ShardedRows):
+        return table.sum(gather_rows(table.local, table.local_index(idx)))
     if isinstance(table, Int8Rows):
         dt = _NAMED_DTYPES[table.dequant_dtype]
         return gather_rows(table.values, idx).to(dt) * gather_rows(table.scales, idx).to(dt)
     return table.index_select(0, idx.reshape(-1)).reshape(*idx.shape, *table.shape[1:])
 
 
-def gathered_dtype(table: Union[torch.Tensor, Int8Rows]) -> torch.dtype:
+def gathered_dtype(table: Union[torch.Tensor, Int8Rows, ShardedRows]) -> torch.dtype:
     """The type of the rows ``gather_rows`` gives from ``table``."""
+    if isinstance(table, ShardedRows):
+        return gathered_dtype(table.local)
     if isinstance(table, Int8Rows):
         return _NAMED_DTYPES[table.dequant_dtype]
     return table.dtype
@@ -75,13 +157,18 @@ def gathered_dtype(table: Union[torch.Tensor, Int8Rows]) -> torch.dtype:
 
 @dataclasses.dataclass
 class NewsEmbeddingCache:
-    embeddings: Union[torch.Tensor, Int8Rows]  # (R, D) in the compute type, or int8 rows
-    category: torch.Tensor  # (R,) int32
+    # (R, D) in the compute type, or int8 rows; a table rank's shard of them
+    embeddings: Union[torch.Tensor, Int8Rows, ShardedRows]
+    category: Union[torch.Tensor, ShardedRows]  # (R,) int32
     category_pad_id: int
 
     @property
     def quantized(self) -> bool:
         return isinstance(self.embeddings, Int8Rows)
+
+    @property
+    def sharded(self) -> bool:
+        return isinstance(self.embeddings, ShardedRows)
 
     def quantize(self) -> "NewsEmbeddingCache":
         """The int8 version of this cache (itself if already quantized)."""
@@ -105,7 +192,12 @@ def save_cache(cache: NewsEmbeddingCache, path: str, num_rows: int,
     holding the caller's ``fingerprint``, the dtype, ``num_rows`` and
     ``category_pad_id``), written to ``path + ".tmp.npz"`` and renamed, so
     a reader never sees half a file. bfloat16 travels as its raw bits in
-    uint16, the dtype named in the metadata."""
+    uint16, the dtype named in the metadata. A table-sharded cache is
+    refused: serving over the table axis is not ported yet (ROADMAP Queue 1
+    item 6)."""
+    if cache.sharded:
+        raise NotImplementedError("save_cache of a table-sharded cache (--mesh_table > 1) is "
+                                  "not ported yet (ROADMAP Queue 1 item 6)")
     arrays = {}
     if cache.quantized:
         q = cache.embeddings
@@ -129,11 +221,15 @@ def save_cache(cache: NewsEmbeddingCache, path: str, num_rows: int,
 
 
 def load_cache(path: str, fingerprint: dict,
-               device: torch.device = torch.device("cpu")
+               device: torch.device = torch.device("cpu"), mesh: Optional[Mesh] = None
                ) -> Optional[NewsEmbeddingCache]:
     """A cache persisted by :func:`save_cache` (by either package), on
     ``device``; None when the file is absent or its fingerprint differs from
-    ``fingerprint`` in any key (the caller then encodes the corpus anew)."""
+    ``fingerprint`` in any key (the caller then encodes the corpus anew).
+    Refused under a table axis above 1, as :func:`save_cache`."""
+    if mesh is not None and mesh.shape[TABLE_AXIS] > 1:
+        raise NotImplementedError("load_cache onto a table-sharded mesh (--mesh_table > 1) "
+                                  "is not ported yet (ROADMAP Queue 1 item 6)")
     if not os.path.exists(path):
         return None
     with np.load(path) as z:
@@ -167,11 +263,15 @@ class CacheFiller:
         self.encode_fn = encode_fn
         self.batch_size = batch_size
 
-    def fill(self, table: NewsTable, inference: bool = True) -> NewsEmbeddingCache:
+    def fill(self, table: NewsTable, inference: bool = True,
+             mesh: Optional[Mesh] = None) -> NewsEmbeddingCache:
         """Under ``torch.inference_mode()``, or ``torch.no_grad()`` when not
         ``inference``: cached-history training gathers rows of the cache
         into micro-steps that autograd records, and an inference tensor
-        cannot be saved for backward."""
+        cannot be saved for backward. Under a ``mesh`` with a table axis
+        above 1 every rank encodes the whole corpus, as JAX's fill does,
+        and keeps its shard (:func:`shard_rows`): the rows are those of one
+        device's cache bit for bit."""
         R = table.title.shape[0]
         chunks = []
         with torch.inference_mode() if inference else torch.no_grad():
@@ -183,6 +283,8 @@ class CacheFiller:
                     s = table.sapo[start:start + self.batch_size]
                     sm = (s != table.pad_token_id).to(torch.int32)
                 chunks.append(self.encode_fn(t, tm, s, sm))
-        return NewsEmbeddingCache(embeddings=torch.cat(chunks),
-                                  category=table.category,
+            embeddings, category = torch.cat(chunks), table.category
+            if mesh is not None:
+                embeddings, category = shard_rows(embeddings, mesh), shard_rows(category, mesh)
+        return NewsEmbeddingCache(embeddings=embeddings, category=category,
                                   category_pad_id=table.category_pad_id)

@@ -27,16 +27,21 @@ from typing import Any, Dict
 
 import torch
 
+from miner_tpu_torch.parallel import mesh
+
 NAMES = ("bestAucModel", "bestLossModel", "finalModel")
 
 
 def save(path: str, payload: Dict[str, Any]) -> None:
     """Write ``payload`` to ``path`` atomically (a reader never sees half a
-    file)."""
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
+    file). Under a process group rank 0 writes and every rank waits for it
+    at a barrier, so the file is the same whatever the number of ranks."""
+    if mesh.is_writer():
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+    mesh.barrier()
 
 
 def load(path: str) -> Dict[str, Any]:

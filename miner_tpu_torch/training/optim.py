@@ -17,7 +17,19 @@ each semantic:
   * MultiSteps' accumulation: the mean of k micro-batch gradients, clipped
     once, one AdamW update. The schedule counts updates, not micro-batches,
     and the first update runs at the schedule's value for 0 (lr 0 under
-    warmup), as optax's count starts at 0.
+    warmup), as optax's count starts at 0;
+  * over a mesh's data axis (``grad_group``, the ranks that share this
+    rank's model and table coordinates): each rank's accumulated gradient
+    is its share of the global batch's, and at the update they are summed
+    over the group (one ``all_reduce`` a bucket of flattened fp32 gradients)
+    before the division and the clip, so the clip sees the global gradient,
+    as optax's over a sharded gradient does. Ranks that share rows (the
+    table axis's replicas, ``replica_group``) compute the same gradients
+    but for the order of the card's atomic adds, so they take the sum of
+    their group's first rank (``replica_root``, a broadcast), and every
+    rank applies the same update, bit for bit. No
+    ``DistributedDataParallel``: its hooks would reduce every micro-batch,
+    where MultiSteps sums once an update.
 
 Frozen parameters (``requires_grad`` False, ``--freeze_transformer``) are
 left out, as optax's ``set_to_zero`` leaves them out of the clipped norm. A
@@ -30,11 +42,14 @@ from __future__ import annotations
 
 import math
 import re
+import time
 from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 _NO_DECAY = re.compile(r"(bias|scale|\bln\b|layer_norm|layernorm)", re.IGNORECASE)
+BUCKET = 1 << 24  # fp32 gradient elements a bucket of the sum over the data group (64 MB)
 
 
 def linear_warmup_schedule(learning_rate: float, warmup_steps: int,
@@ -84,7 +99,8 @@ class Optimizer:
                  learning_rate: float, total_steps: int, warmup_steps: int,
                  weight_decay: float = 0.01, max_grad_norm: float = 1.0,
                  accum_steps: int = 1, b1: float = 0.9, b2: float = 0.999,
-                 eps: float = 1e-8):
+                 eps: float = 1e-8, grad_group=None, replica_group=None,
+                 replica_root: int = 0):
         groups = decay_groups(named_params, weight_decay)
         self.params = [p for g in groups for p in g["params"]]
         self.adamw = torch.optim.AdamW(groups, lr=0.0, betas=(b1, b2), eps=eps)
@@ -94,6 +110,12 @@ class Optimizer:
         self.accum_steps = max(1, accum_steps)
         self.mini_step = 0  # micro-batches accumulated towards the next update
         self.updates = 0
+        self.grad_group, self.replica_group, self.replica_root = (grad_group, replica_group,
+                                                                  replica_root)
+        # each update's sum over the data group (and broadcast to the replicas)
+        self.sum_seconds: List[float] = []
+        # the last update's global gradient norm, before the clip (on the device)
+        self.grad_norm: Optional[torch.Tensor] = None
 
     def lr(self) -> float:
         """The learning rate of the next update."""
@@ -109,11 +131,15 @@ class Optimizer:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
         with torch.no_grad():
+            if self.grad_group is not None or self.replica_group is not None:
+                self.sum_seconds.append(sum_over(grads, self.grad_group, self.replica_group,
+                                                 self.replica_root))
             if self.accum_steps > 1:
                 for g in grads:
                     g.div_(self.accum_steps)
             norm = torch.linalg.vector_norm(
                 torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+            self.grad_norm = norm
             below = norm < self.max_grad_norm
             for g in grads:
                 g.copy_(torch.where(below, g, g / norm * self.max_grad_norm))
@@ -134,3 +160,35 @@ class Optimizer:
         self.adamw.load_state_dict(state["adamw"])
         self.mini_step = int(state["mini_step"])
         self.updates = int(state["updates"])
+
+
+def sum_over(tensors: List[torch.Tensor], group, replicas=None, root: int = 0) -> float:
+    """Sum same-typed ``tensors`` over ``group`` in place (none: as they
+    are), then give ``replicas`` the sums of their rank ``root`` (a global
+    rank), flattened into buckets of up to :data:`BUCKET` elements (a tensor
+    larger than that is a bucket of its own): one ``all_reduce`` and one
+    ``broadcast`` a bucket. Returns the seconds it took, the device
+    synchronized before and after."""
+    sync = tensors and tensors[0].is_cuda
+    if sync:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bucket: List[torch.Tensor] = []
+    size = 0
+    for i, t in enumerate(tensors):
+        bucket.append(t)
+        size += t.numel()
+        if size >= BUCKET or i == len(tensors) - 1:
+            flat = torch.cat([b.reshape(-1) for b in bucket])
+            if group is not None:
+                dist.all_reduce(flat, group=group)
+            if replicas is not None:
+                dist.broadcast(flat, root, group=replicas)
+            offset = 0
+            for b in bucket:
+                b.copy_(flat[offset:offset + b.numel()].view_as(b))
+                offset += b.numel()
+            bucket, size = [], 0
+    if sync:
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0

@@ -69,6 +69,22 @@ A micro-step's dropout is a pure function of (``--seed`` + 1, micro-step)
 (``models/dropout.py``), so a resumed run draws what the interrupted one
 would have. ``--param_dtype`` other than float32 is refused, as the JAX
 package refuses it, and so is ``--no-fused_kernels`` on a card.
+
+Over a mesh of ranks (``--mesh_data``, ``--mesh_table``; one process a
+rank under ``python -m torch.distributed.run``, ``parallel/mesh.py``;
+JAX's mesh, trainer.py:120-132) every rank samples and batches the same
+global batches, as JAX's processes do, and feeds its rows of each
+(``parallel/sharding.py:shard_batch``); ``--train_batch_size`` and
+``--eval_batch_size`` stay global. A rank's loss is its share of the global
+batch's (a mean loss times 1 / the data size; the pretrain kind's sum as
+it is), so the gradients summed over the data group at each update
+(``Optimizer``) are the global batch's, and every rank applies the same
+update. An eval gathers every rank's logits (and the Miner's interests)
+into the whole batch and computes its loss and metrics as one rank does.
+The news-embedding caches (cached eval, cached-history training) are
+row-sharded over the table axis (``parallel/news_cache.py``). Rank 0
+writes the run's files and checkpoints. ``--mesh_model`` above 1 is
+refused: tensor parallelism is not ported yet.
 """
 from __future__ import annotations
 
@@ -119,6 +135,9 @@ from miner_tpu_torch.models import hf_import
 from miner_tpu_torch.models.dropout import DropoutRNG
 from miner_tpu_torch.models.plm import cast_to_compute_, normal_init_
 from miner_tpu_torch.observability.logging import RunLogger
+from miner_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, MeshConfig
+from miner_tpu_torch.parallel.sharding import gather_rows as gather_batch
+from miner_tpu_torch.parallel.sharding import replicate, shard_batch
 from miner_tpu_torch.parallel.news_cache import (
     CacheFiller,
     NewsEmbeddingCache,
@@ -131,6 +150,7 @@ from miner_tpu_torch.training import checkpoint, losses
 from miner_tpu_torch.training.optim import (
     Optimizer,
     scheduled_lr_value,
+    sum_over,
     warmup_steps_from_ratio,
 )
 from miner_tpu_torch.utils import candidate_bucket, resolve_device
@@ -168,8 +188,14 @@ def _refuse_flags(args, device: torch.device) -> None:
     than float32 (the JAX package refuses it too, trainer.py:125-131), for
     ``--remat_policy`` without ``--remat`` (JAX's ``plm_config`` raises the
     same error in every subcommand that builds a model) and for
-    ``--no-fused_kernels`` on a card, instead of running something else
-    than was asked for."""
+    ``--no-fused_kernels`` on a card, and for ``--mesh_model`` above 1
+    (tensor parallelism), instead of running something else than was asked
+    for."""
+    if getattr(args, "mesh_model", 1) > 1:
+        raise NotImplementedError(
+            f"--mesh_model {args.mesh_model}: tensor and expert parallelism "
+            "(miner_tpu/parallel/tp.py) are not ported yet; they come with the next "
+            "slice (ROADMAP Queue 1 item 6). Use --mesh_data and --mesh_table")
     name = (args.model_name or "Miner").lower()
     if name not in _KINDS:
         raise ValueError(f"unknown --model_name {args.model_name!r}")
@@ -218,6 +244,11 @@ class Trainer:
         self.args = args
         self.device = resolve_device(getattr(args, "device", None))
         _refuse_flags(args, self.device)
+        # the ranks of the process group (one without a launcher) as JAX's
+        # mesh; raises JAX's ValueError for a mesh that does not cover them
+        self.mesh = Mesh(MeshConfig(getattr(args, "mesh_data", -1),
+                                    getattr(args, "mesh_table", 1),
+                                    getattr(args, "mesh_model", 1)))
         # the pretrain subcommand pretrains the news encoder alone whatever
         # --model_name says (its default is "Miner"; trainer.py:111-112)
         if getattr(args, "mode", None) == "pretrain":
@@ -238,6 +269,28 @@ class Trainer:
         # 'loss': eval loss and bestLossModel; 'metrics': the ranking
         # evaluator and bestAucModel (reference: src/trainer.py:181-206)
         self.eval_info = frozenset(args.evaluation_info or ("metrics", "loss"))
+
+    # ------------------------------------------------------------------ mesh
+    @property
+    def _data_size(self) -> int:
+        return self.mesh.shape[DATA_AXIS]
+
+    def _share(self, loss: torch.Tensor) -> torch.Tensor:
+        """This rank's share of the global batch's loss, whose gradients
+        summed over the data group are the global batch's: a mean over
+        rows (every kind but pretrain) times 1 / the data size; the pretrain
+        kind's contrastive sum as it is. The loss itself on one data rank."""
+        if self._data_size == 1 or self.kind == "pretrain":
+            return loss
+        return loss / self._data_size
+
+    def _global(self, share: torch.Tensor) -> torch.Tensor:
+        """The global batch's loss: the ranks' shares summed over the data
+        group."""
+        if self.mesh.data_group is not None:
+            share = share.clone()
+            torch.distributed.all_reduce(share, group=self.mesh.data_group)
+        return share
 
     # ------------------------------------------------------------------ data
     def _load_store(self, news_path: str, augmentations=None) -> NewsStore:
@@ -526,10 +579,12 @@ class Trainer:
               label: torch.Tensor, train: bool,
               row_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The kind's training or eval loss (trainer.py:391-408, 947-953)."""
-        if self.kind == "vanilla":
-            if train:
-                return losses.vanilla_loss(logits, label)
-            return losses.logsigmoid_eval_loss(logits, label, row_mask)
+        if self.kind in ("unbert", "vanilla"):
+            if not train:
+                return losses.logsigmoid_eval_loss(logits, label, row_mask)
+            if self.kind == "unbert":
+                return losses.binary_cross_entropy_with_logits(logits, label)
+            return losses.vanilla_loss(logits, label)
         if train:
             return losses.miner_loss(interests, logits, label)
         return losses.miner_eval_loss(interests, logits, label, row_mask)
@@ -638,46 +693,46 @@ class Trainer:
                          total_steps=total_updates, warmup_steps=warmup,
                          weight_decay=a.weight_decay,
                          max_grad_norm=a.max_grad_norm,
-                         accum_steps=a.gradient_accumulation_steps)
+                         accum_steps=a.gradient_accumulation_steps,
+                         grad_group=self.mesh.data_group,
+                         replica_group=self.mesh.table_group,
+                         replica_root=self.mesh.table_root)
+
+    def _outputs(self, model: nn.Module, table: NewsTable, batch: Dict[str, np.ndarray],
+                 rng: Optional[DropoutRNG] = None
+                 ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+        """(interests (the Miner's) or None, logits) of a batch of index
+        rows through the model, with ``rng``'s dropout; UnBERT's of a batch
+        of packed rows (``table`` unused)."""
+        if self.kind == "unbert":
+            return None, model(self._unbert_features(batch), rng)
+        out = model(table.lookup(self._index(batch["cand_idx"]),
+                                 self._index(batch["his_idx"])), rng)
+        return out if self.kind == "miner" else (None, out)
 
     def _apply_and_loss(self, model: nn.Module, table: NewsTable,
-                        batch: Dict[str, np.ndarray], train: bool,
-                        rng: Optional[DropoutRNG] = None,
-                        row_mask: Optional[torch.Tensor] = None
+                        batch: Dict[str, np.ndarray], rng: Optional[DropoutRNG] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(loss, logits) of a batch of index rows (``_apply_and_loss``,
-        trainer.py:354-408); for the pretrain kind (loss, news vectors); for
-        UnBERT of a batch of packed rows (``table`` unused)."""
+        """(training loss, logits) of a batch (``_apply_and_loss``,
+        trainer.py:354-408); for the pretrain kind (loss, news vectors)."""
         if self.kind == "pretrain":
-            return self._pretrain_loss(model, table, batch["cand_idx"], self._num_augs,
-                                       rng, row_mask)
-        if self.kind == "unbert":
-            logits = model(self._unbert_features(batch), rng)
-            label = torch.as_tensor(batch["label"], device=self.device)
-            if train:
-                return losses.binary_cross_entropy_with_logits(logits, label), logits
-            return losses.logsigmoid_eval_loss(logits, label, row_mask), logits
-        model_batch = table.lookup(self._index(batch["cand_idx"]),
-                                   self._index(batch["his_idx"]))
+            reprs = self._pretrain_reprs(model, table, batch["cand_idx"], rng)
+            return losses.pretrain_contrastive(reprs, self._num_augs), reprs
+        interests, logits = self._outputs(model, table, batch, rng)
         label = torch.as_tensor(batch["label"], device=self.device)
-        out = model(model_batch, rng)
-        interests, logits = out if self.kind == "miner" else (None, out)
-        return self._loss(interests, logits, label, train, row_mask), logits
+        return self._loss(interests, logits, label, True), logits
 
-    def _pretrain_loss(self, model: nn.Module, table: NewsTable, cand_idx: np.ndarray,
-                       num_augs: int, rng: Optional[DropoutRNG] = None,
-                       row_mask: Optional[torch.Tensor] = None
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The contrastive loss of (B, C) candidate rows (trainer.py:354-370):
-        the B * C news through the encoder, back to (B, C, D)."""
+    def _pretrain_reprs(self, model: nn.Module, table: NewsTable, cand_idx: np.ndarray,
+                        rng: Optional[DropoutRNG] = None) -> torch.Tensor:
+        """The (B, C, D) news vectors of (B, C) candidate rows
+        (trainer.py:354-370): the B * C news through the encoder."""
         cand = table.lookup_candidates(self._index(cand_idx))
         B, C = cand["cand_title"].shape[:2]
         sapo = sapo_mask = None
         if "cand_sapo" in cand:
             sapo, sapo_mask = cand["cand_sapo"].flatten(0, 1), cand["cand_sapo_mask"].flatten(0, 1)
-        reprs = model(cand["cand_title"].flatten(0, 1), cand["cand_title_mask"].flatten(0, 1),
-                      sapo, sapo_mask, rng).reshape(B, C, -1)
-        return losses.pretrain_contrastive(reprs, num_augs, row_mask), reprs
+        return model(cand["cand_title"].flatten(0, 1), cand["cand_title_mask"].flatten(0, 1),
+                     sapo, sapo_mask, rng).reshape(B, C, -1)
 
     def train_step(self, model: nn.Module, table: NewsTable,
                    batch: Dict[str, np.ndarray], optimizer: Optimizer,
@@ -687,29 +742,36 @@ class Trainer:
         ``micro_step``, backward into the accumulated gradients, and the
         optimizer's update when one is due. Past ``his_cache``'s warmup the
         forward is the cached-history one (``_cached_his_loss``), the cache
-        rebuilt first when it is due. Returns the loss, on the device."""
-        rng = DropoutRNG(self.args.seed + 1, micro_step, self.device)
+        rebuilt first when it is due. Over a mesh ``batch`` holds this
+        rank's rows (``shard_batch``), the backward runs from its share of
+        the loss and its dropout takes the data coordinate. Returns the
+        global batch's loss, on the device."""
+        data_rank = self.mesh.data_rank if self._data_size > 1 else None
+        rng = DropoutRNG(self.args.seed + 1, micro_step, self.device, data_rank)
         if his_cache is not None and his_cache.cached(micro_step):
             if his_cache.due(micro_step):
                 his_cache.embeddings = self.fill_history_cache(model, table)
                 his_cache.fills.append(micro_step)
             loss, _ = self._cached_his_loss(model, table, batch, his_cache.embeddings, rng)
         else:
-            loss, _ = self._apply_and_loss(model, table, batch, True, rng)
-        loss.backward()
+            loss, _ = self._apply_and_loss(model, table, batch, rng)
+        share = self._share(loss)
+        share.backward()
         optimizer.step()
-        return loss.detach()
+        return self._global(share.detach())
 
     def fill_history_cache(self, model: nn.Module, table: NewsTable) -> torch.Tensor:
         """The (R, D) news embeddings of every row of the train table from
         the live weights, as the eval cache is built (trainer.py:763-765):
         the model in eval mode (no dropout, no draw from any micro-step's
         stream), then back in its own mode; under ``no_grad``, so that the
-        rows a micro-step gathers from it are ordinary tensors."""
+        rows a micro-step gathers from it are ordinary tensors. Row-sharded
+        over the mesh's table axis."""
         was_training = model.training
         model.eval()
         try:
-            return CacheFiller(model.encode_news).fill(table, inference=False).embeddings
+            return CacheFiller(model.encode_news).fill(table, inference=False,
+                                                       mesh=self.mesh).embeddings
         finally:
             model.train(was_training)
 
@@ -770,6 +832,9 @@ class Trainer:
         if optimizer.mini_step:  # mid-accumulation: keep the partial sum
             grad_acc = {n: p.grad.detach() for n, p in model.named_parameters()
                         if p.grad is not None}
+            if self.mesh.data_group is not None:  # the ranks' shares summed
+                grad_acc = {n: g.clone() for n, g in grad_acc.items()}
+                sum_over(list(grad_acc.values()), self.mesh.data_group)
         return {"params": model.state_dict(), "optimizer": optimizer.state_dict(),
                 "micro_step": micro_step, "rng_seed": self.args.seed + 1,
                 "grad_acc": grad_acc, "args": _plain(vars(self.args))}
@@ -778,8 +843,10 @@ class Trainer:
         payload = checkpoint.optimizer_payload(path)
         model.load_state_dict(payload["params"], strict=True)
         optimizer.load_state_dict(payload["optimizer"])
+        # the partial sum is the data group's whole: one data rank takes it
+        grad_acc = payload["grad_acc"] if self.mesh.data_rank == 0 else None
         for name, p in model.named_parameters():
-            grad = (payload["grad_acc"] or {}).get(name)
+            grad = (grad_acc or {}).get(name)
             p.grad = None if grad is None else grad.to(p.device)
         return int(payload["micro_step"])
 
@@ -813,7 +880,7 @@ class Trainer:
         logger.enable_tensorboard(os.path.join(logger.run_dir,
                                                a.tensorboard_path or "tb"))
         log = self._log = logger.logger
-        log.info("device: %s", self.device)
+        log.info("device: %s, mesh: %s", self.device, self.mesh.shape)
 
         store = self._load_store(a.train_news_path, a.augmentations)
         self._num_augs = store.num_variants - 1
@@ -848,6 +915,7 @@ class Trainer:
         if a.resume_from:
             global_step = self._resume(a.resume_from, model, optimizer)
             log.info("resumed from %s at step %d", a.resume_from, global_step)
+        replicate(model)  # every rank from rank 0's parameters (checked equal)
         # resume is exact: a step's data and dropout are pure functions of
         # (seed, epoch) and (seed, step), so completed epochs are skipped and
         # the partial epoch's consumed batches fast-forwarded
@@ -883,14 +951,16 @@ class Trainer:
             for i, batch in enumerate(batcher.batches(block, epoch)):
                 if epoch == start_epoch and i < skip_batches:
                     continue
-                loss = self.train_step(model, table, batch, optimizer, global_step, his_cache)
+                loss = self.train_step(model, table, shard_batch(self.mesh, batch), optimizer,
+                                       global_step, his_cache)
                 global_step += 1
                 ex_counter += a.train_batch_size
                 epoch_losses.append(loss)
                 if global_step % a.logging_steps == 0:
                     loss_v = float(loss)
                     dt = time.time() - t_last
-                    eps = ex_counter / dt if dt > 0 else 0.0
+                    # per rank, as JAX logs eps / n_devices (trainer.py:782)
+                    eps = ex_counter / dt / self.mesh.size if dt > 0 else 0.0
                     ex_counter, t_last = 0, time.time()
                     logger.log_train(epoch, global_step, loss_v,
                                      scheduled_lr_value(a.learning_rate, warmup,
@@ -945,7 +1015,11 @@ class Trainer:
         summed eval loss). UnBERT scores the packed row of every eval
         candidate over ``store`` with the model (trainer.py:986-998):
         ``--cached_eval`` and ``--fast_eval`` do not apply to a
-        cross-encoder."""
+        cross-encoder. Over a mesh each rank scores its rows of every batch
+        (the cache row-sharded over the table axis) and the logits, with
+        the Miner's interests, are gathered into the whole batch, whose loss
+        and metrics every rank computes as one rank does; rank 0 writes the
+        files."""
         a = self.args
         fast = a.fast_eval and self.kind != "unbert"
         if self.kind == "unbert":
@@ -962,22 +1036,20 @@ class Trainer:
         model.eval()
         cache = None
         if a.cached_eval and not fast and self.kind != "unbert":
-            cache = CacheFiller(model.encode_news).fill(table)
+            cache = CacheFiller(model.encode_news).fill(table, mesh=self.mesh)
         total_loss = 0.0
         with torch.inference_mode():
             for batch in batcher.batches(block):
                 valid = int(batch.pop("valid"))
                 B = len(batch["label"])
                 row_mask = torch.arange(B, device=self.device) < valid
-                if cache is not None:
-                    interests, logits = self._cached_scores(
-                        model, cache, self._index(batch["cand_idx"]),
-                        self._index(batch["his_idx"]))
-                    label = torch.as_tensor(batch["label"], device=self.device)
-                    loss = self._loss(interests, logits, label, False, row_mask)
-                else:
-                    loss, logits = self._apply_and_loss(model, table, batch, False,
-                                                        row_mask=row_mask)
+                interests, logits = self._eval_outputs(model, table, cache,
+                                                       shard_batch(self.mesh, batch))
+                if interests is not None:
+                    interests = gather_batch(self.mesh, interests)
+                logits = gather_batch(self.mesh, logits)
+                label = torch.as_tensor(batch["label"], device=self.device)
+                loss = self._loss(interests, logits, label, False, row_mask)
                 total_loss += float(loss)
                 if "metrics" in self.eval_info:
                     evaluator.eval_batch(logits.float().cpu().numpy(),
@@ -985,23 +1057,37 @@ class Trainer:
         model.train(was_training)
         scores = {}
         if "metrics" in self.eval_info:
-            scores = evaluator.compute_scores(a.metrics, save_result=a.save_eval_result,
-                                              path=logger.run_dir)
+            scores = evaluator.compute_scores(
+                a.metrics, save_result=a.save_eval_result and logger.writer,
+                path=logger.run_dir)
         eval_loss = total_loss if "loss" in self.eval_info else None
         logger.log_eval(epoch, step, scores, eval_loss)
-        if "metrics" in self.eval_info:
+        if "metrics" in self.eval_info and logger.writer:
             if a.save_eval_result and hasattr(evaluator, "save_predictions"):
                 evaluator.save_predictions(logger.run_dir)
             if a.save_ranking and hasattr(evaluator, "save_ranking"):
                 evaluator.save_ranking(logger.run_dir)
         return scores, eval_loss
 
+    def _eval_outputs(self, model: nn.Module, table: NewsTable,
+                      cache: Optional[NewsEmbeddingCache], batch: Dict[str, np.ndarray]
+                      ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+        """(interests (the Miner's) or None, logits) of an eval batch (this
+        rank's rows of it over a mesh): from ``cache`` when given, else
+        through the model (``_outputs``)."""
+        if cache is not None:
+            return self._cached_scores(model, cache, self._index(batch["cand_idx"]),
+                                       self._index(batch["his_idx"]))
+        return self._outputs(model, table, batch)
+
     def _run_pretrain_eval(self, model: nn.Module, table: NewsTable, block,
                            num_augs: int, logger: RunLogger, epoch: int,
                            step: int) -> float:
         """The pretrain kind's eval (trainer.py:499-548): the contrastive
         loss summed over the batches of ``block``, the padded tail's rows
-        masked, logged to eval.csv with no ranking metrics."""
+        masked, logged to eval.csv with no ranking metrics. Over a mesh each
+        rank encodes its rows and the news vectors are gathered into the
+        whole batch."""
         batcher = Batcher(self.args.eval_batch_size, drop_last=False, shuffle=False)
         was_training = model.training
         model.eval()
@@ -1011,8 +1097,10 @@ class Trainer:
                 valid = int(batch.pop("valid"))
                 B = len(batch["cand_idx"])
                 row_mask = torch.arange(B, device=self.device) < valid
-                loss, _ = self._pretrain_loss(model, table, batch["cand_idx"], num_augs,
-                                              row_mask=row_mask)
+                reprs = self._pretrain_reprs(model, table,
+                                             shard_batch(self.mesh, batch)["cand_idx"])
+                loss = losses.pretrain_contrastive(gather_batch(self.mesh, reprs),
+                                                   num_augs, row_mask)
                 total += float(loss)
         model.train(was_training)
         logger.log_eval(epoch, step, {}, total)

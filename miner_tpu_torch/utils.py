@@ -1,9 +1,13 @@
 """Small shared utilities: bucketing, rounding, cosine similarity, devices."""
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
+import torch.distributed as dist
+
+from miner_tpu_torch.parallel.mesh import local_world_size, ranks_have_own_cards
 
 
 def candidate_bucket(n: int, minimum: int = 16) -> int:
@@ -43,8 +47,13 @@ def pairwise_cosine_similarity(x: torch.Tensor, y: torch.Tensor,
 def resolve_device(name: Optional[str]) -> torch.device:
     """The device named by ``--device``; unset means ``cuda``. Asking for
     a card that is not there raises: the port never carries on quietly on
-    the CPU."""
+    the CPU. Under a process group a card without an index is the rank's
+    own, ``cuda:LOCAL_RANK``, where each rank has one, and ``cuda:0`` where
+    the ranks share it (``parallel.mesh.ranks_have_own_cards``)."""
     device = torch.device(name or "cuda")
+    if device.type == "cuda" and device.index is None and dist.is_initialized():
+        own = ranks_have_own_cards(local_world_size(), name)
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)) if own else 0)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"--device {name or 'cuda (default)'} asks for a CUDA card, but "

@@ -228,7 +228,7 @@ def test_model_on_a_batch_matches_jax(pair):
     assert isinstance(model, FastformerUserModel)
     model.load_state_dict(params_from_jax(jax.device_get(params)), strict=True)
     with torch.no_grad():
-        _, got = tt._apply_and_loss(model.eval(), tt._make_table(ts), batch, False)
+        _, got = tt._eval_outputs(model.eval(), tt._make_table(ts), None, batch)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=2e-5)
 
 
@@ -251,7 +251,7 @@ def test_bf16_compute_keeps_the_user_encoder_in_float32(fixture_dir):
     model = tt.build_model()
     model.load_state_dict(params_from_jax(jax.device_get(params)), strict=True)
     with torch.no_grad():
-        _, got = tt._apply_and_loss(model.eval(), tt._make_table(ts), batch, False)
+        _, got = tt._eval_outputs(model.eval(), tt._make_table(ts), None, batch)
     assert got.dtype == torch.float32
     want = np.asarray(want)
     np.testing.assert_allclose(got.numpy(), want, rtol=0,
@@ -462,7 +462,7 @@ def test_dropout_is_a_function_of_seed_and_step(pair):
     model = tt.build_model().train()
     assert model.fast_attn.cfg.hidden_dropout == 0.2
     with torch.no_grad():
-        run = lambda step: tt._apply_and_loss(model, table, batch, True,
+        run = lambda step: tt._apply_and_loss(model, table, batch,
                                               DropoutRNG(8, step, "cpu"))[1]
         a, b, c = run(0), run(0), run(1)
         model.eval()

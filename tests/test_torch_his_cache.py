@@ -309,7 +309,7 @@ def test_cached_forward_equals_the_full_forward(fixture_dir, family, no_dropout)
     model.eval()
     ttable = tt._make_table(ts)
     with torch.no_grad():
-        full_loss, full = tt._apply_and_loss(model, ttable, batch, True)
+        full_loss, full = tt._apply_and_loss(model, ttable, batch)
         emb = tt.fill_history_cache(model, ttable)
         assert not model.training and emb.shape[0] == ts.num_news
         loss, cached = tt._cached_his_loss(model, ttable, batch, emb)

@@ -970,8 +970,8 @@ def test_lookup_score_at_the_plm_width_on_card(rng, cache_dt, C):
     block: 157,184 bytes at runs of 16 tiles), an int8 cache still two;
     over one candidate, a slate, a count off the tile and a corpus top-k
     (runs of several tiles, each gathered after the last is scored),
-    against the plain version. An fp32 cache at D = 768 fits in neither
-    and is refused."""
+    against the plain version. (An fp32 cache at D = 768 takes tiles of 32
+    candidates: ``test_lookup_score_fp32_at_the_plm_width_on_card``.)"""
     dev = _card()
     bf16 = torch.bfloat16
     if cache_dt == bf16:
@@ -985,9 +985,61 @@ def test_lookup_score_at_the_plm_width_on_card(rng, cache_dt, C):
     assert launch_counts()["lookup_score_fwd"] == before + 1
     assert got.shape == (3, C, 32) and torch.isfinite(got).all()
     assert (got.float() - want.float()).abs().max().item() <= _tol(bf16, want)
-    f32 = _lookup_case(rng, dev, 50, 2, 10, 32, 768, torch.float32, torch.float32)
-    with pytest.raises(ValueError, match="shared memory"):
-        lookup_score.lookup_score_fused(*f32)
+
+
+def test_lookup_plan_takes_32_candidate_tiles_where_64_do_not_fit(monkeypatch):
+    """fp32 rows at the PLM's D = 768 (the lstm combine without
+    --apply_reduce_dim): a 64-candidate tile in two buffers needs ~500 KB a
+    block, so the CUDA cores take tiles of 32 (runs counted in them), the
+    library asked for their size; a shape where even those do not fit is
+    refused, naming the bytes it needs. The sizes stand in for the
+    library's: 98,816 bytes of interests, 98,304 a buffer of 32 fp32 rows,
+    one buffer (runs of 16 tiles)."""
+    asked = []
+
+    def size(K, D, c, i, n, tile=lookup_score.TILE):
+        asked.append(tile)
+        return 98_816 + (4 if tile == 64 else 1) * 98_304 + 128 * n
+
+    monkeypatch.setattr(lookup_score, "_smem_bytes", size)
+    f32 = torch.float32
+    route, tiles, smem = lookup_score.plan(32, 4096, 32, 768, f32, f32)
+    assert route == "cuda_core_32" and lookup_score.TILES[route] == 32
+    assert smem == size(32, 768, 0, 0, tiles, 32) <= 227 * 1024
+    assert tiles == lookup_score.MAX_RUN and set(asked) == {64, 32}
+    assert lookup_score.plan(64, 1, 32, 768, f32, f32)[:2] == ("cuda_core_32", 1)
+    # bf16 rows with bf16 interests keep the tensor cores' 64-candidate tile
+    monkeypatch.setattr(lookup_score, "_smem_bytes", lambda *a: 157_184)
+    assert lookup_score.plan(32, 4096, 32, 768, torch.bfloat16, torch.bfloat16)[0] == \
+        "tensor_core"
+    monkeypatch.setattr(lookup_score, "_smem_bytes", lambda *a: 300_000 + 7 * len(a))
+    with pytest.raises(ValueError, match="need 300042 bytes of shared memory"):
+        lookup_score.plan(32, 4096, 32, 768, f32, f32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [1, 10, 100, 4096])
+@pytest.mark.parametrize("int_dt", [torch.float32, torch.bfloat16])
+def test_lookup_score_fp32_at_the_plm_width_on_card(rng, int_dt, C):
+    """fp32 rows at the PLM's D = 768 (the lstm combine's news vectors
+    without --apply_reduce_dim, a cached eval's and a corpus top-k's): the
+    CUDA cores in 32-candidate tiles, one buffer (~203 KB a block at runs
+    of 16), over one candidate, a slate, a count off the tile, an eval
+    batch of 64 rows and a corpus top-k, against the plain version."""
+    dev = _card()
+    f32 = torch.float32
+    assert lookup_score.plan(32, C, 32, 768, f32, int_dt)[0] == "cuda_core_32"
+    assert _c_lookup_smem_bytes(32, 768, f32, f32, 16) > 227 * 1024  # 64 candidates
+    assert lookup_score._smem_bytes(32, 768, 0, 0, 16, 32) <= 227 * 1024
+    for B in (3, 64):
+        args = _lookup_case(rng, dev, 5000, B, C, 32, 768, f32, int_dt)
+        before = launch_counts()["lookup_score_fwd"]
+        got = lookup_score.lookup_score_fused(*args)
+        want = lookup_score.lookup_score_reference(*args)
+        torch.cuda.synchronize()
+        assert launch_counts()["lookup_score_fwd"] == before + 1
+        assert got.dtype == int_dt and got.shape == (B, C, 32) and torch.isfinite(got).all()
+        assert (got.float() - want.float()).abs().max().item() <= _tol(int_dt, want)
 
 
 @pytest.mark.gpu

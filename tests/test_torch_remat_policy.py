@@ -159,7 +159,7 @@ def _port_step(fixture, policy, *extra):
     assert model.news_encoder.plm.cfg.remat == (policy != "none")
     table = tt._make_table(store)
     with pytest.MonkeyPatch.context() as mp, _Executed(mp) as fwd:
-        loss, _ = tt._apply_and_loss(model, table, batch, True, DropoutRNG(8, 3, "cpu"))
+        loss, _ = tt._apply_and_loss(model, table, batch, DropoutRNG(8, 3, "cpu"))
     with pytest.MonkeyPatch.context() as mp, _Executed(mp) as bwd:
         loss.backward()
     grads = {n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None}
@@ -244,7 +244,7 @@ def test_dots_step_matches_jax(fixture_dir, monkeypatch):
     model = tt.build_model().train()
     assert model.news_encoder.plm.cfg.remat_policy == "dots"
     model.load_state_dict(params_from_jax(jax.device_get(params)), strict=True)
-    loss, _ = tt._apply_and_loss(model, tt._make_table(store), batch, True,
+    loss, _ = tt._apply_and_loss(model, tt._make_table(store), batch,
                                  DropoutRNG(8, 0, "cpu"))
     loss.backward()
     assert float(loss.detach()) == pytest.approx(float(jloss), rel=1e-5)

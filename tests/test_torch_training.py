@@ -476,7 +476,7 @@ def test_remat_gives_the_same_gradients_with_dropout(fixture_dir):
         batch = next(Batcher(8).batches(OnlineSampler(log, store, 3, seed=7).sample_epoch(0)))
         model = tt.build_model().train()
         assert model.news_encoder.plm.cfg.remat == bool(extra)
-        loss, _ = tt._apply_and_loss(model, tt._make_table(store), batch, True,
+        loss, _ = tt._apply_and_loss(model, tt._make_table(store), batch,
                                      DropoutRNG(8, 3, "cpu"))
         loss.backward()
         grads.append({n: p.grad for n, p in model.named_parameters()})
@@ -495,7 +495,7 @@ def test_dropout_is_a_function_of_seed_and_step(fixture_dir):
     table = tt._make_table(store)
     model = tt.build_model().train()
     with torch.no_grad():
-        run = lambda step: tt._apply_and_loss(model, table, batch, True,
+        run = lambda step: tt._apply_and_loss(model, table, batch,
                                               DropoutRNG(8, step, "cpu"))[1]
         a, b, c = run(0), run(0), run(1)
         model.eval()

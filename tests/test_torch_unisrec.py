@@ -351,7 +351,7 @@ def test_forward_on_a_batch_matches_jax(fixture_dir, rng, layout):
     model = _port_model(tt, params)
     assert isinstance(model, UniSRec)
     with torch.no_grad():
-        _, got = tt._apply_and_loss(model.eval(), tt._make_table(ts), batch, False)
+        _, got = tt._eval_outputs(model.eval(), tt._make_table(ts), None, batch)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=2e-5)
 
 
@@ -368,7 +368,7 @@ def test_bf16_compute_keeps_the_tail_in_float32(fixture_dir, rng):
     with torch.no_grad():
         cand, his = model.news_encoder.encode_batch(tt._make_table(ts).lookup(
             tt._index(batch["cand_idx"]), tt._index(batch["his_idx"])))
-        _, got = tt._apply_and_loss(model.eval(), tt._make_table(ts), batch, False)
+        _, got = tt._eval_outputs(model.eval(), tt._make_table(ts), None, batch)
     assert cand.dtype == his.dtype == torch.bfloat16 and got.dtype == torch.float32
     want = np.asarray(want)
     np.testing.assert_allclose(got.numpy(), want, rtol=0,
@@ -697,7 +697,7 @@ def test_dropout_and_gating_noise_are_a_function_of_seed_and_step(pair):
     model = tt.build_model().train()
     assert model.cfg.hidden_dropout == model.cfg.attention_dropout == 0.5
     with torch.no_grad():
-        run = lambda step: tt._apply_and_loss(model, table, batch, True,
+        run = lambda step: tt._apply_and_loss(model, table, batch,
                                               DropoutRNG(8, step, "cpu"))[1]
         a, b, c = run(0), run(0), run(1)
         model.eval()
