@@ -37,11 +37,18 @@ Phases, each of which makes the script exit non-zero when it fails:
    tiles); a rank's shapes over a mesh of two (row entries ``w2``): mha
    and add_ln, forward and backward, at 440 sequences, poly-attention at
    B = 8 (and 32, the serving case), lookup+score at a data rank's half
-   eval batch and on a table rank's half of the cache)
+   eval batch and on a table rank's half of the cache; and over a model
+   axis of two (``w2_model``): mha forward and backward at a tp_train
+   micro-batch's 220 sequences and 6 of the 12 heads, add_ln over their
+   rows)
    against its plain PyTorch version on the same inputs (the tolerance is
    printed beside the error; the mha backward's dq, dk and dv each at the
    scale of its (sequence, head)'s gradient; with dropout the kernel's
-   mask must equal the plain version's bit for bit), and is timed with
+   mask must equal the plain version's bit for bit; and a rank's launches
+   of mha and add_ln, forward and backward, at their Philox offsets, over
+   data rank 1's two runs of sequences and model rank 1's heads, must
+   equal their slice of the whole batch's launch bit for bit), and is
+   timed with
    CUDA events beside the plain
    version, the one PyTorch call computing the same function where there
    is one (for lookup+score, which has none, the calls index_select and
@@ -178,16 +185,28 @@ Phases, each of which makes the script exit non-zero when it fails:
    each rank, finite losses, both ranks' parameters bit-identical; the
    micro-batch, global examples/s, each update and the gradient sum's
    share, peak memory a rank, the backend, ranks a card); mesh_parity_fp32,
-   the same in float32 with dropout off, 2 micro-batches at accumulation
-   2, at W = 2 against W = 1 (losses, the update's gradient norm before
+   the same in float32 with the config's dropout (off until PR 15), 2
+   micro-batches at accumulation 2, at W = 2 against W = 1 (losses, the update's gradient norm before
    the clip and its clipped gradients, each within its stated tolerance);
    table_eval,
    ``eval_miner.txt`` on the train phase's ``finalModel`` with
    ``--mesh_table 2`` against a one-rank eval, bit for bit, lookup+score
    on each rank's shard; mesh_his_cache, ``--mesh_data 2 --mesh_table 2``
    (4 ranks) with the cached-history flags for 6 micro-batches (rebuilds
-   at micro-steps 2 and 4, on sharded caches). On one card the ranks
-   share it (gloo); where each has a card, NCCL.
+   at micro-steps 2 and 4, on sharded caches). Since PR 15 the model axis:
+   tp_train, ``train_miner.txt --mesh_model 2`` at 4 rows a micro-batch
+   for 3 micro-batches (every mha launch at a rank's 6 heads; the model
+   group's all-reduces a micro-batch, their time and share); mesh_parity_tp,
+   the fp32 parity at ``--mesh_model 2`` (4 rows) against one rank, and
+   both parities with the config's dropout, which no longer depends on the
+   mesh; ep_unisrec, ``train_unisrec.txt --mesh_model 2`` (the experts
+   sharded), 2 micro-batches; mesh_serve / mesh_serve_loaded,
+   ``serve_miner.txt --mesh_table 2`` over HTTP on train's ``finalModel``,
+   fresh then from the cache it persisted, 20 requests each, replies
+   bit-equal to one rank's and the file equal to one rank's. The timed
+   launch (mesh_train, tp_train) runs alone on the card; the others run
+   beside the CPU parity phases. On one card the ranks share it (gloo);
+   where each has a card, NCCL.
 
 After the phases, every shape at which the main path launched
 poly-attention, lookup+score or an fp32 mha kernel (a census of their
@@ -255,7 +274,8 @@ FILL_PHASES = ("eval", "serve", "fastformer_eval", "fastformer_serve", "warm_sta
                "pretrain_eval", "serve_cache", "serve_int8", "his_cache_refill",
                "his_cache_eval", "fastformer_his_cache_refill", "fastformer_his_cache_eval",
                "lstm_legacy_eval", "lstm_legacy_serve", "no_reduce_eval", "no_reduce_serve",
-               "remat_dots_eval", "roundtrip_serve", "table_eval", "table_eval_one")
+               "remat_dots_eval", "roundtrip_serve", "table_eval", "table_eval_one",
+               "mesh_serve")
 # the mha kernels' training cases (N, L, dropout rate, dtype, phases): the
 # sapo shape with dropout (the main path's), without it (Philox's share);
 # the title shape; the pretrain micro-batch's two shapes
@@ -264,8 +284,14 @@ FILL_PHASES = ("eval", "serve", "fastformer_eval", "fastformer_serve", "warm_sta
 # eval batch 32 rows; a table rank's cache half the corpus and a zero row
 MESH_N, MESH_B, MESH_EVAL_B = TRAIN_N // 2, 8, 32
 MESH_PHASES = ("mesh_train", "mesh_his_cache")
+# over the model axis (tp_train: --mesh_model 2 at --train_batch_size 4) a
+# rank runs every sequence of a micro-batch, 880 x 4 / 16 = 220 a field, at
+# half the heads (6 of 12): qkv (220, L, 3 x 768 / 2)
+TP_B, TP_HEADS = 4, HEADS // 2
+TP_N = TRAIN_N * TP_B // 16
+TP_PHASES = ("tp_train",)
 # the phases the fp32 add_ln cases (880 sequences) stand for
-FP32_LN_PHASES = ("fp32_train", "mesh_parity_fp32", "mesh_parity_fp32_one")
+FP32_LN_PHASES = ("fp32_train", "mesh_parity_fp32", "mesh_parity_fp32_one", "mesh_parity_tp")
 TRAIN_MHA_CASES = ((TRAIN_N, TRAIN_SAPO, TRAIN_RATE, torch.bfloat16, TRAIN_PHASES),
                    (TRAIN_N, TRAIN_SAPO, 0.0, torch.bfloat16, ()),
                    (TRAIN_N, TRAIN_TITLE, TRAIN_RATE, torch.bfloat16, TRAIN_PHASES),
@@ -294,7 +320,7 @@ UNBERT_MHA_CASES = tuple(
 # news at once (one tower call); the cache fill's chunks of 512 at serving
 # and eval, and an eval batch's 64
 UNISREC_L = TRAIN_TITLE + TRAIN_SAPO - 1
-UNISREC_TRAIN_PHASES = ("unisrec_train", "unisrec_train_all")
+UNISREC_TRAIN_PHASES = ("unisrec_train", "unisrec_train_all", "ep_unisrec")
 UNISREC_FILL_PHASES = ("unisrec_eval", "unisrec_train_all_eval", "unisrec_serve",
                        "unisrec_serve_cache", "unisrec_serve_int8")
 UNISREC_MHA_CASES = ((TRAIN_N, UNISREC_L, TRAIN_RATE, torch.bfloat16, UNISREC_TRAIN_PHASES),
@@ -311,10 +337,11 @@ CACHED_MHA_CASES = tuple((CACHED_N, L, TRAIN_RATE, torch.bfloat16, CACHED_PHASES
 # the title shape, a cached-history micro-batch's 80 candidates and
 # UniSRec's 159 tokens. Their launches (fp32_train, the parity phases) are
 # counted and timed shape by shape (LaunchCensus), so they stand for no phase
-FP32_MHA_CASES = ((TRAIN_N, TRAIN_SAPO, TRAIN_RATE, torch.float32, ()),
-                  # the census sees no rank: mesh_parity_fp32's ranks (440
-                  # sequences, dropout off) stand here
-                  (TRAIN_N, TRAIN_SAPO, 0.0, torch.float32, ("mesh_parity_fp32",)),
+FP32_MHA_CASES = ((TRAIN_N, TRAIN_SAPO, TRAIN_RATE, torch.float32,
+                   # the census sees no rank: the fp32 parity ranks' launches
+                   # (440 sequences, or 880 at 6 heads) stand here
+                   ("mesh_parity_fp32", "mesh_parity_tp")),
+                  (TRAIN_N, TRAIN_SAPO, 0.0, torch.float32, ()),
                   (TRAIN_N, TRAIN_TITLE, TRAIN_RATE, torch.float32, ()),
                   (CACHED_N, TRAIN_SAPO, TRAIN_RATE, torch.float32, ()),
                   (TRAIN_N, UNISREC_L, TRAIN_RATE, torch.float32, ()))
@@ -401,8 +428,18 @@ REQUIRED = {
     "mesh_parity_fp32_one": MINER_KERNELS + PLM_BWD,
     "table_eval": SERVE_KERNELS,
     "mesh_his_cache": MINER_KERNELS + PLM_BWD,
+    # --mesh_model 2: the kernels on each rank's heads; UniSRec's adaptor
+    # alone trains, as unisrec_train; serving over --mesh_table 2 from a
+    # fresh cache, then from the file it persisted
+    "tp_train": MINER_KERNELS + PLM_BWD,
+    "mesh_parity_tp": MINER_KERNELS + PLM_BWD,
+    "ep_unisrec": PLM_FWD,
+    "mesh_serve": SERVE_KERNELS,
+    "mesh_serve_loaded": ("poly_attention_fwd", "lookup_score_fwd"),
 }
 FORBIDDEN = {"fastformer_train": PLM_BWD,
+             "ep_unisrec": TAIL_KERNELS + PLM_BWD,
+             "mesh_serve_loaded": PLM_FWD,
              "serve_cache_loaded": PLM_FWD,  # the cache comes from the file
              "serve_int8_loaded": PLM_FWD,
              "pretrain": TAIL_KERNELS,  # the news encoder alone
@@ -509,18 +546,29 @@ def output_errors(got, want, rel):
     return errs
 
 
-def _mha_inputs(dev, g, N, L, dtype):
-    qkv = torch.randn(N, L, 3 * HIDDEN, device=dev, generator=g).to(dtype)
+def _mha_inputs(dev, g, N, L, dtype, hidden=HIDDEN):
+    qkv = torch.randn(N, L, 3 * hidden, device=dev, generator=g).to(dtype)
     lengths = torch.randint(1, L + 1, (N,), device=dev, generator=g)
     mask = (torch.arange(L, device=dev)[None] < lengths[:, None]).to(torch.int32)
     return qkv, mask
 
 
-def _sdpa_leaves(qkv):
+def takes_offsets() -> bool:
+    """Whether the package's mha wrapper takes Philox offsets (another
+    version's, timed beside this one, may not: its rank cases are left
+    out)."""
+    import inspect
+
+    from miner_tpu_torch.ops import mha
+
+    return "seq_offset" in inspect.signature(mha._launch_fwd).parameters
+
+
+def _sdpa_leaves(qkv, heads=HEADS):
     """q, k, v (N, heads, L, Dh) as leaf tensors, for the SDPA yardstick."""
     N, L, _ = qkv.shape
     return [t.contiguous().requires_grad_()
-            for t in qkv.view(N, L, 3, HEADS, -1).permute(2, 0, 3, 1, 4)]
+            for t in qkv.view(N, L, 3, heads, -1).permute(2, 0, 3, 1, 4)]
 
 
 def mha_dropout_mask_check(qkv, mask, seed):
@@ -590,6 +638,27 @@ def mha_cases(dev, g):
             route=("fp32" if (N, L, rate, dtype) == FP32_MHA_CASES[0][:4]
                    else "w2" if (N, L) == (MESH_N, TRAIN_SAPO) else None),
             phases=phases)
+    # a rank of the model axis (tp_train): its 6 heads of every sequence,
+    # their masks drawn at heads 6-11 of model rank 1
+    for L in (TRAIN_SAPO, TRAIN_TITLE) if takes_offsets() else ():
+        seed = 2 ** 45 + L
+        qkv, mask = _mha_inputs(dev, g, TP_N, L, torch.bfloat16, HIDDEN // 2)
+        q, k, v = qkv.view(TP_N, L, 3, TP_HEADS, -1).permute(2, 0, 3, 1, 4)
+        bool_mask = mask.bool()[:, None, None, :]
+        out = torch.empty(TP_N, L, HIDDEN // 2, dtype=qkv.dtype, device=dev)
+        stats = torch.empty(TP_N, TP_HEADS, L, 2, device=dev)
+        yield dict(
+            case=f"model rank bf16 N={TP_N} L={L} heads {TP_HEADS} dropout {TRAIN_RATE}",
+            dtype=torch.bfloat16,
+            kernel=lambda: mha._launch_fwd(qkv, mask, TP_HEADS, 1, TRAIN_RATE, seed, True,
+                                           0, TP_HEADS)[0],
+            plain=lambda: mha.mha_reference(qkv, mask, TP_HEADS, 1, TRAIN_RATE, seed, 0,
+                                            TP_HEADS),
+            library=lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=bool_mask, dropout_p=TRAIN_RATE),
+            bound=bound_ms(_nbytes(qkv, mask, out, stats),
+                           4 * TP_N * TP_HEADS * L * L * (HIDDEN // HEADS), torch.bfloat16),
+            route="w2_model" if L == TRAIN_SAPO else None, phases=TP_PHASES)
     # UnBERT's shapes: training writes the softmax statistics for its
     # backward; eval and serving (inference mode) do not
     for N, L, rate, dtype, phases in UNBERT_MHA_CASES:
@@ -633,7 +702,7 @@ def mha_cases(dev, g):
             phases=phases)
 
 
-def mha_grad_errors(got, want, rel):
+def mha_grad_errors(got, want, rel, heads=HEADS):
     """The mha backward's dqkv as its dq, dk and dv parts, each element held
     at ``rel`` of the largest |dq|, |dk| or |dv| of its (sequence, head).
 
@@ -648,7 +717,7 @@ def mha_grad_errors(got, want, rel):
     is worst, the part's largest error and its RMS."""
     (a,), (b,) = got, want
     N, L, D3 = b.shape
-    shape = (N, L, 3, HEADS, D3 // 3 // HEADS)
+    shape = (N, L, 3, heads, D3 // 3 // heads)
     err = (a.float() - b.float()).abs().view(shape).amax(dim=(1, 4))  # (N, 3, heads)
     w = b.float().view(shape)
     tol = rel * w.abs().amax(dim=(1, 2, 4)).clamp_min(1e-30)  # (N, heads)
@@ -692,7 +761,33 @@ def mha_bwd_cases(dev, g):
             phases=tuple(p for p in phases
                          if p in BWD_PHASES + MESH_PHASES + ("unbert_train", "unisrec_train_all",
                                                              "his_cache_train",
-                                                             "mesh_parity_fp32")))
+                                                             "mesh_parity_fp32",
+                                                             "mesh_parity_tp")))
+    # a rank of the model axis (tp_train)
+    for L in (TRAIN_SAPO, TRAIN_TITLE) if takes_offsets() else ():
+        seed = 2 ** 45 + L
+        qkv, mask = _mha_inputs(dev, g, TP_N, L, torch.bfloat16, HIDDEN // 2)
+        dout = torch.randn(TP_N, L, HIDDEN // 2, device=dev, generator=g).to(torch.bfloat16)
+        out, stats = mha._launch_fwd(qkv, mask, TP_HEADS, 1, TRAIN_RATE, seed, True, 0,
+                                     TP_HEADS)
+        leaves = _sdpa_leaves(qkv, TP_HEADS)
+        sdpa_out = torch.nn.functional.scaled_dot_product_attention(
+            *leaves, attn_mask=mask.bool()[:, None, None, :], dropout_p=TRAIN_RATE)
+        sdpa_dout = dout.view(TP_N, L, TP_HEADS, -1).transpose(1, 2)
+        yield dict(
+            case=f"model rank bf16 N={TP_N} L={L} heads {TP_HEADS} dropout {TRAIN_RATE}",
+            dtype=torch.bfloat16,
+            kernel=lambda: mha.mha_backward(qkv, mask, dout, TP_HEADS, TRAIN_RATE, seed, 1,
+                                            out, stats, 0, TP_HEADS),
+            plain=lambda: mha.mha_backward_reference(qkv, mask, dout, TP_HEADS, 1,
+                                                     TRAIN_RATE, seed, 0, TP_HEADS),
+            library=lambda: torch.autograd.grad(sdpa_out, leaves, sdpa_dout,
+                                                retain_graph=True),
+            errors=lambda got, want, rel: mha_grad_errors(got, want, rel, TP_HEADS),
+            bound=bound_ms(_nbytes(qkv, out, dout, stats, mask, qkv),
+                           5 * 2 * TP_N * TP_HEADS * L * L * (HIDDEN // HEADS),
+                           torch.bfloat16),
+            route="w2_model" if L == TRAIN_SAPO else None, phases=TP_PHASES)
 
 
 def _ln_inputs(dev, g, T, dtype):
@@ -728,7 +823,9 @@ def add_ln_cases(dev, g):
                         (TRAIN_N, TRAIN_SAPO, torch.float32),
                         (TRAIN_N, TRAIN_TITLE, torch.float32),
                         (MESH_N, TRAIN_SAPO, torch.bfloat16),
-                        (MESH_N, TRAIN_TITLE, torch.bfloat16)):
+                        (MESH_N, TRAIN_TITLE, torch.bfloat16),
+                        (TP_N, TRAIN_SAPO, torch.bfloat16),
+                        (TP_N, TRAIN_TITLE, torch.bfloat16)):
         T, seed = N * L, 2 ** 42 + L
         x, h, scale, bias = _ln_inputs(dev, g, T, dtype)
         scale_t, bias_t = scale.to(dtype), bias.to(dtype)
@@ -747,7 +844,7 @@ def add_ln_cases(dev, g):
             route="w2" if (N, L) == (MESH_N, TRAIN_SAPO) else None,
             phases=(FP32_LN_PHASES if dtype == torch.float32 else
                     TRAIN_PHASES if N == TRAIN_N else MESH_PHASES if N == MESH_N
-                    else ("pretrain",)))
+                    else TP_PHASES if N == TP_N else ("pretrain",)))
     # UnBERT's rows: a micro-batch's two levels with dropout, an eval batch's
     # (standing for the serving calls too) and the largest serving call's
     for N, L, rate, dtype, phases in UNBERT_MHA_CASES:
@@ -798,7 +895,9 @@ def add_ln_bwd_cases(dev, g):
                         (CACHED_N, TRAIN_SAPO, torch.bfloat16),
                         (CACHED_N, TRAIN_TITLE, torch.bfloat16),
                         (MESH_N, TRAIN_SAPO, torch.bfloat16),
-                        (MESH_N, TRAIN_TITLE, torch.bfloat16)):
+                        (MESH_N, TRAIN_TITLE, torch.bfloat16),
+                        (TP_N, TRAIN_SAPO, torch.bfloat16),
+                        (TP_N, TRAIN_TITLE, torch.bfloat16)):
         T, seed = N * L, 2 ** 43 + L
         x, h, scale, bias = _ln_inputs(dev, g, T, dtype)
         dy = torch.randn(T, HIDDEN, device=dev, generator=g).to(dtype)
@@ -826,6 +925,7 @@ def add_ln_bwd_cases(dev, g):
             route="w2" if (N, L) == (MESH_N, TRAIN_SAPO) else None,
             phases=(FP32_LN_PHASES if dtype != torch.bfloat16
                     else MESH_PHASES if N == MESH_N
+                    else TP_PHASES if N == TP_N
                     else ("pretrain",) if N == PRETRAIN_N
                     else ("unbert_train",) if N == UNBERT_TRAIN_B
                     else ("unisrec_train_all",) if L == UNISREC_L
@@ -1048,6 +1148,66 @@ def ff_cases(dev, g):
             else ())
 
 
+def offset_slice_checks(dev, g) -> list:
+    """A rank's launches against the whole batch's: mha forward and
+    backward at the train shape (bf16, N = 880, L = 128, dropout 0.1) over
+    data rank 1's sequences of a micro-batch of 16 users at ``--mesh_data
+    2`` (two runs of them, its candidates' and its history's, one launch
+    each: ``philox.Offsets``) and model rank 1's heads (6-11) at
+    ``--mesh_model 2``; add_ln forward and backward over those sequences'
+    rows. Each output must be its slice of the whole launch's bit for bit,
+    masks included (dropped elements are zeros where the whole launch's
+    are). Returns the failures."""
+    from miner_tpu_torch.ops import add_ln, mha, philox
+
+    C, H = 5, HIS  # 1 + 4 candidates and 50 history news a user
+    B, half = TRAIN_N // (C + H), TRAIN_N // (C + H) // 2
+    offset = ((0, half * C), (half * C, (B - half) * C + half * H))  # data rank 1
+    n = half * (C + H)
+    pick = philox.row_places(offset, n, dev)
+    seed, L, Dh = 2 ** 47 + 1, TRAIN_SAPO, HIDDEN // HEADS
+    qkv, mask = _mha_inputs(dev, g, TRAIN_N, L, torch.bfloat16)
+    dout = torch.randn(TRAIN_N, L, HIDDEN, device=dev, generator=g).to(torch.bfloat16)
+    out, stats = mha._launch_fwd(qkv, mask, HEADS, 1, TRAIN_RATE, seed, True)
+    dqkv = mha.mha_backward(qkv, mask, dout, HEADS, TRAIN_RATE, seed, 1, out, stats)
+
+    def heads(x, parts):  # model rank 1's heads of a (n, L, parts x 768) tensor
+        return x.view(n, L, parts, HEADS, Dh)[:, :, :, TP_HEADS:].reshape(n, L, -1).contiguous()
+
+    mine = heads(qkv[pick], 3)
+    m = mask[pick].contiguous()
+    got, got_stats = mha._launch_fwd(mine, m, TP_HEADS, 1, TRAIN_RATE, seed, True, offset,
+                                     TP_HEADS)
+    got_d = mha.mha_backward(mine, m, heads(dout[pick], 1), TP_HEADS, TRAIN_RATE, seed, 1,
+                             got, got_stats, offset, TP_HEADS)
+    T = TRAIN_N * L
+    x, h, scale, bias = _ln_inputs(dev, g, T, torch.bfloat16)
+    dy = torch.randn(T, HIDDEN, device=dev, generator=g).to(torch.bfloat16)
+    rows = (pick[:, None] * L + torch.arange(L, device=dev)).reshape(-1)
+    y = add_ln.fused_dropout_add_ln(x, h, scale, bias, TRAIN_RATE, 1e-5, seed)
+    dx, dh, _, _ = add_ln.add_ln_backward(x, h, scale, dy, 1e-5, TRAIN_RATE, seed)
+    rows_offset = philox.scaled(offset, L)
+    got_y = add_ln.fused_dropout_add_ln(x[rows], h[rows], scale, bias, TRAIN_RATE, 1e-5, seed,
+                                        rows_offset)
+    got_dx, got_dh, _, _ = add_ln.add_ln_backward(x[rows], h[rows], scale, dy[rows], 1e-5,
+                                                  TRAIN_RATE, seed, rows_offset)
+    torch.cuda.synchronize()
+    pairs = {"mha_fwd out": (got, heads(out[pick], 1)),
+             "mha_fwd stats": (got_stats, stats[pick][:, TP_HEADS:]),
+             "mha_bwd dqkv": (got_d, heads(dqkv[pick], 3)),
+             "add_ln_fwd y": (got_y, y[rows]), "add_ln_bwd dx": (got_dx, dx[rows]),
+             "add_ln_bwd dh": (got_dh, dh[rows])}
+    failures = []
+    for what, (a, b) in pairs.items():
+        same = torch.equal(a, b)
+        log(f"  offsets: {what} of data rank 1 (sequences {offset}, two launches) and model "
+            f"rank 1 (heads {TP_HEADS}-{HEADS - 1}): {'bit-equal to' if same else 'DIFFERS from'}"
+            f" its slice of the whole batch's launch {tuple(b.shape)}")
+        if not same:
+            failures.append(f"offsets: {what} differs from the whole launch's slice")
+    return failures
+
+
 KERNELS = [
     # name, route, source, replaces, cases
     ("mha_fwd", "cuda", "miner_tpu_torch/csrc/mha_fwd.cu",
@@ -1143,6 +1303,9 @@ def kernel_phase(dev, names=None):
             torch.cuda.empty_cache()
         row.update(routes)
         rows.append(row)
+    if ((names is None or {"mha_fwd", "mha_bwd", "add_ln_fwd", "add_ln_bwd"} & set(names))
+            and takes_offsets()):
+        failures += offset_slice_checks(dev, g)
     if failures:
         raise SystemExit("kernel phase failed:\n  " + "\n  ".join(failures))
     return rows, timed
@@ -1152,7 +1315,8 @@ def _mha_shape(args, first: int):
     """An fp32 mha launch's (N, L, H, Dh, seqs, dropout rate, stats kept)
     from its C arguments (N at ``first``), or None for another type."""
     N, L, H, Dh, seqs = args[first:first + 5]
-    inv_keep, dropping, code = args[first + 7:first + 10]
+    inv_keep, dropping = args[first + 7:first + 9]
+    code = args[first + 11]  # past the sequence and head offsets
     if code != 0:  # common.DTYPE_CODES[torch.float32]
         return None
     rate = round(1.0 - 1.0 / inv_keep, 6) if dropping else 0.0
@@ -1355,14 +1519,19 @@ def write_corpus(root: str, num_news: int, seed: int) -> None:
 
 
 def serve_args(corpus: str, *extra: str, drop=()):
+    """The parsed :func:`serve_words`."""
+    from miner_tpu_torch.config import make_parser
+
+    return make_parser().parse_args(serve_words(corpus, *extra, drop=drop))
+
+
+def serve_words(corpus: str, *extra: str, drop=()):
     """``config/serve_miner.txt`` as it stands, on the synthetic corpus, with
     the hash tokenizer over roberta-base's vocabulary size (no tokenizer
     files here). Its checkpoint and persisted cache are dropped: the caller
     names a checkpoint of the train phase in ``extra``, or none for random
     weights from the seed, and a cache file in the temporary directory, or
     none to encode the corpus at every start."""
-    from miner_tpu_torch.config import make_parser
-
     here = os.path.dirname(os.path.abspath(__file__))
     path = (derived_config(os.path.dirname(corpus), "serve_miner.txt", drop) if drop
             else os.path.join(here, "config", "serve_miner.txt"))
@@ -1370,12 +1539,11 @@ def serve_args(corpus: str, *extra: str, drop=()):
     for flag in ("--saved_model_path", "--serve_cache_path"):
         i = words.index(flag)
         del words[i:i + 2]
-    return make_parser().parse_args([
-        "serve", *words, "--pretrained_tokenizer", "hash:50265",
-        "--user2id_path", os.path.join(corpus, "user2id.json"),
-        "--category2id_path", os.path.join(corpus, "category2id.json"),
-        "--eval_news_path", os.path.join(corpus, "news.tsv"),
-        "--port", "0", *extra])
+    return ["serve", *words, "--pretrained_tokenizer", "hash:50265",
+            "--user2id_path", os.path.join(corpus, "user2id.json"),
+            "--category2id_path", os.path.join(corpus, "category2id.json"),
+            "--eval_news_path", os.path.join(corpus, "news.tsv"),
+            "--port", "0", *extra]
 
 
 def _post(url: str, payload: dict):
@@ -1404,6 +1572,8 @@ def _check_launches(phase: str, counts: dict) -> None:
 # tower calls (titles, sapos) under --remat: 24 mha forwards, one a layer
 # (the recompute takes the saved context, as JAX's remat does), 24 backwards
 PER_BATCH = {"unisrec_train": {"mha_fwd": 12, "add_ln_fwd": 24},
+             "ep_unisrec": {"mha_fwd": 12, "add_ln_fwd": 24},
+             "tp_train": {"mha_fwd": 24, "mha_bwd": 24},
              "unisrec_train_all": {"mha_bwd": 12, "add_ln_bwd": 24},
              **{phase: {"mha_fwd": 24, "mha_bwd": 24}
                 for phase in ("train", "no_reduce_train", "remat_dots_train")}}
@@ -1987,7 +2157,12 @@ TRAIN_CONFIGS = {"miner": ("train", "train_miner.txt", "train", "eval"),
                  # float32 at W = 2 and at W = 1; --mesh_data 2 --mesh_table 2
                  "mesh": ("train", "train_miner.txt", "mesh_train", None),
                  "mesh_parity": ("train", "train_miner.txt", "mesh_parity_fp32", None),
-                 "mesh_his_cache": ("train", "train_miner.txt", "mesh_his_cache", None)}
+                 "mesh_his_cache": ("train", "train_miner.txt", "mesh_his_cache", None),
+                 # --mesh_model 2: the Miner at TP_B rows a micro-batch; the
+                 # fp32 parity; UniSRec's experts sharded
+                 "tp": ("train", "train_miner.txt", "tp_train", None),
+                 "mesh_parity_tp": ("train", "train_miner.txt", "mesh_parity_tp", None),
+                 "ep_unisrec": ("train_fastformer", "train_unisrec.txt", "ep_unisrec", None)}
 # the flags a derived configuration drops from the file it is derived from
 # (each on a line of its own there): a Miner without --apply_reduce_dim,
 # whose news vectors keep the PLM's D = 768, trained and served
@@ -1996,21 +2171,31 @@ DERIVED = {"no_reduce": ("--apply_reduce_dim",), "no_reduce_serve": ("--apply_re
 # a micro-batch) and the flags they add; no_reduce 2 micro-batches at
 # accumulation 2 (one update), remat_dots 4 at accumulation 4 (one update),
 # unbert 30 (3 updates; 5 packed rows an impression); the mesh phases: mesh
-# 8 micro-batches at accumulation 4 (2 updates), mesh_parity 2 at
-# accumulation 2 (one update, at the full rate: no warmup) in float32 with
-# dropout off (the PLM's rates too: MESH_NO_DROPOUT), mesh_his_cache 6 at
-# accumulation 2 (the cache built at micro-step 2, rebuilt at 4)
+# 8 micro-batches at accumulation 4 (2 updates), mesh_parity (and its
+# --mesh_model 2 twin) 2 at accumulation 2 (one update, at the full rate: no
+# warmup) in float32 with the config's dropout (its --mesh_model 2 twin at
+# TP_B rows a micro-batch: each all-reduce of fp32 activations crosses the
+# host), mesh_his_cache 6 at accumulation 2 (the cache built at micro-step
+# 2, rebuilt at 4), tp 3 of TP_B at accumulation 3 (one update), ep_unisrec
+# 2 at accumulation 2
 SHORT_IMPRESSIONS = {"no_reduce": 32, "remat_dots": 64, "mesh": 128, "mesh_parity": 32,
-                     "mesh_his_cache": 96, "unbert": 96}
+                     "mesh_parity_tp": 2 * TP_B, "mesh_his_cache": 96, "unbert": 96,
+                     "tp": 3 * TP_B, "ep_unisrec": 32}
+# the micro-batch of the phases that take another than their config's 16
+SHORT_BATCH = {"tp": TP_B, "mesh_parity_tp": TP_B}
+PARITY_FLAGS_FP32 = ("--gradient_accumulation_steps", "2", "--compute_dtype", "float32",
+                     "--warmup_steps", "0")
 SHORT_FLAGS = {"no_reduce": ("--gradient_accumulation_steps", "2"),
                "remat_dots": ("--remat_policy", "dots", "--gradient_accumulation_steps", "4"),
                "mesh": ("--gradient_accumulation_steps", "4"),
-               "mesh_parity": ("--gradient_accumulation_steps", "2", "--compute_dtype",
-                               "float32", "--dropout", "0", "--warmup_steps", "0"),
-               "mesh_his_cache": HIS_CACHE_FLAGS}
+               "mesh_parity": PARITY_FLAGS_FP32,
+               "mesh_parity_tp": PARITY_FLAGS_FP32 + ("--train_batch_size", str(TP_B)),
+               "mesh_his_cache": HIS_CACHE_FLAGS,
+               "tp": ("--train_batch_size", str(TP_B), "--gradient_accumulation_steps", "3"),
+               "ep_unisrec": ("--gradient_accumulation_steps", "2")}
 # the families trained without their config's eval (and its best
 # checkpoint: 1.5 GB fewer written to disk each)
-NO_EVAL = ("mesh", "mesh_parity", "mesh_his_cache")
+NO_EVAL = ("mesh", "mesh_parity", "mesh_parity_tp", "mesh_his_cache", "tp", "ep_unisrec")
 # "his_cache": the Miner's cached-history micro-batch (the candidates through
 # the towers, the history from a cache filled on the card)
 PARITY_FAMILIES = ("miner", "fastformer", "unbert", "unisrec", "his_cache")
@@ -2019,7 +2204,8 @@ PARITY_FAMILIES = ("miner", "fastformer", "unbert", "unisrec", "his_cache")
 PARITY_FLAGS = {"unisrec": ("--unisrec_train_all",)}
 # the hash tokenizer over each family's vocabulary size: roberta-base's, and
 # bert-base's for UnBERT and UniSRec (bert_base preset); no tokenizer files here
-TOKENIZERS = {"unbert": "hash:30522", "unisrec": "hash:30522", "unisrec_all": "hash:30522"}
+TOKENIZERS = {"unbert": "hash:30522", "unisrec": "hash:30522", "unisrec_all": "hash:30522",
+              "ep_unisrec": "hash:30522"}
 # serve_miner.txt's flags overridden for a family's checkpoint
 SERVE_FLAGS = {"fastformer_serve": ("--model_name", "fastformer"),
                "lstm_legacy_serve": LSTM_LEGACY_FLAGS,
@@ -2049,7 +2235,7 @@ def micro_batches(family: str) -> int:
     for UnBERT five packed rows an impression (one candidate drawn per
     visit, five visits)."""
     impressions = SHORT_IMPRESSIONS.get(family, TRAIN_IMPRESSIONS)
-    return impressions * (5 if family == "unbert" else 1) // 16
+    return impressions * (5 if family == "unbert" else 1) // SHORT_BATCH.get(family, 16)
 
 
 def derived_config(directory: str, name: str, drop) -> str:
@@ -2848,8 +3034,6 @@ def parity_phase(corpus: str) -> None:
 # timed one held at its first micro-batch until they are done; a launcher
 # that outlives MESH_TIMEOUT_S (its ranks included) fails the run
 MESH_TIMEOUT_S = 600
-# the phases whose ranks train with the PLM's dropout rates at 0 too
-MESH_NO_DROPOUT = ("mesh_parity_fp32",)
 MESH_RANK = "MESH_RANK "  # the prefix of a rank's report line
 
 
@@ -2867,15 +3051,22 @@ def mesh_rank_main(jobs_path: str) -> int:
     bytes), printed and written to ``<phase>.rank<r>.json``
     beside ``jobs_path`` (ranks printing together can share a line). With
     ``grads`` set, rank 0 saves there the gradients the first update
-    applies (summed over the data group, divided, clipped); each update's
-    global gradient norm before the clip is reported."""
-    import dataclasses
+    applies (summed over the data group, divided, clipped; a sharded leaf
+    gathered whole over the model group); each update's global gradient
+    norm before the clip is reported. Over the model axis each micro-batch's
+    all-reduces of the model group are counted and timed (the card
+    synchronised around each), and the shapes of the mha launches recorded.
+    A serve job (``"requests"``) runs ``serve`` as the CLI does: on rank 0
+    a client thread sends the requests one at a time over HTTP once the
+    server is up, keeps the replies, and shuts the server down, which stops
+    the other ranks' following."""
     import hashlib
+    import threading
 
     import miner_tpu_torch.training.trainer as port_trainer
-    from miner_tpu_torch import cli
-    from miner_tpu_torch.ops import launch_counts, reset_launch_counts
-    from miner_tpu_torch.parallel import mesh
+    from miner_tpu_torch import cli, serving
+    from miner_tpu_torch.ops import common, launch_counts, reset_launch_counts
+    from miner_tpu_torch.parallel import mesh, tp
     from miner_tpu_torch.training.optim import Optimizer
 
     entry = time.time()
@@ -2885,9 +3076,44 @@ def mesh_rank_main(jobs_path: str) -> int:
     backend = mesh.maybe_initialize_distributed()
     Trainer = port_trainer.Trainer
     train_step, run_eval, train = Trainer.train_step, Trainer._run_eval, Trainer.train
-    make_cache, opt_step, plm_config = (Trainer.make_history_cache, Optimizer.step,
-                                        port_trainer.plm_config)
-    rep, job = {}, {}
+    make_cache, opt_step = Trainer.make_history_cache, Optimizer.step
+    make_optimizer, make_server = Trainer.make_optimizer, serving.make_http_server
+    rep, job, held = {}, {}, {}
+    launch, reduce_fwd, copy_bwd = (common.launch, tp._ReduceFromModel.forward,
+                                    tp._CopyToModel.backward)
+
+    def timed_collective(fn):
+        def run(ctx, *a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(ctx, *a)
+            torch.cuda.synchronize()
+            rep["tp_s"][-1] += time.perf_counter() - t0
+            rep["tp_n"][-1] += 1
+            return out
+        return staticmethod(run)
+
+    def recorded_launch(name, fn, *args):
+        if name == "mha_fwd":  # N, L, heads; the head offset
+            shape = f"{args[4]}x{args[5]}x{args[6]}+{args[14]}"
+            rep["mha_shapes"][shape] = rep["mha_shapes"].get(shape, 0) + 1
+        return launch(name, fn, *args)
+
+    def kept_optimizer(self, model, *a, **k):
+        held.update(model=model, model_group=self.mesh.model_group)
+        return make_optimizer(self, model, *a, **k)
+
+    def client_server(service, host, port, impl="async"):
+        server = make_server(service, host, port, impl)
+        if mesh.this_rank() == 0:
+            def client():
+                url = f"http://{host}:{server.server_address[1]}"
+                try:
+                    rep["replies"] = [_post(url, r)[1] for r in job["requests"]]
+                finally:
+                    server.shutdown()
+            threading.Thread(target=client, daemon=True).start()
+        return server
 
     def timed_step(self, *a, **k):
         if "first_step" not in rep["at"]:
@@ -2896,6 +3122,8 @@ def mesh_rank_main(jobs_path: str) -> int:
                 time.sleep(0.05)
             rep["at"]["first_step"] = time.time()
         torch.cuda.synchronize()
+        rep["tp_s"].append(0.0)
+        rep["tp_n"].append(0)
         t0 = time.perf_counter()
         loss = train_step(self, *a, **k)
         rep["losses"].append(float(loss))  # synchronises
@@ -2907,8 +3135,11 @@ def mesh_rank_main(jobs_path: str) -> int:
             adamw_step = self.adamw.step
 
             def saving(*x, **kw):
+                specs, group = tp.specs_of(held["model"]), held["model_group"]
+                grads = [tp.gather(p.grad, specs[n], group) if n in specs else p.grad
+                         for n, p in zip(self.names, self.params)]
                 if mesh.is_writer():
-                    torch.save([p.grad.detach().cpu() for p in self.params], job["grads"])
+                    torch.save([g.detach().cpu() for g in grads], job["grads"])
                 rep["grads"] = job["grads"]
                 return adamw_step(*x, **kw)
 
@@ -2939,7 +3170,7 @@ def mesh_rank_main(jobs_path: str) -> int:
         run = train(self)
         rep["at"]["trained"] = time.time()
         h = hashlib.sha256()
-        for name, t in run.model.state_dict().items():
+        for name, t in self.full_state_dict(run.model).items():
             h.update(name.encode())
             h.update(t.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
         rep.update(checksum=h.hexdigest(), run_dir=run.run_dir, updates=run.optimizer.updates,
@@ -2948,6 +3179,10 @@ def mesh_rank_main(jobs_path: str) -> int:
 
     Trainer.train_step, Trainer._run_eval, Trainer.train = timed_step, counted_eval, summed_train
     Trainer.make_history_cache, Optimizer.step = captured_cache, timed_update
+    Trainer.make_optimizer, serving.make_http_server = kept_optimizer, client_server
+    common.launch = recorded_launch
+    tp._ReduceFromModel.forward = timed_collective(reduce_fwd)
+    tp._CopyToModel.backward = timed_collective(copy_bwd)
     for j in jobs:
         job.clear()
         job.update(j)
@@ -2955,15 +3190,14 @@ def mesh_rank_main(jobs_path: str) -> int:
         rep.update(phase=j["phase"], step_s=[], losses=[], update_s=[], sum_s=[], grad_norms=[],
                    eval_counts=None, fills=[], checksum=None, rank=mesh.this_rank(),
                    world=mesh.world_size(), backend=backend, cards=torch.cuda.device_count(),
+                   tp_s=[0.0], tp_n=[0], mha_shapes={},
                    at={"entry": entry, "job": time.time()})
-        port_trainer.plm_config = plm_config
-        if j["phase"] in MESH_NO_DROPOUT:
-            port_trainer.plm_config = lambda *a, **k: dataclasses.replace(
-                plm_config(*a, **k), hidden_dropout=0.0, attention_dropout=0.0)
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
         cli.main(j["argv"])
         counts = launch_counts()
+        rep["tp_s"], rep["tp_n"] = rep["tp_s"][1:], rep["tp_n"][1:]  # the micro-batches'
+        held.clear()
         evals = rep["eval_counts"] or {n: 0 for n in counts}
         rep["train_counts"] = {n: c - evals[n] for n, c in counts.items()}
         if "cache" in rep:
@@ -2981,7 +3215,8 @@ def mesh_rank_main(jobs_path: str) -> int:
 
 
 def start_mesh(world: int, jobs, go=None) -> dict:
-    """Start ``jobs``, each ``(phase, cli words, grads file or None)``, one
+    """Start ``jobs``, each ``(phase, cli words, grads file or None)`` and,
+    for a serve job, its requests, one
     after another on ``world`` ranks of ``python -m torch.distributed.run
     --standalone`` (:func:`mesh_rank_main`), the port of this checkout; with
     ``go`` the ranks wait at their first micro-batch until that file is
@@ -2992,7 +3227,8 @@ def start_mesh(world: int, jobs, go=None) -> dict:
     reports_dir = tempfile.mkdtemp(prefix="mesh_")
     jobs_path = os.path.join(reports_dir, "jobs.json")
     with open(jobs_path, "w") as f:
-        json.dump([{"phase": p, "argv": argv, "grads": grads} for p, argv, grads in jobs], f)
+        json.dump([{"phase": j[0], "argv": j[1], "grads": j[2],
+                    "requests": j[3] if len(j) > 3 else None} for j in jobs], f)
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
            str(world), os.path.join(here, "chip_smoke.py"), "--mesh_rank", jobs_path]
     env = dict(os.environ, **({"CHIP_SMOKE_GO": go} if go else {}))
@@ -3002,7 +3238,7 @@ def start_mesh(world: int, jobs, go=None) -> dict:
         proc = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT, env=env, cwd=here,
                                 start_new_session=True)
     return dict(world=world, jobs=jobs, dir=reports_dir, proc=proc, t0=time.perf_counter(),
-                launched=time.time(), names="+".join(p for p, _, _ in jobs))
+                launched=time.time(), names="+".join(j[0] for j in jobs))
 
 
 def stop_mesh(launches: dict) -> None:
@@ -3042,7 +3278,7 @@ def finish_mesh(launch: dict) -> dict:
         raise SystemExit(f"{names}: the ranks outlived {MESH_TIMEOUT_S} s:\n{out[-6000:]}")
     wall_s = time.perf_counter() - launch["t0"]
     results = {}
-    for phase, _, _ in launch["jobs"]:
+    for phase, *_ in launch["jobs"]:
         reports = []
         for r in range(world):
             path = os.path.join(launch["dir"], f"{phase}.rank{r}.json")
@@ -3058,7 +3294,7 @@ def finish_mesh(launch: dict) -> dict:
     log(f"{names}: the launcher's {wall_s:.1f} s; on rank 0 "
         + "; ".join(f"{p}: " + ", ".join(f"{k} +{t - launch['launched']:.1f} s"
                                         for k, t in results[p][0]["at"].items())
-                    for p, _, _ in launch["jobs"]))
+                    for p, *_ in launch["jobs"]))
     return results
 
 
@@ -3098,53 +3334,91 @@ def _check_ranks(phase: str, reports, micro_batches_: int) -> dict:
 
 
 def start_mesh_phases(corpus: str, out: str, final_model: str) -> dict:
-    """Start the mesh phases' two launches (their checks:
+    """Start the mesh phases' three launches (their checks:
     :func:`finish_mesh_phases`).
 
-    One launch of 2 ranks, held at its first micro-batch until ``go``,
-    runs one after another:
+    One launch of 2 ranks, held at its first micro-batch until ``go``, for
+    the times (the card then runs nothing else):
 
     * mesh_train: ``config/train_miner.txt --mesh_data 2`` at full width
       (roberta-base, bf16, dropout, --remat), 8 micro-batches at
       accumulation 4, without its eval (table_eval runs the cached eval
       over a mesh);
-    * mesh_parity_fp32: the same path in float32 with every dropout off
-      (the PLM's rates too), 2 micro-batches at accumulation 2 (one update,
-      at lr 2e-5: no warmup);
-    * table_eval: ``config/eval_miner.txt`` on the train phase's
-      ``finalModel`` with ``--mesh_table 2``.
+    * tp_train: the same with ``--mesh_model 2`` at ``--train_batch_size``
+      ``TP_B``, 3 micro-batches at accumulation 3 (one update): each rank
+      half of every layer's heads and feed-forward features, the model
+      group's all-reduces through the host (gloo).
 
-    One launch of 4 ranks, run at once (correctness alone: its times are
-    taken beside other work), mesh_his_cache: the cached-history flags
-    over ``--mesh_data 2 --mesh_table 2``, 6 micro-batches: 2 on the full
-    history, then 4 whose history rows come from the train corpus's cache,
-    row-sharded over the table axis and rebuilt at micro-steps 2 and 4."""
+    One launch of 2 ranks and one of 4, run at once beside the CPU halves of
+    the train parity phases (correctness alone: their times are taken
+    beside other work):
+
+    * mesh_parity_fp32 and mesh_parity_tp: the same path in float32 with
+      the config's dropout, 2 micro-batches at accumulation 2 (one update,
+      at lr 2e-5: no warmup), over ``--mesh_data 2`` (16 rows a
+      micro-batch) and ``--mesh_model 2`` (``TP_B``);
+    * ep_unisrec: ``config/train_unisrec.txt --mesh_model 2``, 2
+      micro-batches: the MoE adaptor's experts sharded (4 of 8 a rank), the
+      bert-base tower's heads too;
+    * table_eval: ``config/eval_miner.txt`` on the train phase's
+      ``finalModel`` with ``--mesh_table 2``;
+    * mesh_serve and mesh_serve_loaded: ``serve`` of ``serve_miner.txt``
+      on that ``finalModel`` with ``--mesh_table 2``, fresh (the cache
+      filled, each rank keeping half of its rows, and persisted), then from
+      the file it wrote; rank 0 answers serve_cache's 20 requests over HTTP,
+      one at a time, rank 1 following its device calls;
+    * on 4 ranks, mesh_his_cache: the cached-history flags over
+      ``--mesh_data 2 --mesh_table 2``, 6 micro-batches: 2 on the full
+      history, then 4 whose history rows come from the train corpus's
+      cache, row-sharded over the table axis and rebuilt at micro-steps 2
+      and 4."""
     parity = os.path.join(out, "mesh_parity")
     os.makedirs(parity, exist_ok=True)
-    grads, go = os.path.join(parity, "grads.pt"), os.path.join(out, "mesh_go")
+    grads = {p: os.path.join(parity, f"{p}.grads.pt") for p in ("mesh_parity_fp32",
+                                                                 "mesh_parity_tp")}
+    go = os.path.join(out, "mesh_go")
+    reqs, _ = SERVED["serve_cache"]
+    cache = os.path.join(out, "mesh_serve_cache.npz")
+    serve = serve_words(corpus, "--saved_model_path", final_model, "--serve_cache_path", cache,
+                        "--mesh_table", "2")
     four = start_mesh(4, [("mesh_his_cache", train_words(
         corpus, out, "--mesh_data", "2", "--mesh_table", "2", family="mesh_his_cache"), None)])
-    two = start_mesh(2, [
-        ("mesh_train", train_words(corpus, out, "--mesh_data", "2", family="mesh"), None),
+    checks = start_mesh(2, [
         ("mesh_parity_fp32", train_words(corpus, parity, "--mesh_data", "2",
-                                         family="mesh_parity"), grads),
+                                         family="mesh_parity"), grads["mesh_parity_fp32"]),
+        ("mesh_parity_tp", train_words(corpus, parity, "--mesh_model", "2",
+                                       family="mesh_parity_tp"), grads["mesh_parity_tp"]),
+        ("ep_unisrec", train_words(corpus, out, "--mesh_model", "2", family="ep_unisrec"),
+         None),
         ("table_eval", eval_words(corpus, os.path.join(out, "table_eval"), final_model,
-                                  "--mesh_table", "2"), None)], go=go)
-    return dict(two=two, four=four, go=go, grads=grads, parity=parity)
+                                  "--mesh_table", "2"), None),
+        ("mesh_serve", serve, None, reqs),
+        ("mesh_serve_loaded", serve, None, reqs)])
+    timed = start_mesh(2, [
+        ("mesh_train", train_words(corpus, out, "--mesh_data", "2", family="mesh"), None),
+        ("tp_train", train_words(corpus, out, "--mesh_model", "2", family="tp"), None)], go=go)
+    return dict(timed=timed, checks=checks, four=four, go=go, grads=grads, parity=parity,
+                cache=cache)
 
 
 def finish_mesh_phases(corpus: str, out: str, final_model: str, launches: dict) -> dict:
     """The mesh phases' checks. mesh_his_cache first: every rank launched
     its kernels, finite losses, every rank's parameters bit-identical, the
-    cache rebuilt at micro-steps 2 and 4 (JAX's rule). Then ``go`` for the
-    2 ranks, on a card this script no longer shares: mesh_train launched
-    every Miner kernel on each rank, finite losses, both ranks' parameters
-    bit-identical; its micro-batch, global examples/s (the 16 rows of a
-    micro-batch over the time the ranks take for theirs), each update's
-    time and the gradient sum's share of it, the peak memory a rank, the
-    backend and the ranks a card; mesh_parity_fp32 against W = 1
-    (:func:`mesh_parity_check`); table_eval against one rank
-    (:func:`table_eval_check`). Returns the launch counts of each phase."""
+    cache rebuilt at micro-steps 2 and 4 (JAX's rule). Then the checks'
+    launch: mesh_parity_fp32 and mesh_parity_tp against W = 1
+    (:func:`mesh_parity_check`); ep_unisrec rank-identical with UniSRec's
+    launches a micro-batch; table_eval against one rank
+    (:func:`table_eval_check`); mesh_serve against the one-rank serving
+    (:func:`mesh_serve_check`). Then ``go`` for the timed launch, on a card
+    this script no longer shares: mesh_train launched every Miner kernel
+    on each rank, finite losses, both ranks' parameters bit-identical; its
+    micro-batch, global examples/s (the 16 rows of a micro-batch over the
+    time the ranks take for theirs), each update's time and the gradient
+    sum's share of it, the peak memory a rank, the backend and the ranks a
+    card; tp_train the same (the parameters gathered whole), its model
+    group's all-reduces a micro-batch and their share of it, and every mha
+    launch at the rank's heads (:func:`_check_tp`). Returns the launch
+    counts of each phase."""
     import gc
 
     four = finish_mesh(launches["four"])["mesh_his_cache"]
@@ -3154,98 +3428,180 @@ def finish_mesh_phases(corpus: str, out: str, final_model: str, launches: dict) 
         "(its times were taken beside the train parity phases)")
     if fills != {(2, 4)}:
         raise SystemExit(f"mesh_his_cache: rebuilds at {fills}, JAX's rule gives (2, 4)")
+    # the one-rank halves of the checks, beside the checks' ranks
+    families = (("mesh_parity_fp32", "mesh_parity"), ("mesh_parity_tp", "mesh_parity_tp"))
+    ones = {phase: parity_one_rank(corpus, launches["parity"], family)
+            for phase, family in families}
+    eval_one = table_eval_one(corpus, out, final_model)
+    two = finish_mesh(launches["checks"])
+    counts["mesh_parity_fp32_one"] = {}
+    for phase, family in families:
+        counts.update(_check_ranks(phase, two[phase], micro_batches(family)))
+        mesh_parity_check(phase, two[phase][0], launches["grads"][phase], ones[phase])
+        for n, c in ones[phase]["counts"].items():
+            counts["mesh_parity_fp32_one"][n] = counts["mesh_parity_fp32_one"].get(n, 0) + c
+    counts.update(_check_ranks("ep_unisrec", two["ep_unisrec"], micro_batches("ep_unisrec")))
+    for r in two["ep_unisrec"]:
+        _check_per_batch("ep_unisrec", {k: v // micro_batches("ep_unisrec")
+                                        for k, v in r["train_counts"].items()})
+    counts.update(table_eval_check(out, two["table_eval"], eval_one))
+    counts.update(mesh_serve_check(two, launches["cache"], out))
     gc.collect()
     torch.cuda.empty_cache()
     with open(launches["go"], "w"):
         pass
-    two = finish_mesh(launches["two"])
-    counts.update(_check_ranks("mesh_train", two["mesh_train"], micro_batches("mesh")))
+    timed = finish_mesh(launches["timed"])
+    counts.update(_check_ranks("mesh_train", timed["mesh_train"], micro_batches("mesh")))
     args = train_args(corpus, out, family="mesh")
-    steps = sorted(t for r in two["mesh_train"] for t in r["step_s"][1:])
+    steps = sorted(t for r in timed["mesh_train"] for t in r["step_s"][1:])
     mid = steps[len(steps) // 2]
     MICRO_BATCH_MS["mesh_train"] = 1e3 * mid
-    PEAK_GIB["mesh_train"] = max(r["peak_gib"] for r in two["mesh_train"])
+    PEAK_GIB["mesh_train"] = max(r["peak_gib"] for r in timed["mesh_train"])
     log(f"mesh_train: {args.train_batch_size / mid:.2f} global examples/s "
         f"({args.train_batch_size} rows a micro-batch, {args.train_batch_size // 2} a rank); "
         f"one card's train phase {MICRO_BATCH_MS.get('train', float('nan')):.1f} ms a "
         f"micro-batch")
-    counts.update(_check_ranks("mesh_parity_fp32", two["mesh_parity_fp32"],
-                               micro_batches("mesh_parity")))
-    counts.update(mesh_parity_check(corpus, launches["parity"], two["mesh_parity_fp32"][0],
-                                    launches["grads"]))
-    counts.update(table_eval_check(corpus, out, final_model, two["table_eval"]))
+    counts.update(_check_tp(timed["tp_train"]))
     return counts
 
 
-def mesh_parity_check(corpus: str, out: str, two: dict, grads: str) -> dict:
-    """mesh_parity_fp32's W = 2 run (rank 0's report ``two``, its update's
-    gradients in ``grads``) against W = 1 in this process: ``train()``'s
-    batches, model and optimizer through ``Trainer.train_step`` (no
-    checkpoint written), the PLM's dropout rates at 0 as in the ranks. The
-    global losses to 1e-4 of their size; the update's global gradient norm
-    before the clip (the ranks' shares summed over the data group, divided)
-    to 1e-4 of its size: a sum off by a factor moves it by that factor,
-    where the clip (1.0) hides the factor from the clipped gradients; and
-    the clipped gradients AdamW takes to the card-vs-CPU parity's
-    tolerance (1e-3 of each gradient's largest magnitude plus 1e-5 of the
-    largest over all: float32 summation order). The norm and the clipped
-    gradients together hold the summed gradient before the clip: equal
-    norms give equal clip factors."""
-    import dataclasses
+def _check_tp(reports) -> dict:
+    """tp_train's ranks: as :func:`_check_ranks`, 24 mha launches of each
+    kind a micro-batch (``PER_BATCH``), every mha forward at the rank's 6
+    heads of all ``TP_N`` sequences, at head offset 6 x its model rank;
+    logs the micro-batch, its all-reduces over the model group (count and
+    time, the card synchronised around each) and their share of it."""
+    counts = _check_ranks("tp_train", reports, micro_batches("tp"))
+    for r in reports:
+        _check_per_batch("tp_train", {k: v // micro_batches("tp")
+                                      for k, v in r["train_counts"].items()})
+        want = {f"{TP_N}x{L}x{TP_HEADS}+{TP_HEADS * r['rank']}" for L in (TRAIN_TITLE,
+                                                                         TRAIN_SAPO)}
+        if set(r["mha_shapes"]) != want:
+            raise SystemExit(f"tp_train: rank {r['rank']}'s mha launches at "
+                             f"{r['mha_shapes']} (N x L x heads + head offset), want {want}")
+    steps = [t for r in reports for t in r["step_s"][1:]]
+    shares = [s / t for r in reports for s, t in zip(r["tp_s"][1:], r["step_s"][1:])]
+    mid = sorted(steps)[len(steps) // 2]
+    MICRO_BATCH_MS["tp_train"] = 1e3 * mid
+    r0 = reports[0]
+    log(f"tp_train: micro-batch of {TP_B} rows {1e3 * mid:.1f} ms median over the ranks "
+        f"(the first apart), {TP_B / mid:.2f} examples/s; the model group's all-reduces "
+        f"{r0['tp_n']} a micro-batch on rank 0, {[round(1e3 * t, 1) for t in r0['tp_s']]} ms, "
+        f"a median share {sorted(shares)[len(shares) // 2]:.3f} of the micro-batch; mha "
+        f"launches by N x L x heads + head offset {[r['mha_shapes'] for r in reports]}")
+    return counts
 
+
+def parity_one_rank(corpus: str, out: str, family: str) -> dict:
+    """A fp32 parity's W = 1 run of ``family`` in this process: ``train()``'s batches,
+    model and optimizer through ``Trainer.train_step`` (no checkpoint
+    written), with the config's dropout, as in the ranks: the losses, the
+    update's gradients (AdamW's, clipped) and their norm before the clip,
+    and the launch counts."""
     import miner_tpu_torch.training.trainer as port_trainer
     from miner_tpu_torch.data.batcher import Batcher
     from miner_tpu_torch.ops import launch_counts, reset_launch_counts
 
-    make = port_trainer.plm_config
-    port_trainer.plm_config = lambda *a, **k: dataclasses.replace(
-        make(*a, **k), hidden_dropout=0.0, attention_dropout=0.0)
+    trainer = port_trainer.Trainer(train_args(corpus, os.path.join(out, f"w1_{family}"),
+                                              family=family))
+    a = trainer.args
+    store = trainer._load_store(a.train_news_path, a.augmentations)
+    block = trainer._train_sampler(trainer._load_log(a.train_behaviors_path, store),
+                                   store).sample_epoch(0)
+    model = trainer.initial_model().to(trainer.device).train()
+    table = trainer._make_table(store)
+    optimizer = trainer.make_optimizer(model, 1, 0)
+    kept, adamw_step = {}, optimizer.adamw.step
+
+    def keeping(*x, **k):
+        kept["grads"] = [p.grad.detach().clone() for p in optimizer.params]
+        return adamw_step(*x, **k)
+
+    optimizer.adamw.step = keeping
+    reset_launch_counts()
+    CENSUS.phase = "mesh_parity_fp32_one"
     try:
-        trainer = port_trainer.Trainer(train_args(corpus, os.path.join(out, "w1"),
-                                                  family="mesh_parity"))
-        a = trainer.args
-        store = trainer._load_store(a.train_news_path, a.augmentations)
-        block = trainer._train_sampler(trainer._load_log(a.train_behaviors_path, store),
-                                       store).sample_epoch(0)
-        model = trainer.initial_model().to(trainer.device).train()
-        table = trainer._make_table(store)
-        optimizer = trainer.make_optimizer(model, 1, 0)
-        kept, adamw_step = {}, optimizer.adamw.step
-
-        def keeping(*x, **k):
-            kept["grads"] = [p.grad.detach().clone() for p in optimizer.params]
-            return adamw_step(*x, **k)
-
-        optimizer.adamw.step = keeping
-        reset_launch_counts()
-        CENSUS.phase = "mesh_parity_fp32_one"
         batches = Batcher(a.train_batch_size, drop_last=True, shuffle=True,
                           seed=a.seed).batches(block, 0)
         losses = [float(trainer.train_step(model, table, batch, optimizer, i))
                   for i, batch in enumerate(batches)]
     finally:
         CENSUS.phase = None
-        port_trainer.plm_config = make
-    counts = {"mesh_parity_fp32_one": launch_counts()}
-    _check_launches("mesh_parity_fp32_one", counts["mesh_parity_fp32_one"])
+    counts = launch_counts()
+    _check_launches("mesh_parity_fp32_one", counts)
+    return dict(losses=losses, grads=kept["grads"], norm=float(optimizer.grad_norm),
+                updates=optimizer.updates, counts=counts)
+
+
+def mesh_parity_check(phase: str, two: dict, grads: str, one: dict) -> None:
+    """A parity phase's W = 2 run (rank 0's report ``two``, its update's
+    gradients in ``grads``, a sharded leaf's gathered whole) against W = 1
+    (:func:`parity_one_rank`), both with the config's dropout, whose masks
+    do not depend on the mesh. The global losses to 1e-4 of their size;
+    the update's global gradient norm before the clip (the ranks' shares
+    summed over the data group, divided; over the model axis the shares'
+    squares summed) to 1e-4 of its size: a sum off by a factor moves it by
+    that factor, where the clip (1.0) hides the factor from the clipped
+    gradients; and the clipped gradients AdamW takes to the card-vs-CPU
+    parity's tolerance (1e-3 of each gradient's largest magnitude plus
+    1e-5 of the largest over all: float32 summation order). The norm and
+    the clipped gradients together hold the summed gradient before the
+    clip: equal norms give equal clip factors."""
+    losses, want, norm = one["losses"], one["grads"], one["norm"]
+    got = [g.to(want[0].device) for g in torch.load(grads)]
     loss_err = max(abs(x - y) / abs(y) for x, y in zip(two["losses"], losses))
-    want, got = kept["grads"], [g.to(trainer.device) for g in torch.load(grads)]
     top = max(float(w.abs().max()) for w in want)
     ratios = [float((g - w).abs().max()) / (1e-3 * float(w.abs().max()) + 1e-5 * top)
               for g, w in zip(got, want)]
     worst = max(range(len(ratios)), key=ratios.__getitem__)
-    norm_err = abs(two["grad_norms"][0] - float(optimizer.grad_norm)) / float(optimizer.grad_norm)
-    log(f"mesh_parity_fp32: W = 2 against W = 1 (this process) on the card: losses "
-        f"{[round(x, 5) for x in two['losses']]} and {[round(x, 5) for x in losses]}, "
-        f"{loss_err:.3g} of their size (tol 1e-4); the update's gradient norm before the clip "
-        f"{two['grad_norms'][0]:.7g} and {float(optimizer.grad_norm):.7g}, {norm_err:.3g} of "
-        f"its size (tol 1e-4); the clipped gradients at worst {ratios[worst]:.3g} of their "
-        f"tolerance (tensor {worst} of {len(ratios)}, shape {tuple(want[worst].shape)}; tol "
-        f"1e-3 of each gradient's largest magnitude + 1e-5 of the largest, {top:.3g})")
-    if (len(losses) != len(two["losses"]) or optimizer.updates != 1
+    norm_err = abs(two["grad_norms"][0] - norm) / norm
+    log(f"{phase}: W = 2 ({two['mesh']}) against W = 1 (this process) on the card, dropout "
+        f"on: losses {[round(x, 5) for x in two['losses']]} and "
+        f"{[round(x, 5) for x in losses]}, {loss_err:.3g} of their size (tol 1e-4); the "
+        f"update's gradient norm before the clip {two['grad_norms'][0]:.7g} and {norm:.7g}, "
+        f"{norm_err:.3g} of its size (tol 1e-4); the clipped gradients at worst "
+        f"{ratios[worst]:.3g} of their tolerance (tensor {worst} of {len(ratios)}, shape "
+        f"{tuple(want[worst].shape)}; tol 1e-3 of each gradient's largest magnitude + 1e-5 of "
+        f"the largest, {top:.3g})")
+    if (len(losses) != len(two["losses"]) or one["updates"] != 1 or len(got) != len(want)
             or len(two["grad_norms"]) != 1 or loss_err > 1e-4 or norm_err > 1e-4
             or ratios[worst] > 1):
-        raise SystemExit("mesh_parity_fp32: W = 2 disagrees with W = 1")
+        raise SystemExit(f"{phase}: W = 2 disagrees with W = 1")
+
+
+def mesh_serve_check(two: dict, cache: str, out: str) -> dict:
+    """mesh_serve and mesh_serve_loaded (``serve`` over ``--mesh_table
+    2``): every rank launched the serving kernels (the loaded start no PLM
+    kernel); rank 0's replies to serve_cache's requests equal the one-rank
+    fresh start's bit for bit (each gather and lookup+score summed over
+    the two shards: one term a value is not zero); the cache the ranks
+    persisted is the one-rank file's array for array. Returns the launch
+    counts summed over the ranks."""
+    import numpy as np
+
+    reqs, want = SERVED["serve_cache"]
+    counts = {}
+    for phase in ("mesh_serve", "mesh_serve_loaded"):
+        reports = two[phase]
+        for r in reports:
+            _check_launches(phase, r["train_counts"])
+        got = reports[0].get("replies")
+        at = reports[0]["at"]
+        log(f"{phase}: {reports[0]['world']} ranks, rank 0 answering {len(reqs)} requests "
+            f"over HTTP one at a time, {at['exit'] - at['job']:.1f} s start to stop on rank 0; "
+            f"replies {'bit-equal to' if got == want else 'DIFFER from'} the one-rank serving's")
+        if got != want:
+            raise SystemExit(f"{phase}: replies over --mesh_table 2 differ from one rank's")
+        counts[phase] = {n: sum(r["train_counts"][n] for r in reports)
+                         for n in reports[0]["train_counts"]}
+    with np.load(cache) as a, np.load(os.path.join(out, "serve_cache.npz")) as b:
+        same = sorted(a.files) == sorted(b.files) and all(
+            np.array_equal(a[k], b[k]) for k in a.files)
+    log(f"mesh_serve: the cache persisted over --mesh_table 2 "
+        f"{'equals' if same else 'DIFFERS from'} the one-rank file array for array")
+    if not same:
+        raise SystemExit("mesh_serve: the persisted sharded cache differs from one rank's")
     return counts
 
 
@@ -3277,28 +3633,36 @@ def _eval_files(path: str):
         return preds, f.read()
 
 
-def table_eval_check(corpus: str, out: str, final_model: str, reports) -> dict:
-    """table_eval's ranks (``reports``: ``eval_miner.txt`` on the train
-    phase's ``finalModel`` with ``--mesh_table 2``, each rank keeping half
-    of the news-embedding cache's rows and a zero row, every gather and
-    lookup+score run on the rank's shard and summed over the two) against
-    a one-rank eval in this process: the metrics, the eval loss and every
-    prediction bit for bit, and lookup+score launched on each rank."""
+def table_eval_one(corpus: str, out: str, final_model: str) -> dict:
+    """table_eval's one-rank eval in this process: its scores, time and
+    launch counts (its files under ``out``)."""
     from miner_tpu_torch.config import make_parser
     from miner_tpu_torch.ops import launch_counts, reset_launch_counts
     from miner_tpu_torch.training.trainer import Trainer
 
-    one_dir, two_dir = os.path.join(out, "table_eval_one"), os.path.join(out, "table_eval")
     reset_launch_counts()
     CENSUS.phase = "table_eval_one"
     t0 = time.perf_counter()
     try:
-        want = Trainer(make_parser().parse_args(eval_words(corpus, one_dir, final_model))).eval()
+        want = Trainer(make_parser().parse_args(eval_words(
+            corpus, os.path.join(out, "table_eval_one"), final_model))).eval()
     finally:
         CENSUS.phase = None
-    one_s = time.perf_counter() - t0
-    one_counts = launch_counts()
-    _check_launches("table_eval", one_counts)
+    counts = launch_counts()
+    _check_launches("table_eval", counts)
+    return dict(scores=want, seconds=time.perf_counter() - t0, counts=counts)
+
+
+def table_eval_check(out: str, reports, one: dict) -> dict:
+    """table_eval's ranks (``reports``: ``eval_miner.txt`` on the train
+    phase's ``finalModel`` with ``--mesh_table 2``, each rank keeping half
+    of the news-embedding cache's rows and a zero row, every gather and
+    lookup+score run on the rank's shard and summed over the two) against
+    the one-rank eval (:func:`table_eval_one`): the metrics, the eval loss
+    and every prediction bit for bit, and lookup+score launched on each
+    rank."""
+    one_dir, two_dir = os.path.join(out, "table_eval_one"), os.path.join(out, "table_eval")
+    want, one_s, one_counts = one["scores"], one["seconds"], one["counts"]
     for r in reports:
         _check_launches("table_eval", r["eval_counts"])
     (p1, csv1), (p2, csv2) = _eval_files(one_dir), _eval_files(two_dir)
@@ -3446,6 +3810,8 @@ def main(argv=None) -> int:
         # over a mesh of ranks: the counts set to 0 in each rank just before
         # the port's CLI runs there (mesh_rank_main); the ranks start beside
         # the CPU halves of the train parity phases
+        # the ranks share the card with this process: give back its cache
+        torch.cuda.empty_cache()
         launches = start_mesh_phases(corpus, tmp, final_model)
         try:
             for family in PARITY_FAMILIES:
@@ -3460,6 +3826,8 @@ def main(argv=None) -> int:
         if "w2" in row:  # a rank's shapes over a mesh: the mesh phases' launches
             row["w2"]["launches"] = sum(row["launches_by_phase"][p] for p in (
                 ("table_eval",) if row["name"] == "lookup_score_fwd" else MESH_PHASES))
+        if "w2_model" in row:  # a rank's heads over the model axis
+            row["w2_model"]["launches"] = sum(row["launches_by_phase"][p] for p in TP_PHASES)
         if "int8" in row:  # the int8 route's share of lookup+score's launches
             row["int8"]["launches"] = sum(
                 n for (name, _, shape), n in CENSUS.counts.items()

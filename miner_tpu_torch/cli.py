@@ -13,30 +13,24 @@ server over the news-embedding cache) or ``@config/serve_unbert.txt``
 (one-shot ranking), on
 ``--device`` (default ``cuda``).
 
-Train, pretrain and eval run over a mesh of ranks under a launcher, one
-process a rank: ``python -m torch.distributed.run --standalone
---nproc_per_node W -m miner_tpu_torch train @cfg --mesh_data W``
-(``parallel/mesh.py``). Serving stays one process.
+Every subcommand runs over a mesh of ranks under a launcher, one process
+a rank: ``python -m torch.distributed.run --standalone --nproc_per_node W
+-m miner_tpu_torch train @cfg --mesh_data W`` (or ``--mesh_model``,
+``--mesh_table``; ``parallel/mesh.py``). ``serve`` answers HTTP on rank 0
+while the other ranks follow its device calls (``serving.py``);
+``recommend`` runs on every rank and rank 0 prints.
 """
 from __future__ import annotations
 
+import datetime
 import sys
 
 from miner_tpu_torch.config import make_parser
 
-
-def refuse_mesh_serving(args) -> None:
-    """``serve`` and ``recommend`` are one process on one device, as the
-    JAX package's serving: refused under a process group of several ranks
-    or with a mesh flag above 1."""
-    from miner_tpu_torch.parallel import mesh
-
-    flags = {f"--mesh_{k}": getattr(args, f"mesh_{k}") for k in ("data", "table", "model")}
-    if mesh.world_size() > 1 or any(v > 1 for v in flags.values()):
-        raise NotImplementedError(
-            f"{args.mode} over a mesh ({mesh.world_size()} ranks, {flags}): serving "
-            "over the table axis is not ported yet (ROADMAP Queue 1 item 6); serve "
-            "from one process")
+# the collectives' timeout of a serving mesh: a device call whose ranks do
+# not all answer within it fails on rank 0 (the followers wait for the next
+# call on a group of their own, without it)
+SERVE_TIMEOUT = datetime.timedelta(seconds=300)
 
 
 def main(argv=None):
@@ -52,19 +46,18 @@ def main(argv=None):
     from miner_tpu_torch.training.trainer import Trainer
 
     owned = not torch.distributed.is_initialized()  # a group the caller started is its own
-    mesh.maybe_initialize_distributed(args.device)
+    serving = args.mode in ("serve", "recommend")
+    mesh.maybe_initialize_distributed(args.device, SERVE_TIMEOUT if serving else None)
     try:
         if args.mode in ("train", "train_fastformer", "pretrain"):
             Trainer(args).train()
         elif args.mode in ("eval", "eval_fastformer"):
             Trainer(args).eval()
         elif args.mode == "recommend":
-            refuse_mesh_serving(args)
             Trainer(args).recommend()
         elif args.mode == "serve":
             from miner_tpu_torch.serving import serve
 
-            refuse_mesh_serving(args)
             serve(Trainer(args), args.host, args.port)
     finally:
         if owned:

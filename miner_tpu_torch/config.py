@@ -9,9 +9,8 @@ argument files with ``#`` comments parse unchanged (every shipped file of
 implementation, layer scan, matmul precision) are accepted and ignored,
 each saying so in ``--help``; ``--remat_policy`` is honoured under
 ``--remat``. The mesh flags are honoured under a launcher
-(``python -m torch.distributed.run``, one process a rank): ``--mesh_data``
-and ``--mesh_table`` as in JAX, ``--mesh_model`` above 1 refused by the
-``Trainer`` (tensor parallelism is not ported yet).
+(``python -m torch.distributed.run``, one process a rank): ``--mesh_data``,
+``--mesh_table`` and ``--mesh_model`` as in JAX.
 The ``Trainer`` refuses ``--param_dtype`` other than float32, as the JAX
 package does, and ``--no-fused_kernels`` on a card.
 """
@@ -139,10 +138,12 @@ def _add_common(p: argparse.ArgumentParser):
                         "cover them")
     p.add_argument("--mesh_table", type=int, default=1,
                    help="ranks on the table axis: the news-embedding cache's rows "
-                        "are sharded over them (cached eval, --his_cache_refresh)")
+                        "are sharded over them (cached eval, --his_cache_refresh, "
+                        "serving)")
     p.add_argument("--mesh_model", type=int, default=1,
-                   help="ranks on the tensor-parallel axis: only 1 (tensor "
-                        "parallelism is not ported yet)")
+                   help="ranks on the tensor-parallel axis: the transformer layers' "
+                        "heads and feed-forward features and the MoE experts are "
+                        "sharded over them")
     p.add_argument("--param_dtype", type=str, default="float32",
                    help="float32 only: fp32 master weights")
     p.add_argument("--matmul_precision", type=str, default=None,

@@ -46,11 +46,17 @@ constexpr int THREADS = 32 * WARPS;
 constexpr int MIN_BLOCKS = 3;  // an SM's blocks: at most 170 registers a thread
 constexpr int MAX_D = 1024;  // 32 columns a lane at most: the keep bits are one word
 
+// The Philox counter takes a row's place in the whole batch: the launch's
+// row plus row_offset (a rank's rows of a batch). OFF false, a launch over
+// the whole batch, is built without the add.
+template <bool OFF>
 struct Dropout {
   unsigned long long seed;
   unsigned int thresh;
   float inv_keep;  // 1 when off
   int on;
+  int row_offset;
+  __device__ __forceinline__ int row(int r) const { return OFF ? r + row_offset : r; }
 };
 
 // 16 bytes of T as floats
@@ -113,12 +119,12 @@ struct Plan {
 };
 
 // NJ: 16-byte vectors a lane owns, ceil(D / (32 * Vec<T>::N)).
-template <typename T, int NJ>
+template <typename T, int NJ, bool OFF>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 add_ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ h,
                   const float* __restrict__ gamma, const T* __restrict__ dy,
                   T* __restrict__ dx, T* __restrict__ dh, float* __restrict__ partial,
-                  int rows, int D, float eps, Dropout drop) {
+                  int rows, int D, float eps, Dropout<OFF> drop) {
   constexpr int V = Vec<T>::N;
   constexpr bool IN_REGS = Plan<T, NJ>::in_regs;  // next row and sums in registers
   extern __shared__ float smem[];
@@ -192,7 +198,7 @@ add_ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ h,
         if (drop.on) {
 #pragma unroll
           for (int p = 0; p < V / 4; ++p) {
-            const Philox4 b = add_ln_bits(v * (V / 4) + p, row, drop.seed);
+            const Philox4 b = add_ln_bits(v * (V / 4) + p, drop.row(row), drop.seed);
 #pragma unroll
             for (int i = 0; i < 4; ++i)
               if (b.w[i] < drop.thresh) keep &= ~(1u << (j * V + 4 * p + i));
@@ -310,7 +316,7 @@ struct Args {
   void *dx, *dh, *partial;
   int rows, D, blocks, device;
   float eps;
-  Dropout drop;
+  Dropout<true> drop;
   cudaStream_t stream;
   int* grid_out;  // non-null: only report the grid size
 };
@@ -324,7 +330,7 @@ cudaError_t run(const Args& a) {
     if (a.grid_out != nullptr) {
       int per_sm = 0, sms = 0;
       cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, add_ln_bwd_kernel<T, NJ>, THREADS, smem);
+          &per_sm, add_ln_bwd_kernel<T, NJ, false>, THREADS, smem);
       if (err != cudaSuccess) return err;
       err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, a.device);
       if (err != cudaSuccess) return err;
@@ -333,11 +339,19 @@ cudaError_t run(const Args& a) {
       if (*a.grid_out < 1) *a.grid_out = 1;
       return cudaSuccess;
     }
-    add_ln_bwd_kernel<T, NJ><<<a.blocks, THREADS, smem, a.stream>>>(
-        static_cast<const T*>(a.x), static_cast<const T*>(a.h),
-        static_cast<const float*>(a.gamma), static_cast<const T*>(a.dy),
-        static_cast<T*>(a.dx), static_cast<T*>(a.dh), static_cast<float*>(a.partial), a.rows,
-        a.D, a.eps, a.drop);
+    const Dropout<true>& d = a.drop;
+    if (d.on && d.row_offset)
+      add_ln_bwd_kernel<T, NJ, true><<<a.blocks, THREADS, smem, a.stream>>>(
+          static_cast<const T*>(a.x), static_cast<const T*>(a.h),
+          static_cast<const float*>(a.gamma), static_cast<const T*>(a.dy),
+          static_cast<T*>(a.dx), static_cast<T*>(a.dh), static_cast<float*>(a.partial),
+          a.rows, a.D, a.eps, d);
+    else
+      add_ln_bwd_kernel<T, NJ, false><<<a.blocks, THREADS, smem, a.stream>>>(
+          static_cast<const T*>(a.x), static_cast<const T*>(a.h),
+          static_cast<const float*>(a.gamma), static_cast<const T*>(a.dy),
+          static_cast<T*>(a.dx), static_cast<T*>(a.dh), static_cast<float*>(a.partial),
+          a.rows, a.D, a.eps, Dropout<false>{d.seed, d.thresh, d.inv_keep, d.on, 0});
     return cudaGetLastError();
   }
 }
@@ -387,15 +401,16 @@ extern "C" int add_ln_bwd_blocks(int rows, int D, int dtype, int device, int* bl
 // 8 (bf16) or 4 (fp32) up to 1024; gamma (D) fp32; partial (2, blocks, D)
 // fp32, blocks from add_ln_bwd_blocks: per block, dgamma then dbeta sums.
 // Dropout is on when `dropping` is non-zero: keep iff bits >= thresh, kept
-// values scaled by inv_keep.
+// values scaled by inv_keep; row r's mask is drawn at row r + row_offset (a
+// launch over some rows of a batch draws their masks of the whole batch's).
 extern "C" int add_ln_bwd(const void* x, const void* h, const void* gamma, const void* dy,
                           void* dx, void* dh, void* partial, int rows, int D, int blocks,
                           float eps, unsigned long long seed, unsigned int thresh,
-                          float inv_keep, int dropping, int dtype, int device,
-                          void* stream) {
+                          float inv_keep, int dropping, int row_offset, int dtype,
+                          int device, void* stream) {
   if (blocks <= 0) return cudaErrorInvalidValue;
   Args a{x, h, gamma, dy, dx, dh, partial, rows, D, blocks, device, eps,
-         Dropout{seed, thresh, dropping ? inv_keep : 1.f, dropping != 0},
+         Dropout<true>{seed, thresh, dropping ? inv_keep : 1.f, dropping != 0, row_offset},
          static_cast<cudaStream_t>(stream), nullptr};
   return dispatch(a, dtype);
 }

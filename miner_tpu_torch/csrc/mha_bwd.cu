@@ -65,11 +65,19 @@ namespace {
 
 constexpr float LOG2E = 1.4426950408889634f;
 
+// The Philox counter takes a sequence's and a head's places in the whole
+// batch: the launch's index plus seq_offset / head_offset (a rank's part of
+// a batch). OFF false, a launch over the whole batch, is built without the
+// adds, which cost the bf16 kernels a spill (the wrapper passes zeros then).
+template <bool OFF>
 struct Dropout {
   unsigned long long seed;
   unsigned int thresh;
   float inv_keep;
   int on;
+  int seq_offset, head_offset;
+  __device__ __forceinline__ int seq(int n) const { return OFF ? n + seq_offset : n; }
+  __device__ __forceinline__ int head(int h) const { return OFF ? h + head_offset : h; }
 };
 
 // --------------------------------------------------------------- bfloat16
@@ -90,12 +98,12 @@ constexpr int tc_smem_bytes(int keys) {
 
 // grid (N, H), blockDim 32 * tc_warps(L). dq_acc: (N, H, L, DH) fp32
 // scratch when L > 128, else null.
-template <int DH>
+template <int DH, bool OFF>
 __global__ void __launch_bounds__(32 * TC_WARPS, 2)
 mha_bwd_bf16(const bf16* __restrict__ qkv, const int* __restrict__ mask,
              const bf16* __restrict__ out, const bf16* __restrict__ dout,
              const float2* __restrict__ stats, bf16* __restrict__ dqkv,
-             float* __restrict__ dq_acc, int L, int H, int seqs, Dropout drop) {
+             float* __restrict__ dq_acc, int L, int H, int seqs, Dropout<OFF> drop) {
   constexpr int LD = DH + 8, CH = DH / 8;
   const int nw = blockDim.x >> 5, KT = 16 * nw;
   extern __shared__ __align__(16) unsigned char tc_smem[];
@@ -240,8 +248,8 @@ mha_bwd_bf16(const bf16* __restrict__ qkv, const int* __restrict__ mask,
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
               // words: (key g, query 2t+e), (g+8, 2t+e), (g, 2t+e+8), (g+8, 2t+e+8)
-              const Philox4 bits = mha_block_bits((q0 >> 4) + qb, 2 * t + e, kw >> 4, g, h,
-                                                  n, drop.seed);
+              const Philox4 bits = mha_block_bits((q0 >> 4) + qb, 2 * t + e, kw >> 4, g,
+                                                  drop.head(h), drop.seq(n), drop.seed);
               const unsigned th = drop.thresh;
               if (bits.w[0] < th) kp[2 * qb][e] = 0.f;
               if (bits.w[1] < th) kp[2 * qb][2 + e] = 0.f;
@@ -350,19 +358,19 @@ mha_bwd_bf16(const bf16* __restrict__ qkv, const int* __restrict__ mask,
   }
 }
 
-template <int DH>
+template <int DH, bool OFF>
 cudaError_t launch_bf16(const void* qkv, const void* mask, const void* out,
                         const void* dout, const void* stats, void* dqkv,
                         void* scratch, int N, int L, int H, int seqs,
-                        Dropout drop, cudaStream_t stream) {
+                        Dropout<OFF> drop, cudaStream_t stream) {
   const int nw = tc_warps(L);
   if (L > 16 * nw && scratch == nullptr) return cudaErrorInvalidValue;
   const int smem = tc_smem_bytes<DH>(16 * nw);
   cudaError_t err = cudaFuncSetAttribute(
-      mha_bwd_bf16<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      mha_bwd_bf16<DH, OFF>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(N, H);
-  mha_bwd_bf16<DH><<<grid, 32 * nw, smem, stream>>>(
+  mha_bwd_bf16<DH, OFF><<<grid, 32 * nw, smem, stream>>>(
       static_cast<const bf16*>(qkv), static_cast<const int*>(mask),
       static_cast<const bf16*>(out), static_cast<const bf16*>(dout),
       static_cast<const float2*>(stats), static_cast<bf16*>(dqkv),
@@ -454,12 +462,12 @@ __device__ __forceinline__ void dq_block_fp32(float (&acc)[2][4], const float* s
 // 16-byte aligned. One block per SM (its K, V, the query buffers and dS^T
 // take 137 KB of shared memory at Dh = 64), so the cap is 255 registers and
 // the dK, dV accumulators and split fragments stay in registers.
-template <int DH>
+template <int DH, bool OFF>
 __global__ void __launch_bounds__(32 * TC_WARPS, 1)
 mha_bwd_fp32(const float* __restrict__ qkv, const int* __restrict__ mask,
              const float* __restrict__ out, const float* __restrict__ dout,
              const float2* __restrict__ stats, float* __restrict__ dqkv, int L, int H,
-             int seqs, int vec, Dropout drop) {
+             int seqs, int vec, Dropout<OFF> drop) {
   constexpr int LD = DH + 4, LDS = LDS_F32, CH = DH / 4;
   const int nw = blockDim.x >> 5, KT = 16 * nw;
   extern __shared__ __align__(16) unsigned char tc_smem[];
@@ -594,8 +602,8 @@ mha_bwd_fp32(const float* __restrict__ qkv, const int* __restrict__ mask,
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
               // words: (key g, query 2t+e), (g+8, 2t+e), (g, 2t+e+8), (g+8, 2t+e+8)
-              const Philox4 bits = mha_block_bits((q0 >> 4) + qb, 2 * t + e, kw >> 4, g, h,
-                                                  n, drop.seed);
+              const Philox4 bits = mha_block_bits((q0 >> 4) + qb, 2 * t + e, kw >> 4, g,
+                                                  drop.head(h), drop.seq(n), drop.seed);
               const unsigned th = drop.thresh;
               if (bits.w[0] < th) kp[2 * qb][e] = 0.f;
               if (bits.w[1] < th) kp[2 * qb][2 + e] = 0.f;
@@ -663,31 +671,31 @@ mha_bwd_fp32(const float* __restrict__ qkv, const int* __restrict__ mask,
 }
 
 // scratch: unused (dQ sums in dqkv), taken for launch_bf16's signature
-template <int DH>
+template <int DH, bool OFF>
 cudaError_t launch_fp32(const void* qkv, const void* mask, const void* out,
                         const void* dout, const void* stats, void* dqkv,
                         void* scratch, int N, int L, int H, int seqs,
-                        Dropout drop, cudaStream_t stream) {
+                        Dropout<OFF> drop, cudaStream_t stream) {
   const int nw = tc_warps(L);
   const int smem = fp32_smem_bytes<DH>(16 * nw);
   cudaError_t err = cudaFuncSetAttribute(
-      mha_bwd_fp32<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      mha_bwd_fp32<DH, OFF>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int vec = ((reinterpret_cast<uintptr_t>(qkv) | reinterpret_cast<uintptr_t>(out) |
                     reinterpret_cast<uintptr_t>(dout)) & 15) == 0;
   const dim3 grid(N, H);
-  mha_bwd_fp32<DH><<<grid, 32 * nw, smem, stream>>>(
+  mha_bwd_fp32<DH, OFF><<<grid, 32 * nw, smem, stream>>>(
       static_cast<const float*>(qkv), static_cast<const int*>(mask),
       static_cast<const float*>(out), static_cast<const float*>(dout),
       static_cast<const float2*>(stats), static_cast<float*>(dqkv), L, H, seqs, vec, drop);
   return cudaGetLastError();
 }
 
-template <bool BF16>
+template <bool BF16, bool OFF>
 cudaError_t dispatch_head_dim(const void* qkv, const void* mask, const void* out,
                               const void* dout, const void* stats, void* dqkv,
                               void* scratch, int N, int L, int H, int Dh,
-                              int seqs, Dropout drop, cudaStream_t stream) {
+                              int seqs, Dropout<OFF> drop, cudaStream_t stream) {
   switch (Dh) {
 #define MHA_CASE(DH)                                                                  \
   case DH:                                                                            \
@@ -700,6 +708,22 @@ cudaError_t dispatch_head_dim(const void* qkv, const void* mask, const void* out
     MHA_CASE(64)
 #undef MHA_CASE
     default: return cudaErrorInvalidValue;
+  }
+}
+
+template <bool OFF>
+int dispatch_type(const void* qkv, const void* mask, const void* out, const void* dout,
+                  const void* stats, void* dqkv, void* scratch, int N, int L, int H, int Dh,
+                  int seqs, Dropout<OFF> drop, int dtype, cudaStream_t s) {
+  switch (dtype) {
+    case DTYPE_F32:
+      return dispatch_head_dim<false>(qkv, mask, out, dout, stats, dqkv, scratch, N, L,
+                                      H, Dh, seqs, drop, s);
+    case DTYPE_BF16:
+      return dispatch_head_dim<true>(qkv, mask, out, dout, stats, dqkv, scratch, N, L,
+                                     H, Dh, seqs, drop, s);
+    default:
+      return cudaErrorInvalidValue;
   }
 }
 
@@ -716,27 +740,23 @@ extern "C" long long mha_bwd_scratch_floats(int N, int L, int H, int Dh, int dty
 // qkv, dqkv (N, L, 3*H*Dh), out, dout (N, L, H*Dh) of one dtype, mask (N, L)
 // int32, stats (N, H, L) float2 from mha_fwd, all contiguous, dqkv
 // 16-byte aligned (bf16: all of them); scratch as mha_bwd_scratch_floats
-// says. The dropout arguments must be those of the forward call.
+// says. The dropout arguments, offsets included, must be those of the
+// forward call.
 extern "C" int mha_bwd(const void* qkv, const void* mask, const void* out,
                        const void* dout, const void* stats, void* dqkv,
                        void* scratch, int N, int L, int H, int Dh, int seqs,
                        unsigned long long seed, unsigned int thresh,
-                       float inv_keep, int dropping, int dtype, int device,
-                       void* stream) {
+                       float inv_keep, int dropping, int seq_offset, int head_offset,
+                       int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (N <= 0 || L <= 0 || H <= 0 || H > 65535 || seqs <= 0 || L % seqs != 0)
     return cudaErrorInvalidValue;
-  const Dropout drop{seed, thresh, inv_keep, dropping != 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case DTYPE_F32:
-      return dispatch_head_dim<false>(qkv, mask, out, dout, stats, dqkv, scratch, N, L,
-                                      H, Dh, seqs, drop, s);
-    case DTYPE_BF16:
-      return dispatch_head_dim<true>(qkv, mask, out, dout, stats, dqkv, scratch, N, L,
-                                     H, Dh, seqs, drop, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (dropping && (seq_offset || head_offset))
+    return dispatch_type(qkv, mask, out, dout, stats, dqkv, scratch, N, L, H, Dh, seqs,
+                         Dropout<true>{seed, thresh, inv_keep, 1, seq_offset, head_offset},
+                         dtype, s);
+  return dispatch_type(qkv, mask, out, dout, stats, dqkv, scratch, N, L, H, Dh, seqs,
+                       Dropout<false>{seed, thresh, inv_keep, dropping != 0, 0, 0}, dtype, s);
 }

@@ -69,11 +69,19 @@ namespace {
 
 constexpr float LOG2E = 1.4426950408889634f;
 
+// The Philox counter takes a sequence's and a head's places in the whole
+// batch: the launch's index plus seq_offset / head_offset (a rank's part of
+// a batch). OFF false, a launch over the whole batch, is built without the
+// adds, which cost the bf16 kernels a spill (the wrapper passes zeros then).
+template <bool OFF>
 struct Dropout {
   unsigned long long seed;
   unsigned int thresh;
   float inv_keep;
   int on;
+  int seq_offset, head_offset;
+  __device__ __forceinline__ int seq(int n) const { return OFF ? n + seq_offset : n; }
+  __device__ __forceinline__ int head(int h) const { return OFF ? h + head_offset : h; }
 };
 
 typedef __nv_bfloat16 bf16;
@@ -225,12 +233,12 @@ __device__ __forceinline__ void tile_values(float (&o)[DH / 8][4], const float (
 // (no key). k0: the chunk's first key; nblk: its 16-key blocks that hold
 // keys; qt0: the warp's first query row (k0 and qt0 are multiples of 16,
 // which the dropout layout needs).
-template <typename T, int DH>
+template <typename T, int DH, bool OFF>
 __device__ __forceinline__ void attend_tile(RowState<DH>& st, const QOperand<T, DH>& q,
                                             const T* sKt, const T* sVt,
                                             const int* key_ok, int k0, int nblk,
                                             int qt0, int sub, int seqs, int h, int n,
-                                            float scale, const Dropout& drop, int lane) {
+                                            float scale, const Dropout<OFF>& drop, int lane) {
   constexpr int KB = attend_keys<T>();
   const int g = lane >> 2, t = lane & 3;
   float s[KB / 8][4];
@@ -282,7 +290,8 @@ __device__ __forceinline__ void attend_tile(RowState<DH>& st, const QOperand<T, 
         for (int e = 0; e < 2; ++e) {
           // words: (g, 2t+e), (g, 2t+e+8), (g+8, 2t+e), (g+8, 2t+e+8)
           const Philox4 bits =
-              mha_block_bits(qt0 >> 4, g, (k0 >> 4) + kb, 2 * t + e, h, n, drop.seed);
+              mha_block_bits(qt0 >> 4, g, (k0 >> 4) + kb, 2 * t + e,
+                             drop.head(h), drop.seq(n), drop.seed);
           const float ik = drop.inv_keep;
           const unsigned th = drop.thresh;
           s[2 * kb][e] = bits.w[0] >= th ? s[2 * kb][e] * ik : 0.f;
@@ -299,11 +308,11 @@ __device__ __forceinline__ void attend_tile(RowState<DH>& st, const QOperand<T, 
 // The tile's first nkeys keys (k0 the first), in chunks of attend_keys<T>():
 // one attend_tile in bf16, whose chunk is the tile; a loop in fp32 (a loop
 // in bf16 too cost its L <= 64 path 8% on the card).
-template <typename T, int DH>
+template <typename T, int DH, bool OFF>
 __device__ __forceinline__ void attend(RowState<DH>& st, const QOperand<T, DH>& q,
                                        const T* sKt, const T* sVt, const int* key_ok, int k0,
                                        int nkeys, int qt0, int sub, int seqs, int h, int n,
-                                       float scale, const Dropout& drop, int lane) {
+                                       float scale, const Dropout<OFF>& drop, int lane) {
   constexpr int KB = attend_keys<T>(), LD = row_pitch<T, DH>();
   if constexpr (KB == TC_BK) {
     attend_tile(st, q, sKt, sVt, key_ok, k0, (nkeys + 15) / 16, qt0, sub, seqs, h, n, scale,
@@ -371,11 +380,11 @@ __device__ __forceinline__ void init_rows(RowState<DH>& st) {
 // The kernel body of both types. grid (N, ceil(H / hpb)); blockDim 32 *
 // warps. L <= 64: hpb heads per block, ceil(L/16) warps each, one key tile.
 // L > 64: hpb = 1, 8 warps. vec: qkv is 16-byte aligned (always, in bf16).
-template <typename T, int DH>
+template <typename T, int DH, bool OFF>
 __device__ __forceinline__ void mha_fwd_body(const T* __restrict__ qkv,
                                              const int* __restrict__ mask, T* __restrict__ out,
                                              float2* __restrict__ stats, int L, int H,
-                                             int seqs, int hpb, int vec, Dropout drop) {
+                                             int seqs, int hpb, int vec, Dropout<OFF> drop) {
   constexpr int LD = row_pitch<T, DH>(), VEC = 16 / (int)sizeof(T), CH = DH / VEC;
   extern __shared__ __align__(16) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
@@ -484,28 +493,28 @@ __device__ __forceinline__ void mha_fwd_body(const T* __restrict__ qkv,
 // One entry point per type, so that each keeps its name in traces and in
 // the ptxas report, and its own register cap: 128 a thread, two blocks of
 // 8 warps per SM.
-template <int DH>
+template <int DH, bool OFF>
 __global__ void __launch_bounds__(32 * TC_WARPS, 2)
 mha_fwd_bf16(const bf16* __restrict__ qkv, const int* __restrict__ mask,
              bf16* __restrict__ out, float2* __restrict__ stats, int L, int H, int seqs,
-             int hpb, int vec, Dropout drop) {
+             int hpb, int vec, Dropout<OFF> drop) {
   mha_fwd_body<bf16, DH>(qkv, mask, out, stats, L, H, seqs, hpb, vec, drop);
 }
 
-template <int DH>
+template <int DH, bool OFF>
 __global__ void __launch_bounds__(32 * TC_WARPS, 2)
 mha_fwd_fp32(const float* __restrict__ qkv, const int* __restrict__ mask,
              float* __restrict__ out, float2* __restrict__ stats, int L, int H, int seqs,
-             int hpb, int vec, Dropout drop) {
+             int hpb, int vec, Dropout<OFF> drop) {
   mha_fwd_body<float, DH>(qkv, mask, out, stats, L, H, seqs, hpb, vec, drop);
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool OFF>
 cudaError_t launch(const void* qkv, const void* mask, void* out, void* stats, int N,
-                   int L, int H, int seqs, Dropout drop, cudaStream_t stream) {
+                   int L, int H, int seqs, Dropout<OFF> drop, cudaStream_t stream) {
   constexpr bool BF16 = sizeof(T) == 2;
   constexpr int smem = tc_smem_bytes<T, DH>();
-  const auto kernel = BF16 ? (void*)mha_fwd_bf16<DH> : (void*)mha_fwd_fp32<DH>;
+  const auto kernel = BF16 ? (void*)mha_fwd_bf16<DH, OFF> : (void*)mha_fwd_fp32<DH, OFF>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -518,25 +527,38 @@ cudaError_t launch(const void* qkv, const void* mask, void* out, void* stats, in
   const int vec = (reinterpret_cast<uintptr_t>(qkv) & 15) == 0;
   const dim3 grid(N, (H + hpb - 1) / hpb);
   if (BF16)
-    mha_fwd_bf16<DH><<<grid, 32 * warps, smem, stream>>>(
+    mha_fwd_bf16<DH, OFF><<<grid, 32 * warps, smem, stream>>>(
         static_cast<const bf16*>(qkv), static_cast<const int*>(mask),
         static_cast<bf16*>(out), static_cast<float2*>(stats), L, H, seqs, hpb, vec, drop);
   else
-    mha_fwd_fp32<DH><<<grid, 32 * warps, smem, stream>>>(
+    mha_fwd_fp32<DH, OFF><<<grid, 32 * warps, smem, stream>>>(
         static_cast<const float*>(qkv), static_cast<const int*>(mask),
         static_cast<float*>(out), static_cast<float2*>(stats), L, H, seqs, hpb, vec, drop);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool OFF>
 cudaError_t dispatch_head_dim(const void* qkv, const void* mask, void* out,
                               void* stats, int N, int L, int H, int Dh,
-                              int seqs, Dropout drop, cudaStream_t stream) {
+                              int seqs, Dropout<OFF> drop, cudaStream_t stream) {
   switch (Dh) {
     case 16: return launch<T, 16>(qkv, mask, out, stats, N, L, H, seqs, drop, stream);
     case 32: return launch<T, 32>(qkv, mask, out, stats, N, L, H, seqs, drop, stream);
     case 64: return launch<T, 64>(qkv, mask, out, stats, N, L, H, seqs, drop, stream);
     default: return cudaErrorInvalidValue;
+  }
+}
+
+template <bool OFF>
+int dispatch_type(const void* qkv, const void* mask, void* out, void* stats, int N, int L,
+                  int H, int Dh, int seqs, Dropout<OFF> drop, int dtype, cudaStream_t s) {
+  switch (dtype) {
+    case DTYPE_F32:
+      return dispatch_head_dim<float>(qkv, mask, out, stats, N, L, H, Dh, seqs, drop, s);
+    case DTYPE_BF16:
+      return dispatch_head_dim<bf16>(qkv, mask, out, stats, N, L, H, Dh, seqs, drop, s);
+    default:
+      return cudaErrorInvalidValue;
   }
 }
 
@@ -547,24 +569,23 @@ cudaError_t dispatch_head_dim(const void* qkv, const void* mask, void* out,
 // 64}; L % seqs == 0.
 // stats: (N, H, L) float2 (row max, 1/row sum) or null. Dropout is on when
 // `dropping` is non-zero: keep iff bits >= thresh, kept values scaled by
-// inv_keep.
+// inv_keep. The mask of sequence n, head h is drawn at (n + seq_offset,
+// h + head_offset): a launch over some sequences or heads of a batch draws
+// their masks of the whole batch's launch.
 extern "C" int mha_fwd(const void* qkv, const void* mask, void* out,
                        void* stats, int N, int L, int H, int Dh, int seqs,
                        unsigned long long seed, unsigned int thresh,
-                       float inv_keep, int dropping, int dtype, int device,
-                       void* stream) {
+                       float inv_keep, int dropping, int seq_offset, int head_offset,
+                       int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (N <= 0 || L <= 0 || H <= 0 || H > 65535 || seqs <= 0 || L % seqs != 0)
     return cudaErrorInvalidValue;
-  const Dropout drop{seed, thresh, inv_keep, dropping != 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case DTYPE_F32:
-      return dispatch_head_dim<float>(qkv, mask, out, stats, N, L, H, Dh, seqs, drop, s);
-    case DTYPE_BF16:
-      return dispatch_head_dim<bf16>(qkv, mask, out, stats, N, L, H, Dh, seqs, drop, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (dropping && (seq_offset || head_offset))
+    return dispatch_type(qkv, mask, out, stats, N, L, H, Dh, seqs,
+                         Dropout<true>{seed, thresh, inv_keep, 1, seq_offset, head_offset},
+                         dtype, s);
+  return dispatch_type(qkv, mask, out, stats, N, L, H, Dh, seqs,
+                       Dropout<false>{seed, thresh, inv_keep, dropping != 0, 0, 0}, dtype, s);
 }

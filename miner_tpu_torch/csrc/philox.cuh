@@ -39,7 +39,9 @@ __device__ __forceinline__ Philox4 philox4x32_10(uint32_t c0, uint32_t c1,
 }
 
 // The mha layout: element (query i, key j) of head h of sequence n is word
-// 2 * bit3(i) + bit3(j) of philox(counter = (j', i', h, n)), where x' is x
+// 2 * bit3(i) + bit3(j) of philox(counter = (j', i', h, n)), with h and n the
+// head's and the sequence's places in the whole batch (a launch over some of
+// them passes its local index plus its offset), where x' is x
 // with bit 3 taken out (x' = (x >> 4) * 8 + x % 8). One call covers
 // {i, i+8} x {j, j+8}: the four values one lane holds of a 16 x 16 block in
 // the mma C layout, whether queries or keys are the rows.
@@ -53,7 +55,7 @@ __device__ __forceinline__ Philox4 mha_block_bits(int qb, int qr, int kb, int kr
 }
 
 // The add_ln layout: element (row r, column c) is word c % 4 of
-// philox(counter = (c / 4, r, 0, 0)). The call for columns 4 q .. 4 q + 3 of
+// philox(counter = (c / 4, r, 0, 0)), r the row's place in the whole batch. The call for columns 4 q .. 4 q + 3 of
 // row r: word w[i] is the bits of column 4 q + i.
 __device__ __forceinline__ Philox4 add_ln_bits(int q, int r, unsigned long long seed) {
   return philox4x32_10(static_cast<uint32_t>(q), static_cast<uint32_t>(r), 0u, 0u, seed);

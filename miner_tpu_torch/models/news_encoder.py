@@ -31,8 +31,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from miner_tpu_torch.models.dropout import DropoutRNG, dropout_active
+from miner_tpu_torch.models.dropout import DropoutRNG, Rows, dropout_active
 from miner_tpu_torch.models.plm import Dense, PLMConfig, TransformerPLM, lecun_normal_, normal_init_
+from miner_tpu_torch.parallel.tp import copy_to_model, reduce_from_model
 
 
 _GATES = ("i", "f", "g", "o")
@@ -195,9 +196,13 @@ class NewsEncoder(nn.Module):
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One PLM call per field over a model batch's candidates and
         history concatenated (``encode_all_news``, miner.py:112-136):
-        (cand_repr (B, C, D), his_repr (B, H, D))."""
+        (cand_repr (B, C, D), his_repr (B, H, D)). Over a data axis a
+        rank's rows of the call are two runs of the global call's (its
+        candidates', then its history's), where its dropout is drawn."""
         B, C = batch["cand_title"].shape[:2]
         H = batch["his_title"].shape[1]
+        if rng is not None:
+            rng = rng.at(Rows.concat(rng.rows_of(B * C), B * C, rng.rows_of(B * H)))
 
         def both(name):  # (B, C, L) and (B, H, L) -> (B*(C+H), L)
             return torch.cat([batch[f"cand_{name}"].flatten(0, 1),
@@ -236,7 +241,12 @@ class MoEAdaptor(nn.Module):
     in training mode the gate logits get ``normal * (softplus(x @ w_noise)
     + 1e-2)`` in the logits' type, the normal draws from the step's
     ``DropoutRNG``; the gates are an fp32 softmax cast to x's type; the
-    output is the gate-weighted sum of the experts."""
+    output is the gate-weighted sum of the experts. Under expert parallelism
+    (``parallel/tp.py``) the rank holds experts [``experts_share[0]``, ...)
+    and its share of the sum is summed over the model group
+    (``experts_share[1]``)."""
+
+    experts_share = None
 
     def __init__(self, d_in: int, n_experts: int = 8, out_dim: int = 300,
                  dropout: float = 0.2, noise_epsilon: float = 1e-2):
@@ -260,7 +270,13 @@ class MoEAdaptor(nn.Module):
             noise_std = F.softplus(x @ self.w_noise.to(x.dtype)) + self.noise_epsilon
             logits = logits + rng.normal(logits.shape, logits.dtype) * noise_std
         gates = torch.softmax(logits.float(), dim=-1).to(x.dtype)
-        return torch.einsum("be,beo->bo", gates, self.experts(x, rng))
+        if self.experts_share is None:
+            return torch.einsum("be,beo->bo", gates, self.experts(x, rng))
+        start, group = self.experts_share
+        n = self.experts.kernel.shape[0]
+        gates = copy_to_model(gates, group)[:, start:start + n]
+        return reduce_from_model(torch.einsum("be,beo->bo", gates,
+                                              self.experts(copy_to_model(x, group), rng)), group)
 
 
 class NewsEncoderMoe(NewsEncoder):

@@ -33,7 +33,15 @@ with no batch dims (qkv, out, ffn_in, ffn_out; JAX's
 ``dots_with_no_batch_dims_saveable``), so it runs no matmul either. The
 rest (the add_ln sites, GELU, the weight casts) is recomputed under both.
 The layer's kernel seeds are drawn before it and passed in, so the
-recompute draws the same masks.
+recompute draws the same masks. Over a mesh a rank's sequences take their
+masks at their places in the global batch (``DropoutRNG.rows_of``: the
+kernels' ``seq_offset`` and ``row_offset``).
+
+Under tensor parallelism (``parallel/tp.py``) a layer holds its rank's
+share of ``qkv`` and ``ffn_in`` (column-parallel) and of ``out`` and
+``ffn_out`` (row-parallel): each ``Dense`` knows its part (``parallel``)
+and runs the model group's collective itself, and the attention runs the
+rank's heads (``num_heads``, ``head_offset``).
 """
 from __future__ import annotations
 
@@ -49,6 +57,8 @@ from torch.utils.checkpoint import checkpoint
 from miner_tpu_torch.models.dropout import DropoutRNG, dropout_active
 from miner_tpu_torch.ops.add_ln import fused_dropout_add_ln
 from miner_tpu_torch.ops.mha import fused_mha
+from miner_tpu_torch.ops.philox import Offsets, scaled
+from miner_tpu_torch.parallel.tp import copy_to_model, reduce_from_model
 
 REMAT_POLICIES = ("", "dots")
 
@@ -181,40 +191,64 @@ class _KeptLinear(torch.autograd.Function):
 class Dense(nn.Linear):
     """``nn.Linear`` computing in its input's type: the fp32 master weight
     is cast at use, as flax's ``Dense(dtype=...)`` does. Under ``--remat
-    --remat_policy dots`` its output is kept for the recompute (``remat``)."""
+    --remat_policy dots`` its output is kept for the recompute (``remat``).
+    Under tensor parallelism ``parallel`` is ``"column"`` (the rank's output
+    features: the input's gradient summed over the model ``group``) or
+    ``"row"`` (the rank's input features: the output summed over the group,
+    then the bias added once)."""
+
+    parallel: Optional[str] = None
+    group = None
 
     def forward(self, x: torch.Tensor, remat: Optional[Remat] = None) -> torch.Tensor:
-        bias = None if self.bias is None else self.bias.to(x.dtype)
+        if self.parallel == "column":
+            x = copy_to_model(x, self.group)
+        row = self.parallel == "row"
+        bias = None if self.bias is None or row else self.bias.to(x.dtype)
         if remat is not None and remat.dots:
-            return _KeptLinear.apply(x, self.weight.to(x.dtype), bias, remat.slot())
-        return F.linear(x, self.weight.to(x.dtype), bias)
+            y = _KeptLinear.apply(x, self.weight.to(x.dtype), bias, remat.slot())
+        else:
+            y = F.linear(x, self.weight.to(x.dtype), bias)
+        if row:
+            y = reduce_from_model(y, self.group)
+            if self.bias is not None:
+                y = y + self.bias.to(y.dtype)
+        return y
 
 
 class AddLN(LayerNorm):
     """``LN(x + dropout(h))`` through the fused add_ln op (a post-LN site)."""
 
     def forward(self, x: torch.Tensor, h: torch.Tensor, rate: float = 0.0,
-                seed: int = 0) -> torch.Tensor:
+                seed: int = 0, seq_offset: Offsets = 0) -> torch.Tensor:
+        """``seq_offset``: the places of x's sequences (its leading axis) in
+        the global batch."""
         n = self.weight.shape[0]
+        tokens = x.numel() // (n * x.shape[0])  # rows of add_ln a sequence
         y = fused_dropout_add_ln(x.reshape(-1, n), h.reshape(-1, n),
-                                 self.weight, self.bias, rate, self.eps, seed)
+                                 self.weight, self.bias, rate, self.eps, seed,
+                                 scaled(seq_offset, tokens))
         return y.reshape(x.shape)
 
 
 class SelfAttention(nn.Module):
     """Multi-head self-attention with a fused QKV projection: through the
-    mha op (``forward``) or JAX's unfused products (``plain``)."""
+    mha op (``forward``) or JAX's unfused products (``plain``). Under
+    tensor parallelism it runs ``num_heads`` of ``total_heads`` heads,
+    from ``head_offset`` on."""
 
     def __init__(self, cfg: PLMConfig):
         super().__init__()
-        self.num_heads = cfg.num_heads
+        self.num_heads = self.total_heads = cfg.num_heads
+        self.head_offset = 0
         self.qkv = Dense(cfg.hidden_size, 3 * cfg.hidden_size)
         self.out = Dense(cfg.hidden_size, cfg.hidden_size)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor, rate: float = 0.0,
-                seed: int = 0, remat: Optional[Remat] = None) -> torch.Tensor:
+                seed: int = 0, remat: Optional[Remat] = None,
+                seq_offset: Offsets = 0) -> torch.Tensor:
         ctx = fused_mha(self.qkv(x, remat), mask, self.num_heads, rate, 1, seed,
-                        None if remat is None else remat.slot())
+                        None if remat is None else remat.slot(), seq_offset, self.head_offset)
         return self.out(ctx, remat)
 
     def plain(self, x: torch.Tensor, bias: torch.Tensor, rate: float = 0.0,
@@ -223,16 +257,18 @@ class SelfAttention(nn.Module):
         by an fp32 1/sqrt(Dh), plus the additive ``bias`` (any shape that
         broadcasts to (B, heads, L, L)); an fp32 softmax cast to x's type;
         dropout at ``rate`` on the probabilities; the context."""
-        B, L, D = x.shape
+        B, L, _ = x.shape
         H = self.num_heads
         qkv = self.qkv(x)
+        D = qkv.shape[-1] // 3  # this rank's heads' features
         q, k, v = (qkv[..., i * D:(i + 1) * D].reshape(B, L, H, D // H).transpose(1, 2)
                    for i in range(3))
         scale = 1.0 / torch.sqrt(torch.tensor(float(D // H), device=x.device))
         logits = torch.matmul(q, k.transpose(-1, -2)).float() * scale + bias.float()
         probs = torch.softmax(logits, dim=-1).to(x.dtype)
         if rate > 0.0:
-            probs = rng.dropout(probs, rate)
+            heads = None if H == self.total_heads else (self.head_offset, self.total_heads)
+            probs = rng.dropout(probs, rate, heads)
         return self.out(torch.matmul(probs, v).transpose(1, 2).reshape(B, L, D))
 
 
@@ -262,13 +298,15 @@ class TransformerLayer(nn.Module):
         self.gelu = "tanh" if cfg.gelu_approx else "none"
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
-                seeds: Optional[Sequence[int]] = None,
+                seeds: Optional[Sequence[int]] = None, offset: Offsets = 0,
                 rng: Optional[DropoutRNG] = None,
                 remat: Optional[Remat] = None) -> torch.Tensor:
         """Fused: ``mask`` (B, L) int32 and ``seeds`` (three kernel seeds)
-        turn dropout on, None is deterministic; ``remat``: the record of a
-        rematerialised call. Unfused: ``mask`` is the additive bias and
-        ``rng`` draws the dropout in training mode."""
+        turn dropout on, None is deterministic; ``offset``: the places of
+        the B sequences in the global batch (their masks' place);
+        ``remat``: the record of a rematerialised call. Unfused: ``mask``
+        is the additive bias and ``rng`` draws the dropout in training
+        mode."""
         if not self.fused:
             return self._plain(x, mask, rng)
         p_attn = p_hid = 0.0
@@ -276,9 +314,10 @@ class TransformerLayer(nn.Module):
         if seeds is not None:
             p_attn, p_hid = self.attention_dropout, self.hidden_dropout
             s_attn, s_ln1, s_ln2 = seeds
-        x = self.attention_ln(x, self.attention(x, mask, p_attn, s_attn, remat), p_hid, s_ln1)
+        x = self.attention_ln(x, self.attention(x, mask, p_attn, s_attn, remat, offset), p_hid,
+                              s_ln1, offset)
         h = self.ffn_out(F.gelu(self.ffn_in(x, remat), approximate=self.gelu), remat)
-        return self.ffn_ln(x, h, p_hid, s_ln2)
+        return self.ffn_ln(x, h, p_hid, s_ln2, offset)
 
     def _plain(self, x: torch.Tensor, bias: torch.Tensor,
                rng: Optional[DropoutRNG]) -> torch.Tensor:
@@ -346,15 +385,16 @@ class TransformerPLM(nn.Module):
         dropping = dropout_active(self, rng, max(cfg.hidden_dropout,
                                                  cfg.attention_dropout))
         remat = cfg.remat and self.training and torch.is_grad_enabled()
+        offset = rng.rows_of(x.shape[0]).offset if dropping else 0
         for layer in self.layers:
             seeds = rng.kernel_seeds(layer.SEEDS) if dropping else None
             if remat:
                 # the seeds are arguments, so the recompute drops the same
                 # elements; no global RNG state is read inside the layer
                 x = checkpoint(Remat(cfg.remat_policy == "dots").run, layer, x, mask, seeds,
-                               use_reentrant=False, preserve_rng_state=False)
+                               offset, use_reentrant=False, preserve_rng_state=False)
             else:
-                x = layer(x, mask, seeds)
+                x = layer(x, mask, seeds, offset)
         return x
 
 

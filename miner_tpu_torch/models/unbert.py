@@ -102,8 +102,9 @@ class UNBert(nn.Module):
         cfg = self.cfg
         mask = mask.to(torch.int32).contiguous()
         dropping = dropout_active(self, rng, max(cfg.hidden_dropout, cfg.attention_dropout))
+        offset = rng.rows_of(x.shape[0]).offset if dropping else 0
         for layer in layers:
-            x = layer(x, mask, rng.kernel_seeds(layer.SEEDS) if dropping else None)
+            x = layer(x, mask, rng.kernel_seeds(layer.SEEDS) if dropping else None, offset)
         return x
 
     def forward(self, batch: Dict[str, torch.Tensor],

@@ -8,7 +8,11 @@ fp32; gamma and beta are fp32; y comes out in x's type. (The JAX package's
 XLA path adds in the compute type first; the plain version here follows
 the kernel.) Dropout keeps element (row, column) by its Philox4x32-10 bits
 (``ops/philox.py``), so the backward and a rematerialised forward
-regenerate the mask from the seed and nothing random is stored.
+regenerate the mask from the seed and nothing random is stored. A call
+over some rows of a batch (a rank's, over a mesh) passes their places in
+the whole batch (``row_offset``) and draws their masks of the whole
+batch; a ``row_offset`` of several pieces (``ops/philox.py:Offsets``)
+launches each kernel once a piece.
 
 Backward (as ``add_ln.py:_bwd_kernel``): recompute s, mu, rstd, xhat; with
 g = dy * gamma, ds = rstd * (g - mean(g) - xhat * mean(g * xhat)),
@@ -51,17 +55,17 @@ import torch
 from miner_tpu_torch.ops import common, philox
 
 
-def _dropped(h: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+def _dropped(h: torch.Tensor, rate: float, seed: int, row_offset: philox.Offsets = 0):
     """fp32 h after dropout; also returns the keep mask (None at rate 0)."""
     if rate <= 0.0:
         return h.float(), None
     T, D = h.shape
-    keep = philox.keep_mask(philox.add_ln_bits(seed, T, D, h.device), rate)
+    keep = philox.keep_mask(philox.add_ln_bits(seed, T, D, h.device, row_offset), rate)
     return torch.where(keep, h.float() * (1.0 / (1.0 - rate)), 0.0), keep
 
 
-def _normalise(x, h, eps, rate, seed):
-    hd, keep = _dropped(h, rate, seed)
+def _normalise(x, h, eps, rate, seed, row_offset=0):
+    hd, keep = _dropped(h, rate, seed, row_offset)
     s = x.float() + hd
     mu = s.mean(dim=-1, keepdim=True)
     var = torch.square(s - mu).mean(dim=-1, keepdim=True)
@@ -71,20 +75,20 @@ def _normalise(x, h, eps, rate, seed):
 
 def add_ln_reference(x: torch.Tensor, h: torch.Tensor, scale: torch.Tensor,
                      bias: torch.Tensor, eps: float, rate: float = 0.0,
-                     seed: int = 0) -> torch.Tensor:
+                     seed: int = 0, row_offset: philox.Offsets = 0) -> torch.Tensor:
     """Plain PyTorch version: LN(x + dropout(h)) with an fp32 add and fp32
     statistics."""
-    xhat, _, _ = _normalise(x, h, eps, rate, seed)
+    xhat, _, _ = _normalise(x, h, eps, rate, seed, row_offset)
     return (xhat * scale.float() + bias.float()).to(x.dtype)
 
 
 def add_ln_backward_reference(x: torch.Tensor, h: torch.Tensor,
                               scale: torch.Tensor, dy: torch.Tensor,
-                              eps: float, rate: float = 0.0, seed: int = 0
-                              ) -> Tuple[torch.Tensor, ...]:
+                              eps: float, rate: float = 0.0, seed: int = 0,
+                              row_offset: philox.Offsets = 0) -> Tuple[torch.Tensor, ...]:
     """Plain backward, as formulas: (dx, dh) in x's type, (dscale, dbias)
     fp32."""
-    xhat, rstd, keep = _normalise(x, h, eps, rate, seed)
+    xhat, rstd, keep = _normalise(x, h, eps, rate, seed, row_offset)
     dyf = dy.float()
     g = dyf * scale.float()
     ds = rstd * (g - g.mean(dim=-1, keepdim=True)
@@ -117,17 +121,22 @@ def _triton_kernels():
                         tl.where(lane == 2, c2, c3)))
 
     @triton.jit
-    def keep_mask(rows, cols, seed_lo, seed_hi, thresh):
+    def keep_mask(rows, cols, seed_lo, seed_hi, thresh, row_offset, OFFSET: tl.constexpr):
+        # rows at their places in the whole batch (OFFSET: a launch over
+        # part of it, compiled apart)
         zero = rows[:, None] * 0 + cols[None, :] * 0
         c0 = (cols[None, :] // 4 + zero).to(tl.uint32)
+        if OFFSET:
+            rows = rows + row_offset
         c1 = (rows[:, None] + zero).to(tl.uint32)
         bits = philox_word(c0, c1, seed_lo.to(tl.uint32), seed_hi.to(tl.uint32),
                            cols[None, :] % 4 + zero)
         return bits >= thresh.to(tl.uint32)
 
-    @triton.jit(do_not_specialize=["seed_lo", "seed_hi", "thresh"])
+    @triton.jit(do_not_specialize=["seed_lo", "seed_hi", "thresh", "row_offset"])
     def add_ln_fwd(x_ptr, h_ptr, g_ptr, b_ptr, y_ptr, T, D, eps, seed_lo,
-                   seed_hi, thresh, inv_keep, DROPOUT: tl.constexpr,
+                   seed_hi, thresh, inv_keep, row_offset, DROPOUT: tl.constexpr,
+                   OFFSET: tl.constexpr,
                    BLOCK_T: tl.constexpr, BLOCK_D: tl.constexpr):
         rows = tl.program_id(0) * BLOCK_T + tl.arange(0, BLOCK_T)
         cols = tl.arange(0, BLOCK_D)
@@ -136,7 +145,7 @@ def _triton_kernels():
         offs = rows[:, None].to(tl.int64) * D + cols[None, :]
         h = tl.load(h_ptr + offs, mask=m, other=0.0).to(tl.float32)
         if DROPOUT:
-            keep = keep_mask(rows, cols, seed_lo, seed_hi, thresh)
+            keep = keep_mask(rows, cols, seed_lo, seed_hi, thresh, row_offset, OFFSET)
             h = tl.where(keep, h * inv_keep, 0.0)
         s = tl.load(x_ptr + offs, mask=m, other=0.0).to(tl.float32) + h
         mean = tl.sum(s, axis=1) / D
@@ -165,7 +174,8 @@ def _check(x, h, scale):
     common.check_tensor("scale", scale, x.device, (torch.float32,), (x.shape[-1],))
 
 
-def _launch_fwd(x, h, scale, bias, eps, rate, seed) -> torch.Tensor:
+def _launch_fwd(x, h, scale, bias, eps, rate, seed,
+                row_offset: philox.Offsets = 0) -> torch.Tensor:
     common.require_cuda(x, "fused_dropout_add_ln")
     _check(x, h, scale)
     common.check_tensor("bias", bias, x.device, (torch.float32,))
@@ -176,17 +186,20 @@ def _launch_fwd(x, h, scale, bias, eps, rate, seed) -> torch.Tensor:
     block_t = max(1, 4096 // block_d)
     drop = _dropout_args(rate, seed)
     with torch.cuda.device(x.device):
-        kernel[(-(-T // block_t),)](x, h, scale, bias, y, T, D, eps, **drop,
-                                    BLOCK_T=block_t, BLOCK_D=block_d,
-                                    num_warps=8 if drop["DROPOUT"] else 4)
-    fused_dropout_add_ln.launches += 1
+        for lo, hi, off in philox.pieces(row_offset, T):  # one launch a piece
+            at = lo + off if drop["DROPOUT"] else 0
+            kernel[(-(-(hi - lo) // block_t),)](
+                x[lo:hi], h[lo:hi], scale, bias, y[lo:hi], hi - lo, D, eps, **drop,
+                row_offset=at, OFFSET=at != 0, BLOCK_T=block_t, BLOCK_D=block_d,
+                num_warps=8 if drop["DROPOUT"] else 4)
+            fused_dropout_add_ln.launches += 1
     return y
 
 
 _MAX_BWD_D = 1024
 _BWD_ARGTYPES = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 3
                  + (ctypes.c_float, ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_float)
-                 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,))
+                 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,))
 
 
 @functools.lru_cache(maxsize=None)
@@ -201,13 +214,14 @@ def _bwd_blocks(T: int, D: int, code: int, device: int) -> int:
 
 def add_ln_backward(x: torch.Tensor, h: torch.Tensor, scale: torch.Tensor,
                     dy: torch.Tensor, eps: float, rate: float = 0.0,
-                    seed: int = 0) -> Tuple[torch.Tensor, ...]:
+                    seed: int = 0, row_offset: philox.Offsets = 0
+                    ) -> Tuple[torch.Tensor, ...]:
     """(dx, dh, dscale, dbias) of y = LN(x + dropout(h)) for the gradient
     dy. A CPU tensor takes :func:`add_ln_backward_reference`; a CUDA tensor
     launches the backward kernel (x, h, dy of one type, float32 or
     bfloat16, D a multiple of 8 or 4 up to 1024; scale float32) or raises."""
     if x.device.type == "cpu":
-        return add_ln_backward_reference(x, h, scale, dy, eps, rate, seed)
+        return add_ln_backward_reference(x, h, scale, dy, eps, rate, seed, row_offset)
     common.require_cuda(x, "add_ln_backward")
     _check(x, h, scale)
     common.check_tensor("dy", dy, x.device, (x.dtype,), tuple(x.shape))
@@ -219,45 +233,51 @@ def add_ln_backward(x: torch.Tensor, h: torch.Tensor, scale: torch.Tensor,
     for what, t in (("x", x), ("h", h), ("dy", dy)):
         common.check_aligned(what, t)
     code, dev = common.DTYPE_CODES[x.dtype], x.device.index
-    blocks = _bwd_blocks(T, D, code, dev)
     dx, dh = torch.empty_like(x), torch.empty_like(x)
-    partial = torch.empty((2, blocks, D), dtype=torch.float32, device=x.device)
     drop = _dropout_args(rate, seed)
     fn = common.kernel_function("add_ln_bwd", "add_ln_bwd", _BWD_ARGTYPES)
-    common.launch("add_ln_bwd", fn, x.data_ptr(), h.data_ptr(), scale.data_ptr(),
-                  dy.data_ptr(), dx.data_ptr(), dh.data_ptr(), partial.data_ptr(), T, D,
-                  blocks, eps, seed, drop["thresh"], drop["inv_keep"],
-                  int(drop["DROPOUT"]), code, dev, common.stream_of(x))
-    add_ln_backward.launches += 1
-    dscale, dbias = partial.sum(dim=1)
+    sums = []
+    for lo, hi, off in philox.pieces(row_offset, T):  # one launch a piece
+        blocks = _bwd_blocks(hi - lo, D, code, dev)
+        partial = torch.empty((2, blocks, D), dtype=torch.float32, device=x.device)
+        common.launch("add_ln_bwd", fn, x[lo:hi].data_ptr(), h[lo:hi].data_ptr(),
+                      scale.data_ptr(), dy[lo:hi].data_ptr(), dx[lo:hi].data_ptr(),
+                      dh[lo:hi].data_ptr(), partial.data_ptr(), hi - lo, D, blocks, eps, seed,
+                      drop["thresh"], drop["inv_keep"], int(drop["DROPOUT"]),
+                      lo + off if drop["DROPOUT"] else 0, code, dev, common.stream_of(x))
+        add_ln_backward.launches += 1
+        sums.append(partial.sum(dim=1))
+    dscale, dbias = sums[0] if len(sums) == 1 else torch.stack(sums).sum(0)
     return dx, dh, dscale, dbias
 
 
 class _FusedAddLN(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, h, scale, bias, rate, eps, seed):
+    def forward(ctx, x, h, scale, bias, rate, eps, seed, row_offset):
         if x.device.type == "cpu":
-            y = add_ln_reference(x, h, scale, bias, eps, rate, seed)
+            y = add_ln_reference(x, h, scale, bias, eps, rate, seed, row_offset)
         else:
-            y = _launch_fwd(x, h, scale, bias, eps, rate, seed)
+            y = _launch_fwd(x, h, scale, bias, eps, rate, seed, row_offset)
         ctx.save_for_backward(x, h, scale)
-        ctx.args = (eps, rate, seed)
+        ctx.args = (eps, rate, seed, row_offset)
         return y
 
     @staticmethod
     def backward(ctx, dy):
         x, h, scale = ctx.saved_tensors
-        eps, rate, seed = ctx.args
+        eps, rate, seed, row_offset = ctx.args
         dx, dh, dscale, dbias = add_ln_backward(
-            x, h, scale, dy.to(x.dtype).contiguous(), eps, rate, seed)
-        return dx, dh, dscale, dbias, None, None, None
+            x, h, scale, dy.to(x.dtype).contiguous(), eps, rate, seed, row_offset)
+        return dx, dh, dscale, dbias, None, None, None, None
 
 
 def fused_dropout_add_ln(x: torch.Tensor, h: torch.Tensor, scale: torch.Tensor,
                          bias: torch.Tensor, rate: float = 0.0,
-                         eps: float = 1e-12, seed: int = 0) -> torch.Tensor:
+                         eps: float = 1e-12, seed: int = 0,
+                         row_offset: philox.Offsets = 0) -> torch.Tensor:
     """y = LayerNorm(x + dropout(h)); x, h (T, D); scale, bias (D,) fp32;
-    dropout at ``rate`` from the 64-bit ``seed``.
+    dropout at ``rate`` from the 64-bit ``seed``, the masks of the rows at
+    ``row_offset`` in the whole batch (0: the call is the whole batch).
 
     A CPU tensor takes :func:`add_ln_reference`; a CUDA tensor launches the
     kernel (x and h float32 or bfloat16, of one type) or raises. Under
@@ -272,10 +292,10 @@ def fused_dropout_add_ln(x: torch.Tensor, h: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"dropout rate {rate} is not in [0, 1)")
     philox.split_seed(seed)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, h, scale, bias)):
-        return _FusedAddLN.apply(x, h, scale, bias, rate, eps, seed)
+        return _FusedAddLN.apply(x, h, scale, bias, rate, eps, seed, row_offset)
     if x.device.type == "cpu":
-        return add_ln_reference(x, h, scale, bias, eps, rate, seed)
-    return _launch_fwd(x, h, scale, bias, eps, rate, seed)
+        return add_ln_reference(x, h, scale, bias, eps, rate, seed, row_offset)
+    return _launch_fwd(x, h, scale, bias, eps, rate, seed, row_offset)
 
 
 fused_dropout_add_ln.launches = 0

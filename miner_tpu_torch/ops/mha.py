@@ -13,6 +13,10 @@ The kernels are ``csrc/mha_fwd.cu`` and ``csrc/mha_bwd.cu``. Dropout keeps
 an element by its Philox4x32-10 bits (``ops/philox.py``: a function of the
 seed and (n, head, query, key)), so the forward, the backward and a
 rematerialised forward regenerate one mask and nothing random is stored.
+A call over some of a batch's sequences or heads (a rank's, over a mesh)
+passes their places in the whole batch (``seq_offset``, ``head_offset``)
+and draws their masks of the whole batch; a ``seq_offset`` of several
+pieces (``ops/philox.py:Offsets``) launches each kernel once a piece.
 Both types run on the tensor cores. In bfloat16 the kernels round P (into
 PV), Pd and dS (into the backward's products) to bf16, as the TPU kernels
 round them to the input type; the plain versions here keep them fp32, and
@@ -44,7 +48,8 @@ from miner_tpu_torch.ops import common, philox
 
 NEG_INF = -1e9
 _HEAD_DIMS = (16, 32, 64)
-_DROPOUT_ARGTYPES = (ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_float, ctypes.c_int)
+_DROPOUT_ARGTYPES = (ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_float, ctypes.c_int,
+                     ctypes.c_int, ctypes.c_int)
 _FWD_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5 + _DROPOUT_ARGTYPES
                  + (ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
 _BWD_ARGTYPES = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 5 + _DROPOUT_ARGTYPES
@@ -70,11 +75,13 @@ def _probs(q, k, mask, seqs):
     return torch.softmax(torch.where(valid, s, NEG_INF), dim=-1)
 
 
-def _keep(N: int, H: int, L: int, rate: float, seed: int, device):
+def _keep(N: int, H: int, L: int, rate: float, seed: int, device,
+          seq_offset: philox.Offsets = 0, head_offset: int = 0):
     """The (N, H, L, L) keep mask, or None at rate 0."""
     if rate <= 0.0:
         return None
-    return philox.keep_mask(philox.mha_bits(seed, N, H, L, device), rate)
+    return philox.keep_mask(philox.mha_bits(seed, N, H, L, device, seq_offset, head_offset),
+                            rate)
 
 
 def _merge(x: torch.Tensor) -> torch.Tensor:
@@ -85,11 +92,12 @@ def _merge(x: torch.Tensor) -> torch.Tensor:
 
 def mha_reference(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int,
                   seqs: int = 1, dropout_rate: float = 0.0,
-                  seed: int = 0) -> torch.Tensor:
+                  seed: int = 0, seq_offset: philox.Offsets = 0,
+                  head_offset: int = 0) -> torch.Tensor:
     """Plain PyTorch version. qkv (N, L, 3D), mask (N, L) -> (N, L, D)."""
     q, k, v = _heads(qkv, num_heads)
     p = _probs(q, k, mask, seqs)
-    keep = _keep(*p.shape[:3], dropout_rate, seed, qkv.device)
+    keep = _keep(*p.shape[:3], dropout_rate, seed, qkv.device, seq_offset, head_offset)
     if keep is not None:
         p = torch.where(keep, p * (1.0 / (1.0 - dropout_rate)), 0.0)
     return _merge(p @ v).to(qkv.dtype)
@@ -97,7 +105,8 @@ def mha_reference(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int,
 
 def mha_backward_reference(qkv: torch.Tensor, mask: torch.Tensor,
                            dout: torch.Tensor, num_heads: int, seqs: int = 1,
-                           dropout_rate: float = 0.0, seed: int = 0
+                           dropout_rate: float = 0.0, seed: int = 0,
+                           seq_offset: philox.Offsets = 0, head_offset: int = 0
                            ) -> torch.Tensor:
     """Plain backward, as formulas (``miner_tpu/ops/mha.py:_bwd_kernel``):
     dV = Pd^T dO, dP = keep * dO V^T / (1 - rate),
@@ -108,7 +117,7 @@ def mha_backward_reference(qkv: torch.Tensor, mask: torch.Tensor,
     do = dout.float().reshape(N, L, H, Dh).transpose(1, 2)
     p = _probs(q, k, mask, seqs)
     dp = do @ v.transpose(-1, -2)
-    keep = _keep(N, H, L, dropout_rate, seed, qkv.device)
+    keep = _keep(N, H, L, dropout_rate, seed, qkv.device, seq_offset, head_offset)
     pd = p
     if keep is not None:
         inv = 1.0 / (1.0 - dropout_rate)
@@ -121,10 +130,10 @@ def mha_backward_reference(qkv: torch.Tensor, mask: torch.Tensor,
     return torch.cat([_merge(dq), _merge(dk), _merge(dv)], dim=-1).to(qkv.dtype)
 
 
-def _dropout_args(rate: float, seed: int):
+def _dropout_args(rate: float, seed: int, seq_offset: int = 0, head_offset: int = 0):
     if rate <= 0.0:
-        return 0, 0, 1.0, 0
-    return seed, philox.threshold(rate), 1.0 / (1.0 - rate), 1
+        return 0, 0, 1.0, 0, 0, 0
+    return seed, philox.threshold(rate), 1.0 / (1.0 - rate), 1, seq_offset, head_offset
 
 
 def _check(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int) -> int:
@@ -139,7 +148,8 @@ def _check(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int) -> int:
     return Dh
 
 
-def _launch_fwd(qkv, mask, num_heads, seqs, rate, seed, with_stats
+def _launch_fwd(qkv, mask, num_heads, seqs, rate, seed, with_stats,
+                seq_offset: philox.Offsets = 0, head_offset: int = 0
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     common.require_cuda(qkv, "fused_mha")
     Dh = _check(qkv, mask, num_heads)
@@ -148,19 +158,22 @@ def _launch_fwd(qkv, mask, num_heads, seqs, rate, seed, with_stats
     stats = (torch.empty((N, num_heads, L, 2), dtype=torch.float32,
                          device=qkv.device) if with_stats else None)
     fn = common.kernel_function("mha_fwd", "mha_fwd", _FWD_ARGTYPES)
-    common.launch("mha_fwd", fn, qkv.data_ptr(), mask.data_ptr(), out.data_ptr(),
-                  None if stats is None else stats.data_ptr(), N, L, num_heads,
-                  Dh, seqs, *_dropout_args(rate, seed),
-                  common.DTYPE_CODES[qkv.dtype], qkv.device.index,
-                  common.stream_of(qkv))
-    fused_mha.launches += 1
+    for lo, hi, off in philox.pieces(seq_offset, N):  # one launch a piece
+        common.launch("mha_fwd", fn, qkv[lo:hi].data_ptr(), mask[lo:hi].data_ptr(),
+                      out[lo:hi].data_ptr(), None if stats is None else stats[lo:hi].data_ptr(),
+                      hi - lo, L, num_heads, Dh, seqs,
+                      *_dropout_args(rate, seed, lo + off, head_offset),
+                      common.DTYPE_CODES[qkv.dtype], qkv.device.index,
+                      common.stream_of(qkv))
+        fused_mha.launches += 1
     return out, stats
 
 
 def mha_backward(qkv: torch.Tensor, mask: torch.Tensor, dout: torch.Tensor,
                  num_heads: int, dropout_rate: float = 0.0, seed: int = 0,
                  seqs: int = 1, out: Optional[torch.Tensor] = None,
-                 stats: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 stats: Optional[torch.Tensor] = None, seq_offset: philox.Offsets = 0,
+                 head_offset: int = 0) -> torch.Tensor:
     """dqkv (N, L, 3D) from the forward's inputs and dout (N, L, D).
 
     A CPU tensor takes :func:`mha_backward_reference`; a CUDA tensor
@@ -169,7 +182,7 @@ def mha_backward(qkv: torch.Tensor, mask: torch.Tensor, dout: torch.Tensor,
     or raises."""
     if qkv.device.type == "cpu":
         return mha_backward_reference(qkv, mask, dout, num_heads, seqs,
-                                      dropout_rate, seed)
+                                      dropout_rate, seed, seq_offset, head_offset)
     common.require_cuda(qkv, "mha_backward")
     Dh = _check(qkv, mask, num_heads)
     N, L, D3 = qkv.shape
@@ -188,49 +201,58 @@ def mha_backward(qkv: torch.Tensor, mask: torch.Tensor, dout: torch.Tensor,
                                     (ctypes.c_int,) * 5, ctypes.c_longlong)(
         N, L, num_heads, Dh, code)
     dqkv = torch.empty_like(qkv)
-    # bf16 at L > 128: dQ sums over key tiles (fp32 sums in dqkv itself)
-    scratch = (torch.empty(floats, dtype=torch.float32, device=qkv.device)
+    # bf16 at L > 128: dQ sums over key tiles (fp32 sums in dqkv itself),
+    # (N, H, L, Dh): a piece takes its sequences' rows of it
+    scratch = (torch.empty((N, floats // N), dtype=torch.float32, device=qkv.device)
                if floats else None)
     fn = common.kernel_function("mha_bwd", "mha_bwd", _BWD_ARGTYPES)
-    common.launch("mha_bwd", fn, qkv.data_ptr(), mask.data_ptr(), out.data_ptr(),
-                  dout.data_ptr(), stats.data_ptr(), dqkv.data_ptr(),
-                  None if scratch is None else scratch.data_ptr(), N, L,
-                  num_heads, Dh, seqs, *_dropout_args(dropout_rate, seed),
-                  code, qkv.device.index, common.stream_of(qkv))
-    mha_backward.launches += 1
+    for lo, hi, off in philox.pieces(seq_offset, N):  # one launch a piece
+        common.launch("mha_bwd", fn, qkv[lo:hi].data_ptr(), mask[lo:hi].data_ptr(),
+                      out[lo:hi].data_ptr(), dout[lo:hi].data_ptr(), stats[lo:hi].data_ptr(),
+                      dqkv[lo:hi].data_ptr(),
+                      None if scratch is None else scratch[lo:hi].data_ptr(), hi - lo, L,
+                      num_heads, Dh, seqs,
+                      *_dropout_args(dropout_rate, seed, lo + off, head_offset),
+                      code, qkv.device.index, common.stream_of(qkv))
+        mha_backward.launches += 1
     return dqkv
 
 
 class _FusedMHA(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, qkv, mask, num_heads, rate, seed, seqs, kept):
+    def forward(ctx, qkv, mask, num_heads, rate, seed, seqs, kept, seq_offset, head_offset):
         if kept:  # a rematerialised layer's recompute: the forward's own outputs
             out, stats = kept
         elif qkv.device.type == "cpu":
-            out, stats = mha_reference(qkv, mask, num_heads, seqs, rate, seed), None
+            out, stats = mha_reference(qkv, mask, num_heads, seqs, rate, seed, seq_offset,
+                                       head_offset), None
         else:
-            out, stats = _launch_fwd(qkv, mask, num_heads, seqs, rate, seed, True)
+            out, stats = _launch_fwd(qkv, mask, num_heads, seqs, rate, seed, True, seq_offset,
+                                     head_offset)
         if kept is not None and not kept:
             kept.extend((out, stats))
         ctx.save_for_backward(qkv, mask, out, stats)
-        ctx.args = (num_heads, rate, seed, seqs)
+        ctx.args = (num_heads, rate, seed, seqs, seq_offset, head_offset)
         # kept: an alias, so that the kept tensor stays out of the graph
         return out if kept is None else out.detach()
 
     @staticmethod
     def backward(ctx, dout):
         qkv, mask, out, stats = ctx.saved_tensors
-        num_heads, rate, seed, seqs = ctx.args
+        num_heads, rate, seed, seqs, seq_offset, head_offset = ctx.args
         dqkv = mha_backward(qkv, mask, dout.to(qkv.dtype).contiguous(), num_heads,
-                            rate, seed, seqs, out, stats)
-        return dqkv, None, None, None, None, None, None
+                            rate, seed, seqs, out, stats, seq_offset, head_offset)
+        return dqkv, None, None, None, None, None, None, None, None
 
 
 def fused_mha(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int,
               dropout_rate: float = 0.0, seqs: int = 1,
-              seed: int = 0, kept: Optional[list] = None) -> torch.Tensor:
+              seed: int = 0, kept: Optional[list] = None,
+              seq_offset: philox.Offsets = 0, head_offset: int = 0) -> torch.Tensor:
     """Attention context (N, L, D) from qkv (N, L, 3D) and mask (N, L),
-    with dropout at ``dropout_rate`` from the 64-bit ``seed``.
+    with dropout at ``dropout_rate`` from the 64-bit ``seed``; the masks of
+    the sequences and heads at ``seq_offset`` and ``head_offset`` in the
+    whole batch (0: the call is the whole batch).
 
     A CPU tensor takes :func:`mha_reference`; a CUDA tensor launches the
     kernel (qkv float32 or bfloat16, mask int32, head dim 16, 32 or 64) or
@@ -255,10 +277,13 @@ def fused_mha(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int,
         raise ValueError(f"dropout rate {dropout_rate} is not in [0, 1)")
     philox.split_seed(seed)
     if torch.is_grad_enabled() and qkv.requires_grad:
-        return _FusedMHA.apply(qkv, mask, num_heads, dropout_rate, seed, seqs, kept)
+        return _FusedMHA.apply(qkv, mask, num_heads, dropout_rate, seed, seqs, kept,
+                               seq_offset, head_offset)
     if qkv.device.type == "cpu":
-        return mha_reference(qkv, mask, num_heads, seqs, dropout_rate, seed)
-    return _launch_fwd(qkv, mask, num_heads, seqs, dropout_rate, seed, False)[0]
+        return mha_reference(qkv, mask, num_heads, seqs, dropout_rate, seed, seq_offset,
+                             head_offset)
+    return _launch_fwd(qkv, mask, num_heads, seqs, dropout_rate, seed, False, seq_offset,
+                       head_offset)[0]
 
 
 fused_mha.launches = 0

@@ -21,6 +21,15 @@ regenerate the same mask in any order, and nothing random is stored.
   * add_ln, element (row r, column c):
     word ``c % 4`` of philox(counter = (c // 4, r, 0, 0)).
 
+n, h and r are the element's places in the whole batch, whatever part of
+it one launch holds: a launch over some of the sequences, heads or rows
+(a rank's, over a mesh) gives each its offset, so that it draws their
+masks of the one launch over the whole batch. The offset of a launch's
+rows may change along them (:data:`Offsets`: a rank's rows of a PLM call
+over candidates and history together are two runs of the global rows);
+the kernels take one offset a launch, so their wrappers launch once a
+piece (:func:`pieces`).
+
 An element is kept iff its 32 bits are >= floor(rate * 2**32) (as
 ``miner_tpu/ops/mha.py:_dropout_threshold``), and scaled by 1 / (1 - rate).
 
@@ -29,7 +38,7 @@ are split into 16-bit halves so that no intermediate leaves int64's range.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Tuple, Union
 
 import torch
 
@@ -85,24 +94,72 @@ def _drop_index(x: torch.Tensor) -> torch.Tensor:
     return ((x >> 4) << 3) | (x & 7)
 
 
-def mha_bits(seed: int, N: int, H: int, L: int, device) -> torch.Tensor:
-    """(N, H, L, L) int64 bits of the mha dropout mask, [n, h, i, j]."""
+# A piecewise offset of a launch's rows: ((start, offset), ...), the starts
+# ascending from 0; rows [start_i, start_i+1) are at their index + offset_i
+# in the whole batch. An int is one offset for every row.
+Offsets = Union[int, Tuple[Tuple[int, int], ...]]
+
+
+def as_offsets(offset: Offsets) -> Tuple[Tuple[int, int], ...]:
+    return ((0, int(offset)),) if isinstance(offset, int) else tuple(offset)
+
+
+def pieces(offset: Offsets, n: int):
+    """The (start, stop, offset) runs of ``n`` rows under ``offset``, the
+    empty ones left out and adjacent ones of one offset merged (one rank's
+    candidates and history are one run): one kernel launch each, whose row
+    i (the run's row ``start + i``) is at ``i + start + offset`` in the
+    whole batch."""
+    runs = as_offsets(offset)
+    out = []
+    for i, (start, off) in enumerate(runs):
+        stop = min(runs[i + 1][0] if i + 1 < len(runs) else n, n)
+        if stop <= start:
+            continue
+        if out and out[-1][2] == off and out[-1][1] == start:
+            out[-1] = (out[-1][0], stop, off)
+        else:
+            out.append((start, stop, off))
+    return out
+
+
+def scaled(offset: Offsets, k: int) -> Tuple[Tuple[int, int], ...]:
+    """The offsets of the rows of ``k`` sub-rows each (a sequence's tokens,
+    add_ln's rows of a PLM call) from those of the rows."""
+    return tuple((start * k, off * k) for start, off in as_offsets(offset))
+
+
+def row_places(offset: Offsets, n: int, device) -> torch.Tensor:
+    """(n,) int64: each of ``n`` rows' place in the whole batch."""
+    idx = torch.arange(n, dtype=torch.int64, device=torch.device(device))
+    for start, stop, off in pieces(offset, n):
+        idx[start:stop] += off
+    return idx
+
+
+def mha_bits(seed: int, N: int, H: int, L: int, device, seq_offset: Offsets = 0,
+             head_offset: int = 0) -> torch.Tensor:
+    """(N, H, L, L) int64 bits of the mha dropout mask, [n, h, i, j], for
+    the sequences at ``seq_offset`` and the heads at ``head_offset`` in the
+    whole batch."""
     dev = torch.device(device)
     ar = lambda n: torch.arange(n, dtype=torch.int64, device=dev)
     x = ar(L)
     words = philox4x32(_drop_index(x)[None, None, None, :],
                        _drop_index(x)[None, None, :, None],
-                       ar(H)[None, :, None, None], ar(N)[:, None, None, None],
+                       (ar(H) + head_offset)[None, :, None, None],
+                       row_places(seq_offset, N, dev)[:, None, None, None],
                        seed)
     lane = ((x >> 3) & 1)[:, None] * 2 + ((x >> 3) & 1)[None, :]
     return _select_word(words, lane[None, None])
 
 
-def add_ln_bits(seed: int, T: int, D: int, device) -> torch.Tensor:
-    """(T, D) int64 bits of the add_ln dropout mask, [row, column]."""
+def add_ln_bits(seed: int, T: int, D: int, device, row_offset: Offsets = 0) -> torch.Tensor:
+    """(T, D) int64 bits of the add_ln dropout mask, [row, column], for the
+    rows at ``row_offset`` in the whole batch."""
     dev = torch.device(device)
     c = torch.arange(D, dtype=torch.int64, device=dev)
-    r = torch.arange(T, dtype=torch.int64, device=dev)
+    r = row_places(row_offset, T, dev)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     words = philox4x32((c >> 2)[None, :], r[:, None], zero, zero, seed)
     return _select_word(words, (c & 3)[None, :])

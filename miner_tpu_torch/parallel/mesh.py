@@ -7,8 +7,10 @@ package's three axes:
     batch (``parallel/sharding.py``); at each optimizer update the
     gradients are summed over the ranks that share the model and table
     coordinates (the data group, ``training/optim.py``);
-  * ``model``: tensor parallelism. Not ported yet: a mesh with ``model`` > 1
-    is refused by the trainer (ROADMAP Queue 1 item 6);
+  * ``model``: tensor and expert parallelism (``parallel/tp.py``): the
+    transformer layers' products and the MoE experts shard over the ranks
+    that share the data and table coordinates (the model group), and their
+    partial results are summed over it;
   * ``table``: the news-embedding cache's rows shard over it
     (``parallel/news_cache.py``); a cached score is summed over the ranks
     that share the data and model coordinates (the table group).
@@ -27,6 +29,7 @@ its own, gloo where ranks share a card or run on the CPU.
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import logging
 import os
 from typing import Dict, Optional
@@ -102,10 +105,13 @@ def backend_for(local_world: int, device: Optional[str] = None) -> str:
     return "nccl" if ranks_have_own_cards(local_world, device) else "gloo"
 
 
-def maybe_initialize_distributed(device: Optional[str] = None) -> Optional[str]:
+def maybe_initialize_distributed(device: Optional[str] = None,
+                                 timeout: Optional[datetime.timedelta] = None
+                                 ) -> Optional[str]:
     """Start the process group when the launcher's environment is present
     (``LAUNCHER_ENV``; the port's counterpart of JAX's
-    ``COORDINATOR_ADDRESS``), with :func:`backend_for`'s backend, and set
+    ``COORDINATOR_ADDRESS``), with :func:`backend_for`'s backend and the
+    collectives' ``timeout`` (the backend's default when None), and set
     each rank's card first where ranks have their own. Returns the backend
     (that of a group already started), or None without a launcher."""
     if dist.is_initialized():
@@ -116,7 +122,8 @@ def maybe_initialize_distributed(device: Optional[str] = None) -> Optional[str]:
     backend = backend_for(int(os.environ.get("LOCAL_WORLD_SIZE") or world), device)
     if backend == "nccl":
         torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
-    dist.init_process_group(backend, rank=int(os.environ["RANK"]), world_size=world)
+    dist.init_process_group(backend, rank=int(os.environ["RANK"]), world_size=world,
+                            **({} if timeout is None else {"timeout": timeout}))
     if dist.get_rank() == 0:
         _log.warning("process group: %d ranks, backend %s (%s)", world, backend,
                      "a card a rank" if backend == "nccl" else
@@ -132,13 +139,17 @@ def destroy_distributed() -> None:
 
 class Mesh:
     """This rank's place in the (data, model, table) mesh over the process
-    group's ranks (one rank, all axes 1, without a group) and the two
-    process groups the port sums over: ``data_group``, the ranks that share
-    this rank's model and table coordinates, and ``table_group``, those that
-    share its data and model coordinates; None where the group is this rank
-    alone. ``MeshConfig.resolve`` raises JAX's ``ValueError`` for a mesh
-    that does not cover the ranks. Given ``world`` and ``rank`` (another
-    rank's place, or a layout without processes) it makes no groups."""
+    group's ranks (one rank, all axes 1, without a group) and the process
+    groups the port sums over: ``data_group``, the ranks that share this
+    rank's model and table coordinates, ``table_group``, those that share
+    its data and model coordinates, and ``model_group``, those that share
+    its data and table coordinates; and ``row_group``, the ranks that share
+    its data coordinate (and so its rows: the replicas of a replicated
+    parameter's gradient), rooted at ``row_root``. None where the group is
+    this rank alone. ``MeshConfig.resolve`` raises JAX's ``ValueError`` for
+    a mesh that does not cover the ranks. Given ``world`` and ``rank``
+    (another rank's place, or a layout without processes) it makes no
+    groups."""
 
     def __init__(self, cfg: MeshConfig = MeshConfig(), world: Optional[int] = None,
                  rank: Optional[int] = None):
@@ -150,14 +161,20 @@ class Mesh:
         grid = np.arange(world).reshape(data, model, table)
         self.data_rank, self.model_rank, self.table_rank = (
             int(c) for c in np.unravel_index(self.rank, grid.shape))
-        # the global rank of table coordinate 0 in this rank's table group
+        # the global ranks of table coordinate 0 in this rank's table group,
+        # and of model and table coordinates 0 among the ranks of its rows
         self.table_root = self.rank - self.table_rank
-        self.data_group = self.table_group = None
+        self.row_root = int(grid[self.data_rank, 0, 0])
+        self.data_group = self.table_group = self.model_group = self.row_group = None
         if groups:
             self.data_group = self._group([grid[:, m, t] for m in range(model)
                                            for t in range(table)])
             self.table_group = self._group([grid[d, m, :] for d in range(data)
                                             for m in range(model)])
+            self.model_group = self._group([grid[d, :, t] for d in range(data)
+                                            for t in range(table)])
+            self.row_group = (self._group([grid[d].reshape(-1) for d in range(data)])
+                              if model > 1 else self.table_group)
 
     def _group(self, members):
         """Every rank creates every group of more than one rank, in the same

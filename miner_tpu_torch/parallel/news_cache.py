@@ -17,7 +17,10 @@ table rank t keeps rows [t R_pad / T, (t + 1) R_pad / T) and one zero row
 index to its local row, or to the zero row where another rank owns it,
 work on the local shard and sum over the table group: one rank's term is
 the row's, the others' are zeros, so the sum is exact and a sharded cache
-gives what one device's gives, bit for bit.
+gives what one device's gives, bit for bit. A sharded cache persists as
+one device's (``save_cache`` gathers the true rows; JAX writes only true
+rows too), and each rank loads the file and keeps its shard
+(``load_cache``), so a file written at one table size loads at any other.
 """
 from __future__ import annotations
 
@@ -31,7 +34,8 @@ import torch
 import torch.distributed as dist
 
 from miner_tpu_torch.data.device_table import NewsTable
-from miner_tpu_torch.parallel.mesh import TABLE_AXIS, Mesh
+from miner_tpu_torch.parallel.mesh import TABLE_AXIS, Mesh, barrier, is_writer
+from miner_tpu_torch.parallel.sharding import every_rank
 
 _DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 _NAMED_DTYPES = {name: dt for dt, name in _DTYPE_NAMES.items()}
@@ -105,6 +109,17 @@ class ShardedRows:
         dist.all_reduce(x, group=self.group)
         return x
 
+    def whole(self) -> Union[torch.Tensor, Int8Rows]:
+        """The whole (R, ...) table on every rank of the table group, from
+        each rank's true rows (the bytes as they are)."""
+        def gather(local: torch.Tensor) -> torch.Tensor:
+            return torch.cat(every_rank(local[:self.per_shard], self.group))[:self.num_rows]
+
+        if isinstance(self.local, Int8Rows):
+            return Int8Rows(gather(self.local.values), gather(self.local.scales),
+                            self.local.dequant_dtype)
+        return gather(self.local)
+
 
 def shard_rows(table: Union[torch.Tensor, Int8Rows], mesh: Mesh
                ) -> Union[torch.Tensor, Int8Rows, ShardedRows]:
@@ -171,10 +186,16 @@ class NewsEmbeddingCache:
         return isinstance(self.embeddings, ShardedRows)
 
     def quantize(self) -> "NewsEmbeddingCache":
-        """The int8 version of this cache (itself if already quantized)."""
-        if self.quantized:
+        """The int8 version of this cache (itself if already quantized). A
+        shard's rows quantize on their own (each row has its own scale; the
+        zero and pad rows take scale 1, as ``shard_rows`` pads them)."""
+        emb = self.embeddings
+        if self.quantized or (self.sharded and isinstance(emb.local, Int8Rows)):
             return self
-        return dataclasses.replace(self, embeddings=quantize_rows(self.embeddings))
+        if self.sharded:
+            return dataclasses.replace(self, embeddings=dataclasses.replace(
+                emb, local=quantize_rows(emb.local)))
+        return dataclasses.replace(self, embeddings=quantize_rows(emb))
 
     @property
     def num_rows(self) -> int:
@@ -193,11 +214,15 @@ def save_cache(cache: NewsEmbeddingCache, path: str, num_rows: int,
     ``category_pad_id``), written to ``path + ".tmp.npz"`` and renamed, so
     a reader never sees half a file. bfloat16 travels as its raw bits in
     uint16, the dtype named in the metadata. A table-sharded cache is
-    refused: serving over the table axis is not ported yet (ROADMAP Queue 1
-    item 6)."""
+    gathered into the one-device layout first (a collective over the table
+    group: every rank calls this), and rank 0 writes the file; every rank
+    returns once it is there."""
     if cache.sharded:
-        raise NotImplementedError("save_cache of a table-sharded cache (--mesh_table > 1) is "
-                                  "not ported yet (ROADMAP Queue 1 item 6)")
+        cache = dataclasses.replace(cache, embeddings=cache.embeddings.whole(),
+                                    category=cache.category.whole())
+    if not is_writer():
+        barrier()
+        return
     arrays = {}
     if cache.quantized:
         q = cache.embeddings
@@ -218,6 +243,7 @@ def save_cache(cache: NewsEmbeddingCache, path: str, num_rows: int,
     np.savez(tmp, category=cache.category[:num_rows].cpu().numpy(),
              meta=np.frombuffer(json.dumps(meta).encode(), np.uint8), **arrays)
     os.replace(tmp, path)
+    barrier()
 
 
 def load_cache(path: str, fingerprint: dict,
@@ -226,10 +252,8 @@ def load_cache(path: str, fingerprint: dict,
     """A cache persisted by :func:`save_cache` (by either package), on
     ``device``; None when the file is absent or its fingerprint differs from
     ``fingerprint`` in any key (the caller then encodes the corpus anew).
-    Refused under a table axis above 1, as :func:`save_cache`."""
-    if mesh is not None and mesh.shape[TABLE_AXIS] > 1:
-        raise NotImplementedError("load_cache onto a table-sharded mesh (--mesh_table > 1) "
-                                  "is not ported yet (ROADMAP Queue 1 item 6)")
+    Under a ``mesh`` with a table axis above 1 each rank keeps its shard of
+    the rows (:func:`shard_rows`), whatever table size wrote the file."""
     if not os.path.exists(path):
         return None
     with np.load(path) as z:
@@ -247,8 +271,10 @@ def load_cache(path: str, fingerprint: dict,
         embeddings = torch.from_numpy(emb.view(np.int16)).view(torch.bfloat16).to(device)
     else:
         embeddings = torch.from_numpy(emb).to(device)
-    return NewsEmbeddingCache(embeddings=embeddings,
-                              category=torch.from_numpy(cat).to(device),
+    category = torch.from_numpy(cat).to(device)
+    if mesh is not None:
+        embeddings, category = shard_rows(embeddings, mesh), shard_rows(category, mesh)
+    return NewsEmbeddingCache(embeddings=embeddings, category=category,
                               category_pad_id=int(meta["category_pad_id"]))
 
 

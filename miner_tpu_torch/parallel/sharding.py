@@ -15,7 +15,7 @@ that ranks sharing one card run them too.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
@@ -67,6 +67,18 @@ def gather_rows(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
     full[mesh.data_rank * n:(mesh.data_rank + 1) * n] = x
     dist.all_reduce(full, group=mesh.data_group)
     return full
+
+
+def every_rank(t: torch.Tensor, group) -> List[torch.Tensor]:
+    """Every rank's ``t`` (one shape on all of them) on every rank of
+    ``group``, in group-rank order: each broadcast in turn, its bytes as
+    they are."""
+    mine, parts = dist.get_rank(group), []
+    for r in range(dist.get_world_size(group)):
+        x = t.detach().clone() if r == mine else torch.empty_like(t)
+        dist.broadcast(x, dist.get_global_rank(group, r), group=group)
+        parts.append(x)
+    return parts
 
 
 def replicate(module: torch.nn.Module) -> None:

@@ -35,9 +35,25 @@ API (JSON):
 Candidate counts are bucketed (next power of two, min 16) so the number of
 distinct request shapes stays at log2(corpus); bucket-padding rows reuse the
 pad news (row 0) and are dropped before ranking.
+
+Over a mesh of ranks (one process a rank under ``torch.distributed.run``,
+``--mesh_data`` / ``--mesh_table`` / ``--mesh_model``) every rank builds
+the serving context (the model sharded over the model axis, the cache over
+the table axis), rank 0 runs the HTTP front-end and the
+:class:`MicroBatcher`, and every other rank follows its device calls
+(:class:`MeshCalls`): before each call rank 0 sends its kind and shapes,
+then its index arrays, and the ranks compute it together (a data rank its
+rows; each gather and lookup+score summed over the table group; the
+encoders' products over the model group); rank 0 replies. The server's
+shutdown sends a stop. The control messages travel on a gloo group of
+their own on the host, where a follower waits for the next call as long
+as the server lives; the calls' collectives run under the process group's
+timeout (``cli.SERVE_TIMEOUT``), so a rank that fails makes rank 0's call
+fail, not hang.
 """
 from __future__ import annotations
 
+import datetime
 import json
 import queue
 import threading
@@ -47,7 +63,10 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
+from miner_tpu_torch.parallel import mesh
 from miner_tpu_torch.utils import candidate_bucket
 
 
@@ -326,6 +345,82 @@ class MicroBatcher:
                     self._score_group(sub)
 
 
+class MeshCalls:
+    """A server's device calls over a mesh of ranks: rank 0 sends each
+    call (a header ``[kind, B, C, H, k]``, then its int32 index arrays)
+    over a gloo group of its own and runs its part; every other rank runs
+    :meth:`follow` until the stop."""
+
+    STOP, SLATE, TOPK = 0, 1, 2
+    # a follower waits for the next request as long as the server lives
+    _IDLE = datetime.timedelta(days=365)
+
+    def __init__(self, service: "ScoringService"):
+        self.service = service
+        self.group = dist.new_group(backend="gloo", timeout=self._IDLE)
+        self.calls = 0
+        self.failed: Optional[BaseException] = None
+
+    def _header(self, *words: int) -> torch.Tensor:
+        h = torch.tensor(words, dtype=torch.int64)
+        dist.broadcast(h, 0, group=self.group)
+        return h
+
+    def _array(self, a: Optional[np.ndarray], shape) -> np.ndarray:
+        t = (torch.from_numpy(np.ascontiguousarray(a, np.int32)) if a is not None
+             else torch.empty(shape, dtype=torch.int32))
+        dist.broadcast(t, 0, group=self.group)
+        return t.numpy()
+
+    def _run(self, fn, *args):
+        if self.failed is not None:
+            raise RuntimeError("a rank of the serving mesh failed earlier") from self.failed
+        try:
+            out = fn(*args)
+        except BaseException as e:
+            self.failed = e
+            raise
+        self.calls += 1
+        return out
+
+    def slate(self, cand_idx: np.ndarray, his_idx: np.ndarray) -> np.ndarray:
+        """Rank 0: one slate call, run by every rank."""
+        (B, C), H = cand_idx.shape, his_idx.shape[1]
+
+        def call():
+            self._header(self.SLATE, B, C, H, 0)
+            return self.service._local_score(self._array(cand_idx, None),
+                                             self._array(his_idx, None))
+        return self._run(call)
+
+    def topk(self, his_idx: np.ndarray, k: int):
+        """Rank 0: one corpus top-k call, run by every rank."""
+        B, H = his_idx.shape
+
+        def call():
+            self._header(self.TOPK, B, 0, H, k)
+            return self.service._local_topk(self._array(his_idx, None), k)
+        return self._run(call)
+
+    def stop(self) -> None:
+        """Rank 0: end the followers (after a failure they end with it)."""
+        if self.failed is None:
+            self._header(self.STOP, 0, 0, 0, 0)
+
+    def follow(self) -> int:
+        """Every rank but 0: run rank 0's calls until the stop; returns how
+        many."""
+        while True:
+            kind, B, C, H, k = self._header(0, 0, 0, 0, 0).tolist()
+            if kind == self.STOP:
+                return self.calls
+            if kind == self.SLATE:
+                cand = self._array(None, (B, C))
+                self._run(self.service._local_score, cand, self._array(None, (B, H)))
+            else:
+                self._run(self.service._local_topk, self._array(None, (B, H)), k)
+
+
 class ScoringService:
     """Request scoring around a ``Trainer.serving_context()``.
 
@@ -350,6 +445,8 @@ class ScoringService:
             # a cross-encoder has no corpus cache to rank: slates only
             topk_fn=None if self.cross_encoder else self._topk_batch,
         )
+        # over a mesh: every rank takes part in each device call
+        self.mesh_calls = MeshCalls(self) if mesh.world_size() > 1 else None
 
     @property
     def cross_encoder(self) -> bool:
@@ -357,13 +454,23 @@ class ScoringService:
 
     def _score_batch(self, cand_idx: np.ndarray,
                      his_idx: np.ndarray) -> np.ndarray:
+        if self.mesh_calls is not None:
+            return self.mesh_calls.slate(cand_idx, his_idx)
+        return self._local_score(cand_idx, his_idx)
+
+    def _topk_batch(self, his_idx: np.ndarray, k: int):
+        if self.mesh_calls is not None:
+            return self.mesh_calls.topk(his_idx, k)
+        return self._local_topk(his_idx, k)
+
+    def _local_score(self, cand_idx: np.ndarray, his_idx: np.ndarray) -> np.ndarray:
         if self.cross_encoder:
             return self.trainer.serve_scores_unbert(self.ctx.model, self.ctx.packer,
                                                     cand_idx, his_idx)
         return self.trainer.serve_scores(self.ctx.model, self.ctx.cache,
                                          cand_idx, his_idx)
 
-    def _topk_batch(self, his_idx: np.ndarray, k: int):
+    def _local_topk(self, his_idx: np.ndarray, k: int):
         return self.trainer.serve_topk(self.ctx.model, self.ctx.cache, his_idx, k)
 
     def warmup(self, slate_sizes: Sequence[int], topk: Optional[int] = None,
@@ -507,6 +614,8 @@ class ScoringService:
 
     def close(self):
         self.batcher.close()
+        if self.mesh_calls is not None and mesh.this_rank() == 0:
+            self.mesh_calls.stop()
 
 
 _HTTP_REASON = {200: b"OK", 400: b"Bad Request", 404: b"Not Found",
@@ -712,8 +821,16 @@ def make_http_server(service: ScoringService, host: str, port: int,
 
 
 def serve(trainer, host: str, port: int) -> None:
-    """Build the service (the corpus encode happens here) and serve."""
+    """Build the service (the corpus encode happens here) and serve; over a
+    mesh, every rank but 0 follows rank 0's device calls until it stops."""
     service = ScoringService(trainer)
+    if service.mesh_calls is not None and mesh.this_rank() != 0:
+        try:
+            n = service.mesh_calls.follow()
+            print(f"rank {mesh.this_rank()}: followed {n} scoring calls")
+        finally:
+            service.close()
+        return
     a = trainer.args
     slates = getattr(a, "serve_warmup_slates", None) or []
     topk = int(getattr(a, "serve_warmup_topk", 16) or 0)

@@ -29,7 +29,14 @@ each semantic:
     their group's first rank (``replica_root``, a broadcast), and every
     rank applies the same update, bit for bit. No
     ``DistributedDataParallel``: its hooks would reduce every micro-batch,
-    where MultiSteps sums once an update.
+    where MultiSteps sums once an update;
+  * over a mesh's model axis (``parallel/tp.py``) a sharded leaf
+    (``sharded``: its name) holds the rank's share: its squares are summed
+    over the model group (``model_group``) for the global norm, and a
+    replicated leaf's counted once; the replicas of a sharded leaf's share
+    are the table group's (``shard_replica_group``), those of a replicated
+    leaf every rank of the same rows (``replica_group``). AdamW's moments of
+    a share stay on its rank.
 
 Frozen parameters (``requires_grad`` False, ``--freeze_transformer``) are
 left out, as optax's ``set_to_zero`` leaves them out of the clipped norm. A
@@ -100,9 +107,18 @@ class Optimizer:
                  weight_decay: float = 0.01, max_grad_norm: float = 1.0,
                  accum_steps: int = 1, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8, grad_group=None, replica_group=None,
-                 replica_root: int = 0):
+                 replica_root: int = 0, sharded=frozenset(), model_group=None,
+                 shard_replica_group=None, shard_replica_root: int = 0):
+        named_params = list(named_params)
         groups = decay_groups(named_params, weight_decay)
         self.params = [p for g in groups for p in g["params"]]
+        name_of = {id(p): n for n, p in named_params}
+        # the parameters' names in the optimizer's order (its state's keys)
+        self.names = [name_of[id(p)] for p in self.params]
+        self.sharded = [n in sharded for n in self.names]
+        self.model_group = model_group
+        self.shard_replica_group, self.shard_replica_root = (shard_replica_group,
+                                                             shard_replica_root)
         self.adamw = torch.optim.AdamW(groups, lr=0.0, betas=(b1, b2), eps=eps)
         self.schedule = linear_warmup_schedule(learning_rate, warmup_steps,
                                                total_steps)
@@ -130,15 +146,26 @@ class Optimizer:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
+        shards = [g for g, s in zip(grads, self.sharded) if s]
+        whole = [g for g, s in zip(grads, self.sharded) if not s]
         with torch.no_grad():
-            if self.grad_group is not None or self.replica_group is not None:
+            if shards:
+                self.sum_seconds.append(
+                    sum_over(whole, self.grad_group, self.replica_group, self.replica_root)
+                    + sum_over(shards, self.grad_group, self.shard_replica_group,
+                               self.shard_replica_root))
+            elif self.grad_group is not None or self.replica_group is not None:
                 self.sum_seconds.append(sum_over(grads, self.grad_group, self.replica_group,
                                                  self.replica_root))
             if self.accum_steps > 1:
                 for g in grads:
                     g.div_(self.accum_steps)
-            norm = torch.linalg.vector_norm(
-                torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+            if self.model_group is None:
+                norm = torch.linalg.vector_norm(
+                    torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+            else:  # the shares' squares summed over the model group
+                dev = grads[0].device
+                norm = torch.sqrt(_squares(shards, dev, self.model_group) + _squares(whole, dev))
             self.grad_norm = norm
             below = norm < self.max_grad_norm
             for g in grads:
@@ -160,6 +187,19 @@ class Optimizer:
         self.adamw.load_state_dict(state["adamw"])
         self.mini_step = int(state["mini_step"])
         self.updates = int(state["updates"])
+
+
+def _squares(grads: List[torch.Tensor], device, group=None) -> torch.Tensor:
+    """The sum of the squares of ``grads`` (an fp32 scalar on ``device``),
+    summed over ``group`` when given."""
+    if grads:
+        total = torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]).square().sum()
+    else:
+        total = torch.zeros((), dtype=torch.float32, device=device)
+    if group is not None:
+        total = total.clone()
+        dist.all_reduce(total, group=group)
+    return total
 
 
 def sum_over(tensors: List[torch.Tensor], group, replicas=None, root: int = 0) -> float:

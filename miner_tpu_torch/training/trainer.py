@@ -66,8 +66,9 @@ not there raises). On the card every op of the path launches its kernel; on
 the CPU the ops run their plain versions, which is what the tests use.
 Parameters are fp32 masters and the model computes in ``--compute_dtype``.
 A micro-step's dropout is a pure function of (``--seed`` + 1, micro-step)
-(``models/dropout.py``), so a resumed run draws what the interrupted one
-would have. ``--param_dtype`` other than float32 is refused, as the JAX
+and each value's place in the global batch (``models/dropout.py``), so a
+resumed run draws what the interrupted one would have, and a run over a
+mesh what one device draws. ``--param_dtype`` other than float32 is refused, as the JAX
 package refuses it, and so is ``--no-fused_kernels`` on a card.
 
 Over a mesh of ranks (``--mesh_data``, ``--mesh_table``; one process a
@@ -81,10 +82,16 @@ it is), so the gradients summed over the data group at each update
 (``Optimizer``) are the global batch's, and every rank applies the same
 update. An eval gathers every rank's logits (and the Miner's interests)
 into the whole batch and computes its loss and metrics as one rank does.
-The news-embedding caches (cached eval, cached-history training) are
-row-sharded over the table axis (``parallel/news_cache.py``). Rank 0
-writes the run's files and checkpoints. ``--mesh_model`` above 1 is
-refused: tensor parallelism is not ported yet.
+The news-embedding caches (cached eval, cached-history training, serving)
+are row-sharded over the table axis (``parallel/news_cache.py``). Over the
+model axis (``--mesh_model``) the transformer layers and the MoE experts
+are sharded (``parallel/tp.py``) once the model is whole and checked equal
+over the ranks; the optimizer sums a sharded leaf's squares over the model
+group for the clip. Rank 0 writes the run's files and checkpoints, which
+hold full tensors whatever the mesh (the shards gathered, AdamW's moments
+too): a checkpoint of any mesh loads on any other. ``serve`` runs its HTTP
+front-end on rank 0 and every other rank follows its device calls
+(``serving.py``); ``recommend`` runs on every rank.
 """
 from __future__ import annotations
 
@@ -135,6 +142,7 @@ from miner_tpu_torch.models import hf_import
 from miner_tpu_torch.models.dropout import DropoutRNG
 from miner_tpu_torch.models.plm import cast_to_compute_, normal_init_
 from miner_tpu_torch.observability.logging import RunLogger
+from miner_tpu_torch.parallel import tp
 from miner_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, MeshConfig
 from miner_tpu_torch.parallel.sharding import gather_rows as gather_batch
 from miner_tpu_torch.parallel.sharding import replicate, shard_batch
@@ -188,14 +196,8 @@ def _refuse_flags(args, device: torch.device) -> None:
     than float32 (the JAX package refuses it too, trainer.py:125-131), for
     ``--remat_policy`` without ``--remat`` (JAX's ``plm_config`` raises the
     same error in every subcommand that builds a model) and for
-    ``--no-fused_kernels`` on a card, and for ``--mesh_model`` above 1
-    (tensor parallelism), instead of running something else than was asked
-    for."""
-    if getattr(args, "mesh_model", 1) > 1:
-        raise NotImplementedError(
-            f"--mesh_model {args.mesh_model}: tensor and expert parallelism "
-            "(miner_tpu/parallel/tp.py) are not ported yet; they come with the next "
-            "slice (ROADMAP Queue 1 item 6). Use --mesh_data and --mesh_table")
+    ``--no-fused_kernels`` on a card, instead of running something else
+    than was asked for."""
     name = (args.model_name or "Miner").lower()
     if name not in _KINDS:
         raise ValueError(f"unknown --model_name {args.model_name!r}")
@@ -455,6 +457,17 @@ class Trainer:
         model.load_state_dict(payload["params"], strict=True)
         return model
 
+    def on_mesh(self, model: nn.Module) -> nn.Module:
+        """``model`` (whole, on the device) sharded over the mesh's model
+        axis in place (``parallel/tp.py``); as it is without one."""
+        tp.shard_(model, self.mesh)
+        return model
+
+    def full_state_dict(self, model: nn.Module) -> Dict[str, torch.Tensor]:
+        """``model``'s parameters whole, its shards gathered over the model
+        group (a collective: every rank calls it)."""
+        return tp.full_state_dict(model, self.mesh)
+
     def serving_context(self, state_dict: Optional[Dict[str, torch.Tensor]] = None
                         ) -> ServingContext:
         """Everything a scoring endpoint needs, built once: the news store,
@@ -479,14 +492,14 @@ class Trainer:
             # packed (candidate, history) rows, so there is no table and no
             # cache, and --serve_cache_path is not read (trainer.py:1202-1218)
             model = cast_to_compute_(model, self.compute_dtype).to(self.device).eval()
-            return ServingContext(store=store, table=None, model=model, cache=None,
+            return ServingContext(store=store, table=None, model=self.on_mesh(model), cache=None,
                                   packer=self._unbert_packer(store))
         table = self._make_table(store)
         # one cast for serving; the same bf16 values as casting at each use.
         # The Fastformer user encoder stays fp32: only its news tower casts
         cast_to_compute_(model.news_encoder if self.kind == "vanilla" else model,
                          self.compute_dtype)
-        model = model.to(self.device).eval()
+        model = self.on_mesh(model.to(self.device).eval())
         cache = self._load_or_build_serving_cache(model, table)
         return ServingContext(store=store, table=table, model=model, cache=cache)
 
@@ -530,7 +543,10 @@ class Trainer:
         ``--serve_cache_path`` when the file's fingerprint matches, else one
         corpus encode, quantized to int8 with ``--serve_cache_int8``, and
         persisted to that path. Without ``--saved_model_path`` the weights
-        have no identity to fingerprint and the path is ignored."""
+        have no identity to fingerprint and the path is ignored. Over a
+        table axis every rank loads the file and keeps its shard, or fills
+        its shard, and the shards are gathered into the one-device file:
+        the file does not depend on the mesh."""
         a = self.args
         path = getattr(a, "serve_cache_path", None)
         if path and not a.saved_model_path:
@@ -539,11 +555,11 @@ class Trainer:
             path = None
         fingerprint = self._serving_cache_fingerprint() if path else None
         if path:
-            cache = load_cache(path, fingerprint, self.device)
+            cache = load_cache(path, fingerprint, self.device, self.mesh)
             if cache is not None:
                 print(f"serving cache loaded from {path}")
                 return cache
-        cache = CacheFiller(model.encode_news).fill(table)
+        cache = CacheFiller(model.encode_news).fill(table, mesh=self.mesh)
         if getattr(a, "serve_cache_int8", False):
             cache = cache.quantize()
         if path:
@@ -589,14 +605,33 @@ class Trainer:
             return losses.miner_loss(interests, logits, label)
         return losses.miner_eval_loss(interests, logits, label, row_mask)
 
+    def _call_rows(self, *arrays: np.ndarray):
+        """This rank's rows of a serving call's (B, ...) arrays over the data
+        axis, B padded with rows of the pad news (0) to a multiple of the
+        data size; the arrays as they are on one data rank."""
+        if self._data_size == 1:
+            return arrays
+        B = len(arrays[0])
+        pad = -B % self._data_size
+        padded = {str(i): np.concatenate([a, np.zeros((pad, *a.shape[1:]), a.dtype)])
+                  for i, a in enumerate(arrays)}
+        mine = shard_batch(self.mesh, padded)
+        return tuple(mine[str(i)] for i in range(len(arrays)))
+
+    def _call_result(self, x: torch.Tensor, B: int) -> np.ndarray:
+        """A serving call's (B, ...) result from every data rank's rows."""
+        return gather_batch(self.mesh, x)[:B].cpu().numpy()
+
     def serve_scores(self, model: nn.Module, cache: NewsEmbeddingCache,
                      cand_idx: np.ndarray, his_idx: np.ndarray) -> np.ndarray:
         """Batched multi-user serving: (B, C) candidate rows + (B, H) history
-        rows -> (B, C) matching scores, straight from the cache."""
+        rows -> (B, C) matching scores, straight from the cache. Over a
+        mesh every rank runs the call: a data rank its rows, the cache's
+        rows sharded over the table axis."""
+        cand, his = self._call_rows(np.asarray(cand_idx), np.asarray(his_idx))
         with torch.inference_mode():
-            _, logits = self._cached_scores(model, cache, self._index(cand_idx),
-                                            self._index(his_idx))
-            return logits.float().cpu().numpy()
+            _, logits = self._cached_scores(model, cache, self._index(cand), self._index(his))
+            return self._call_result(logits.float(), len(cand_idx))
 
     def _unbert_features(self, feat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         return {k: torch.as_tensor(feat[k], device=self.device) for k in FEATURES}
@@ -610,11 +645,13 @@ class Trainer:
         exist for a cross-encoder, so a request costs a full pass per
         candidate."""
         B, C = cand_idx.shape
-        hist = np.repeat(np.asarray(his_idx, np.int32), C, axis=0)  # (B*C, H)
-        feat = pack_rows(packer, np.asarray(cand_idx, np.int32).reshape(-1), hist)
+        cand, his = self._call_rows(np.asarray(cand_idx, np.int32),
+                                    np.asarray(his_idx, np.int32))
+        hist = np.repeat(his, C, axis=0)  # (B*C, H)
+        feat = pack_rows(packer, cand.reshape(-1), hist)
         with torch.inference_mode():
             logits = model(self._unbert_features(feat))
-            return logits.float().cpu().numpy().reshape(B, C)
+            return self._call_result(logits.float().reshape(-1, C), B)
 
     def serve_topk(self, model: nn.Module, cache: NewsEmbeddingCache,
                    his_idx: np.ndarray, k: int):
@@ -626,19 +663,23 @@ class Trainer:
         C = cache.num_rows - 1  # corpus candidates: rows 1.. (0 is the pad news)
         k = min(int(k), C)
         C_pad = candidate_bucket(C)
+        (mine,) = self._call_rows(np.asarray(his_idx))
         with torch.inference_mode():
-            his = self._index(his_idx)
+            his = self._index(mine)
             row = torch.arange(1, C_pad + 1, dtype=torch.int32, device=self.device)
             row = torch.where(row <= C, row, 0)  # bucket tail -> pad news
             cand_idx = row[None].expand(his.shape[0], C_pad).contiguous()
             _, logits = self._cached_scores(model, cache, cand_idx, his)
             logits = torch.where(row[None] > 0, logits.float(), -torch.inf)
             vals, pos = torch.topk(logits, k, dim=-1)
-            return vals.cpu().numpy(), (pos + 1).cpu().numpy()
+            B = len(his_idx)
+            return self._call_result(vals, B), self._call_result(pos + 1, B)
 
     def recommend(self):
         """One-shot ranking: ``--candidates`` (or the whole corpus) against
-        ``--user_history``, through the same cached path as the server."""
+        ``--user_history``, through the same cached path as the server.
+        Over a mesh every rank runs it (the same arguments, the same call)
+        and rank 0 prints."""
         a = self.args
         ctx = self.serving_context()
         store = ctx.store
@@ -670,8 +711,9 @@ class Trainer:
             vals, rows = self.serve_topk(ctx.model, ctx.cache, his_idx, k)
             results = [(row_to_id.get(int(r), str(int(r))), float(v))
                        for v, r in zip(vals[0, :k], rows[0, :k])]
-        for nid, sc in results:
-            print(f"{nid}\t{sc:.4f}")
+        if self.mesh.rank == 0:
+            for nid, sc in results:
+                print(f"{nid}\t{sc:.4f}")
         return results
 
     # ----------------------------------------------------------------- train
@@ -695,8 +737,12 @@ class Trainer:
                          max_grad_norm=a.max_grad_norm,
                          accum_steps=a.gradient_accumulation_steps,
                          grad_group=self.mesh.data_group,
-                         replica_group=self.mesh.table_group,
-                         replica_root=self.mesh.table_root)
+                         replica_group=self.mesh.row_group,
+                         replica_root=self.mesh.row_root,
+                         sharded=frozenset(tp.specs_of(model)),
+                         model_group=self.mesh.model_group,
+                         shard_replica_group=self.mesh.table_group,
+                         shard_replica_root=self.mesh.table_root)
 
     def _outputs(self, model: nn.Module, table: NewsTable, batch: Dict[str, np.ndarray],
                  rng: Optional[DropoutRNG] = None
@@ -744,10 +790,10 @@ class Trainer:
         forward is the cached-history one (``_cached_his_loss``), the cache
         rebuilt first when it is due. Over a mesh ``batch`` holds this
         rank's rows (``shard_batch``), the backward runs from its share of
-        the loss and its dropout takes the data coordinate. Returns the
-        global batch's loss, on the device."""
-        data_rank = self.mesh.data_rank if self._data_size > 1 else None
-        rng = DropoutRNG(self.args.seed + 1, micro_step, self.device, data_rank)
+        the loss and its dropout masks are its rows' of the global batch's.
+        Returns the global batch's loss, on the device."""
+        rng = DropoutRNG(self.args.seed + 1, micro_step, self.device, self.mesh.data_rank,
+                         self._data_size)
         if his_cache is not None and his_cache.cached(micro_step):
             if his_cache.due(micro_step):
                 his_cache.embeddings = self.fill_history_cache(model, table)
@@ -828,6 +874,10 @@ class Trainer:
         return HistoryCache(refresh, warmup, max(1, a.gradient_accumulation_steps))
 
     def _payload(self, model: nn.Module, optimizer: Optimizer, micro_step: int) -> Dict:
+        """What a checkpoint holds, in full tensors whatever the mesh: the
+        model's shards and AdamW's moments of them gathered over the model
+        group (a collective: every rank calls it)."""
+        specs = tp.specs_of(model)
         grad_acc = None
         if optimizer.mini_step:  # mid-accumulation: keep the partial sum
             grad_acc = {n: p.grad.detach() for n, p in model.named_parameters()
@@ -835,18 +885,26 @@ class Trainer:
             if self.mesh.data_group is not None:  # the ranks' shares summed
                 grad_acc = {n: g.clone() for n, g in grad_acc.items()}
                 sum_over(list(grad_acc.values()), self.mesh.data_group)
-        return {"params": model.state_dict(), "optimizer": optimizer.state_dict(),
+            grad_acc = {n: tp.gather(g, specs[n], self.mesh.model_group) if n in specs else g
+                        for n, g in grad_acc.items()}
+        return {"params": self.full_state_dict(model),
+                "optimizer": tp.full_optimizer_state(optimizer.state_dict(), optimizer.names,
+                                                     specs, self.mesh.model_group),
                 "micro_step": micro_step, "rng_seed": self.args.seed + 1,
                 "grad_acc": grad_acc, "args": _plain(vars(self.args))}
 
-    def _resume(self, path: str, model: nn.Module, optimizer: Optimizer) -> int:
-        payload = checkpoint.optimizer_payload(path)
-        model.load_state_dict(payload["params"], strict=True)
-        optimizer.load_state_dict(payload["optimizer"])
+    def _resume(self, payload: Dict, model: nn.Module, optimizer: Optimizer) -> int:
+        """The optimizer state and the partial gradient sum of a
+        ``--resume_from`` payload (its parameters are already loaded), each
+        rank taking its shares."""
+        specs = tp.specs_of(model)
+        optimizer.load_state_dict(tp.local_optimizer_state(payload["optimizer"],
+                                                           optimizer.names, specs))
         # the partial sum is the data group's whole: one data rank takes it
         grad_acc = payload["grad_acc"] if self.mesh.data_rank == 0 else None
+        grad_acc = tp.local_state_dict(grad_acc or {}, specs)
         for name, p in model.named_parameters():
-            grad = (grad_acc or {}).get(name)
+            grad = grad_acc.get(name)
             p.grad = None if grad is None else grad.to(p.device)
         return int(payload["micro_step"])
 
@@ -909,13 +967,17 @@ class Trainer:
             self._warm_start(model, a.pretrained_model_path, log)
         log.info("parameters: %.2fM",
                  sum(p.numel() for p in model.parameters()) / 1e6)
+        resume = checkpoint.optimizer_payload(a.resume_from) if a.resume_from else None
+        if resume is not None:
+            model.load_state_dict(resume["params"], strict=True)
+        replicate(model)  # every rank from rank 0's parameters (checked equal)
+        self.on_mesh(model)  # then each rank keeps its shares of the sharded ones
         optimizer = self.make_optimizer(model, total_updates, warmup)
         ckpt_dir = os.path.join(logger.run_dir, "ckpt")
         global_step = 0
-        if a.resume_from:
-            global_step = self._resume(a.resume_from, model, optimizer)
+        if resume is not None:
+            global_step = self._resume(resume, model, optimizer)
             log.info("resumed from %s at step %d", a.resume_from, global_step)
-        replicate(model)  # every rank from rank 0's parameters (checked equal)
         # resume is exact: a step's data and dropout are pure functions of
         # (seed, epoch) and (seed, step), so completed epochs are skipped and
         # the partial epoch's consumed batches fast-forwarded
@@ -1116,7 +1178,7 @@ class Trainer:
         store = self._load_store(a.eval_news_path)
         eval_log = self._load_log(a.eval_behaviors_path, store)
         table = self._make_table(store)
-        model = self.restored_model().to(self.device).eval()
+        model = self.on_mesh(self.restored_model().to(self.device).eval())
         if self.kind == "pretrain":
             block = PretrainSampler(eval_log, store, a.npratio, seed=a.seed).sample_epoch(0)
             return {"loss": self._run_pretrain_eval(model, table, block,

@@ -1575,3 +1575,75 @@ def test_remat_saves_the_mha_kernel_s_context_on_card(rng, monkeypatch, policy, 
         grads.append({n: p.grad for n, p in plm.named_parameters()})
     for n, g in grads[0].items():
         torch.testing.assert_close(grads[1][n], g, rtol=1e-6, atol=1e-7, msg=n)
+
+
+def _heads_of(qkv, H, h0, h1):
+    """The Q, K and V features of heads [h0, h1) of a (N, L, 3 H Dh) qkv,
+    in the [Q | K | V] layout: what a rank of the model axis holds."""
+    N, L, D3 = qkv.shape
+    return qkv.view(N, L, 3, H, D3 // 3 // H)[:, :, :, h0:h1].reshape(N, L, -1).contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op", ["mha", "add_ln"])
+def test_offset_launches_are_slices_of_the_whole_launch_on_card(rng, op, dtype):
+    """A launch over some sequences (two runs of them, one launch each) and
+    heads of a batch, or some of its rows, at their offsets in the batch,
+    gives those sequences', heads' or rows' slice of the whole batch's
+    launch bit for bit, forward and backward, dropout included, as a rank
+    of a mesh does; and agrees with the plain version at the same offsets
+    (add_ln's mask bit for bit)."""
+    dev = _card()
+    rate, seed = 0.2, 2 ** 36 + 9
+    offset = ((0, 1), (3, 3))  # local sequences 0-2 are 1-3 of the batch, 3-4 are 6-7
+    pick = philox.row_places(offset, 5, dev)
+    if op == "mha":
+        N, L, H, Dh = 8, 64, 4, 32
+        qkv = torch.as_tensor(rng.normal(size=(N, L, 3 * H * Dh)) * 0.5, device=dev).to(dtype)
+        mask = torch.ones((N, L), dtype=torch.int32, device=dev)
+        mask[2, 40:] = 0
+        dout = torch.as_tensor(rng.normal(size=(N, L, H * Dh)), device=dev).to(dtype)
+        out, stats = mha._launch_fwd(qkv, mask, H, 1, rate, seed, True)
+        dqkv = mha.mha_backward(qkv, mask, dout, H, rate, seed, 1, out, stats)
+        local = _heads_of(qkv[pick], H, 2, 4)
+        before = launch_counts()
+        got, got_stats = mha._launch_fwd(local, mask[pick].contiguous(), 2, 1, rate, seed,
+                                         True, offset, 2)
+        ldout = dout[pick].view(5, L, H, Dh)[:, :, 2:4].reshape(5, L, -1).contiguous()
+        got_d = mha.mha_backward(local, mask[pick].contiguous(), ldout, 2, rate, seed, 1,
+                                 got, got_stats, offset, 2)
+        torch.cuda.synchronize()
+        after = launch_counts()
+        assert (after["mha_fwd"] - before["mha_fwd"], after["mha_bwd"] - before["mha_bwd"]) \
+            == (2, 2)
+        assert torch.equal(got, out[pick].view(5, L, H, Dh)[:, :, 2:4].reshape(5, L, -1))
+        assert torch.equal(got_stats, stats[pick][:, 2:4])
+        assert torch.equal(got_d, _heads_of(dqkv[pick], H, 2, 4))
+        want = mha.mha_reference(local, mask[pick], 2, 1, rate, seed, offset, 2)
+        assert (got.float() - want.float()).abs().max().item() <= _tol(dtype, want)
+    else:
+        T, D = 8 * 12, 96  # 8 sequences of 12 rows
+        x, h, dy = (torch.as_tensor(rng.normal(size=(T, D)), device=dev).to(dtype)
+                    for _ in range(3))
+        g = torch.as_tensor(1 + 0.1 * rng.normal(size=D), device=dev).float()
+        b = torch.zeros(D, device=dev)
+        rows = (pick[:, None] * 12 + torch.arange(12, device=dev)).reshape(-1)
+        rows_offset = philox.scaled(offset, 12)
+        y = add_ln.fused_dropout_add_ln(x, h, g, b, rate, 1e-5, seed)
+        dx, dh, _, _ = add_ln.add_ln_backward(x, h, g, dy, 1e-5, rate, seed)
+        before = launch_counts()
+        got = add_ln.fused_dropout_add_ln(x[rows], h[rows], g, b, rate, 1e-5, seed,
+                                          rows_offset)
+        got_dx, got_dh, _, _ = add_ln.add_ln_backward(x[rows], h[rows], g, dy[rows], 1e-5,
+                                                      rate, seed, rows_offset)
+        torch.cuda.synchronize()
+        after = launch_counts()
+        assert (after["add_ln_fwd"] - before["add_ln_fwd"],
+                after["add_ln_bwd"] - before["add_ln_bwd"]) == (2, 2)
+        assert torch.equal(got, y[rows]) and torch.equal(got_dx, dx[rows])
+        assert torch.equal(got_dh, dh[rows])
+        keep = philox.keep_mask(philox.add_ln_bits(seed, 5 * 12, D, dev, rows_offset), rate)
+        assert torch.equal(got_dh != 0, keep)
+        want = add_ln.add_ln_reference(x[rows], h[rows], g, b, 1e-5, rate, seed, rows_offset)
+        assert (got.float() - want.float()).abs().max().item() <= _tol(dtype, want)

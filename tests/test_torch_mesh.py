@@ -1,10 +1,11 @@
 """The port's mesh (``miner_tpu_torch/parallel``) against the JAX package's,
-its sharded cached eval, its dropout over a data axis and its refusals.
+its sharded cached eval, its dropout over a mesh and its refusals.
 
 In-process: the mesh arithmetic (``MeshConfig.resolve``, error texts word
 for word) and the rows each rank owns, against JAX's ``make_mesh`` on the
-8-device virtual CPU mesh; the collective backend chosen by placement; the
-dropout sequences; the table shard's index map; and the refusals. Over CPU
+8-device virtual CPU mesh; the collective backend chosen by placement; a
+rank's dropout masks, its rows (and heads) of one rank's; the table
+shard's index map; and the refusals. Over CPU
 processes on gloo (``tests/_torch_mesh_worker.py``): ``eval --mesh_table 2``
 equals one rank's eval bit for bit (the cache row-sharded, each score
 summed over the table group), and ``eval --mesh_data 2`` over an eval log
@@ -20,9 +21,8 @@ import torch
 
 import miner_tpu.parallel.mesh as jax_mesh
 import miner_tpu.parallel.sharding as jax_sharding
-from miner_tpu_torch import cli
 from miner_tpu_torch.config import make_parser
-from miner_tpu_torch.models.dropout import DropoutRNG
+from miner_tpu_torch.models.dropout import DropoutRNG, Rows
 from miner_tpu_torch.parallel import mesh as port_mesh
 from miner_tpu_torch.parallel import sharding
 from miner_tpu_torch.parallel.news_cache import ShardedRows
@@ -101,21 +101,39 @@ def test_the_backend_follows_the_placement(monkeypatch):
     assert not torch.distributed.is_initialized()
 
 
-def test_dropout_draws_per_data_rank_and_one_rank_is_unchanged():
-    """Under a data axis the step's sequence takes the data coordinate:
-    data ranks 0 and 1 draw different masks and kernel seeds; without one
-    it stays ``[seed, step]``, the single device's sequence, which a
-    one-rank ``Trainer`` uses."""
+@pytest.mark.parametrize("size", [2, 4])
+def test_a_ranks_masks_are_its_rows_of_one_ranks(size):
+    """A rank's masks are its rows of one rank's: each data rank of a step
+    draws the kernel seeds one rank draws and, outside the kernels, the
+    mask of its block of the batch's rows (its heads too under tensor
+    parallelism), and its two runs of the rows of a PLM call over
+    candidates and history together (``Rows.concat``); the gating noise
+    likewise. One rank's sequence is still ``[seed, step]``."""
     cpu = torch.device("cpu")
-    x = torch.ones(4096)
-    a, b = DropoutRNG(8, 3, cpu, 0), DropoutRNG(8, 3, cpu, 1)
-    assert not torch.equal(a.dropout(x, 0.2), b.dropout(x, 0.2))
-    assert a.kernel_seeds(4) != b.kernel_seeds(4)
-    assert torch.equal(DropoutRNG(8, 3, cpu, 1).dropout(x, 0.2),
-                       DropoutRNG(8, 3, cpu, 1).dropout(x, 0.2))
-    host, device = np.random.SeedSequence([8, 3]).generate_state(2, np.uint64)
+    B, C, H, D = 8, 3, 5, 6
     one = DropoutRNG(8, 3, cpu)
+    host, device = np.random.SeedSequence([8, 3]).generate_state(2, np.uint64)
     assert one.host.initial_seed() == int(host) and one.device.initial_seed() == int(device)
+    x, probs = torch.ones(B, 4, D), torch.ones(B, 4, 7, 7)
+    seeds, want = one.kernel_seeds(3), one.dropout(x, 0.2)
+    want_heads = one.dropout(probs, 0.3)
+    want_cat = one.at(Rows.concat(one.rows_of(B * C), B * C, one.rows_of(B * H))).dropout(
+        torch.ones(B * (C + H), D), 0.2)
+    want_noise = one.normal((B, 8), torch.float32)
+    n = B // size
+    for rank in range(size):
+        r = DropoutRNG(8, 3, cpu, rank, size)
+        assert r.kernel_seeds(3) == seeds
+        assert torch.equal(r.dropout(x[:n], 0.2), want[rank * n:(rank + 1) * n])
+        heads = r.dropout(probs[:n, :2], 0.3, heads=(2, 4))
+        assert torch.equal(heads, want_heads[rank * n:(rank + 1) * n, 2:4])
+        rows = r.at(Rows.concat(r.rows_of(n * C), n * C, r.rows_of(n * H)))
+        got = rows.dropout(torch.ones(n * (C + H), D), 0.2)
+        cand = want_cat[rank * n * C:(rank + 1) * n * C]
+        his = want_cat[B * C + rank * n * H:B * C + (rank + 1) * n * H]
+        assert torch.equal(got, torch.cat([cand, his]))
+        assert torch.equal(r.normal((n, 8), torch.float32),
+                           want_noise[rank * n:(rank + 1) * n])
 
 
 def test_a_table_shard_maps_indices_to_its_rows_or_the_zero_row():
@@ -156,8 +174,7 @@ def _argv(fixture, mode="eval", *extra):
 def test_refusals(fixture_dir, tmp_path):
     """A mesh that does not cover the ranks gives JAX's text (``--mesh_data
     2`` without a launcher too, where it was once ignored); a batch that
-    does not divide by the data size raises, naming both; ``--mesh_model``
-    above 1 and ``serve`` / ``recommend`` over a mesh are not ported."""
+    does not divide by the data size raises, naming both."""
     with pytest.raises(ValueError) as want:
         jax_mesh.MeshConfig(2, 1, 1).resolve(1)
     with pytest.raises(ValueError) as got:
@@ -169,12 +186,6 @@ def test_refusals(fixture_dir, tmp_path):
     with pytest.raises(ValueError, match="batch of 3 rows does not divide by the mesh's "
                                          "data size 2"):
         sharding.shard_batch(m, {"x": np.zeros(3)})
-    with pytest.raises(NotImplementedError, match="--mesh_model 2.*ROADMAP Queue 1 item 6"):
-        Trainer(make_parser().parse_args(_argv(fixture_dir, "eval", "--mesh_model", "2")))
-    for mode, extra in (("serve", []), ("recommend", ["--user_history", "N1"])):
-        argv = [mode, *_argv(fixture_dir, "eval")[1:], "--mesh_table", "2", *extra]
-        with pytest.raises(NotImplementedError, match=f"{mode} over a mesh.*ROADMAP"):
-            cli.main(argv)
 
 
 # ---------------------------------------------------------- the mesh evals
