@@ -5,6 +5,16 @@
 
 Phases, each of which makes the script exit non-zero when it fails:
 
+0. native_sampler (host): the native data plane (``data/native.py``, the
+   port's copy of the JAX package's C++ sampler and UnBERT packer) is built
+   by g++ and loaded, or the run fails; an epoch's ``sample_epoch`` of a
+   200,000-event log of MIND-small's size, made from a seed, is timed in
+   modes base and hard natively and on numpy over the slice numpy samples
+   in about 1 s; ``pack_rows`` at UnBERT's train micro-batch (16 rows) and
+   largest serving call (512), native against numpy, outputs equal. Every
+   later train, UnBERT and parity phase (and every rank of a mesh train
+   phase) counts its native calls and fails if its sampler or packer never
+   went native (the pretrain kind's sampler is numpy only, as in JAX).
 1. build: every CUDA kernel of ``miner_tpu_torch/csrc`` is compiled with
    ``nvcc`` (one process per source, all started together); the Triton
    kernels compile at their first launch.
@@ -152,7 +162,9 @@ Phases, each of which makes the script exit non-zero when it fails:
    fp32 train: ``train_miner.txt`` with ``--compute_dtype float32`` at full
    width for 4 micro-batches at accumulation 4 (one update): the median
    micro-batch, the peak memory, and where the device's time goes (mha,
-   cuBLAS, the rest; ``torch.profiler`` over the last 3). Both fp32 mha
+   cuBLAS, the rest; ``RunLogger.trace`` over the last 3, as for the
+   profiled train phases: each writes its Chrome trace into its run
+   directory, which the phase checks). Both fp32 mha
    kernels must launch.
    no_reduce: ``train_miner.txt`` without ``--apply_reduce_dim`` (a
    configuration derived from it, written by the script), the first 32
@@ -204,8 +216,8 @@ Phases, each of which makes the script exit non-zero when it fails:
    ``serve_miner.txt --mesh_table 2`` over HTTP on train's ``finalModel``,
    fresh then from the cache it persisted, 20 requests each, replies
    bit-equal to one rank's and the file equal to one rank's. The timed
-   launch (mesh_train, tp_train) runs alone on the card; the others run
-   beside the CPU parity phases. On one card the ranks share it (gloo);
+   phases (mesh_train, tp_train) run alone on the card, last; the others
+   run beside hf_import and the parity phases. On one card the ranks share it (gloo);
    where each has a card, NCCL.
 
 After the phases, every shape at which the main path launched
@@ -1567,6 +1579,38 @@ def _check_launches(phase: str, counts: dict) -> None:
                          f"launched what it must not {extra}")
 
 
+def _check_native(phase: str, kind: str, calls=None) -> dict:
+    """The native data plane's calls since the phase's reset (``calls``: a
+    rank's report of them), logged. Fails the phase where its kind has a
+    native path and it took none (no quiet numpy fallback): the Miner's,
+    Fastformer's and UniSRec's samplers (``sample_epoch``), UnBERT's packer
+    (``pack_unbert``). The pretrain kind's sampler is numpy only, as the
+    JAX package's is."""
+    from miner_tpu_torch.data import native
+
+    calls = native.call_counts() if calls is None else calls
+    want = {"unbert": "pack_unbert", "pretrain": None}.get(kind, "sample_epoch")
+    log(f"{phase}: native data plane calls {calls}"
+        + ("" if want else " (the pretrain sampler is numpy only, as in JAX)"))
+    if want and not calls[want]:
+        raise SystemExit(f"{phase} phase: the native {want} never ran ({calls})")
+    return calls
+
+
+def _check_trace(phase: str, directory: str) -> None:
+    """Fail the phase unless ``RunLogger.trace`` wrote its Chrome trace
+    (this process's, rank 0) under the run directory, naming kernels."""
+    path = os.path.join(directory, "rank0.pt.trace.json")
+    size = os.path.getsize(path) if os.path.isfile(path) else 0
+    head = ""
+    if size:
+        with open(path, errors="replace") as f:
+            head = f.read(1 << 20)
+    log(f"{phase}: RunLogger.trace wrote {path} ({size / 2 ** 20:.1f} MiB)")
+    if not size or '"traceEvents"' not in head:
+        raise SystemExit(f"{phase} phase: no Chrome trace at {path}")
+
+
 # UniSRec's one tower call a micro-batch: 12 layers of two add_ln sites;
 # its backward (--unisrec_train_all) the same in reverse. The Miner's two
 # tower calls (titles, sapos) under --remat: 24 mha forwards, one a layer
@@ -1877,10 +1921,11 @@ def reference_roundtrip_phase(corpus: str, tmp: str, finals: dict) -> dict:
 
 # ------------------------------------------------------------------ UnBERT
 class PackTimer:
-    """Host time of UnBERT's packing (``unbert_packing.pack_rows``, numpy,
-    one row at a time): each call's rows and seconds while ``phase`` is
-    set. It wraps the function where the batcher's blocks and the serving
-    path look it up, and changes nothing of what it returns."""
+    """Host time of UnBERT's packing (``unbert_packing.pack_rows``: the
+    native C++ packer at the default backend, a batch a call): each call's
+    rows and seconds while ``phase`` is set. It wraps the function where
+    the batcher's blocks and the serving path look it up, and changes
+    nothing of what it returns."""
 
     def __init__(self):
         self.phase = None
@@ -1892,9 +1937,9 @@ class PackTimer:
 
         pack = unbert_packing.pack_rows
 
-        def timed(packer, cand, hist):
+        def timed(packer, cand, hist, backend="auto"):
             t0 = time.perf_counter()
-            out = pack(packer, cand, hist)
+            out = pack(packer, cand, hist, backend)
             if self.phase is not None:
                 self.calls.setdefault(self.phase, []).append(
                     (len(cand), time.perf_counter() - t0))
@@ -1949,6 +1994,7 @@ def unbert_eval_phase(corpus: str, out: str, final_model: str) -> dict:
     whose metrics must be finite. Returns the launch counts of both."""
     import csv
 
+    from miner_tpu_torch.data import native
     from miner_tpu_torch.ops import launch_counts, reset_launch_counts
     from miner_tpu_torch.training.trainer import Trainer
 
@@ -1958,6 +2004,7 @@ def unbert_eval_phase(corpus: str, out: str, final_model: str) -> dict:
     best = os.path.join(run_dir, "ckpt", "bestAucModel")
     phase = "unbert_eval_standalone"
     reset_launch_counts()
+    native.reset_call_counts()
     PACK_TIMER.phase = phase
     results = []
     try:
@@ -1975,6 +2022,7 @@ def unbert_eval_phase(corpus: str, out: str, final_model: str) -> dict:
         f"{at_train['auc']!r} against the train run's {train_auc!r}; eval_unbert.txt as "
         f"shipped {shipped_s:.2f} s: {shipped}")
     log(PACK_TIMER.report(phase))
+    _check_native(phase, "unbert")
     log(f"{phase}: kernel launches {counts}")
     bad = [v for v in list(at_train.values()) + list(shipped.values())
            if not math.isfinite(v)]
@@ -2042,6 +2090,7 @@ def unbert_serve_phase(corpus: str, checkpoint: str) -> dict:
     refused (400). Returns the launch counts."""
     import numpy as np
 
+    from miner_tpu_torch.data import native
     from miner_tpu_torch.ops import launch_counts, reset_launch_counts
     from miner_tpu_torch.serving import ScoringService
     from miner_tpu_torch.training.trainer import Trainer
@@ -2049,6 +2098,7 @@ def unbert_serve_phase(corpus: str, checkpoint: str) -> dict:
     phase = "unbert_serve"
     args = unbert_serve_args(corpus, checkpoint)
     reset_launch_counts()
+    native.reset_call_counts()
     PACK_TIMER.phase = phase
     trainer = Trainer(args)
     score_unbert, device_calls = trainer.serve_scores_unbert, []
@@ -2091,6 +2141,7 @@ def unbert_serve_phase(corpus: str, checkpoint: str) -> dict:
         f"included), {service.batcher.stats()['mean_batch']} requests per device call "
         f"on {torch.cuda.get_device_name(0)}")
     log(PACK_TIMER.report(phase))
+    _check_native(phase, "unbert")
     log(f"{phase}: refusals {refused}")
     log(f"{phase}: kernel launches on the path {counts}")
     want = (service.batcher.max_batch.bit_length()) * len(args.serve_warmup_slates)
@@ -2101,6 +2152,129 @@ def unbert_serve_phase(corpus: str, checkpoint: str) -> dict:
                          f"{max(n for n, _ in warm_calls)} rows; refusals {refused}")
     _check_launches(phase, counts)
     return counts
+
+
+# ------------------------------------------------------------ native data
+# a train log of about MIND-small's size (its 51,282 news; 200,000 click
+# events of 10 to 60 negatives each; 50 history news; titles of 32), with
+# the 3 augmentation variants of the hard mode's configs (V = 4)
+NATIVE_EVENTS, NATIVE_NEWS, NATIVE_NEGS, NATIVE_VARIANTS = 200_000, 51_282, (10, 60), 4
+NUMPY_BUDGET_S = 1.0  # the numpy sampler's slice of the log, per mode
+PACK_CALLS = {"native": 200, "numpy": 10}
+
+
+def _native_log(rng):
+    """The synthetic log and store of ``native_sampler_phase``, from a seed,
+    no file I/O: events' positives and negatives uniform over the news,
+    each event its own history of 5 to 50 clicks, pads after them."""
+    import numpy as np
+
+    from miner_tpu_torch.data.behaviors import BehaviorsLog
+    from miner_tpu_torch.data.news_store import NewsStore
+
+    E, N, V, H = NATIVE_EVENTS, NATIVE_NEWS, NATIVE_VARIANTS, HIS
+    counts = rng.integers(NATIVE_NEGS[0], NATIVE_NEGS[1] + 1, E)
+    offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    history = rng.integers(1, N, (E, H)).astype(np.int32)
+    history[np.arange(H)[None, :] >= rng.integers(5, H + 1, E)[:, None]] = 0
+    empty = np.zeros(0, np.int32)
+    log_ = BehaviorsLog(
+        user=np.zeros(E, np.int32), history=history, hist_ptr=np.arange(E, dtype=np.int32),
+        pos_row=rng.integers(1, N, E).astype(np.int32),
+        impression_id=np.arange(E, dtype=np.int32),
+        neg_flat=rng.integers(1, N, int(offsets[-1])).astype(np.int32), neg_offsets=offsets,
+        eval_hist_ptr=empty, eval_user=empty, eval_impression_id=empty, eval_cand_flat=empty,
+        eval_label_flat=np.zeros(0, np.int8), eval_offsets=np.zeros(1, np.int32),
+        max_his_click=H)
+    title = rng.integers(3, 30_000, (V, N, TRAIN_TITLE)).astype(np.int32)
+    title[np.arange(TRAIN_TITLE)[None, None, :] >= rng.integers(
+        4, TRAIN_TITLE + 1, (V, N))[..., None]] = 0
+    store = NewsStore(title=title, sapo=np.zeros((V, N, 1), np.int32),
+                      category=np.zeros((V, N), np.int32), id_to_row={},
+                      variants=["vanilla", *(f"aug{i}" for i in range(1, V))],
+                      pad_token_id=0, category_pad_id=0)
+    return log_, store
+
+
+def native_sampler_phase(smi: str) -> None:
+    """Host phase: the port's native data plane (``data/native.py``, g++ at
+    first use; a failed build or load fails the run) against its numpy
+    path on a log of about MIND-small's train size (``_native_log``). An
+    epoch's ``sample_epoch`` in modes base and hard (npratio 4): native over
+    the whole log, numpy over the first events it samples in about
+    ``NUMPY_BUDGET_S``; UnBERT's ``pack_rows`` at a train micro-batch (16
+    rows) and at the largest serving call (512 rows), native against numpy
+    (the same arrays, checked equal). Printed with the card's name and power
+    limit and the host's CPU."""
+    import dataclasses
+    import platform
+
+    import numpy as np
+
+    from miner_tpu_torch.data import native
+    from miner_tpu_torch.data.samplers import OnlineSampler
+    from miner_tpu_torch.data.unbert_packing import UnbertPacker, pack_rows
+
+    phase = "native_sampler"
+    t0 = time.perf_counter()
+    native.load()  # raises with the compiler's output
+    log(f"{phase}: native library {os.path.relpath(native.library_path())} loaded in "
+        f"{time.perf_counter() - t0:.2f} s (g++ at first use)")
+    cpu = next((line.split(":", 1)[1].strip() for line in open("/proc/cpuinfo")
+                if line.startswith("model name")), platform.processor())
+    where = f"host {cpu}, {os.cpu_count()} cores; card {smi}"
+    rng = np.random.default_rng(11)
+    t0 = time.perf_counter()
+    log_, store = _native_log(rng)
+    log(f"{phase}: {NATIVE_EVENTS} events over {NATIVE_NEWS} news x {NATIVE_VARIANTS} "
+        f"variants, {len(log_.neg_flat)} negatives, made in {time.perf_counter() - t0:.1f} s")
+    native.reset_call_counts()
+    for mode in ("base", "hard"):
+        sampler = OnlineSampler(log_, store, 4, seed=7, mode=mode, backend="native")
+        t0 = time.perf_counter()
+        block = sampler.sample_epoch(0)
+        native_s = time.perf_counter() - t0
+        n = 1000  # numpy events: a first slice sizes the one timed within the budget
+        for _ in range(2):
+            part = dataclasses.replace(log_, pos_row=log_.pos_row[:n],
+                                       hist_ptr=log_.hist_ptr[:n],
+                                       impression_id=log_.impression_id[:n],
+                                       neg_offsets=log_.neg_offsets[:n + 1])
+            slow = OnlineSampler(part, store, 4, seed=7, mode=mode, backend="numpy")
+            t0 = time.perf_counter()
+            ref = slow.sample_epoch(0)
+            numpy_s = time.perf_counter() - t0
+            if numpy_s >= 0.5 * NUMPY_BUDGET_S:
+                break
+            n = min(NATIVE_EVENTS, int(n * NUMPY_BUDGET_S / max(numpy_s, 1e-3)))
+        per_native, per_numpy = native_s / NATIVE_EVENTS, numpy_s / n
+        ok = bool((block.label.sum(1) == 1).all() and (ref.label.sum(1) == 1).all()
+                  and block.cand.shape == (NATIVE_EVENTS, 5))
+        log(f"{phase}: sample_epoch {mode}: native {NATIVE_EVENTS} events in "
+            f"{native_s:.3f} s ({1e6 * per_native:.3f} us an event); numpy {n} events in "
+            f"{numpy_s:.3f} s ({1e6 * per_numpy:.1f} us an event, the whole log "
+            f"{per_numpy * NATIVE_EVENTS:.1f} s at that rate); native "
+            f"{per_numpy / per_native:.0f}x faster; {where}")
+        if not ok:
+            raise SystemExit(f"{phase} phase: a {mode} epoch's rows are not one-hot")
+    packer = UnbertPacker(store, cls_id=101, sep_id=102, pad_id=0)
+    for rows in (UNBERT_TRAIN_B, UNBERT_SERVE_B):
+        cand = rng.integers(1, NATIVE_NEWS * NATIVE_VARIANTS, rows).astype(np.int32)
+        hist = log_.history[rng.integers(0, NATIVE_EVENTS, rows)]
+        ms, outs = {}, {}
+        for backend, calls in PACK_CALLS.items():
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                outs[backend] = pack_rows(packer, cand, hist, backend)
+            ms[backend] = 1e3 * (time.perf_counter() - t0) / calls
+        same = all(np.array_equal(outs["native"][k], outs["numpy"][k]) for k in outs["numpy"])
+        log(f"{phase}: pack_rows at {rows} rows of {UNBERT_WORD} tokens: native "
+            f"{ms['native']:.3f} ms a call ({PACK_CALLS['native']} calls), numpy "
+            f"{ms['numpy']:.3f} ms ({PACK_CALLS['numpy']} calls), native "
+            f"{ms['numpy'] / ms['native']:.0f}x faster; equal: {same}; {where}")
+        if not same:
+            raise SystemExit(f"{phase} phase: the native packer's rows differ from numpy's")
+    _check_native(phase, "miner")
 
 
 # ------------------------------------------------------------------ train
@@ -2356,6 +2530,7 @@ def train_phase(corpus: str, out: str, family: str = "miner", *extra: str):
     import csv
     import gc
 
+    from miner_tpu_torch.data import native
     from miner_tpu_torch.ops import launch_counts, reset_launch_counts
     from miner_tpu_torch.training import checkpoint
     from miner_tpu_torch.training.trainer import Trainer
@@ -2422,10 +2597,9 @@ def train_phase(corpus: str, out: str, family: str = "miner", *extra: str):
         return out
 
     def timed_step(*a, **k):
-        if len(step_s) == profile_from:
-            profiler.append(torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]))
-            profiler[0].__enter__()
+        if len(step_s) == profile_from:  # RunLogger.trace into the run directory
+            profiler.append(trainer.run_logger.trace())
+            profiler.append(profiler[0].__enter__())
         held.append(torch.cuda.memory_allocated() / 2 ** 30)
         cache = a[5] if len(a) > 5 else k.get("his_cache")
         name = phase if cache is None or cache.cached(a[4]) else sub_phase("warmup")
@@ -2485,6 +2659,7 @@ def train_phase(corpus: str, out: str, family: str = "miner", *extra: str):
     gc.collect()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
+    native.reset_call_counts()
     CENSUS.phase = phase
     save, checkpoint.save = checkpoint.save, linking_repeats(checkpoint.save)
     t0 = time.perf_counter()
@@ -2495,6 +2670,7 @@ def train_phase(corpus: str, out: str, family: str = "miner", *extra: str):
         CENSUS.phase = None
         checkpoint.save = save
     wall_s = time.perf_counter() - t0
+    _check_native(phase, trainer.kind)
     counts = launch_counts()
     eval_counts = {k: counts[k] - before_eval[k] for k in counts}
     with open(os.path.join(run.run_dir, "eval.csv")) as f:
@@ -2546,7 +2722,8 @@ def train_phase(corpus: str, out: str, family: str = "miner", *extra: str):
     log(f"{phase}: losses {[round(x, 4) for x in step_loss]}")
     log(f"{phase}: eval {metrics}")
     if profiler:
-        _report_profile(phase, profiler[0], 1e3 * mid)
+        _report_profile(phase, trainer.run_logger.profiler, 1e3 * mid)
+        _check_trace(phase, profiler[1])
     if cache is not None:
         _report_history_cache(phase, args, cache, step_s, step_phase, refill_s,
                               refill_in_step, peaks, unprofiled)
@@ -2694,11 +2871,14 @@ def fp32_train_phase(corpus: str, out: str) -> dict:
     launch counts of the micro-batches."""
     import gc
 
+    from miner_tpu_torch.data import native
     from miner_tpu_torch.data.samplers import OnlineSampler
+    from miner_tpu_torch.observability.logging import RunLogger
     from miner_tpu_torch.ops import launch_counts, reset_launch_counts
     from miner_tpu_torch.training.trainer import Trainer
 
     phase = "fp32_train"
+    native.reset_call_counts()
     trainer = Trainer(train_args(corpus, out, "--compute_dtype", "float32",
                                  "--gradient_accumulation_steps",
                                  str(FP32_MICRO_BATCHES)))
@@ -2725,14 +2905,17 @@ def fp32_train_phase(corpus: str, out: str) -> dict:
         losses.append(float(trainer.train_step(model, table, batch, optimizer, i)))
         step_s.append(time.perf_counter() - t0)
 
+    logger = RunLogger(os.path.join(out, phase), phase)
     try:
         micro_batch(0)
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with logger.trace() as trace_dir:
             for i in range(1, FP32_MICRO_BATCHES):
                 micro_batch(i)
     finally:
         CENSUS.phase = None
+    prof = logger.profiler
+    _check_trace(phase, trace_dir)
+    _check_native(phase, trainer.kind)
     counts = launch_counts()
     traced = sorted(step_s[1:])
     mid = 1e3 * traced[len(traced) // 2]
@@ -2779,12 +2962,14 @@ def train_parity_phase(corpus: str, out: str, family: str = "miner") -> None:
     that is a small difference of large terms (the target-aware
     projection's, 1e-7 at random init) carries the absolute rounding of
     those terms."""
+    from miner_tpu_torch.data import native
     from miner_tpu_torch.data.samplers import OnlineSampler
     from miner_tpu_torch.training.trainer import Trainer
 
     import numpy as np
 
     result, scores, cache_emb = {}, {}, None
+    native.reset_call_counts()
     for device in ("cuda", "cpu"):
         trainer = Trainer(train_args(corpus, out, "--compute_dtype", "float32",
                                      "--device", device, *PARITY_FLAGS.get(family, ()),
@@ -2826,6 +3011,7 @@ def train_parity_phase(corpus: str, out: str, family: str = "miner") -> None:
             scores[device] = trainer.serve_scores_unbert(
                 model, trainer._unbert_packer(store), cand, his)
         CENSUS.phase = None
+    _check_native(f"train_parity_{family}", trainer.kind)
     if scores:
         got, want = scores["cuda"], scores["cpu"]
         err = float(np.abs(got - want).max())
@@ -3030,11 +3216,14 @@ def parity_phase(corpus: str) -> None:
 # --standalone`` as subprocesses of this script (``--mesh_rank``), so that
 # the port's CLI is the entry point each rank runs; the ranks of one launch
 # run its phases one after another (a rank's start-up, 13-20 s, paid once);
-# both launches start beside the CPU halves of the train parity phases, the
-# timed one held at its first micro-batch until they are done; a launcher
-# that outlives MESH_TIMEOUT_S (its ranks included) fails the run
+# every launch starts beside the untimed phases (hf_import, the parity
+# phases, the CPU halves of the train parity phases), the timed phases
+# (HELD) held at their first micro-batch until the other
+# launches are done; a launcher that outlives MESH_TIMEOUT_S (its ranks
+# included) fails the run
 MESH_TIMEOUT_S = 600
 MESH_RANK = "MESH_RANK "  # the prefix of a rank's report line
+HELD = ("mesh_train", "tp_train")  # timed alone on the card, after ``go``
 
 
 def mesh_rank_main(jobs_path: str) -> int:
@@ -3065,6 +3254,7 @@ def mesh_rank_main(jobs_path: str) -> int:
 
     import miner_tpu_torch.training.trainer as port_trainer
     from miner_tpu_torch import cli, serving
+    from miner_tpu_torch.data import native
     from miner_tpu_torch.ops import common, launch_counts, reset_launch_counts
     from miner_tpu_torch.parallel import mesh, tp
     from miner_tpu_torch.training.optim import Optimizer
@@ -3117,7 +3307,7 @@ def mesh_rank_main(jobs_path: str) -> int:
 
     def timed_step(self, *a, **k):
         if "first_step" not in rep["at"]:
-            go = os.environ.get("CHIP_SMOKE_GO")
+            go = os.environ.get("CHIP_SMOKE_GO") if job["phase"] in HELD else None
             while go and not os.path.exists(go):  # held until this script says go
                 time.sleep(0.05)
             rep["at"]["first_step"] = time.time()
@@ -3194,7 +3384,9 @@ def mesh_rank_main(jobs_path: str) -> int:
                    at={"entry": entry, "job": time.time()})
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
+        native.reset_call_counts()
         cli.main(j["argv"])
+        rep["native"] = native.call_counts()
         counts = launch_counts()
         rep["tp_s"], rep["tp_n"] = rep["tp_s"][1:], rep["tp_n"][1:]  # the micro-batches'
         held.clear()
@@ -3308,6 +3500,7 @@ def _check_ranks(phase: str, reports, micro_batches_: int) -> dict:
     r0 = reports[0]
     for r in reports:
         _check_launches(phase, r["train_counts"])
+        _check_native(f"{phase} rank {r['rank']}", "sampler", r["native"])
         bad = [x for x in r["losses"] if not math.isfinite(x)]
         if bad or len(r["losses"]) != micro_batches_:
             raise SystemExit(f"{phase}: rank {r['rank']}: {len(r['losses'])} micro-batches, "
@@ -3335,28 +3528,13 @@ def _check_ranks(phase: str, reports, micro_batches_: int) -> dict:
 
 def start_mesh_phases(corpus: str, out: str, final_model: str) -> dict:
     """Start the mesh phases' three launches (their checks:
-    :func:`finish_mesh_phases`).
+    :func:`finish_mesh_phases`), all beside the untimed phases (hf_import,
+    the parity phases, the CPU halves of the train parity phases).
 
-    One launch of 2 ranks, held at its first micro-batch until ``go``, for
-    the times (the card then runs nothing else):
+    One launch of 2 ranks whose last two phases are held at their first
+    micro-batch until ``go``, for the times (the card then runs nothing
+    else); the phases before them run at once, correctness alone:
 
-    * mesh_train: ``config/train_miner.txt --mesh_data 2`` at full width
-      (roberta-base, bf16, dropout, --remat), 8 micro-batches at
-      accumulation 4, without its eval (table_eval runs the cached eval
-      over a mesh);
-    * tp_train: the same with ``--mesh_model 2`` at ``--train_batch_size``
-      ``TP_B``, 3 micro-batches at accumulation 3 (one update): each rank
-      half of every layer's heads and feed-forward features, the model
-      group's all-reduces through the host (gloo).
-
-    One launch of 2 ranks and one of 4, run at once beside the CPU halves of
-    the train parity phases (correctness alone: their times are taken
-    beside other work):
-
-    * mesh_parity_fp32 and mesh_parity_tp: the same path in float32 with
-      the config's dropout, 2 micro-batches at accumulation 2 (one update,
-      at lr 2e-5: no warmup), over ``--mesh_data 2`` (16 rows a
-      micro-batch) and ``--mesh_model 2`` (``TP_B``);
     * ep_unisrec: ``config/train_unisrec.txt --mesh_model 2``, 2
       micro-batches: the MoE adaptor's experts sharded (4 of 8 a rank), the
       bert-base tower's heads too;
@@ -3367,6 +3545,22 @@ def start_mesh_phases(corpus: str, out: str, final_model: str) -> dict:
       filled, each rank keeping half of its rows, and persisted), then from
       the file it wrote; rank 0 answers serve_cache's 20 requests over HTTP,
       one at a time, rank 1 following its device calls;
+    * mesh_train (held): ``config/train_miner.txt --mesh_data 2`` at full
+      width (roberta-base, bf16, dropout, --remat), 8 micro-batches at
+      accumulation 4, without its eval (table_eval runs the cached eval
+      over a mesh);
+    * tp_train (held): the same with ``--mesh_model 2`` at
+      ``--train_batch_size`` ``TP_B``, 3 micro-batches at accumulation 3
+      (one update): each rank half of every layer's heads and feed-forward
+      features, the model group's all-reduces through the host (gloo).
+
+    One launch of 2 ranks and one of 4, correctness alone (their times are
+    taken beside other work):
+
+    * mesh_parity_fp32 and mesh_parity_tp: the same path in float32 with
+      the config's dropout, 2 micro-batches at accumulation 2 (one update,
+      at lr 2e-5: no warmup), over ``--mesh_data 2`` (16 rows a
+      micro-batch) and ``--mesh_model 2`` (``TP_B``);
     * on 4 ranks, mesh_his_cache: the cached-history flags over
       ``--mesh_data 2 --mesh_table 2``, 6 micro-batches: 2 on the full
       history, then 4 whose history rows come from the train corpus's
@@ -3387,14 +3581,14 @@ def start_mesh_phases(corpus: str, out: str, final_model: str) -> dict:
         ("mesh_parity_fp32", train_words(corpus, parity, "--mesh_data", "2",
                                          family="mesh_parity"), grads["mesh_parity_fp32"]),
         ("mesh_parity_tp", train_words(corpus, parity, "--mesh_model", "2",
-                                       family="mesh_parity_tp"), grads["mesh_parity_tp"]),
+                                       family="mesh_parity_tp"), grads["mesh_parity_tp"])])
+    timed = start_mesh(2, [
         ("ep_unisrec", train_words(corpus, out, "--mesh_model", "2", family="ep_unisrec"),
          None),
         ("table_eval", eval_words(corpus, os.path.join(out, "table_eval"), final_model,
                                   "--mesh_table", "2"), None),
         ("mesh_serve", serve, None, reqs),
-        ("mesh_serve_loaded", serve, None, reqs)])
-    timed = start_mesh(2, [
+        ("mesh_serve_loaded", serve, None, reqs),
         ("mesh_train", train_words(corpus, out, "--mesh_data", "2", family="mesh"), None),
         ("tp_train", train_words(corpus, out, "--mesh_model", "2", family="tp"), None)], go=go)
     return dict(timed=timed, checks=checks, four=four, go=go, grads=grads, parity=parity,
@@ -3406,11 +3600,12 @@ def finish_mesh_phases(corpus: str, out: str, final_model: str, launches: dict) 
     its kernels, finite losses, every rank's parameters bit-identical, the
     cache rebuilt at micro-steps 2 and 4 (JAX's rule). Then the checks'
     launch: mesh_parity_fp32 and mesh_parity_tp against W = 1
-    (:func:`mesh_parity_check`); ep_unisrec rank-identical with UniSRec's
-    launches a micro-batch; table_eval against one rank
-    (:func:`table_eval_check`); mesh_serve against the one-rank serving
-    (:func:`mesh_serve_check`). Then ``go`` for the timed launch, on a card
-    this script no longer shares: mesh_train launched every Miner kernel
+    (:func:`mesh_parity_check`). Then ``go`` for the timed launch's held
+    phases, on a card this script no longer shares, and the launch's
+    checks: ep_unisrec rank-identical with UniSRec's launches a
+    micro-batch; table_eval against one rank (:func:`table_eval_check`);
+    mesh_serve against the one-rank serving (:func:`mesh_serve_check`);
+    mesh_train launched every Miner kernel
     on each rank, finite losses, both ranks' parameters bit-identical; its
     micro-batch, global examples/s (the 16 rows of a micro-batch over the
     time the ranks take for theirs), each update's time and the gradient
@@ -3440,17 +3635,17 @@ def finish_mesh_phases(corpus: str, out: str, final_model: str, launches: dict) 
         mesh_parity_check(phase, two[phase][0], launches["grads"][phase], ones[phase])
         for n, c in ones[phase]["counts"].items():
             counts["mesh_parity_fp32_one"][n] = counts["mesh_parity_fp32_one"].get(n, 0) + c
-    counts.update(_check_ranks("ep_unisrec", two["ep_unisrec"], micro_batches("ep_unisrec")))
-    for r in two["ep_unisrec"]:
-        _check_per_batch("ep_unisrec", {k: v // micro_batches("ep_unisrec")
-                                        for k, v in r["train_counts"].items()})
-    counts.update(table_eval_check(out, two["table_eval"], eval_one))
-    counts.update(mesh_serve_check(two, launches["cache"], out))
     gc.collect()
     torch.cuda.empty_cache()
     with open(launches["go"], "w"):
         pass
     timed = finish_mesh(launches["timed"])
+    counts.update(_check_ranks("ep_unisrec", timed["ep_unisrec"], micro_batches("ep_unisrec")))
+    for r in timed["ep_unisrec"]:
+        _check_per_batch("ep_unisrec", {k: v // micro_batches("ep_unisrec")
+                                        for k, v in r["train_counts"].items()})
+    counts.update(table_eval_check(out, timed["table_eval"], eval_one))
+    counts.update(mesh_serve_check(timed, launches["cache"], out))
     counts.update(_check_ranks("mesh_train", timed["mesh_train"], micro_batches("mesh")))
     args = train_args(corpus, out, family="mesh")
     steps = sorted(t for r in timed["mesh_train"] for t in r["step_s"][1:])
@@ -3754,6 +3949,7 @@ def main(argv=None) -> int:
 
     import tempfile
 
+    native_sampler_phase(smi)
     CENSUS.install()
     with tempfile.TemporaryDirectory() as tmp:
         corpus = os.path.join(tmp, "corpus")
@@ -3804,16 +4000,17 @@ def main(argv=None) -> int:
         _check_d768("no_reduce_serve")
         rd_counts, _ = train_phase(corpus, tmp, "remat_dots")
         counts.update(rd_counts)
-        hf_import_phase(corpus, tmp, tmp)
-        write_corpus(os.path.join(tmp, "parity"), 64, seed=1)
-        parity_phase(os.path.join(tmp, "parity"))
         # over a mesh of ranks: the counts set to 0 in each rank just before
         # the port's CLI runs there (mesh_rank_main); the ranks start beside
-        # the CPU halves of the train parity phases
+        # the untimed phases from here on (hf_import, the parity phases and
+        # the CPU halves of the train parity phases)
         # the ranks share the card with this process: give back its cache
         torch.cuda.empty_cache()
         launches = start_mesh_phases(corpus, tmp, final_model)
         try:
+            hf_import_phase(corpus, tmp, tmp)
+            write_corpus(os.path.join(tmp, "parity"), 64, seed=1)
+            parity_phase(os.path.join(tmp, "parity"))
             for family in PARITY_FAMILIES:
                 train_parity_phase(corpus, tmp, family)
             counts.update(finish_mesh_phases(corpus, tmp, final_model, launches))

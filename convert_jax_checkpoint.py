@@ -14,8 +14,14 @@ with ``strict=True`` into the model the same flags build: ``python -m
 miner_tpu_torch eval|serve|recommend --saved_model_path <out>``, on the CPU
 (``--device cpu``) or the card, or ``train --pretrained_model_path <out>``.
 The run's ``args.json`` (beside its ``ckpt/`` directory), where it exists,
-is kept as the payload's ``args``. The optimizer state (optax's) is not
-carried across frameworks, so ``--resume_from`` refuses the result.
+is kept as the payload's ``args``. The training state comes too
+(``miner_tpu_torch.training.checkpoint.state_from_jax``): optax's AdamW
+moments and counts, MultiSteps' partial gradient, the micro-step and the
+dropout seed, so ``python -m miner_tpu_torch train --resume_from <out>``
+with the JAX run's flags continues it in the port. Where the optimizer
+state cannot be carried (a checkpoint without one, or another optimizer
+than the JAX package's), the result holds the parameters and the reason,
+and ``--resume_from`` refuses it with that reason.
 """
 from __future__ import annotations
 
@@ -30,17 +36,31 @@ def convert(ckpt: str):
     import jax
 
     from miner_tpu.training.checkpoint import CheckpointManager
-    from miner_tpu_torch.models.convert import params_from_jax
 
     path = os.path.normpath(ckpt)
     restored = CheckpointManager(os.path.dirname(path) or ".").restore(os.path.basename(path))
-    params = restored["params"] if "params" in restored else restored
-    payload = {"params": params_from_jax(jax.device_get(params)),
-               "converted_from": "the JAX package"}
+    args = None
     args_json = os.path.join(os.path.dirname(os.path.dirname(path)), "args.json")
     if os.path.isfile(args_json):
         with open(args_json) as f:
-            payload["args"] = json.load(f)
+            args = json.load(f)
+    return payload_of(jax.device_get(restored), args)
+
+
+def payload_of(restored, args=None):
+    """The port's payload of a JAX checkpoint restored as raw nested dicts
+    of numpy arrays (a whole training state, or its parameters alone), with
+    the run's arguments when known."""
+    from miner_tpu_torch.models.convert import params_from_jax
+    from miner_tpu_torch.training.checkpoint import state_from_jax
+
+    whole = "params" in restored
+    payload = {"params": params_from_jax(restored["params"] if whole else restored),
+               "converted_from": "the JAX package"}
+    payload.update(state_from_jax(restored, args) if whole
+                   else {"not_resumable": "the JAX checkpoint holds parameters alone"})
+    if args is not None:
+        payload["args"] = args
     return payload
 
 

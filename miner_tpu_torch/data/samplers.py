@@ -24,20 +24,33 @@ Modes (behavioral contracts):
 All emitted indices are *global* NewsStore indices (variant*N + row); pad
 news = 0.
 
-The port's own copy of ``miner_tpu/data/samplers.py``, numpy path only: the
-JAX package's native C++ sampler (``native/miner_data.cpp``) keeps the same
-invariants but not the same draws, and is not ported yet (ROADMAP Queue 1:
-the native sampler). The tests hold these samplers equal to the JAX
-package's with ``backend="numpy"``, draw for draw.
+The port's own copy of ``miner_tpu/data/samplers.py``, with its two paths.
+The train samplers take JAX's ``backend``: ``"native"`` draws an epoch in
+one call of the port's copy of the native C++ sampler (``data/native.py``,
+``csrc/host/miner_data.cpp``), per event from (seed, epoch, event);
+``"numpy"`` loops over the events in Python, >100x slower, from
+``np.random.default_rng((seed, epoch))``; ``"auto"`` (the default, as in
+JAX) takes the native path where the library builds and loads, else warns
+once and takes numpy. The two paths keep the same invariants but not the
+same draws. ``"native"`` raises where the library is unavailable, and
+``MINER_TPU_NO_NATIVE`` switches it off. The pretrain and eval samplers are
+numpy only, as in JAX. The tests hold each path equal to the JAX package's
+same path, draw for draw.
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
 
 import numpy as np
 
+from miner_tpu_torch.data import native
 from miner_tpu_torch.data.behaviors import BehaviorsLog
 from miner_tpu_torch.data.news_store import NewsStore
+
+log_ = logging.getLogger(__name__)
+BACKENDS = ("auto", "native", "numpy")
+_warned_fallback = False
 
 
 @dataclasses.dataclass
@@ -51,6 +64,28 @@ class SampleBlock:
 
     def __len__(self) -> int:
         return len(self.cand)
+
+
+def use_native(backend: str) -> bool:
+    """Whether ``backend`` takes the native path: ``"native"`` raises when
+    the library is unavailable, ``"auto"`` warns once and takes numpy."""
+    if backend == "numpy":
+        return False
+    ok = native.native_available()
+    if backend == "native" and not ok:
+        raise RuntimeError("native sampler requested but unavailable")
+    if not ok:
+        # a quiet fallback eats a >100x slower per-event Python loop every
+        # epoch: warn loudly, once
+        global _warned_fallback
+        if not _warned_fallback:
+            _warned_fallback = True
+            log_.warning(
+                "native data plane unavailable: falling back to the numpy "
+                "sampler and packer (>100x slower per epoch). Check that g++ "
+                "builds miner_tpu_torch/csrc/host/miner_data.cpp and that "
+                "MINER_TPU_NO_NATIVE is unset.")
+    return ok
 
 
 def _sample_negatives(
@@ -73,14 +108,18 @@ class _BaseTrainSampler:
         npratio: int,
         seed: int = 0,
         mode: str = "base",
+        backend: str = "auto",
     ):
         if mode not in ("base", "hard"):
             raise ValueError(f"unknown sampler mode {mode!r}")
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown sampler backend {backend!r}")
         self.log = log
         self.store = store
         self.npratio = npratio
         self.seed = seed
         self.mode = mode
+        self.backend = backend
         self.num_variants = store.num_variants
 
     def _history_gidx(self) -> np.ndarray:
@@ -88,6 +127,21 @@ class _BaseTrainSampler:
         return self.log.history[self.log.hist_ptr]
 
     def sample_epoch(self, epoch: int) -> SampleBlock:
+        if use_native(self.backend):
+            cand, label = native.sample_epoch(
+                self.seed, epoch, self.mode, self.log.num_events,
+                self.npratio + 1, self.num_variants, self.store.num_news,
+                self.log.pos_row, self.log.neg_flat, self.log.neg_offsets,
+            )
+            return SampleBlock(
+                cand=cand,
+                his=self._history_gidx().astype(np.int32),
+                label=label,
+                impression_id=self.log.impression_id.copy(),
+            )
+        return self._sample_epoch_numpy(epoch)
+
+    def _sample_epoch_numpy(self, epoch: int) -> SampleBlock:
         rng = np.random.default_rng((self.seed, epoch))
         E = self.log.num_events
         C = self.npratio + 1
@@ -129,8 +183,8 @@ class _BaseTrainSampler:
 class OfflineSampler(_BaseTrainSampler):
     """Sampled once at construction; every epoch reuses the same block."""
 
-    def __init__(self, log, store, npratio, seed=0, mode="base"):
-        super().__init__(log, store, npratio, seed, mode)
+    def __init__(self, log, store, npratio, seed=0, mode="base", backend="auto"):
+        super().__init__(log, store, npratio, seed, mode, backend)
         self._block = super().sample_epoch(0)
 
     def sample_epoch(self, epoch: int) -> SampleBlock:

@@ -20,9 +20,12 @@ for block). Behavioral contract, after the reference's
     times per epoch (reference: src/entities.py:671-720); eval packs every
     candidate of an impression, deterministically.
 
-Packing runs on the host in numpy, one row at a time. The JAX package also
-has a C++ packer, bit-identical to its numpy one
-(``tests/test_unbert_data.py``); the port has the numpy path only.
+Packing runs on the host: a batch in one call of the port's copy of the
+native C++ packer (``data/native.py``, ``csrc/host/miner_data.cpp``), or
+row by row in numpy, which the C++ packer equals bit for bit. ``pack_rows``
+and ``PackedBlock.materialize`` take the samplers' ``backend`` (``"auto"``,
+the default, takes the native packer where it builds, as the JAX package's
+``pack_rows`` does; ``samplers.use_native``).
 """
 from __future__ import annotations
 
@@ -31,8 +34,10 @@ from typing import Dict
 
 import numpy as np
 
+from miner_tpu_torch.data import native
 from miner_tpu_torch.data.behaviors import BehaviorsLog
 from miner_tpu_torch.data.news_store import NewsStore
+from miner_tpu_torch.data.samplers import use_native
 
 SEQ_MAX_LEN = 300
 NEWS_MAX_LEN = 20
@@ -147,14 +152,22 @@ class UnbertPacker:
         }
 
 
-def pack_rows(packer: UnbertPacker, cand: np.ndarray,
-              hist: np.ndarray) -> Dict[str, np.ndarray]:
+def pack_rows(packer: UnbertPacker, cand: np.ndarray, hist: np.ndarray,
+              backend: str = "auto") -> Dict[str, np.ndarray]:
     """Pack (R,) candidate rows x (R, H) history rows (clicks first, or
     pads first under ``legacy_layout``) into the model's feature arrays,
-    (R, seq_max_len) and (R, 3 + hist_max_len)."""
+    (R, seq_max_len) and (R, 3 + hist_max_len): the native C++ packer, or
+    the numpy reference row by row (``backend``, as the samplers')."""
+    p = packer
     cand = np.ascontiguousarray(cand, dtype=np.int32)
     hist = np.ascontiguousarray(hist, dtype=np.int32)
-    rows = [packer.pack_one(int(c), h) for c, h in zip(cand, hist)]
+    if use_native(backend):
+        return native.pack_unbert(
+            p._tokens, p._lens, cand, hist,
+            p.seq_max_len, p.news_max_len, p.hist_max_len,
+            p.cls_id, p.sep_id, p.pad_id, legacy_layout=p.legacy_layout,
+        )
+    rows = [p.pack_one(int(c), h) for c, h in zip(cand, hist)]
     return {k: np.stack([r[k] for r in rows]) for k in rows[0]}
 
 
@@ -180,7 +193,7 @@ class PackedBlock:
     def __len__(self) -> int:
         return len(self.cand_rows)
 
-    def materialize(self, idx: np.ndarray) -> Dict[str, np.ndarray]:
+    def materialize(self, idx: np.ndarray, backend: str = "auto") -> Dict[str, np.ndarray]:
         # BehaviorsLog rows are clicks-first (pads appended) by default, so
         # the packer's first-hist_max_len slice sees real clicks and stops
         # at the first pad. Under --legacy_history_layout the rows are
@@ -188,7 +201,7 @@ class PackedBlock:
         # does (src/reader.py:154 prepends pads; src/entities.py:627-632
         # packs clicked_news[:hist_max_len] unconditionally).
         out = pack_rows(self.packer, self.cand_rows[idx],
-                        self.history[self.hist_ptr[idx]])
+                        self.history[self.hist_ptr[idx]], backend)
         out["label"] = self.label[idx]
         out["impression_id"] = self.impression_id[idx]
         return out

@@ -8,9 +8,10 @@ src/base_trainer.py:41-89, src/logger_utils.py):
   * args dumped to ``args.json`` per run;
   * TensorBoard scalars when ``torch.utils.tensorboard`` is importable.
 
-Also: examples/s counters recorded into ``throughput.csv``. (The JAX
-package's ``jax.profiler`` trace context is left out: the port has no
-profiler hook yet.)
+Also: examples/s counters recorded into ``throughput.csv``, and
+``trace``, the JAX package's profiler context on ``torch.profiler``: CPU
+activity and, where there is a card, CUDA's, written as a Chrome trace
+under the run directory.
 
 Under a process group every rank takes rank 0's run directory, and rank 0
 alone writes the files; the other ranks log warnings to stdout.
@@ -19,6 +20,7 @@ The port's own copy of ``miner_tpu/observability/logging.py``.
 """
 from __future__ import annotations
 
+import contextlib
 import csv
 import datetime
 import json
@@ -27,6 +29,7 @@ import os
 import sys
 from typing import Dict, Iterable, Optional, Sequence
 
+import torch
 import torch.distributed as dist
 
 from miner_tpu_torch.parallel import mesh
@@ -60,6 +63,7 @@ class RunLogger:
 
         self._csv_headers: Dict[str, Sequence[str]] = {}
         self._tb = None
+        self.profiler: Optional[torch.profiler.profile] = None  # the last trace's
         if args is not None:
             self.dump_args(args)
 
@@ -121,6 +125,25 @@ class RunLogger:
         self.logger.info("epoch %d done loss %.5f in %.1fs", epoch, train_loss, seconds)
         self.csv_row("epoch", ["epoch", "train_loss", "seconds"],
                      [epoch, train_loss, seconds])
+
+    @contextlib.contextmanager
+    def trace(self, name: str = "trace"):
+        """``torch.profiler`` over the block, CPU activity and, where there
+        is a card, CUDA's; yields the directory ``<run_dir>/<name>``, where
+        the Chrome trace is written on exit, one file a rank
+        (``rank<r>.pt.trace.json``: under a process group every rank traces
+        its own work). The profiler stays on ``self.profiler`` for a caller
+        that reads its events."""
+        d = os.path.join(self.run_dir, name)
+        os.makedirs(d, exist_ok=True)
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        self.profiler = torch.profiler.profile(activities=activities)
+        with self.profiler:
+            yield d
+        self.profiler.export_chrome_trace(
+            os.path.join(d, f"rank{mesh.this_rank()}.pt.trace.json"))
 
 
 def _jsonable(v):

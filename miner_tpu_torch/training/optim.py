@@ -183,6 +183,24 @@ class Optimizer:
         return {"adamw": self.adamw.state_dict(), "mini_step": self.mini_step,
                 "updates": self.updates}
 
+    def by_index(self, state: Dict) -> Dict:
+        """``state`` whose AdamW moments are keyed by parameter name (a
+        checkpoint converted from JAX, ``checkpoint.state_from_jax``) as
+        :meth:`state_dict` gives it: in this optimizer's order, with its
+        groups. Raises ``ValueError`` where the names are not this
+        optimizer's trainable parameters."""
+        named = state["adamw"]["state"]
+        if set(named) != set(self.names):
+            missing = sorted(set(self.names) - set(named))[:5]
+            extra = sorted(set(named) - set(self.names))[:5]
+            raise ValueError(
+                "the checkpoint's optimizer state is not over this run's trainable "
+                "parameters (the model flags and --freeze_transformer must be the "
+                f"checkpointed run's): missing {missing}, unexpected {extra}")
+        adamw = {"state": {i: named[n] for i, n in enumerate(self.names)},
+                 "param_groups": self.adamw.state_dict()["param_groups"]}
+        return dict(state, adamw=adamw)
+
     def load_state_dict(self, state: Dict) -> None:
         self.adamw.load_state_dict(state["adamw"])
         self.mini_step = int(state["mini_step"])

@@ -11,8 +11,10 @@ logits only), ``unbert`` (the UnBERT cross-encoder over packed
 its augmented variants and negatives; the ``pretrain`` subcommand takes it
 whatever ``--model_name`` says, trainer.py:111-112):
 
-  * ``train`` (trainer.py:558-799): ``BehaviorsLog``, the numpy samplers and
-    the shuffled ``Batcher``; every micro-batch gathers its token rows from
+  * ``train`` (trainer.py:558-799): ``BehaviorsLog``, the samplers built as
+    JAX's are (at ``backend="auto"``: the native C++ sampler and UnBERT
+    packer where g++ builds them, ``data/native.py``) and the shuffled
+    ``Batcher``; every micro-batch gathers its token rows from
     the ``NewsTable`` on the device, runs the model with dropout (one PLM
     call per field over candidates and history), the kind's loss and its
     backward, and the optimizer (clip, AdamW, warmup schedule, accumulation)
@@ -898,8 +900,10 @@ class Trainer:
         ``--resume_from`` payload (its parameters are already loaded), each
         rank taking its shares."""
         specs = tp.specs_of(model)
-        optimizer.load_state_dict(tp.local_optimizer_state(payload["optimizer"],
-                                                           optimizer.names, specs))
+        state = payload["optimizer"]
+        if "param_groups" not in state["adamw"]:  # converted from JAX: moments by name
+            state = optimizer.by_index(state)
+        optimizer.load_state_dict(tp.local_optimizer_state(state, optimizer.names, specs))
         # the partial sum is the data group's whole: one data rank takes it
         grad_acc = payload["grad_acc"] if self.mesh.data_rank == 0 else None
         grad_acc = tp.local_state_dict(grad_acc or {}, specs)
@@ -937,6 +941,7 @@ class Trainer:
         logger = RunLogger(a.train_path, "train", vars(a))
         logger.enable_tensorboard(os.path.join(logger.run_dir,
                                                a.tensorboard_path or "tb"))
+        self.run_logger = logger  # its trace() profiles into the run directory
         log = self._log = logger.logger
         log.info("device: %s, mesh: %s", self.device, self.mesh.shape)
 

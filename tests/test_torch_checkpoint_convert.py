@@ -13,7 +13,19 @@ tools (``python -m miner_tpu_torch.tools.import_reference_checkpoint`` /
 Orbax to port: a one-epoch JAX run of the tiny Miner (float32) with and
 without ``--scan_layers`` goes through ``convert_jax_checkpoint.py``; the
 port's ``eval --device cpu`` of the result gives the metrics of JAX's
-end-of-epoch eval of the same weights, and ``--resume_from`` refuses it.
+end-of-epoch eval of the same weights, and the result carries the run's
+training state. Resume: a two-epoch JAX run (float32, every dropout at 0)
+is checkpointed at the end of its first epoch, converted, and resumed in the
+port with ``--resume_from`` for the second; the port's micro-step losses
+equal JAX's continuation to rtol 1e-5 / atol 1e-5 and its final parameters
+JAX's to atol 1e-4 (the tolerances of the port's cross-framework and
+mesh resume tests, ``tests/test_torch_his_cache.py`` and
+``tests/test_torch_tp.py``: float32 in another summation order, amplified by
+Adam), at an update boundary under ``--scan_layers``, mid-accumulation, and
+under ``--freeze_transformer`` (whose frozen tensors stay bit for bit).
+What cannot be carried is refused with its reason: a checkpoint of
+parameters alone, another optimizer's state, and moments over other
+trainable parameters than the resumed run's.
 """
 import csv
 import dataclasses as dc
@@ -27,6 +39,8 @@ import pytest
 import torch
 
 import convert_jax_checkpoint
+import miner_tpu.training.trainer as jax_trainer
+import miner_tpu_torch.training.trainer as port_trainer
 from miner_tpu.config import make_parser as jax_parser
 from miner_tpu.models import FastformerUserModel, Miner, NewsEncoder, UniSRec
 from miner_tpu.models import hf_import as jax_hf
@@ -273,10 +287,114 @@ def test_orbax_checkpoint_evaluates_in_the_port_as_in_jax(fixture_dir, tmp_path,
     assert set(want) <= set(got) and "auc" in want
     for k, v in want.items():
         assert got[k] == pytest.approx(v, abs=1e-5), k
-    with pytest.raises(ValueError, match="no optimizer state"):
-        Trainer(make_parser().parse_args([
-            "train", *_flags(fixture_dir), "--device", "cpu",
-            "--train_behaviors_path", os.path.join(fixture_dir, "behaviors.tsv"),
-            "--train_news_path", os.path.join(fixture_dir, "news.tsv"),
-            "--train_batch_size", "8", "--train_path", str(tmp_path / "port"),
-            "--resume_from", out])).train()
+    # the run's training state came too (resumed against JAX below)
+    assert payload["micro_step"] == 4 and payload["rng_seed"] == 8
+    assert payload["optimizer"]["adamw"]["state"].keys() == payload["params"].keys()
+
+
+# ---------------------------------------------------------- JAX -> port resume
+# the micro-step of the kept checkpoint (of 4 micro-batches of 8 an epoch,
+# the fixture's 32 train events), the accumulation and the JAX run's other
+# flags: the first epoch's end at an update boundary (MultiSteps' mini_step
+# 0); an eval at micro-step 5, two micro-batches into an accumulation of
+# three (where a copied running mean would be half the sum), mid-epoch; the
+# first epoch's end without MultiSteps
+RESUME = {
+    "update_boundary_scan_layers": (4, 2, ("--scan_layers",)),
+    "mid_accumulation": (5, 3, ("--eval_steps", "5")),
+    "freeze_transformer": (4, 1, ("--freeze_transformer",)),
+}
+
+
+def _no_dropout_cfg(make):
+    return lambda *a, **k: dc.replace(make(*a, **k), hidden_dropout=0.0,
+                                      attention_dropout=0.0)
+
+
+def _losses(run_dir):
+    with open(os.path.join(run_dir, "loss.csv")) as f:
+        return {int(r["step"]): float(r["loss"]) for r in csv.DictReader(f)}
+
+
+@pytest.mark.parametrize("case", sorted(RESUME))
+def test_a_converted_jax_checkpoint_resumes_as_jax_continues(fixture_dir, tmp_path,
+                                                             monkeypatch, case):
+    """JAX trains two epochs and its state at the eval of micro-step 4 or 5
+    is kept as a checkpoint; converted, the port resumes it for
+    the second epoch: each micro-step's loss and the final parameters are
+    JAX's. The carried state: AdamW's moments and step, the schedule's
+    count, MultiSteps' partial sum (``mini_step`` times optax's running
+    mean), the micro-step and the dropout seed."""
+    for module in (jax_trainer, port_trainer):
+        monkeypatch.setattr(module, "plm_config", _no_dropout_cfg(module.plm_config))
+    AT, accum, extra = RESUME[case]
+    maybe_checkpoint = JaxTrainer._maybe_checkpoint
+
+    def keep_at(self, ckpt, state, *rest):  # every eval's state, whether it improved or not
+        if int(state.step) == AT:
+            ckpt.save("resume_point", jax_trainer._ckpt_payload(state))
+        return maybe_checkpoint(self, ckpt, state, *rest)
+
+    monkeypatch.setattr(JaxTrainer, "_maybe_checkpoint", keep_at)
+    flags = [*_flags(fixture_dir, "--gradient_accumulation_steps", str(accum), *extra),
+             "--train_behaviors_path", os.path.join(fixture_dir, "behaviors.tsv"),
+             "--train_news_path", os.path.join(fixture_dir, "news.tsv"),
+             "--train_batch_size", "8", "--num_train_epochs", "2",
+             "--learning_rate", "1e-3", "--dropout", "0", "--logging_steps", "1"]
+    JaxTrainer(jax_parser().parse_args(["train", *flags,
+                                        "--train_path", str(tmp_path / "jax")])).train()
+    (run,) = glob.glob(str(tmp_path / "jax" / "*"))
+    out = str(tmp_path / "resume_point.pt")
+    assert convert_jax_checkpoint.main(["--ckpt", os.path.join(run, "ckpt", "resume_point"),
+                                        "--out", out]) == 0
+    payload = checkpoint.load(out)
+    opt = payload["optimizer"]
+    assert payload["micro_step"] == AT and payload["rng_seed"] == 8
+    assert (opt["updates"], opt["mini_step"]) == (AT // accum, AT % accum)
+    assert (payload["grad_acc"] is None) == (AT % accum == 0)
+    frozen = {k for k in payload["params"] if ".plm." in k} if "freeze" in case else set()
+    assert opt["adamw"]["state"].keys() == payload["params"].keys() - frozen
+    assert bool(frozen) == ("freeze" in case)
+    train = ["train", *flags, "--device", "cpu", "--resume_from", out]
+    if frozen:  # moments over other trainable parameters: refused, named
+        unfrozen = [f for f in train if f != "--freeze_transformer"]
+        with pytest.raises(ValueError, match="not over this run's trainable parameters"):
+            Trainer(make_parser().parse_args([*unfrozen, "--train_path",
+                                               str(tmp_path / "refused")])).train()
+    resumed = Trainer(make_parser().parse_args([*train, "--train_path",
+                                                str(tmp_path / "port")])).train()
+    assert resumed.step == 8
+    want, got = _losses(run), _losses(resumed.run_dir)
+    assert sorted(got) == [s for s in sorted(want) if s > AT] and len(got) == 8 - AT
+    np.testing.assert_allclose([got[s] for s in sorted(got)], [want[s] for s in sorted(got)],
+                               rtol=1e-5, atol=1e-5)
+    final = convert_jax_checkpoint.convert(os.path.join(run, "ckpt", "finalModel"))["params"]
+    state = resumed.model.state_dict()
+    assert state.keys() == final.keys()
+    for k, v in final.items():
+        np.testing.assert_allclose(state[k].numpy(), v.numpy(), rtol=0, atol=1e-4, err_msg=k)
+    for k in frozen:
+        assert torch.equal(state[k], payload["params"][k]), k
+
+
+def test_what_cannot_be_carried_is_refused(fixture_dir, tmp_path, weights):
+    """A JAX checkpoint of parameters alone, or one whose optimizer is not
+    the JAX package's clip + adamw chain (an SGD-with-momentum state here),
+    converts for eval and serving, and ``--resume_from`` refuses it with
+    the reason."""
+    params = weights["miner"][0]
+    sgd = {"params": params, "step": np.int32(4), "rng": np.array([0, 8], np.uint32),
+           "opt_state": [None, {"trace": params}]}
+    cases = {"parameters alone": convert_jax_checkpoint.payload_of(params),
+             "0 Adam states": convert_jax_checkpoint.payload_of(sgd)}
+    for why, payload in cases.items():
+        assert "optimizer" not in payload and why in payload["not_resumable"]
+        path = str(tmp_path / "converted.pt")
+        checkpoint.save(path, payload)
+        with pytest.raises(ValueError, match=f"holds no optimizer state \\(.*{why}"):
+            Trainer(make_parser().parse_args([
+                "train", *_flags(fixture_dir), "--device", "cpu",
+                "--train_behaviors_path", os.path.join(fixture_dir, "behaviors.tsv"),
+                "--train_news_path", os.path.join(fixture_dir, "news.tsv"),
+                "--train_batch_size", "8", "--train_path", str(tmp_path / "port"),
+                "--resume_from", path])).train()

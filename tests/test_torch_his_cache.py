@@ -15,8 +15,10 @@ and the pretrain kind warn and train as usual.
 
 Float32 with every dropout at 0 unless a test says otherwise: ``--dropout
 0``, and the PLM's and UniSRec's SASRec rates (config fields, not flags)
-zeroed by patching the config functions of both packages. JAX's sampler is
-held to its numpy path (the port's; the native one draws otherwise). The
+zeroed by patching the config functions of both packages. Both trainers
+build their samplers at their defaults (``backend="auto"``: the native C++
+sampler of each package where g++ builds it, numpy on both where it does
+not), so the two draw the same epochs either way. The
 UniSRec gating noise is one numpy array a shape on both sides, patched
 into ``jax.random.normal`` and ``DropoutRNG.normal``.
 """
@@ -36,8 +38,6 @@ import miner_tpu.training.trainer as jax_trainer
 import miner_tpu_torch.models.unisrec as port_unisrec
 import miner_tpu_torch.training.trainer as port_trainer
 from miner_tpu.config import make_parser as jax_parser
-from miner_tpu.data.samplers import OfflineSampler as JaxOfflineSampler
-from miner_tpu.data.samplers import OnlineSampler as JaxOnlineSampler
 from miner_tpu_torch.config import make_parser
 from miner_tpu_torch.data.batcher import Batcher
 from miner_tpu_torch.data.samplers import OnlineSampler
@@ -180,10 +180,6 @@ def _record_jax(jt, events):
         events.append(("fill", None))
         return build(*a, **k)
 
-    a = jt.args
-    cls = JaxOnlineSampler if a.online else JaxOfflineSampler
-    jt._train_sampler = lambda log, store: cls(log, store, a.npratio, seed=a.seed,
-                                               backend="numpy")
     jt._make_train_step = recording(jt._make_train_step, "full")
     jt._make_cached_his_train_step = recording(jt._make_cached_his_train_step, "cached")
     jt._build_eval_cache = build_

@@ -100,18 +100,22 @@ def stores(fixture_dir):
     return (js, JaxLog.from_tsv(beh, js, jt.user2id, 5)), (ts, tt._load_log(beh, ts))
 
 
-@pytest.mark.parametrize("which", ["hard_online", "hard_offline", "pretrain"])
+@pytest.mark.parametrize("which", ["hard_online", "hard_offline", "pretrain",
+                                   "hard_online-native", "hard_offline-native"])
 def test_hard_and_pretrain_samplers_match_jax_numpy_path(stores, which):
     """Two epochs of blocks, and their shuffled batches, equal to the JAX
-    package's numpy path (``backend="numpy"``) array for array."""
+    package's array for array on the same path: numpy (``backend="numpy"``;
+    the pretrain sampler has no other), and for the hard mode over V = 3
+    variants the two copies of the native C++ sampler (``-native``)."""
     (js, jlog), (ts, tlog) = stores
     if which == "pretrain":
         jsam, tsam = JaxPretrainSampler(jlog, js, 3, seed=7), PretrainSampler(tlog, ts, 3, seed=7)
     else:
-        jcls, tcls = ((JaxOnlineSampler, OnlineSampler) if which == "hard_online"
+        backend = "native" if which.endswith("-native") else "numpy"
+        jcls, tcls = ((JaxOnlineSampler, OnlineSampler) if which.startswith("hard_online")
                       else (JaxOfflineSampler, OfflineSampler))
-        jsam = jcls(jlog, js, 3, seed=7, mode="hard", backend="numpy")
-        tsam = tcls(tlog, ts, 3, seed=7, mode="hard")
+        jsam = jcls(jlog, js, 3, seed=7, mode="hard", backend=backend)
+        tsam = tcls(tlog, ts, 3, seed=7, mode="hard", backend=backend)
     for epoch in (0, 1):
         jb, tb = jsam.sample_epoch(epoch), tsam.sample_epoch(epoch)
         for f in ("cand", "his", "label", "impression_id"):

@@ -27,7 +27,16 @@ this process:
   * ``serve`` (the replies of rank 0's ``ScoringService``, the other rank
     following its device calls) and ``recommend`` over ``--mesh_table 2``
     give one rank's replies bit for bit; the serve job persists its
-    table-sharded cache, which one rank then loads.
+    table-sharded cache, which one rank then loads;
+  * ``serve`` and ``recommend`` over ``--mesh_data 2`` (every call of one
+    request padded to two rows, a rank's row each) give one rank's replies
+    bit for bit, and over ``--mesh_model 2`` to the TP tolerance; so does
+    UnBERT's reranking (``serve_scores_unbert``, the packed rows of a
+    slate split over the data axis, the towers over the model axis);
+  * cached-history training (``--his_cache_refresh 2
+    --his_cache_warmup_steps 1``) at ``--mesh_model 2``: the cache rebuilt
+    at the one-rank run's micro-steps from the sharded encoder, the losses,
+    gradients and parameters to the TP tolerance.
 """
 import dataclasses as dc
 import glob
@@ -104,6 +113,13 @@ def _serve_argv(fixture, mode, checkpoint_path, *extra):
 REQUESTS = [[["N1", "N3", "N5"], ["N7", "N8", "N2", "N11"], None],
             [["N2"], None, 5],
             [["N4", "N9", "N0", "N6", "N10", "N3"], None, None]]
+# UnBERT reranks slates only (no corpus cache)
+UNBERT_REQUESTS = [[["N1", "N3", "N5"], ["N7", "N8", "N2", "N11"], None],
+                   [["N2"], ["N4", "N9"], 1],
+                   [["N4", "N9", "N0", "N6", "N10", "N3"], ["N5", "N1", "N10"], None]]
+UNBERT = ("--model_name", "unbert")
+# serving over the data and the model axes, each job's mesh flags
+SERVE_AXES = {"data": ("--mesh_data", "2"), "model": ("--mesh_model", "2")}
 
 
 @pytest.fixture(scope="module")
@@ -134,6 +150,9 @@ def tp_runs(tmp_path_factory):
     one_cache = str(root / "one_cache.npz")
     ScoringService(Trainer(make_parser().parse_args(_serve_argv(
         fixture, "serve", served, "--serve_cache_path", one_cache)))).close()
+    unbert = str(root / "unbert.pt")  # UnBERT's initial weights from --seed
+    checkpoint.save(unbert, {"params": Trainer(make_parser().parse_args(_serve_argv(
+        fixture, "serve", served, *UNBERT))).build_model().state_dict()})
     miner_tp = [*_train(fixture, str(root / "tp"), *JAX_OPTIMIZER, "--pretrained_model_path",
                         init), "--mesh_model", "2"]
     jobs = [{"argv": miner_tp, "out": str(root / "tp" / "r"), "no_plm_dropout": True},
@@ -160,6 +179,17 @@ def tp_runs(tmp_path_factory):
     jobs.append({"argv": _serve_argv(fixture, "recommend", served, *table, "--user_history",
                                      "N1", "N3", "--candidates", "N7", "N8", "N2"),
                  "out": str(root / "recommend")})
+    for axis, flags in SERVE_AXES.items():
+        jobs.append({"argv": _serve_argv(fixture, "serve", served, *flags),
+                     "out": str(root / f"serve_{axis}"), "requests": REQUESTS})
+        jobs.append({"argv": _serve_argv(fixture, "recommend", served, *flags,
+                                         "--user_history", "N1", "N3"),
+                     "out": str(root / f"recommend_{axis}")})
+        jobs.append({"argv": _serve_argv(fixture, "serve", unbert, *UNBERT, *flags),
+                     "out": str(root / f"unbert_{axis}"), "requests": UNBERT_REQUESTS})
+    jobs.append({"argv": [*_family_argv(fixture, "his_cache", str(root / "his_cache_tp")),
+                          "--mesh_model", "2"],
+                 "out": str(root / "his_cache_tp" / "r"), "no_plm_dropout": True})
     two = Ranks(jobs, 2, str(root / "two"))
     four = Ranks([{"argv": [*_train(fixture, str(root / "tp4"), *JAX_OPTIMIZER,
                                     "--pretrained_model_path", init), "--mesh_data", "2",
@@ -167,14 +197,14 @@ def tp_runs(tmp_path_factory):
                    "out": str(root / "tp4" / "r"), "no_plm_dropout": True}], 4,
                  str(root / "four"))
     return dict(root=root, fixture=fixture, params=params, init=init, served=served,
-                one_cache=one_cache, two=two, four=four)
+                one_cache=one_cache, unbert=unbert, two=two, four=four)
 
 
 def _result(tp_runs, name, world=2):
     return (tp_runs["four" if world == 4 else "two"].wait()
             [str(tp_runs["root"] / name / "r") if name in ("tp", "tp4", "drop_data",
                                                           "drop_model", "ep", "resumed",
-                                                          *KINDS)
+                                                          "his_cache_tp", *KINDS)
              else str(tp_runs["root"] / name)])
 
 
@@ -478,3 +508,83 @@ def test_serving_over_the_table_axis_replies_as_one_rank(tp_runs):
         "--candidates", "N7", "N8", "N2"))).recommend()
     got = _result(tp_runs, "recommend")
     assert got[0]["results"] == got[1]["results"] == rec
+
+
+def _one_rank_replies(argv, requests):
+    service = ScoringService(Trainer(make_parser().parse_args(argv)))
+    try:
+        return [service.score(*r) for r in requests]
+    finally:
+        service.close()
+
+
+def _assert_replies(got, want, exact):
+    """Each reply's ranking of (news id, score): bit for bit, or (over the
+    model axis, whose products sum their shares in another order) the same
+    news to the TP tolerance, in the same order but where two scores tie
+    within it."""
+    if exact:
+        assert got == want
+        return
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert sorted(n for n, _ in g) == sorted(n for n, _ in w)
+        scores = dict(g)
+        np.testing.assert_allclose([scores[n] for n, _ in w], [s for _, s in w],
+                                   rtol=TP_RTOL, atol=TP_ATOL)
+        for (a, x), (b, y) in zip(g, w):
+            assert a == b or abs(x - y) <= TP_ATOL + TP_RTOL * abs(y)
+
+
+@pytest.mark.parametrize("axis", list(SERVE_AXES))
+def test_serving_over_the_data_and_model_axes_replies_as_one_rank(tp_runs, axis):
+    """``serve`` (slates and corpus top-k, each call one request: over the
+    data axis padded to two rows, rank 0 scoring the request's and rank 1
+    the pad's) and ``recommend`` over ``--mesh_data 2`` give one rank's
+    replies bit for bit; over ``--mesh_model 2`` (each rank half of every
+    layer's heads and features, rank 1 following rank 0's calls) to the TP
+    tolerance."""
+    fixture, served = tp_runs["fixture"], tp_runs["served"]
+    want = _one_rank_replies(_serve_argv(fixture, "serve", served), REQUESTS)
+    got = _result(tp_runs, f"serve_{axis}")
+    _assert_replies(got[0]["replies"], want, exact=axis == "data")
+    assert got[1]["calls"] == len(REQUESTS)
+    rec = Trainer(make_parser().parse_args(_serve_argv(
+        fixture, "recommend", served, "--user_history", "N1", "N3"))).recommend()
+    got = _result(tp_runs, f"recommend_{axis}")
+    assert got[0]["results"] == got[1]["results"]
+    assert len(rec) == 10  # the corpus top-k (--topk's default)
+    _assert_replies([got[0]["results"]], [rec], exact=axis == "data")
+
+
+@pytest.mark.parametrize("axis", list(SERVE_AXES))
+def test_unbert_reranks_over_a_mesh_as_one_rank(tp_runs, axis):
+    """UnBERT's ``serve_scores_unbert`` over ``--mesh_data 2`` (a call's
+    packed (candidate, history) rows split over the ranks, the pad row's
+    too) gives one rank's replies bit for bit, and over ``--mesh_model 2``
+    (its word and news towers sharded) to the TP tolerance."""
+    want = _one_rank_replies(_serve_argv(tp_runs["fixture"], "serve", tp_runs["unbert"],
+                                         *UNBERT), UNBERT_REQUESTS)
+    assert [len(r) for r in want] == [4, 1, 3]
+    got = _result(tp_runs, f"unbert_{axis}")
+    _assert_replies(got[0]["replies"], want, exact=axis == "data")
+    assert got[1]["calls"] == len(UNBERT_REQUESTS)
+
+
+def test_cached_history_trains_over_the_model_axis_as_one_rank(tp_runs, tmp_path,
+                                                               monkeypatch):
+    """``--his_cache_refresh 2 --his_cache_warmup_steps 1`` at ``--mesh_model
+    2``: every rank encodes the cache with its shares of the PLM (the
+    products summed over the model group), rebuilt at JAX's micro-steps (2,
+    4 and 8, as one rank); the losses of all 10 micro-steps (the cached
+    ones read the rebuilt caches), the first update's gradients and their
+    norm as one rank's to the TP tolerance, the ranks' parameters equal.
+    Not the parameters after 5 updates at lr 1e-3, as for the kinds above:
+    Adam moved one element of 2,048 of ``linear_combine.weight`` by
+    1.0e-4 (a gradient near zero, whose sign the summation order decides)."""
+    _no_plm_dropout(monkeypatch)
+    one = _one_rank(_family_argv(tp_runs["fixture"], "his_cache", str(tmp_path)))
+    ranks = _result(tp_runs, "his_cache_tp")
+    assert one["fills"] == [2, 4, 8] and ranks[0]["fills"] == ranks[1]["fills"] == one["fills"]
+    assert len(one["losses"]) == 10
+    _assert_tp_matches(ranks, one, params=False)

@@ -170,16 +170,20 @@ def test_behaviors_log_matches_jax(logs):
     assert tlog.eval_targets_by_impression() == jlog.eval_targets_by_impression()
 
 
-@pytest.mark.parametrize("online", [True, False])
-def test_samplers_and_batcher_match_jax_numpy_path(logs, online):
-    """Exactly equal to the JAX package's numpy sampler (backend="numpy";
-    its native sampler draws otherwise), over two epochs, and the shuffled
-    batches with their padded tails."""
+@pytest.mark.parametrize("online,backend", [(True, "numpy"), (False, "numpy"),
+                                            (True, "native"), (False, "native")],
+                         ids=["True", "False", "native-True", "native-False"])
+def test_samplers_and_batcher_match_jax_numpy_path(logs, online, backend):
+    """Exactly equal to the JAX package's sampler on the same path, over two
+    epochs, and the shuffled batches with their padded tails: both packages'
+    numpy samplers (``backend="numpy"``, draws from numpy's generator) and
+    both native ones (``backend="native"``, the two copies of the C++
+    sampler, draws from (seed, epoch, event))."""
     _, _, (js, jlog), (ts, tlog) = logs
     jcls, tcls = ((JaxOnlineSampler, OnlineSampler) if online
                   else (JaxOfflineSampler, OfflineSampler))
-    js_ = jcls(jlog, js, 3, seed=7, backend="numpy")
-    ts_ = tcls(tlog, ts, 3, seed=7)
+    js_ = jcls(jlog, js, 3, seed=7, backend=backend)
+    ts_ = tcls(tlog, ts, 3, seed=7, backend=backend)
     for epoch in (0, 1):
         jb, tb = js_.sample_epoch(epoch), ts_.sample_epoch(epoch)
         _assert_blocks_equal(tb, jb)

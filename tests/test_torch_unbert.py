@@ -103,15 +103,22 @@ HISTORIES = {
 
 
 @pytest.mark.parametrize("legacy", [False, True], ids=["clicks_first", "legacy"])
-@pytest.mark.parametrize("case", sorted(HISTORIES))
-def test_pack_rows_bit_equal_to_jax_numpy(pair, monkeypatch, legacy, case):
-    """Every packed field, bit for bit, against the JAX package's numpy
-    ``pack_rows`` (its native packer switched off), at the default geometry
+@pytest.mark.parametrize("case,backend", [(c, "numpy") for c in sorted(HISTORIES)]
+                         + [(c, "native") for c in sorted(HISTORIES)],
+                         ids=sorted(HISTORIES) + [f"{c}-native" for c in sorted(HISTORIES)])
+def test_pack_rows_bit_equal_to_jax_numpy(pair, monkeypatch, legacy, case, backend):
+    """Every packed field, bit for bit, against the JAX package's
+    ``pack_rows`` on the same path: its numpy packer (its native packer
+    switched off) against the port's at ``backend="numpy"``, and its native
+    packer against the port's copy (``-native``); at the default geometry
     (300 tokens, titles of 20, 20 clicks) and a short one (40 tokens, 8, 5)
     where the over-long history overflows the row; clicks-first rows and,
     under ``legacy_layout``, pads-first rows with 2-token pad sentences."""
     jt, tt, js, ts = pair
-    monkeypatch.setattr(jax_native, "native_available", lambda: False)
+    if backend == "numpy":
+        monkeypatch.setattr(jax_native, "native_available", lambda: False)
+    else:
+        assert jax_native.native_available()
     his = np.asarray(HISTORIES[case], np.int32)
     if legacy:
         n = int((his != 0).sum())
@@ -121,7 +128,8 @@ def test_pack_rows_bit_equal_to_jax_numpy(pair, monkeypatch, legacy, case):
     for geometry in ({}, dict(seq_max_len=40, news_max_len=8, hist_max_len=5)):
         ids = dict(cls_id=1, sep_id=2, pad_id=0, legacy_layout=legacy, **geometry)
         want = jax_packing.pack_rows(jax_packing.UnbertPacker(js, **ids), cand, hist)
-        got = unbert_packing.pack_rows(unbert_packing.UnbertPacker(ts, **ids), cand, hist)
+        got = unbert_packing.pack_rows(unbert_packing.UnbertPacker(ts, **ids), cand, hist,
+                                       backend)
         assert set(got) == set(want) == set(FIELDS)
         for k in FIELDS:
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
