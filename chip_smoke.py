@@ -187,7 +187,12 @@ Phases, each of which makes the script exit non-zero when it fails:
    one impression (UnBERT: two packed rows) in float32, dropout off, on the
    card and on the CPU: the loss and every trainable parameter's gradient
    must agree (UniSRec with ``--unisrec_train_all``, so the tower's too);
-   for UnBERT also the serving scores of two slates.
+   for UnBERT also the serving scores of two slates. They run in a process
+   of their own (``chip_smoke.py --side``), started after the build: the
+   CPU halves on ``CPU_PARITY_THREADS`` of the host's cores beside the
+   kernel phase and the serial phases, the card halves (and the cached
+   micro-batch's CPU half, on the cache its card half filled) once the
+   serial phases end, beside the untimed ones.
 12. mesh (each launched by ``python -m torch.distributed.run --standalone``
    as subprocesses of this script, ``--mesh_rank``, so that each rank runs
    the port's CLI; the counts set to 0 in each rank just before it; a rank
@@ -215,14 +220,56 @@ Phases, each of which makes the script exit non-zero when it fails:
    sharded), 2 micro-batches; mesh_serve / mesh_serve_loaded,
    ``serve_miner.txt --mesh_table 2`` over HTTP on train's ``finalModel``,
    fresh then from the cache it persisted, 20 requests each, replies
-   bit-equal to one rank's and the file equal to one rank's. The timed
-   phases (mesh_train, tp_train) run alone on the card, last; the others
-   run beside hf_import and the parity phases. On one card the ranks share it (gloo);
-   where each has a card, NCCL.
+   bit-equal to one rank's and the file equal to one rank's. The launches
+   start after the build (their ranks import what they run and wait), take
+   their jobs before fp32_train, build their first models on the host
+   beside fp32_train and remat_dots (whose time is the card's) and hold
+   them there until the serial phases end; the timed phases
+   (mesh_train, tp_train) run alone on the card, last; the others run
+   beside the untimed phases. On one card the ranks share it (gloo); where
+   each has a card, NCCL.
+
+13. turnkey: ``python -m miner_tpu_torch.tools.turnkey_mind``
+   (called in-process) on a zip of the planted corpus of ``synth_mind`` at
+   1,200 news and 600 lines, as MIND ships: extracted, prepared into
+   splits (``prepare_mind``), the Miner trained for an epoch at its
+   defaults (the tiny tower, the hash tokenizer, bf16, the kernels) and
+   evaluated standalone from ``bestAucModel`` with ``--save_eval_result``:
+   the splits, the checkpoint, ``preds.pkl`` and the per-impression dumps
+   there, ``tools/analyze_preds.py preds`` reading the ``preds.pkl`` in a
+   process of its own, and mha, add_ln (forward and backward),
+   poly-attention and lookup+score launched. It runs in the process of 11,
+   after the card halves, beside the mesh launches.
+14. convergence: the first run of the port that learns. The
+   at-scale corpus of ``scale_convergence`` (60,000 news, 50,000 lines,
+   5,000 held-out impressions, seed 11: the JAX package's SCALE tables')
+   is written by ``python -m miner_tpu_torch.tools.synth_mind`` in a
+   process started with the script, beside the build; after
+   native_sampler ``chip_smoke.py --convergence`` starts in a process of
+   its own, loads it and holds before its model reaches the card until
+   the serial phases end, then runs ``scale_convergence --model miner
+   --epochs 4 --stop_after_epochs 1`` (the launch counts set to 0 there,
+   read after):
+   epoch 0 of the 4-epoch recipe (small tower, B = 64, lr 1e-4, bf16, the
+   kernels; 1,620 micro-batches) and its cached eval over the 60,000-news
+   cache, beside hf_import, the parity phases and the untimed mesh
+   phases, ended before the held mesh phases. It prints the per-epoch
+   table, examples/s, the epoch's time and the peak memory, and fails the
+   run if its held-out auc is below ``CONVERGENCE_AUC`` (0.70: halfway
+   between chance and the JAX package's 0.7811 for that epoch of that
+   recipe on a v5e) or it launched no Miner kernel.
+
+The phases run in the order above, but for those whose times nothing
+reads (reference_roundtrip and roundtrip_serve of 7, UniSRec serve of 8,
+lstm / legacy and no_reduce of 9): they run after the serial phases,
+beside the mesh launches and the convergence epoch; UniSRec serve in the
+process of 11 (after its card halves and 13), the others with 10 in this
+one.
 
 After the phases, every shape at which the main path launched
 poly-attention, lookup+score or an fp32 mha kernel (a census of their
-launches: fp32_train's and the parity phases') is timed, and each kernel's
+launches: fp32_train's and the parity phases'; the convergence process's
+joins it) is timed, and each kernel's
 launch-weighted gap, launches x (time - bound) summed over the shapes it
 was launched at, goes into its row (mha's fp32 share also into the row's
 ``fp32`` entry).
@@ -357,6 +404,17 @@ FP32_MHA_CASES = ((TRAIN_N, TRAIN_SAPO, TRAIN_RATE, torch.float32,
                   (TRAIN_N, TRAIN_TITLE, TRAIN_RATE, torch.float32, ()),
                   (CACHED_N, TRAIN_SAPO, TRAIN_RATE, torch.float32, ()),
                   (TRAIN_N, UNISREC_L, TRAIN_RATE, torch.float32, ()))
+# the end-to-end tools' towers, bf16 (their phases' launches of mha and add_ln
+# stand at these cases): turnkey_mind's defaults (plm_preset tiny: D = 64, 4
+# heads, layer-norm eps 1e-5; a batch of 16 users, 1 + 4 candidates and 10
+# history news each, titles of 16 tokens and sapos of 24) and
+# scale_convergence's Miner (plm_preset small: D = 256, 8 heads, eps 1e-12;
+# a batch of 64 users, 1 + 4 candidates and 50 history news each, titles of
+# 32 tokens, the one field its towers encode): a micro-batch's sequences of
+# a field with dropout (and the statistics), the eval's cache-fill chunks
+# without. phase: (D, heads, eps, micro-batch N, fill N, lengths)
+TOOL_TOWERS = {"turnkey": (64, 4, 1e-5, 16 * (5 + 10), CHUNK, (16, 24)),
+               "convergence": (256, 8, 1e-12, 64 * (5 + 50), CHUNK, (32,))}
 # fp32_train: train_miner.txt in float32 for this many micro-batches at
 # accumulation 4 (one update), the first a warm-up, the rest traced
 FP32_MICRO_BATCHES = 4
@@ -448,6 +506,10 @@ REQUIRED = {
     "ep_unisrec": PLM_FWD,
     "mesh_serve": SERVE_KERNELS,
     "mesh_serve_loaded": ("poly_attention_fwd", "lookup_score_fwd"),
+    # the end-to-end tools (miner_tpu_torch/tools): a Miner trained and evaluated
+    # from the cache, its micro-batches differentiating the PLM
+    "turnkey": SERVE_KERNELS + PLM_BWD,
+    "convergence": SERVE_KERNELS + PLM_BWD,
 }
 FORBIDDEN = {"fastformer_train": PLM_BWD,
              "ep_unisrec": TAIL_KERNELS + PLM_BWD,
@@ -482,6 +544,23 @@ MIND_NEWS = 161013
 # training configs take a subset of them)
 AUGMENTATIONS = ("changed_topic_text", "enhanced_text", "semi_enhanced_text")
 
+
+# the corpus of scale_convergence (the JAX package's SCALE tables'): 60,000
+# news, 50,000 train lines, 5,000 eval impressions, histories of 30-50
+SCALE_CORPUS = ("--news", "60000", "--users", "5000", "--train_lines", "50000",
+                "--eval_lines", "5000", "--hist_len", "30", "50")
+# the convergence phase's gate: halfway between chance and the JAX package's
+# epoch-0 auc of the same recipe on the same corpus (0.7811, SCALE_r03.md)
+CONVERGENCE_AUC = 0.70
+CONVERGENCE_TIMEOUT_S = 600
+# the side phases' process (side_main: train parity, turnkey, UniSRec's
+# serving): the host's cores its CPU halves take beside the kernel phase and
+# the serial phases, and its time at most from its release onto the card
+CPU_PARITY_THREADS = 2
+SIDE_TIMEOUT_S = 600
+# the turnkey phase's archive: the planted corpus at 1,200 news
+TURNKEY_LINES = 600
+TURNKEY_VALID = 60
 
 T0 = time.perf_counter()
 
@@ -583,26 +662,26 @@ def _sdpa_leaves(qkv, heads=HEADS):
             for t in qkv.view(N, L, 3, heads, -1).permute(2, 0, 3, 1, 4)]
 
 
-def mha_dropout_mask_check(qkv, mask, seed):
+def mha_dropout_mask_check(qkv, mask, seed, heads=HEADS):
     """The forward kernel's dropout zeros against the plain Philox mask, bit
     for bit: with V set to one-hot rows (one launch per block of Dh keys)
     each output row is a row of dropped probabilities, zero exactly where
     the key is dropped or masked."""
     from miner_tpu_torch.ops import mha, philox
 
-    N, L, _ = qkv.shape
-    Dh = HIDDEN // HEADS
-    keep = philox.keep_mask(philox.mha_bits(seed, N, HEADS, L, qkv.device), TRAIN_RATE)
+    N, L, D3 = qkv.shape
+    Dh = D3 // 3 // heads
+    keep = philox.keep_mask(philox.mha_bits(seed, N, heads, L, qkv.device), TRAIN_RATE)
     want_zero = ~(keep & mask.bool()[:, None, None, :])  # (N, heads, L, L)
     mismatches = 0
     for k0 in range(0, L, Dh):
         nb = min(Dh, L - k0)
-        probe = qkv.clone().view(N, L, 3, HEADS, Dh)
+        probe = qkv.clone().view(N, L, 3, heads, Dh)
         probe[:, :, 2] = 0
         j = torch.arange(nb, device=qkv.device)
         probe[:, k0 + j, 2, :, j] = 1
-        out = mha.fused_mha(probe.view(N, L, -1), mask, HEADS, TRAIN_RATE, 1, seed)
-        got_zero = out.view(N, L, HEADS, Dh)[..., :nb] == 0
+        out = mha.fused_mha(probe.view(N, L, -1), mask, heads, TRAIN_RATE, 1, seed)
+        got_zero = out.view(N, L, heads, Dh)[..., :nb] == 0
         mismatches += int((got_zero != want_zero[..., k0:k0 + nb].permute(0, 2, 1, 3)).sum())
     return mismatches == 0, f"mask mismatches {mismatches}"
 
@@ -712,6 +791,29 @@ def mha_cases(dev, g):
             bound=bound_ms(_nbytes(qkv, mask, out, stats),
                            4 * N * HEADS * L * L * (HIDDEN // HEADS), dtype),
             phases=phases)
+    # the end-to-end tools' towers: a micro-batch with dropout (and the
+    # statistics), a cache-fill chunk without
+    for phase, (D, heads, _, train_n, fill_n, lengths) in TOOL_TOWERS.items():
+        for L in lengths:
+            for N, rate in ((train_n, TRAIN_RATE), (fill_n, 0.0)):
+                seed, train = 2 ** 49 + N + L, rate > 0
+                qkv, mask = _mha_inputs(dev, g, N, L, torch.bfloat16, D)
+                q, k, v = qkv.view(N, L, 3, heads, -1).permute(2, 0, 3, 1, 4)
+                bool_mask = mask.bool()[:, None, None, :]
+                out = torch.empty(N, L, D, dtype=qkv.dtype, device=dev)
+                stats = torch.empty(N, heads, L, 2, device=dev) if train else out[:0]
+                yield dict(
+                    case=f"{phase} bf16 N={N} L={L} D={D} dropout {rate}",
+                    dtype=torch.bfloat16,
+                    kernel=lambda: mha._launch_fwd(qkv, mask, heads, 1, rate, seed, train)[0],
+                    plain=lambda: mha.mha_reference(qkv, mask, heads, 1, rate, seed),
+                    library=lambda: torch.nn.functional.scaled_dot_product_attention(
+                        q, k, v, attn_mask=bool_mask, dropout_p=rate),
+                    check=((lambda: mha_dropout_mask_check(qkv, mask, seed, heads)) if rate
+                           else None),
+                    bound=bound_ms(_nbytes(qkv, mask, out, stats),
+                                   4 * N * heads * L * L * (D // heads), torch.bfloat16),
+                    phases=(phase,))
 
 
 def mha_grad_errors(got, want, rel, heads=HEADS):
@@ -800,13 +902,37 @@ def mha_bwd_cases(dev, g):
                            5 * 2 * TP_N * TP_HEADS * L * L * (HIDDEN // HEADS),
                            torch.bfloat16),
             route="w2_model" if L == TRAIN_SAPO else None, phases=TP_PHASES)
+    # the end-to-end tools' micro-batches
+    for phase, (D, heads, _, N, _, lengths) in TOOL_TOWERS.items():
+        for L in lengths:
+            seed = 2 ** 50 + N + L
+            qkv, mask = _mha_inputs(dev, g, N, L, torch.bfloat16, D)
+            dout = torch.randn(N, L, D, device=dev, generator=g).to(torch.bfloat16)
+            out, stats = mha._launch_fwd(qkv, mask, heads, 1, TRAIN_RATE, seed, True)
+            leaves = _sdpa_leaves(qkv, heads)
+            sdpa_out = torch.nn.functional.scaled_dot_product_attention(
+                *leaves, attn_mask=mask.bool()[:, None, None, :], dropout_p=TRAIN_RATE)
+            sdpa_dout = dout.view(N, L, heads, -1).transpose(1, 2)
+            yield dict(
+                case=f"{phase} bf16 N={N} L={L} D={D} dropout {TRAIN_RATE}",
+                dtype=torch.bfloat16,
+                kernel=lambda: mha.mha_backward(qkv, mask, dout, heads, TRAIN_RATE, seed, 1,
+                                                out, stats),
+                plain=lambda: mha.mha_backward_reference(qkv, mask, dout, heads, 1,
+                                                         TRAIN_RATE, seed),
+                library=lambda: torch.autograd.grad(sdpa_out, leaves, sdpa_dout,
+                                                    retain_graph=True),
+                errors=lambda got, want, rel: mha_grad_errors(got, want, rel, heads),
+                bound=bound_ms(_nbytes(qkv, out, dout, stats, mask, qkv),
+                               5 * 2 * N * heads * L * L * (D // heads), torch.bfloat16),
+                phases=(phase,))
 
 
-def _ln_inputs(dev, g, T, dtype):
-    x = torch.randn(T, HIDDEN, device=dev, generator=g).to(dtype)
-    h = torch.randn(T, HIDDEN, device=dev, generator=g).to(dtype)
-    scale = 1 + 0.1 * torch.randn(HIDDEN, device=dev, generator=g)
-    bias = 0.1 * torch.randn(HIDDEN, device=dev, generator=g)
+def _ln_inputs(dev, g, T, dtype, D=HIDDEN):
+    x = torch.randn(T, D, device=dev, generator=g).to(dtype)
+    h = torch.randn(T, D, device=dev, generator=g).to(dtype)
+    scale = 1 + 0.1 * torch.randn(D, device=dev, generator=g)
+    bias = 0.1 * torch.randn(D, device=dev, generator=g)
     return x, h, scale, bias
 
 
@@ -890,6 +1016,24 @@ def add_ln_cases(dev, g):
             bound=bound_ms(_nbytes(x, h, scale, bias, x), (9 if rate else 8) * T * HIDDEN,
                            torch.float32),
             phases=phases)
+    # the end-to-end tools' towers: a micro-batch's rows with dropout, a
+    # cache-fill chunk's without
+    for phase, (D, _, eps, train_n, fill_n, lengths) in TOOL_TOWERS.items():
+        for L in lengths:
+            for N, rate in ((train_n, TRAIN_RATE), (fill_n, 0.0)):
+                T, seed = N * L, 2 ** 51 + N + L
+                x, h, scale, bias = _ln_inputs(dev, g, T, torch.bfloat16, D)
+                scale_t, bias_t = scale.to(torch.bfloat16), bias.to(torch.bfloat16)
+                yield dict(
+                    case=f"{phase} bf16 T={T} D={D} dropout {rate}", dtype=torch.bfloat16,
+                    kernel=lambda: add_ln.fused_dropout_add_ln(x, h, scale, bias, rate, eps,
+                                                               seed),
+                    plain=lambda: add_ln.add_ln_reference(x, h, scale, bias, eps, rate, seed),
+                    library=lambda: torch.nn.functional.layer_norm(
+                        x + torch.nn.functional.dropout(h, rate), (D,), scale_t, bias_t, eps),
+                    bound=bound_ms(_nbytes(x, h, scale, bias, x),
+                                   (9 if rate else 8) * T * D, torch.float32),
+                    phases=(phase,))
 
 
 def add_ln_bwd_cases(dev, g):
@@ -943,6 +1087,32 @@ def add_ln_bwd_cases(dev, g):
                     else ("unisrec_train_all",) if L == UNISREC_L
                     else ("his_cache_train",) if N == CACHED_N
                     else tuple(p for p in TRAIN_PHASES if p in BWD_PHASES)))
+    # the end-to-end tools' micro-batches
+    for phase, (D, _, eps, N, _, lengths) in TOOL_TOWERS.items():
+        for L in lengths:
+            T, seed = N * L, 2 ** 52 + N + L
+            x, h, scale, bias = _ln_inputs(dev, g, T, torch.bfloat16, D)
+            dy = torch.randn(T, D, device=dev, generator=g).to(torch.bfloat16)
+            leaves = [t.detach().clone().requires_grad_() for t in (x, h, scale, bias)]
+            y = torch.nn.functional.layer_norm(leaves[0] + leaves[1], (D,),
+                                               leaves[2].to(torch.bfloat16),
+                                               leaves[3].to(torch.bfloat16), eps)
+
+            def mask_check():
+                keep = philox.keep_mask(philox.add_ln_bits(seed, T, D, dev), TRAIN_RATE)
+                dh = add_ln.add_ln_backward(x, h, scale, dy, eps, TRAIN_RATE, seed)[1]
+                mismatches = int(((dh != 0) != keep).sum())
+                return mismatches == 0, f"mask mismatches {mismatches}"
+
+            yield dict(
+                case=f"{phase} bf16 T={T} D={D} dropout {TRAIN_RATE}", dtype=torch.bfloat16,
+                kernel=lambda: add_ln.add_ln_backward(x, h, scale, dy, eps, TRAIN_RATE, seed),
+                plain=lambda: add_ln.add_ln_backward_reference(x, h, scale, dy, eps,
+                                                               TRAIN_RATE, seed),
+                library=lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True),
+                check=mask_check,
+                bound=bound_ms(_nbytes(x, h, dy, x, h), 20 * T * D, torch.float32),
+                phases=(phase,))
 
 
 def _poly_inputs(dev, g, B, dtype, masked_rows=0, H=HIS, D=DIM, P=CODE_DIM, K=CODES):
@@ -2941,11 +3111,161 @@ def fp32_train_phase(corpus: str, out: str) -> dict:
     return counts
 
 
-def train_parity_phase(corpus: str, out: str, family: str = "miner") -> None:
+def train_parity_half(corpus: str, out: str, family: str, device: str,
+                      cache_emb=None) -> dict:
+    """One device's half of a train parity phase (:func:`train_parity_phase`):
+    the loss, every trainable parameter's gradient (on the CPU), UnBERT's
+    serving scores and, for "his_cache", the history cache it used (filled
+    here on the card unless ``cache_emb`` is given)."""
+    from miner_tpu_torch.data.samplers import OnlineSampler
+    from miner_tpu_torch.training.trainer import Trainer
+
+    import numpy as np
+
+    trainer = Trainer(train_args(corpus, out, "--compute_dtype", "float32",
+                                 "--device", device, *PARITY_FLAGS.get(family, ()),
+                                 family=family))
+    a = trainer.args
+    store = trainer._load_store(a.train_news_path)
+    log_ = trainer._load_log(a.train_behaviors_path, store)
+    if trainer.kind == "unbert":
+        batch = trainer._train_sampler(log_, store).sample_epoch(0).materialize(np.arange(2))
+    else:
+        block = OnlineSampler(log_, store, a.npratio, seed=a.seed).sample_epoch(0)
+        batch = {"cand_idx": block.cand[:1], "his_idx": block.his[:1],
+                 "label": block.label[:1]}
+    model = trainer.build_model().to(trainer.device).eval()
+    if a.freeze_transformer:
+        model.news_encoder.plm.requires_grad_(False)
+    table = trainer._make_table(store)
+    CENSUS.phase = f"train_parity_{family}" if device == "cuda" else None
+    try:
+        if family == "his_cache":
+            # one cache for both devices, filled on the card (its rows are
+            # held against the CPU's by the parity phase): the cached step's
+            # own arithmetic is compared
+            if cache_emb is None:
+                cache_emb = trainer.fill_history_cache(model, table)
+            loss, _ = trainer._cached_his_loss(model, table, batch,
+                                               cache_emb.to(trainer.device))
+        else:
+            loss, _ = trainer._apply_and_loss(model, table, batch)
+        loss.backward()
+        # a tensor the loss does not reach has no gradient on either device
+        # (UniSRec's w_noise: no gating noise in eval mode)
+        half = dict(loss=float(loss.detach()), kind=trainer.kind,
+                    grads={n: p.grad.float().cpu() for n, p in model.named_parameters()
+                           if p.grad is not None},
+                    cache=None if cache_emb is None else cache_emb.float().cpu())
+        if trainer.kind == "unbert":
+            cand = np.arange(1, 9, dtype=np.int32).reshape(2, 4)
+            his = np.stack([log_.history[0], log_.history[1]])
+            half["scores"] = trainer.serve_scores_unbert(
+                model, trainer._unbert_packer(store), cand, his)
+    finally:
+        CENSUS.phase = None
+    return half
+
+
+def write_parity_corpus(corpus: str) -> None:
+    """The corpus of the train phases and the train parity phases."""
+    write_corpus(corpus, NUM_NEWS, seed=0)
+    write_behaviors(corpus, NUM_NEWS, seed=3)
+    write_short_behaviors(corpus)
+
+
+def side_main(root: str) -> int:
+    """The train parity phases (:func:`train_parity_phase`), turnkey
+    (:func:`turnkey_phase`) and UniSRec's serving phases in a process of
+    their own beside this script's (``chip_smoke.py --side ROOT``,
+    :func:`start_side`): the corpus written again under ``root`` from its
+    seeds, each family's CPU half (:func:`train_parity_half`) on
+    ``CPU_PARITY_THREADS`` of the host's cores beside the kernel phase and
+    the serial phases; then, once ``root/go`` is there (:func:`release`,
+    with the paths of this script's corpus, its temporary directory and
+    UniSRec's ``finalModel``), each family's card half and the comparison
+    ("his_cache" takes its CPU half on the cache its card half filled),
+    turnkey under ``root``, and unisrec_serve and UniSRec's persisted-cache
+    starts (:func:`serve_phase`, :func:`serve_cache_phase`); their launch
+    counts and the census of the card's launches written to
+    ``root/report.json``."""
+    from miner_tpu_torch.data import native
+
+    torch.set_num_threads(CPU_PARITY_THREADS)
+    CENSUS.install()
+    corpus = os.path.join(root, "corpus")
+    write_parity_corpus(corpus)
+    cpu = {}
+    for family in PARITY_FAMILIES:
+        if family != "his_cache":  # its CPU half takes the card's cache
+            t0 = time.perf_counter()
+            cpu[family] = train_parity_half(corpus, root, family, "cpu")
+            log(f"train parity ({family}): the CPU half in {time.perf_counter() - t0:.1f} s")
+    while not os.path.exists(os.path.join(root, "go")):
+        time.sleep(0.2)
+    with open(os.path.join(root, "go")) as f:
+        paths = json.load(f)
+    log("released onto the card")
+    for family in PARITY_FAMILIES:
+        native.reset_call_counts()
+        card = train_parity_half(corpus, root, family, "cuda")
+        _check_native(f"train_parity_{family}", card["kind"])
+        if family == "his_cache":
+            cpu[family] = train_parity_half(corpus, root, family, "cpu", card["cache"])
+        train_parity_phase(family, card, cpu.pop(family))
+    counts = {"turnkey": turnkey_phase(root)}
+    counts["unisrec_serve"] = serve_phase(paths["corpus"], paths["unisrec"], "unisrec_serve")
+    counts.update(serve_cache_phase(paths["corpus"], paths["unisrec"], paths["tmp"], "unisrec"))
+    with open(os.path.join(root, "report.json"), "w") as f:
+        json.dump({"counts": counts,
+                   "census": [[name, phase, list(shape), n]
+                              for (name, phase, shape), n in CENSUS.counts.items()]}, f)
+    return 0
+
+
+def start_side(root: str) -> dict:
+    """Start :func:`side_main` under ``root``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = open(os.path.join(root, "side.log"), "w")
+    proc = subprocess.Popen([sys.executable, os.path.join(here, "chip_smoke.py"),
+                             "--side", root],
+                            stdout=out, stderr=subprocess.STDOUT, env=_port_env(), cwd=here,
+                            start_new_session=True)
+    return dict(proc=proc, out=out, root=root)
+
+
+def finish_side(launch: dict) -> dict:
+    """Wait for :func:`side_main`'s process (past ``SIDE_TIMEOUT_S`` from
+    its release it is stopped), log its lines, fail the run if it failed,
+    and add its census to this one's. Returns its phases' launch counts."""
+    proc = launch["proc"]
+    try:
+        proc.wait(timeout=max(1.0, SIDE_TIMEOUT_S - (time.perf_counter() - launch["t0"])))
+    except subprocess.TimeoutExpired:
+        stop_processes(launch)
+    launch["out"].close()
+    with open(os.path.join(launch["root"], "side.log"), errors="replace") as f:
+        lines = [line for line in f.read().splitlines() if line.startswith("[")]
+    for line in lines:  # its own clock: seconds from its start
+        log(f"side process {line}")
+    if proc.returncode != 0:
+        raise SystemExit(f"the side phases: their process exited "
+                         f"{proc.returncode} {time.perf_counter() - launch['t0']:.0f} s after "
+                         "its release (its log above)")
+    with open(os.path.join(launch["root"], "report.json")) as f:
+        report = json.load(f)
+    for name, phase, shape, n in report["census"]:
+        CENSUS.counts[(name, phase, tuple(shape))] += n
+    return report["counts"]
+
+
+def train_parity_phase(family: str, card: dict, cpu: dict) -> None:
     """One micro-batch of one impression (55 news; for UnBERT two packed
     rows of 300 tokens, both towers at full depth) through the full-width
     model in float32 with dropout off, on the card (kernels, their autograd
-    Functions) and on the CPU (plain versions), same weights from the seed:
+    Functions: ``card``) and on the CPU (plain versions: ``cpu``), each
+    half from :func:`train_parity_half`,
+    same weights from the seed:
     the loss and every trainable parameter's gradient must agree (the
     Fastformer's PLM is frozen, as ``--freeze_transformer`` makes it in
     training; UniSRec runs with ``--unisrec_train_all``, so its tower's
@@ -2962,58 +3282,10 @@ def train_parity_phase(corpus: str, out: str, family: str = "miner") -> None:
     that is a small difference of large terms (the target-aware
     projection's, 1e-7 at random init) carries the absolute rounding of
     those terms."""
-    from miner_tpu_torch.data import native
-    from miner_tpu_torch.data.samplers import OnlineSampler
-    from miner_tpu_torch.training.trainer import Trainer
-
     import numpy as np
 
-    result, scores, cache_emb = {}, {}, None
-    native.reset_call_counts()
-    for device in ("cuda", "cpu"):
-        trainer = Trainer(train_args(corpus, out, "--compute_dtype", "float32",
-                                     "--device", device, *PARITY_FLAGS.get(family, ()),
-                                     family=family))
-        a = trainer.args
-        store = trainer._load_store(a.train_news_path)
-        log_ = trainer._load_log(a.train_behaviors_path, store)
-        if trainer.kind == "unbert":
-            batch = trainer._train_sampler(log_, store).sample_epoch(0).materialize(
-                np.arange(2))
-        else:
-            block = OnlineSampler(log_, store, a.npratio, seed=a.seed).sample_epoch(0)
-            batch = {"cand_idx": block.cand[:1], "his_idx": block.his[:1],
-                     "label": block.label[:1]}
-        model = trainer.build_model().to(trainer.device).eval()
-        if a.freeze_transformer:
-            model.news_encoder.plm.requires_grad_(False)
-        table = trainer._make_table(store)
-        CENSUS.phase = f"train_parity_{family}" if device == "cuda" else None
-        if family == "his_cache":
-            # one cache for both devices, filled on the card (its rows are
-            # held against the CPU's by the parity phase): the cached step's
-            # own arithmetic is compared
-            if cache_emb is None:
-                cache_emb = trainer.fill_history_cache(model, table)
-            loss, _ = trainer._cached_his_loss(model, table, batch,
-                                               cache_emb.to(trainer.device))
-        else:
-            loss, _ = trainer._apply_and_loss(model, table, batch)
-        loss.backward()
-        # a tensor the loss does not reach has no gradient on either
-        # device (UniSRec's w_noise: no gating noise in eval mode)
-        result[device] = (float(loss.detach()), {n: p.grad.float().cpu()
-                                                 for n, p in model.named_parameters()
-                                                 if p.grad is not None})
-        if trainer.kind == "unbert":
-            cand = np.arange(1, 9, dtype=np.int32).reshape(2, 4)
-            his = np.stack([log_.history[0], log_.history[1]])
-            scores[device] = trainer.serve_scores_unbert(
-                model, trainer._unbert_packer(store), cand, his)
-        CENSUS.phase = None
-    _check_native(f"train_parity_{family}", trainer.kind)
-    if scores:
-        got, want = scores["cuda"], scores["cpu"]
+    if "scores" in card:
+        got, want = card["scores"], cpu["scores"]
         err = float(np.abs(got - want).max())
         tol = 1e-3 * max(1.0, float(np.abs(want).max()))
         log(f"train parity ({family}): serving scores {got.shape} card vs CPU max abs "
@@ -3021,7 +3293,8 @@ def train_parity_phase(corpus: str, out: str, family: str = "miner") -> None:
         if not (np.isfinite(got).all() and err <= tol):
             raise SystemExit(f"train parity phase ({family}): serving scores disagree "
                              f"({err} > {tol})")
-    (loss_gpu, grads_gpu), (loss_cpu, grads_cpu) = result["cuda"], result["cpu"]
+    loss_gpu, grads_gpu = card["loss"], card["grads"]
+    loss_cpu, grads_cpu = cpu["loss"], cpu["grads"]
     if set(grads_gpu) != set(grads_cpu):
         raise SystemExit(f"train parity phase ({family}): gradients of "
                          f"{sorted(set(grads_gpu) ^ set(grads_cpu))[:5]} on one device only")
@@ -3216,9 +3489,9 @@ def parity_phase(corpus: str) -> None:
 # --standalone`` as subprocesses of this script (``--mesh_rank``), so that
 # the port's CLI is the entry point each rank runs; the ranks of one launch
 # run its phases one after another (a rank's start-up, 13-20 s, paid once);
-# every launch starts beside the untimed phases (hf_import, the parity
-# phases, the CPU halves of the train parity phases), the timed phases
-# (HELD) held at their first micro-batch until the other
+# every launch starts after the build and takes its jobs beside the
+# untimed phases (hf_import, the parity phases, turnkey, convergence...),
+# the timed phases (HELD) held at their first micro-batch until the other
 # launches are done; a launcher that outlives MESH_TIMEOUT_S (its ranks
 # included) fails the run
 MESH_TIMEOUT_S = 600
@@ -3228,7 +3501,9 @@ HELD = ("mesh_train", "tp_train")  # timed alone on the card, after ``go``
 
 def mesh_rank_main(jobs_path: str) -> int:
     """One rank of a mesh launch, under ``torch.distributed.run``: the
-    process group started as the port starts it, then for each job of the
+    process group started as the port starts it (the launch's first model
+    built on the host, then held until :func:`release_mesh`), then for each
+    job of the
     JSON list at ``jobs_path`` (``{"phase", "argv", "grads"}``) the port's
     ``miner_tpu_torch.cli.main(argv)`` with the launch counts set to 0 just
     before it, each micro-batch and optimizer update timed (the card
@@ -3259,6 +3534,10 @@ def mesh_rank_main(jobs_path: str) -> int:
     from miner_tpu_torch.parallel import mesh, tp
     from miner_tpu_torch.training.optim import Optimizer
 
+    # a launch started before its jobs are known (start_mesh) waits here,
+    # its imports done, until give_jobs writes them
+    while not os.path.exists(jobs_path):
+        time.sleep(0.2)
     entry = time.time()
     torch.backends.cuda.matmul.allow_tf32 = False
     with open(jobs_path) as f:
@@ -3367,6 +3646,16 @@ def mesh_rank_main(jobs_path: str) -> int:
                    mesh=self.mesh.shape, device=str(self.device))
         return run
 
+    release, initial_model = os.path.join(os.path.dirname(jobs_path), "release"), \
+        Trainer.initial_model
+
+    def released_model(self):  # built on the host; onto the card once released
+        model = initial_model(self)
+        while not os.path.exists(release):
+            time.sleep(0.05)
+        return model
+
+    Trainer.initial_model = released_model
     Trainer.train_step, Trainer._run_eval, Trainer.train = timed_step, counted_eval, summed_train
     Trainer.make_history_cache, Optimizer.step = captured_cache, timed_update
     Trainer.make_optimizer, serving.make_http_server = kept_optimizer, client_server
@@ -3406,43 +3695,52 @@ def mesh_rank_main(jobs_path: str) -> int:
     return 0
 
 
-def start_mesh(world: int, jobs, go=None) -> dict:
-    """Start ``jobs``, each ``(phase, cli words, grads file or None)`` and,
-    for a serve job, its requests, one
-    after another on ``world`` ranks of ``python -m torch.distributed.run
-    --standalone`` (:func:`mesh_rank_main`), the port of this checkout; with
-    ``go`` the ranks wait at their first micro-batch until that file is
-    there. Returns the launch, for :func:`finish_mesh`."""
+def start_mesh(world: int, held: bool = False) -> dict:
+    """Start ``world`` ranks of ``python -m torch.distributed.run
+    --standalone`` (:func:`mesh_rank_main`), the port of this checkout,
+    before their jobs are known: the ranks import what they run and wait
+    for :func:`give_jobs`. With ``held`` the ranks wait at the first
+    micro-batch of a ``HELD`` phase until the launch's ``go`` file is
+    there. Returns the launch, for :func:`give_jobs` and
+    :func:`finish_mesh`."""
     import tempfile
 
     here = os.path.dirname(os.path.abspath(__file__))
     reports_dir = tempfile.mkdtemp(prefix="mesh_")
     jobs_path = os.path.join(reports_dir, "jobs.json")
-    with open(jobs_path, "w") as f:
-        json.dump([{"phase": j[0], "argv": j[1], "grads": j[2],
-                    "requests": j[3] if len(j) > 3 else None} for j in jobs], f)
+    go = os.path.join(reports_dir, "go") if held else None
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
            str(world), os.path.join(here, "chip_smoke.py"), "--mesh_rank", jobs_path]
-    env = dict(os.environ, **({"CHIP_SMOKE_GO": go} if go else {}))
-    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    env = dict(_port_env(), **({"CHIP_SMOKE_GO": go} if go else {}))
     # to a file: a pipe this script does not read while it works would fill
     with open(os.path.join(reports_dir, "out.log"), "w") as out:
         proc = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT, env=env, cwd=here,
                                 start_new_session=True)
-    return dict(world=world, jobs=jobs, dir=reports_dir, proc=proc, t0=time.perf_counter(),
-                launched=time.time(), names="+".join(j[0] for j in jobs))
+    return dict(world=world, dir=reports_dir, jobs_path=jobs_path, go=go, proc=proc)
 
 
-def stop_mesh(launches: dict) -> None:
-    """Stop every process of the launches in ``launches`` still running."""
-    import signal
+def give_jobs(launch: dict, jobs) -> dict:
+    """Give a launch of :func:`start_mesh` its ``jobs``, each ``(phase, cli
+    words, grads file or None)`` and, for a serve job, its requests, run
+    one after another on its ranks; they build the first job's model on
+    the host and hold it there until :func:`release_mesh`."""
+    tmp = launch["jobs_path"] + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump([{"phase": j[0], "argv": j[1], "grads": j[2],
+                    "requests": j[3] if len(j) > 3 else None} for j in jobs], f)
+    os.replace(tmp, launch["jobs_path"])  # whole when a rank sees it
+    launch.update(jobs=jobs, names="+".join(j[0] for j in jobs))
+    return launch
 
-    for launch in launches.values():
-        if isinstance(launch, dict) and "proc" in launch:
-            try:
-                os.killpg(launch["proc"].pid, signal.SIGKILL)
-            except ProcessLookupError:
-                pass
+
+def release_mesh(launches: dict) -> None:
+    """Let the ranks of every launch in ``launches``
+    (:func:`start_mesh_phases`) onto the card; their times count from here."""
+    for launch in (launches["four"], *launches["checks"], launches["timed"]):
+        with open(os.path.join(launch["dir"], "release"), "w"):
+            pass
+        launch.update(t0=time.perf_counter(), launched=time.time())
+    log("mesh launches: released onto the card")
 
 
 def finish_mesh(launch: dict) -> dict:
@@ -3483,7 +3781,7 @@ def finish_mesh(launch: dict) -> dict:
         raise SystemExit(f"{names}: the launcher exited {proc.returncode} with "
                          f"{ {p: len(r) for p, r in results.items()} } of {world} ranks "
                          f"reporting:\n{out[-6000:]}")
-    log(f"{names}: the launcher's {wall_s:.1f} s; on rank 0 "
+    log(f"{names}: {wall_s:.1f} s from its release to the launcher's exit; on rank 0 "
         + "; ".join(f"{p}: " + ", ".join(f"{k} +{t - launch['launched']:.1f} s"
                                         for k, t in results[p][0]["at"].items())
                     for p, *_ in launch["jobs"]))
@@ -3526,10 +3824,19 @@ def _check_ranks(phase: str, reports, micro_batches_: int) -> dict:
     return {phase: counts}
 
 
-def start_mesh_phases(corpus: str, out: str, final_model: str) -> dict:
-    """Start the mesh phases' three launches (their checks:
-    :func:`finish_mesh_phases`), all beside the untimed phases (hf_import,
-    the parity phases, the CPU halves of the train parity phases).
+def start_mesh_launches() -> dict:
+    """The mesh phases' launches (:func:`start_mesh_phases`), started
+    before the kernel phase so that their ranks' start-up (the launcher,
+    the imports) is done when their jobs come."""
+    return dict(four=start_mesh(4), checks=[start_mesh(2), start_mesh(2)],
+                timed=start_mesh(2, held=True))
+
+
+def start_mesh_phases(corpus: str, out: str, final_model: str, started: dict) -> dict:
+    """Give the mesh phases' launches (``started``: :func:`start_mesh_launches`)
+    their jobs (their checks: :func:`finish_mesh_phases`): their ranks build
+    their first models on the host beside the last serial phases and run
+    beside the untimed ones once released (:func:`release_mesh`).
 
     One launch of 2 ranks whose last two phases are held at their first
     micro-batch until ``go``, for the times (the card then runs nothing
@@ -3554,10 +3861,10 @@ def start_mesh_phases(corpus: str, out: str, final_model: str) -> dict:
       (one update): each rank half of every layer's heads and feed-forward
       features, the model group's all-reduces through the host (gloo).
 
-    One launch of 2 ranks and one of 4, correctness alone (their times are
-    taken beside other work):
+    Two launches of 2 ranks and one of 4, side by side, correctness alone
+    (their times are taken beside other work):
 
-    * mesh_parity_fp32 and mesh_parity_tp: the same path in float32 with
+    * mesh_parity_fp32 and mesh_parity_tp, a launch each: the same path in float32 with
       the config's dropout, 2 micro-batches at accumulation 2 (one update,
       at lr 2e-5: no warmup), over ``--mesh_data 2`` (16 rows a
       micro-batch) and ``--mesh_model 2`` (``TP_B``);
@@ -3570,19 +3877,20 @@ def start_mesh_phases(corpus: str, out: str, final_model: str) -> dict:
     os.makedirs(parity, exist_ok=True)
     grads = {p: os.path.join(parity, f"{p}.grads.pt") for p in ("mesh_parity_fp32",
                                                                  "mesh_parity_tp")}
-    go = os.path.join(out, "mesh_go")
     reqs, _ = SERVED["serve_cache"]
     cache = os.path.join(out, "mesh_serve_cache.npz")
     serve = serve_words(corpus, "--saved_model_path", final_model, "--serve_cache_path", cache,
                         "--mesh_table", "2")
-    four = start_mesh(4, [("mesh_his_cache", train_words(
+    four = give_jobs(started["four"], [("mesh_his_cache", train_words(
         corpus, out, "--mesh_data", "2", "--mesh_table", "2", family="mesh_his_cache"), None)])
-    checks = start_mesh(2, [
+    # the two parity checks in launches of their own, side by side
+    checks = [give_jobs(started["checks"][0], [
         ("mesh_parity_fp32", train_words(corpus, parity, "--mesh_data", "2",
-                                         family="mesh_parity"), grads["mesh_parity_fp32"]),
+                                         family="mesh_parity"), grads["mesh_parity_fp32"])]),
+              give_jobs(started["checks"][1], [
         ("mesh_parity_tp", train_words(corpus, parity, "--mesh_model", "2",
-                                       family="mesh_parity_tp"), grads["mesh_parity_tp"])])
-    timed = start_mesh(2, [
+                                       family="mesh_parity_tp"), grads["mesh_parity_tp"])])]
+    timed = give_jobs(started["timed"], [
         ("ep_unisrec", train_words(corpus, out, "--mesh_model", "2", family="ep_unisrec"),
          None),
         ("table_eval", eval_words(corpus, os.path.join(out, "table_eval"), final_model,
@@ -3590,18 +3898,20 @@ def start_mesh_phases(corpus: str, out: str, final_model: str) -> dict:
         ("mesh_serve", serve, None, reqs),
         ("mesh_serve_loaded", serve, None, reqs),
         ("mesh_train", train_words(corpus, out, "--mesh_data", "2", family="mesh"), None),
-        ("tp_train", train_words(corpus, out, "--mesh_model", "2", family="tp"), None)], go=go)
-    return dict(timed=timed, checks=checks, four=four, go=go, grads=grads, parity=parity,
-                cache=cache)
+        ("tp_train", train_words(corpus, out, "--mesh_model", "2", family="tp"), None)])
+    return dict(timed=timed, checks=checks, four=four, go=timed["go"], grads=grads,
+                parity=parity, cache=cache)
 
 
-def finish_mesh_phases(corpus: str, out: str, final_model: str, launches: dict) -> dict:
+def finish_mesh_phases(corpus: str, out: str, final_model: str, launches: dict,
+                       before_go=None) -> dict:
     """The mesh phases' checks. mesh_his_cache first: every rank launched
     its kernels, finite losses, every rank's parameters bit-identical, the
     cache rebuilt at micro-steps 2 and 4 (JAX's rule). Then the checks'
     launch: mesh_parity_fp32 and mesh_parity_tp against W = 1
-    (:func:`mesh_parity_check`). Then ``go`` for the timed launch's held
-    phases, on a card this script no longer shares, and the launch's
+    (:func:`mesh_parity_check`). Then ``before_go`` (the end of other work
+    on the card: the convergence phase), then ``go`` for the timed launch's
+    held phases, on a card this script no longer shares, and the launch's
     checks: ep_unisrec rank-identical with UniSRec's launches a
     micro-batch; table_eval against one rank (:func:`table_eval_check`);
     mesh_serve against the one-rank serving (:func:`mesh_serve_check`);
@@ -3620,7 +3930,7 @@ def finish_mesh_phases(corpus: str, out: str, final_model: str, launches: dict) 
     counts = _check_ranks("mesh_his_cache", four, micro_batches("mesh_his_cache"))
     fills = {tuple(r["fills"]) for r in four}
     log(f"mesh_his_cache: the cache rebuilt at micro-steps {sorted(fills)} on every rank "
-        "(its times were taken beside the train parity phases)")
+        "(its times were taken beside the untimed phases)")
     if fills != {(2, 4)}:
         raise SystemExit(f"mesh_his_cache: rebuilds at {fills}, JAX's rule gives (2, 4)")
     # the one-rank halves of the checks, beside the checks' ranks
@@ -3628,13 +3938,16 @@ def finish_mesh_phases(corpus: str, out: str, final_model: str, launches: dict) 
     ones = {phase: parity_one_rank(corpus, launches["parity"], family)
             for phase, family in families}
     eval_one = table_eval_one(corpus, out, final_model)
-    two = finish_mesh(launches["checks"])
+    two = {phase: reports for launch in launches["checks"]
+           for phase, reports in finish_mesh(launch).items()}
     counts["mesh_parity_fp32_one"] = {}
     for phase, family in families:
         counts.update(_check_ranks(phase, two[phase], micro_batches(family)))
         mesh_parity_check(phase, two[phase][0], launches["grads"][phase], ones[phase])
         for n, c in ones[phase]["counts"].items():
             counts["mesh_parity_fp32_one"][n] = counts["mesh_parity_fp32_one"].get(n, 0) + c
+    if before_go is not None:  # other work on the card, ended before the timed phases
+        before_go()
     gc.collect()
     torch.cuda.empty_cache()
     with open(launches["go"], "w"):
@@ -3876,12 +4189,244 @@ def table_eval_check(out: str, reports, one: dict) -> dict:
             "table_eval": {n: sum(r["eval_counts"][n] for r in reports) for n in one_counts}}
 
 
+def _port_env() -> dict:
+    """The environment of a process of this script's port (this checkout's
+    ``miner_tpu_torch`` first on the path, expandable allocator segments)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    # a dozen processes share the card after the serial phases: blocks
+    # their allocators free go back to the card in whole segments
+    env.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    return env
+
+
+def start_scale_corpus(root: str) -> dict:
+    """Start writing the at-scale corpus of ``scale_convergence`` under
+    ``root/data`` (``python -m miner_tpu_torch.tools.synth_mind``, numpy on
+    one core of the host), beside the build and the kernel phase."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = open(os.path.join(root, "corpus.log"), "w")
+    proc = subprocess.Popen([sys.executable, "-m", "miner_tpu_torch.tools.synth_mind",
+                             os.path.join(root, "data"), *SCALE_CORPUS],
+                            stdout=out, stderr=subprocess.STDOUT, env=_port_env(), cwd=here,
+                            start_new_session=True)
+    return dict(proc=proc, out=out, root=root)
+
+
+def convergence_main(root: str) -> int:
+    """The convergence phase's process: the launch counts set to 0, then
+    ``scale_convergence --model miner --epochs 4 --stop_after_epochs 1``
+    (epoch 0 of the 4-epoch recipe, bf16, the kernels) on the corpus under
+    ``root``, the counts read; the result, the counts, the census of its
+    launches' shapes (:class:`LaunchCensus`), the time from the release and
+    the peak memory written to ``root/convergence.json``. It
+    loads the corpus at once and holds before its model reaches the card
+    until ``root/go`` is there (:func:`release`)."""
+    import miner_tpu_torch.training.trainer as port_trainer
+    from miner_tpu_torch.ops import launch_counts, reset_launch_counts
+    from miner_tpu_torch.tools import scale_convergence
+
+    torch.set_num_threads(2)  # the card's work; the host's cores are the others'
+    build, held = port_trainer.Trainer.initial_model, {}
+
+    def initial_model(self):  # the corpus loaded and on the card: wait for the release
+        held["loaded_s"] = time.perf_counter() - T0
+        while not os.path.exists(os.path.join(root, "go")):
+            time.sleep(0.1)
+        held["t"] = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        return build(self)
+
+    port_trainer.Trainer.initial_model = initial_model
+    CENSUS.install()
+    CENSUS.phase = "convergence"
+    reset_launch_counts()
+    res = scale_convergence.main(["--model", "miner", "--out", root, "--epochs", "4",
+                                  "--stop_after_epochs", "1", "--tag", "_smoke"])
+    torch.cuda.synchronize()
+    res.update(counts=launch_counts(), released_s=time.perf_counter() - held["t"],
+               loaded_s=held["loaded_s"], peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               census=[[name, list(shape), n] for (name, _, shape), n in CENSUS.counts.items()])
+    with open(os.path.join(root, "convergence.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def start_convergence(corpus: dict) -> dict:
+    """Wait for the at-scale corpus (:func:`start_scale_corpus`), then start
+    the convergence phase in a process of its own (``chip_smoke.py
+    --convergence ROOT``), which loads it on one core of the host and
+    holds until :func:`release`."""
+    proc = corpus["proc"]
+    t0 = time.perf_counter()
+    proc.wait()
+    corpus["out"].close()
+    with open(os.path.join(corpus["root"], "corpus.log"), errors="replace") as f:
+        text = f.read()
+    if proc.returncode != 0:
+        raise SystemExit(f"convergence: the corpus exited {proc.returncode}:\n{text[-3000:]}")
+    log(f"convergence: the at-scale corpus (60,000 news, 50,000 lines, 5,000 held out) "
+        f"written in the background since the start; waited {time.perf_counter() - t0:.1f} s "
+        f"for it")
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = open(os.path.join(corpus["root"], "convergence.log"), "w")
+    proc = subprocess.Popen([sys.executable, os.path.join(here, "chip_smoke.py"),
+                             "--convergence", corpus["root"]],
+                            stdout=out, stderr=subprocess.STDOUT, env=_port_env(), cwd=here,
+                            start_new_session=True)
+    return dict(proc=proc, out=out, root=corpus["root"], t0=time.perf_counter())
+
+
+def release(launch: dict, what: str, paths=None) -> None:
+    """Let the process of ``launch`` (the convergence phase, the side
+    phases) onto the card: the serial phases have ended; ``paths`` (JSON)
+    go with it."""
+    tmp = os.path.join(launch["root"], "go.tmp")
+    with open(tmp, "w") as f:
+        json.dump(paths or {}, f)
+    os.replace(tmp, os.path.join(launch["root"], "go"))  # whole when seen
+    launch["t0"] = time.perf_counter()
+    log(f"{what}: released onto the card")
+
+
+def stop_processes(*launches) -> None:
+    """Stop the process group of every launch (a dict with its ``proc``) in
+    ``launches`` still running; lists of launches and dicts of them (by
+    name) are looked through."""
+    import signal
+
+    for launch in launches:
+        if isinstance(launch, list):
+            stop_processes(*launch)
+        elif isinstance(launch, dict) and "proc" not in launch:
+            stop_processes(*launch.values())
+        elif isinstance(launch, dict) and launch["proc"].poll() is None:
+            try:
+                os.killpg(launch["proc"].pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            launch["proc"].wait()
+
+
+def finish_convergence(launch: dict) -> dict:
+    """Wait for the convergence phase (past ``CONVERGENCE_TIMEOUT_S`` from
+    its release it is stopped and the run fails); log its per-epoch table,
+    examples/s, the epoch's time and peak memory; fail the run unless it
+    launched the Miner's kernels and its held-out auc after the epoch is at
+    least ``CONVERGENCE_AUC``. Returns its launch counts."""
+    proc = launch["proc"]
+    try:
+        proc.wait(timeout=max(1.0, CONVERGENCE_TIMEOUT_S - (time.perf_counter() - launch["t0"])))
+    except subprocess.TimeoutExpired:
+        stop_processes(launch)
+    launch["out"].close()
+    with open(os.path.join(launch["root"], "convergence.log"), errors="replace") as f:
+        text = f.read()
+    path = os.path.join(launch["root"], "convergence.json")
+    if proc.returncode != 0 or not os.path.exists(path):
+        raise SystemExit(f"convergence phase: exit {proc.returncode} after "
+                         f"{time.perf_counter() - launch['t0']:.0f} s:\n{text[-6000:]}")
+    with open(path) as f:
+        res = json.load(f)
+    table = [line for line in text.splitlines() if line.startswith("|")]
+    auc = res["epochs"]["0"]["auc"]
+    phase = "convergence"
+    log(f"{phase}: scale_convergence --model miner --epochs 4 --stop_after_epochs 1 "
+        f"(bf16, the kernels; {res['steps']} micro-batches of 64), the corpus loaded "
+        f"{res['loaded_s']:.1f} s after its process started; "
+        f"{res['released_s']:.1f} s from its release onto the card to its end, beside "
+        f"the untimed phases:")
+    for line in table:
+        log(f"{phase}:   {line}")
+    log(f"{phase}: held-out auc {auc:.4f} after the epoch (gate {CONVERGENCE_AUC}; the "
+        f"JAX package's epoch 0 of the recipe on a v5e: 0.7811, SCALE_r03.md); "
+        f"{res['train_examples_per_s']:.1f} examples/s while training, "
+        f"{res['examples_per_s']:.1f} over the epoch with its eval; the epoch "
+        f"{res['epoch_s'][0]:.1f} s; peak {res['peak_gib']:.2f} GiB")
+    log(f"{phase}: kernel launches {res['counts']}")
+    _check_launches(phase, res["counts"])
+    for name, shape, n in res["census"]:  # its shapes join the census's sweep
+        CENSUS.counts[(name, phase, tuple(shape))] += n
+    if not auc >= CONVERGENCE_AUC:
+        raise SystemExit(f"{phase} phase: held-out auc {auc!r} after the epoch, below "
+                         f"{CONVERGENCE_AUC}")
+    return {phase: res["counts"]}
+
+
+def turnkey_phase(tmp: str) -> dict:
+    """The port's ``turnkey_mind`` on the card from a zip of a MIND-style
+    corpus (the planted corpus of ``synth_mind`` at 1,200 news and
+    ``TURNKEY_LINES`` lines, ``behaviors.tsv`` and ``news.tsv`` zipped as
+    MIND ships them) at its defaults (the tiny tower, the hash tokenizer,
+    bf16 and the kernels): the splits, the trained Miner's checkpoint, the
+    standalone eval's ``preds.pkl`` and per-impression dumps must be there,
+    ``tools/analyze_preds.py preds`` (numpy only) must read the
+    ``preds.pkl`` in a process of its own, and the path must launch mha,
+    add_ln (forward and backward), poly-attention and lookup+score. Returns
+    the launch counts."""
+    import zipfile
+
+    from miner_tpu_torch.ops import launch_counts, reset_launch_counts
+    from miner_tpu_torch.tools import synth_mind, turnkey_mind
+
+    phase = "turnkey"
+    src = synth_mind.make_synth_mind(os.path.join(tmp, "turnkey_src"), n_news=1200,
+                                     n_users=300, n_train_lines=TURNKEY_LINES,
+                                     n_eval_lines=10)
+    archive = os.path.join(tmp, "MINDsynth.zip")
+    with zipfile.ZipFile(archive, "w", zipfile.ZIP_DEFLATED) as z:
+        for name in ("behaviors.tsv", "news.tsv"):
+            z.write(os.path.join(src, name), arcname=f"MINDsynth_train/{name}")
+    out = os.path.join(tmp, "turnkey")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    CENSUS.phase = phase
+    try:
+        summary = turnkey_mind.main(["--archive", archive, "--out", out, "--valid_impressions",
+                                     str(TURNKEY_VALID), "--epochs", "1"])
+        torch.cuda.synchronize()
+    finally:
+        CENSUS.phase = None
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    missing = [rel for rel in ("data/train/behaviors.tsv", "data/train/news.tsv",
+                               "data/valid/behaviors.tsv", "data/user2id.json",
+                               "data/category2id.json") if not os.path.exists(
+                                   os.path.join(out, rel))]
+    erun = os.path.dirname(summary["preds_pkl"])
+    missing += [p for p in [summary["checkpoint"], summary["preds_pkl"]] + [
+        os.path.join(erun, f) for f in ("group_auc.txt", "mrr.txt", "ndcg5.txt",
+                                        "ndcg10.txt")] if not os.path.isfile(p)]
+    here = os.path.dirname(os.path.abspath(__file__))
+    read = subprocess.run([sys.executable, os.path.join(here, "tools", "analyze_preds.py"),
+                           "preds", summary["preds_pkl"]], capture_output=True, text=True,
+                          timeout=120)
+    log(f"{phase}: turnkey_mind from {os.path.basename(archive)} (1,200 news, "
+        f"{TURNKEY_LINES} lines, {TURNKEY_VALID} held out; tiny tower, bf16) in {wall:.1f} s "
+        f"(train {summary['train_s']} s, eval {summary['eval_s']} s): scores "
+        f"{summary['scores']}, checkpoint {os.path.basename(summary['checkpoint'])}")
+    log(f"{phase}: tools/analyze_preds.py preds exit {read.returncode}: "
+        + " | ".join(read.stdout.strip().splitlines()[:3]))
+    log(f"{phase}: kernel launches {counts}")
+    bad = [k for k, v in summary["scores"].items() if not math.isfinite(v)]
+    if missing or bad or read.returncode != 0 or "impressions:" not in read.stdout:
+        raise SystemExit(f"{phase} phase: missing {missing}; non-finite {bad}; "
+                         f"analyze_preds exit {read.returncode}: {read.stderr[-2000:]}")
+    _check_launches(phase, counts)
+    return counts
+
+
 def main(argv=None) -> int:
     import argparse
 
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--mesh_rank"]:  # a rank of a mesh launch (start_mesh)
         return mesh_rank_main(argv[1])
+    if argv[:1] == ["--convergence"]:  # the convergence phase (start_convergence)
+        return convergence_main(argv[1])
+    if argv[:1] == ["--side"]:  # train parity, turnkey, UniSRec serving (start_side)
+        return side_main(argv[1])
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--kernels", help="comma-separated kernel names: build and run "
                         "only their kernel phase, print their rows and stop")
@@ -3901,15 +4446,39 @@ def main(argv=None) -> int:
     if opts.package:
         sys.path.insert(0, os.path.abspath(opts.package))
     import miner_tpu_torch
-    from miner_tpu_torch.ops import common
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
     log(f"card: {torch.cuda.get_device_name(0)} ({smi}); torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}; package {os.path.dirname(miner_tpu_torch.__file__)}")
 
     names = opts.kernels.split(",") if opts.kernels else None
+    if names is not None:
+        return run(opts, names, smi)
+    import shutil
+    import tempfile
+
+    # the at-scale corpus of the convergence phase, written beside the build
+    scale = start_scale_corpus(tempfile.mkdtemp(prefix="convergence_"))
+    side_root = tempfile.mkdtemp(prefix="side_")
+    launches = [scale]
+    try:
+        return run(opts, names, smi, scale, launches, side_root)
+    finally:
+        stop_processes(*launches)
+        shutil.rmtree(scale["root"], ignore_errors=True)
+        shutil.rmtree(side_root, ignore_errors=True)
+
+
+def run(opts, names, smi: str, scale=None, launches=None, side_root=None) -> int:
+    """Everything past the start of :func:`main`: the build, the kernels
+    and (without ``--kernels``) the phases; ``scale``: the at-scale
+    corpus's launch (:func:`start_scale_corpus`). The processes it starts
+    beside this one (the side phases under ``side_root``, the
+    mesh launches, the convergence phase) are appended to ``launches``."""
+    from miner_tpu_torch.ops import common
+
+    dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
     reports = common.build(common.CUDA_SOURCES if names is None
                            else [n for n in common.CUDA_SOURCES if n in names])
@@ -3934,6 +4503,14 @@ def main(argv=None) -> int:
             raise SystemExit(msg)
         log(msg)  # another version's kernels, timed beside this one's
 
+    if names is None:
+        # beside the kernel phase and the serial phases, on the host's idle
+        # cores: the train parities' CPU halves, and the mesh ranks'
+        # start-up (neither takes the card until the serial phases end)
+        side = start_side(side_root)
+        launches.append(side)
+        started = start_mesh_launches()
+        launches.append(started)
     log("kernels (kernel vs plain version on the same inputs):")
     rows, timed = kernel_phase(dev, names)
     # cuBLAS keeps a workspace for each stream it ran on: the yardstick's bmm
@@ -3950,12 +4527,14 @@ def main(argv=None) -> int:
     import tempfile
 
     native_sampler_phase(smi)
+    # the convergence phase's process loads its corpus from here on and
+    # holds until the serial phases end
+    convergence = start_convergence(scale)
+    launches.append(convergence)
     CENSUS.install()
     with tempfile.TemporaryDirectory() as tmp:
         corpus = os.path.join(tmp, "corpus")
-        write_corpus(corpus, NUM_NEWS, seed=0)
-        write_behaviors(corpus, NUM_NEWS, seed=3)
-        write_short_behaviors(corpus)
+        write_parity_corpus(corpus)
         counts, final_model = train_phase(corpus, tmp)
         counts["serve"] = serve_phase(corpus, final_model)
         counts.update(serve_cache_phase(corpus, final_model, tmp))
@@ -3977,12 +4556,8 @@ def main(argv=None) -> int:
         counts.update(ub_counts)
         counts["unbert_eval_standalone"] = unbert_eval_phase(corpus, tmp, ub_model)
         counts["unbert_serve"] = unbert_serve_phase(corpus, ub_model)
-        counts["roundtrip_serve"] = reference_roundtrip_phase(
-            corpus, tmp, {"miner": final_model, "fastformer": ff_model, "unbert": ub_model})
         us_counts, us_model = train_phase(corpus, tmp, "unisrec")
         counts.update(us_counts)
-        counts["unisrec_serve"] = serve_phase(corpus, us_model, "unisrec_serve")
-        counts.update(serve_cache_phase(corpus, us_model, tmp, "unisrec"))
         all_counts, _ = train_phase(corpus, tmp, "unisrec_all", "--unisrec_train_all",
                                     "--gradient_accumulation_steps", "8")
         counts.update(all_counts)
@@ -3990,32 +4565,48 @@ def main(argv=None) -> int:
         counts.update(hc_counts)
         ff_hc_counts, _ = train_phase(corpus, tmp, "fastformer_his_cache", *HIS_CACHE_FLAGS)
         counts.update(ff_hc_counts)
+        # the mesh ranks build their first models on the host beside the
+        # last two, whose time is the card's
+        mesh_launches = start_mesh_phases(corpus, tmp, final_model, started)
+        counts["fp32_train"] = fp32_train_phase(corpus, tmp)
+        rd_counts, _ = train_phase(corpus, tmp, "remat_dots")
+        counts.update(rd_counts)
+        # over a mesh of ranks: the counts set to 0 in each rank just before
+        # the port's CLI runs there (mesh_rank_main); the ranks run beside
+        # the untimed phases from here on (hf_import, parity and the phases
+        # whose times nothing reads), as do the convergence epoch and the
+        # side phases (the train parities' card halves, turnkey, UniSRec's
+        # serving) in their processes; all end before the held mesh phases
+        # take the card alone
+        # the ranks share the card with this process: give back its cache
+        torch.cuda.empty_cache()
+        release_mesh(mesh_launches)
+        release(convergence, "convergence")
+        release(side, "train parity, turnkey and UniSRec serving phases",
+                dict(corpus=corpus, tmp=tmp, unisrec=us_model))
+        hf_import_phase(corpus, tmp, tmp)
+        write_corpus(os.path.join(tmp, "parity"), 64, seed=1)
+        parity_phase(os.path.join(tmp, "parity"))
+        torch.cuda.empty_cache()
+        counts["roundtrip_serve"] = reference_roundtrip_phase(
+            corpus, tmp, {"miner": final_model, "fastformer": ff_model, "unbert": ub_model})
+        torch.cuda.empty_cache()
         lstm_counts, lstm_model = train_phase(corpus, tmp, "lstm_legacy", *LSTM_LEGACY_FLAGS)
         counts.update(lstm_counts)
         counts["lstm_legacy_serve"] = serve_phase(corpus, lstm_model, "lstm_legacy_serve")
-        counts["fp32_train"] = fp32_train_phase(corpus, tmp)
+        torch.cuda.empty_cache()
         nr_counts, nr_model = train_phase(corpus, tmp, "no_reduce")
         counts.update(nr_counts)
         counts["no_reduce_serve"] = serve_phase(corpus, nr_model, "no_reduce_serve", 12, 4)
         _check_d768("no_reduce_serve")
-        rd_counts, _ = train_phase(corpus, tmp, "remat_dots")
-        counts.update(rd_counts)
-        # over a mesh of ranks: the counts set to 0 in each rank just before
-        # the port's CLI runs there (mesh_rank_main); the ranks start beside
-        # the untimed phases from here on (hf_import, the parity phases and
-        # the CPU halves of the train parity phases)
-        # the ranks share the card with this process: give back its cache
         torch.cuda.empty_cache()
-        launches = start_mesh_phases(corpus, tmp, final_model)
-        try:
-            hf_import_phase(corpus, tmp, tmp)
-            write_corpus(os.path.join(tmp, "parity"), 64, seed=1)
-            parity_phase(os.path.join(tmp, "parity"))
-            for family in PARITY_FAMILIES:
-                train_parity_phase(corpus, tmp, family)
-            counts.update(finish_mesh_phases(corpus, tmp, final_model, launches))
-        finally:
-            stop_mesh(launches)
+
+        def before_go():  # the other processes' work on the card ended
+            counts.update(finish_side(side))
+            counts.update(finish_convergence(convergence))
+
+        counts.update(finish_mesh_phases(corpus, tmp, final_model, mesh_launches,
+                                         before_go=before_go))
     for row in rows:
         row["launches_by_phase"] = {phase: c[row["name"]] for phase, c in counts.items()}
         row["launches"] = sum(row["launches_by_phase"].values())

@@ -96,10 +96,13 @@ def build(names: Iterable[str] = CUDA_SOURCES) -> Dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of ``csrc/<name>.cu``. The first load builds every
+    library not built yet (:func:`build`: one ``nvcc`` each, all started
+    together), so that an entry point does not wait for them one by one at
+    their first launches."""
     with _load_lock:
         if name not in _libraries:
-            build([name])
+            build(CUDA_SOURCES if name in CUDA_SOURCES else [name])
             lib = ctypes.CDLL(str(library_path(name)))
             lib.kernel_error_string.argtypes = [ctypes.c_int]
             lib.kernel_error_string.restype = ctypes.c_char_p
