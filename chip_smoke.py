@@ -259,12 +259,26 @@ Phases, each of which makes the script exit non-zero when it fails:
    between chance and the JAX package's 0.7811 for that epoch of that
    recipe on a v5e) or it launched no Miner kernel.
 
+15. analysis tools, each a phase of its own (the counts set to 0 just
+   before, read just after): ``unisrec_diag --steps 40`` (its six
+   variants, float32: the tiny tower's fp32 kernels at Dh = 16; finite
+   losses, the deterministic variant's below ln 5); ``warmstart_ab
+   --artifact domain`` for one seed on a 600-line planted corpus (the
+   donor Miner, its tower exported in the transformers format and
+   imported by the warm run, warm and cold finite); ``unisrec_contract
+   --plm_preset tiny --stage_c_baseline``, an epoch a stage on 1,200 news
+   (the export holds every tensor of the model; the baseline at lr 0
+   scores what stage A's model scored); ``quality_trajectory`` legs
+   port-A and port-B at the mid preset in float32 for 100 steps each,
+   then ``analyze`` (finite logs; at step 0, one init and one batch, the
+   two losses within 1%). Each phase's seconds and census are printed.
+
 The phases run in the order above, but for those whose times nothing
 reads (reference_roundtrip and roundtrip_serve of 7, UniSRec serve of 8,
-lstm / legacy and no_reduce of 9): they run after the serial phases,
-beside the mesh launches and the convergence epoch; UniSRec serve in the
-process of 11 (after its card halves and 13), the others with 10 in this
-one.
+lstm / legacy and no_reduce of 9, and 15): they run after the serial
+phases, beside the mesh launches and the convergence epoch; UniSRec serve
+in the process of 11 (after its card halves and 13), the others with 10
+in this one.
 
 After the phases, every shape at which the main path launched
 poly-attention, lookup+score or an fp32 mha kernel (a census of their
@@ -404,17 +418,42 @@ FP32_MHA_CASES = ((TRAIN_N, TRAIN_SAPO, TRAIN_RATE, torch.float32,
                   (TRAIN_N, TRAIN_TITLE, TRAIN_RATE, torch.float32, ()),
                   (CACHED_N, TRAIN_SAPO, TRAIN_RATE, torch.float32, ()),
                   (TRAIN_N, UNISREC_L, TRAIN_RATE, torch.float32, ()))
-# the end-to-end tools' towers, bf16 (their phases' launches of mha and add_ln
-# stand at these cases): turnkey_mind's defaults (plm_preset tiny: D = 64, 4
-# heads, layer-norm eps 1e-5; a batch of 16 users, 1 + 4 candidates and 10
-# history news each, titles of 16 tokens and sapos of 24) and
-# scale_convergence's Miner (plm_preset small: D = 256, 8 heads, eps 1e-12;
-# a batch of 64 users, 1 + 4 candidates and 50 history news each, titles of
-# 32 tokens, the one field its towers encode): a micro-batch's sequences of
-# a field with dropout (and the statistics), the eval's cache-fill chunks
-# without. phase: (D, heads, eps, micro-batch N, fill N, lengths)
-TOOL_TOWERS = {"turnkey": (64, 4, 1e-5, 16 * (5 + 10), CHUNK, (16, 24)),
-               "convergence": (256, 8, 1e-12, 64 * (5 + 50), CHUNK, (32,))}
+# the end-to-end and analysis tools' towers (their phases' launches of mha
+# and add_ln stand at these cases): a micro-batch's sequences of a field with
+# dropout (and the statistics), the eval's sequences (cache-fill chunks, or
+# the eval batch) without. The tiny tower (plm_preset tiny: D = 64, 4 heads
+# of Dh = 16, layer-norm eps 1e-5) of turnkey_mind's defaults (16 users, 1 +
+# 4 candidates and 10 history news each, titles of 16 tokens and sapos of
+# 24) and warmstart_ab's (32 users), both bf16; of unisrec_diag (32 users, 5
+# candidates and 10 history news, titles of 12 tokens) and the mid preset of
+# quality_trajectory (64 users, 5 candidates and 20 history news, titles of
+# 32 and sapos of 24), both float32; of the analysis phase's unisrec_contract
+# (ANALYSIS_CONTRACT_B users, 5 candidates and 50 history news,
+# pre-concatenated titles of 32 + 2 - 1 = 33 tokens, bf16). The small tower
+# (plm_preset small: D = 256, 8 heads of Dh = 32, eps 1e-12) of
+# scale_convergence's Miner (64 users, 5 + 50 news, titles of 32) and of
+# unisrec_contract at its defaults (64 users, 5 + 50 news, L = 33: run by
+# hand, so it stands for no phase). name: (D, heads, eps, dtype, micro-batch
+# N, eval N or None, lengths, phases)
+ANALYSIS_CONTRACT_B = 16
+TOOL_TOWERS = {
+    "turnkey": (64, 4, 1e-5, torch.bfloat16, 16 * (5 + 10), CHUNK, (16, 24), ("turnkey",)),
+    "convergence": (256, 8, 1e-12, torch.bfloat16, 64 * (5 + 50), CHUNK, (32,),
+                    ("convergence",)),
+    "warmstart_ab": (64, 4, 1e-5, torch.bfloat16, 32 * (5 + 10), CHUNK, (16, 24),
+                     ("warmstart_ab",)),
+    "unisrec_diag": (64, 4, 1e-5, torch.float32, 32 * (5 + 10), 32 * (5 + 10), (12,),
+                     ("unisrec_diag",)),
+    "quality_trajectory": (64, 4, 1e-5, torch.float32, 64 * (5 + 20), None, (32, 24),
+                           ("quality_trajectory",)),
+    "unisrec_contract": (64, 4, 1e-5, torch.bfloat16, ANALYSIS_CONTRACT_B * (5 + 50), CHUNK,
+                         (33,), ("unisrec_contract",)),
+    "unisrec_contract_small": (256, 8, 1e-12, torch.bfloat16, 64 * (5 + 50), CHUNK, (33,), ()),
+}
+# the tools' cases whose numbers go into the kernels' rows as routes of their
+# own (their micro-batch at its first length): mha at Dh = 16 in float32 and
+# at L = 33 in bf16; add_ln at D = 64 in float32
+TOOL_ROUTES = {"unisrec_diag": "tools_fp32_tiny", "unisrec_contract_small": "tools_bf16_l33"}
 # fp32_train: train_miner.txt in float32 for this many micro-batches at
 # accumulation 4 (one update), the first a warm-up, the rest traced
 FP32_MICRO_BATCHES = 4
@@ -510,6 +549,13 @@ REQUIRED = {
     # from the cache, its micro-batches differentiating the PLM
     "turnkey": SERVE_KERNELS + PLM_BWD,
     "convergence": SERVE_KERNELS + PLM_BWD,
+    # the analysis tools: UniSRec's tower trained and evaluated (its tail
+    # plain products); the Miner warm and cold with its cached eval; the
+    # Miner's trajectory legs, evaluated by the model itself
+    "unisrec_diag": PLM_FWD + PLM_BWD,
+    "warmstart_ab": SERVE_KERNELS + PLM_BWD,
+    "unisrec_contract": PLM_FWD + PLM_BWD,
+    "quality_trajectory": MINER_KERNELS + PLM_BWD,
 }
 FORBIDDEN = {"fastformer_train": PLM_BWD,
              "ep_unisrec": TAIL_KERNELS + PLM_BWD,
@@ -517,6 +563,8 @@ FORBIDDEN = {"fastformer_train": PLM_BWD,
              "serve_cache_loaded": PLM_FWD,  # the cache comes from the file
              "serve_int8_loaded": PLM_FWD,
              "pretrain": TAIL_KERNELS,  # the news encoder alone
+             "unisrec_diag": TAIL_KERNELS,
+             "unisrec_contract": TAIL_KERNELS,
              "pretrain_eval": TAIL_KERNELS + PLM_BWD,
              # the cross-encoder: the PLM kernels alone
              "unbert_train": TAIL_KERNELS,
@@ -561,6 +609,13 @@ SIDE_TIMEOUT_S = 600
 # the turnkey phase's archive: the planted corpus at 1,200 news
 TURNKEY_LINES = 600
 TURNKEY_VALID = 60
+# the analysis tools (analysis_tools_phases): unisrec_diag's steps a
+# variant, the planted corpus's lines of warmstart_ab and unisrec_contract,
+# quality_trajectory's lines, eval impressions and steps a leg
+DIAG_STEPS = 40
+ANALYSIS_LINES = 600
+ANALYSIS_NEWS = 1200
+TRAJECTORY_LINES, TRAJECTORY_EVAL, TRAJECTORY_STEPS = 1600, 200, 100
 
 T0 = time.perf_counter()
 
@@ -793,18 +848,20 @@ def mha_cases(dev, g):
             phases=phases)
     # the end-to-end tools' towers: a micro-batch with dropout (and the
     # statistics), a cache-fill chunk without
-    for phase, (D, heads, _, train_n, fill_n, lengths) in TOOL_TOWERS.items():
+    for name, (D, heads, _, dtype, train_n, fill_n, lengths, phases) in TOOL_TOWERS.items():
         for L in lengths:
             for N, rate in ((train_n, TRAIN_RATE), (fill_n, 0.0)):
+                if N is None:
+                    continue
                 seed, train = 2 ** 49 + N + L, rate > 0
-                qkv, mask = _mha_inputs(dev, g, N, L, torch.bfloat16, D)
+                qkv, mask = _mha_inputs(dev, g, N, L, dtype, D)
                 q, k, v = qkv.view(N, L, 3, heads, -1).permute(2, 0, 3, 1, 4)
                 bool_mask = mask.bool()[:, None, None, :]
                 out = torch.empty(N, L, D, dtype=qkv.dtype, device=dev)
                 stats = torch.empty(N, heads, L, 2, device=dev) if train else out[:0]
                 yield dict(
-                    case=f"{phase} bf16 N={N} L={L} D={D} dropout {rate}",
-                    dtype=torch.bfloat16,
+                    case=f"{name} {str(dtype)[6:]} N={N} L={L} D={D} dropout {rate}",
+                    dtype=dtype,
                     kernel=lambda: mha._launch_fwd(qkv, mask, heads, 1, rate, seed, train)[0],
                     plain=lambda: mha.mha_reference(qkv, mask, heads, 1, rate, seed),
                     library=lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -812,8 +869,9 @@ def mha_cases(dev, g):
                     check=((lambda: mha_dropout_mask_check(qkv, mask, seed, heads)) if rate
                            else None),
                     bound=bound_ms(_nbytes(qkv, mask, out, stats),
-                                   4 * N * heads * L * L * (D // heads), torch.bfloat16),
-                    phases=(phase,))
+                                   4 * N * heads * L * L * (D // heads), dtype),
+                    route=TOOL_ROUTES.get(name) if train and L == lengths[0] else None,
+                    phases=phases)
 
 
 def mha_grad_errors(got, want, rel, heads=HEADS):
@@ -903,19 +961,19 @@ def mha_bwd_cases(dev, g):
                            torch.bfloat16),
             route="w2_model" if L == TRAIN_SAPO else None, phases=TP_PHASES)
     # the end-to-end tools' micro-batches
-    for phase, (D, heads, _, N, _, lengths) in TOOL_TOWERS.items():
+    for name, (D, heads, _, dtype, N, _, lengths, phases) in TOOL_TOWERS.items():
         for L in lengths:
             seed = 2 ** 50 + N + L
-            qkv, mask = _mha_inputs(dev, g, N, L, torch.bfloat16, D)
-            dout = torch.randn(N, L, D, device=dev, generator=g).to(torch.bfloat16)
+            qkv, mask = _mha_inputs(dev, g, N, L, dtype, D)
+            dout = torch.randn(N, L, D, device=dev, generator=g).to(dtype)
             out, stats = mha._launch_fwd(qkv, mask, heads, 1, TRAIN_RATE, seed, True)
             leaves = _sdpa_leaves(qkv, heads)
             sdpa_out = torch.nn.functional.scaled_dot_product_attention(
                 *leaves, attn_mask=mask.bool()[:, None, None, :], dropout_p=TRAIN_RATE)
             sdpa_dout = dout.view(N, L, heads, -1).transpose(1, 2)
             yield dict(
-                case=f"{phase} bf16 N={N} L={L} D={D} dropout {TRAIN_RATE}",
-                dtype=torch.bfloat16,
+                case=f"{name} {str(dtype)[6:]} N={N} L={L} D={D} dropout {TRAIN_RATE}",
+                dtype=dtype,
                 kernel=lambda: mha.mha_backward(qkv, mask, dout, heads, TRAIN_RATE, seed, 1,
                                                 out, stats),
                 plain=lambda: mha.mha_backward_reference(qkv, mask, dout, heads, 1,
@@ -924,8 +982,9 @@ def mha_bwd_cases(dev, g):
                                                     retain_graph=True),
                 errors=lambda got, want, rel: mha_grad_errors(got, want, rel, heads),
                 bound=bound_ms(_nbytes(qkv, out, dout, stats, mask, qkv),
-                               5 * 2 * N * heads * L * L * (D // heads), torch.bfloat16),
-                phases=(phase,))
+                               5 * 2 * N * heads * L * L * (D // heads), dtype),
+                route=TOOL_ROUTES.get(name) if L == lengths[0] else None,
+                phases=phases)
 
 
 def _ln_inputs(dev, g, T, dtype, D=HIDDEN):
@@ -1018,14 +1077,16 @@ def add_ln_cases(dev, g):
             phases=phases)
     # the end-to-end tools' towers: a micro-batch's rows with dropout, a
     # cache-fill chunk's without
-    for phase, (D, _, eps, train_n, fill_n, lengths) in TOOL_TOWERS.items():
+    for name, (D, _, eps, dtype, train_n, fill_n, lengths, phases) in TOOL_TOWERS.items():
         for L in lengths:
             for N, rate in ((train_n, TRAIN_RATE), (fill_n, 0.0)):
+                if N is None:
+                    continue
                 T, seed = N * L, 2 ** 51 + N + L
-                x, h, scale, bias = _ln_inputs(dev, g, T, torch.bfloat16, D)
-                scale_t, bias_t = scale.to(torch.bfloat16), bias.to(torch.bfloat16)
+                x, h, scale, bias = _ln_inputs(dev, g, T, dtype, D)
+                scale_t, bias_t = scale.to(dtype), bias.to(dtype)
                 yield dict(
-                    case=f"{phase} bf16 T={T} D={D} dropout {rate}", dtype=torch.bfloat16,
+                    case=f"{name} {str(dtype)[6:]} T={T} D={D} dropout {rate}", dtype=dtype,
                     kernel=lambda: add_ln.fused_dropout_add_ln(x, h, scale, bias, rate, eps,
                                                                seed),
                     plain=lambda: add_ln.add_ln_reference(x, h, scale, bias, eps, rate, seed),
@@ -1033,7 +1094,8 @@ def add_ln_cases(dev, g):
                         x + torch.nn.functional.dropout(h, rate), (D,), scale_t, bias_t, eps),
                     bound=bound_ms(_nbytes(x, h, scale, bias, x),
                                    (9 if rate else 8) * T * D, torch.float32),
-                    phases=(phase,))
+                    route=(TOOL_ROUTES.get(name) if rate and L == lengths[0] else None),
+                    phases=phases)
 
 
 def add_ln_bwd_cases(dev, g):
@@ -1088,15 +1150,14 @@ def add_ln_bwd_cases(dev, g):
                     else ("his_cache_train",) if N == CACHED_N
                     else tuple(p for p in TRAIN_PHASES if p in BWD_PHASES)))
     # the end-to-end tools' micro-batches
-    for phase, (D, _, eps, N, _, lengths) in TOOL_TOWERS.items():
+    for name, (D, _, eps, dtype, N, _, lengths, phases) in TOOL_TOWERS.items():
         for L in lengths:
             T, seed = N * L, 2 ** 52 + N + L
-            x, h, scale, bias = _ln_inputs(dev, g, T, torch.bfloat16, D)
-            dy = torch.randn(T, D, device=dev, generator=g).to(torch.bfloat16)
+            x, h, scale, bias = _ln_inputs(dev, g, T, dtype, D)
+            dy = torch.randn(T, D, device=dev, generator=g).to(dtype)
             leaves = [t.detach().clone().requires_grad_() for t in (x, h, scale, bias)]
             y = torch.nn.functional.layer_norm(leaves[0] + leaves[1], (D,),
-                                               leaves[2].to(torch.bfloat16),
-                                               leaves[3].to(torch.bfloat16), eps)
+                                               leaves[2].to(dtype), leaves[3].to(dtype), eps)
 
             def mask_check():
                 keep = philox.keep_mask(philox.add_ln_bits(seed, T, D, dev), TRAIN_RATE)
@@ -1105,14 +1166,15 @@ def add_ln_bwd_cases(dev, g):
                 return mismatches == 0, f"mask mismatches {mismatches}"
 
             yield dict(
-                case=f"{phase} bf16 T={T} D={D} dropout {TRAIN_RATE}", dtype=torch.bfloat16,
+                case=f"{name} {str(dtype)[6:]} T={T} D={D} dropout {TRAIN_RATE}", dtype=dtype,
                 kernel=lambda: add_ln.add_ln_backward(x, h, scale, dy, eps, TRAIN_RATE, seed),
                 plain=lambda: add_ln.add_ln_backward_reference(x, h, scale, dy, eps,
                                                                TRAIN_RATE, seed),
                 library=lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True),
                 check=mask_check,
                 bound=bound_ms(_nbytes(x, h, dy, x, h), 20 * T * D, torch.float32),
-                phases=(phase,))
+                route=TOOL_ROUTES.get(name) if L == lengths[0] else None,
+                phases=phases)
 
 
 def _poly_inputs(dev, g, B, dtype, masked_rows=0, H=HIS, D=DIM, P=CODE_DIM, K=CODES):
@@ -4354,6 +4416,153 @@ def finish_convergence(launch: dict) -> dict:
     return {phase: res["counts"]}
 
 
+def _tool_phase(phase: str, run):
+    """``run()`` as the phase ``phase``: the launch counts set to 0 just
+    before and read just after, the census's shapes under ``phase``. Returns
+    (its result, the counts, its seconds)."""
+    from miner_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    CENSUS.phase = phase
+    t0 = time.perf_counter()
+    try:
+        res = run()
+        torch.cuda.synchronize()
+    finally:
+        CENSUS.phase = None
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    shapes = {f"{name} {shape}": n for (name, p, shape), n in CENSUS.counts.items()
+              if p == phase}
+    log(f"{phase}: {seconds:.1f} s; kernel launches {counts}; census (fp32 mha, poly, "
+        f"lookup by shape) {shapes}")
+    _check_launches(phase, counts)
+    return res, counts, seconds
+
+
+def diag_phase() -> dict:
+    """``unisrec_diag --steps DIAG_STEPS``: its six variants in float32 on
+    the card (the tiny tower's fp32 kernels, Dh = 16); finite losses, the
+    deterministic variant's below ln 5."""
+    from miner_tpu_torch.tools import unisrec_diag
+
+    phase = "unisrec_diag"
+    rows, counts, _ = _tool_phase(phase, lambda: unisrec_diag.main(
+        ["--steps", str(DIAG_STEPS)]))
+    for r in rows:
+        log(f"{phase}:   {r['variant']}: loss {r['loss']:.4f}, holdout acc {r['acc']:.3f} "
+            f"({r['seconds']:.1f} s)")
+    det = next(r for r in rows if r["variant"].startswith("fully deterministic"))
+    bad = [r["variant"] for r in rows if not math.isfinite(r["loss"])]
+    if bad or not det["loss"] < math.log(unisrec_diag.C):
+        raise SystemExit(f"{phase} phase: non-finite losses {bad}; the deterministic "
+                         f"variant's loss {det['loss']!r} (must be below ln 5)")
+    return counts
+
+
+def warmstart_phase(root: str) -> dict:
+    """``warmstart_ab --artifact domain`` for one seed on the planted corpus
+    of ANALYSIS_LINES lines (bf16, the kernels): the donor Miner on the
+    disjoint corpus, its tower exported in the transformers format, warm and
+    cold runs with finite metrics, the warm run's tower imported from it."""
+    from miner_tpu_torch.tools import warmstart_ab
+
+    phase = "warmstart_ab"
+    out = os.path.join(root, phase)
+    res, counts, _ = _tool_phase(phase, lambda: warmstart_ab.main(
+        ["--out", out, "--artifact", "domain", "--seeds", "13",
+         "--events", str(ANALYSIS_LINES), "--news", str(ANALYSIS_NEWS), "--eval_lines", "60"]))
+    for label, scores, secs in res["rows"]:
+        log(f"{phase}:   {label}: {scores} ({secs:.1f} s)")
+    bad = [label for label, scores, _ in res["rows"]
+           if not all(math.isfinite(v) for v in scores.values())]
+    import glob
+
+    warm = glob.glob(os.path.join(out, "warm-domain_13", "train", "*", "log", "all.log"))
+    imported = bool(warm) and "imported the PLM's weights" in open(warm[0], errors="replace").read()
+    if bad or len(res["rows"]) != 2 or not imported or not os.path.isfile(
+            os.path.join(res["hf_dir"], "pytorch_model.bin")):
+        raise SystemExit(f"{phase} phase: non-finite metrics {bad}; rows {res['rows']}; "
+                         f"warm run imported the export: {imported}")
+    return counts
+
+
+def contract_phase(root: str) -> dict:
+    """``unisrec_contract --plm_preset tiny --stage_c_baseline``: stages A
+    (``--unisrec_train_all``), B (the RecBole-layout export) and C (the
+    MoE-only freeze) and the baseline, an epoch each, on the planted corpus
+    of ANALYSIS_NEWS news (bf16, the kernels): the export holds every tensor
+    of the model, and the baseline at lr 0 scores what stage A's model
+    scored."""
+    from miner_tpu_torch.tools import unisrec_contract
+    from miner_tpu_torch.training import checkpoint
+
+    phase = "unisrec_contract"
+    res, counts, _ = _tool_phase(phase, lambda: unisrec_contract.main(
+        ["--out", os.path.join(root, phase), "--plm_preset", "tiny",
+         "--news", str(ANALYSIS_NEWS), "--events", str(ANALYSIS_LINES), "--eval_lines", "60",
+         "--stage_a_epochs", "1", "--stage_c_epochs", "1", "--stage_c_baseline",
+         "--batch", str(ANALYSIS_CONTRACT_B)]))
+    a = checkpoint.load(os.path.join(res["a"]["run_dir"], "ckpt", "finalModel"))["params"]
+    # the reference's tensors: each layer's fused qkv as three, the experts
+    # one by one, and the history-layout marker
+    n_experts = a["news_encoder.moe_adaptor.experts.kernel"].shape[0]
+    n_layers = (len({k.split(".")[3] for k in a if k.startswith("news_encoder.plm.layers.")})
+                + len({k.split(".")[1] for k in a if k.startswith("trm_layers.")}))
+    want = len(a) + 4 * n_layers - 2 + 2 * n_experts + 1
+    a_eval = res["a"]["rows"][max(res["a"]["rows"])]
+    b_eval = res["baseline"]["rows"][max(res["baseline"]["rows"])]
+    diffs = {m: abs(float(a_eval[m]) - float(b_eval[m])) for m in unisrec_contract.METRICS}
+    log(f"{phase}: stage A auc {float(a_eval['auc']):.4f} ({res['a']['seconds']:.1f} s), "
+        f"{res['exported']} tensors exported ({want} in the model), baseline auc "
+        f"{float(b_eval['auc']):.4f} (|diff| against stage A's {diffs}), stage C auc "
+        f"{float(res['c']['rows'][max(res['c']['rows'])]['auc']):.4f}")
+    if res["exported"] != want or max(diffs.values()) > 1e-6:
+        raise SystemExit(f"{phase} phase: exported {res['exported']} tensors of {want}; "
+                         f"the baseline's eval against stage A's: {diffs}")
+    return counts
+
+
+def trajectory_phase(root: str) -> dict:
+    """``quality_trajectory`` legs port-A and port-B at the mid preset in
+    float32 on the card (the kernels' fp32 routes) for TRAJECTORY_STEPS
+    steps each, then ``analyze``: finite logs, and at step 0 (one init, one
+    batch, the dropout streams apart) the two losses within 1%."""
+    from miner_tpu_torch.tools import quality_trajectory
+
+    phase = "quality_trajectory"
+    runs, counts, _ = _tool_phase(phase, lambda: quality_trajectory.main(
+        ["--out", os.path.join(root, phase), "--events", str(TRAJECTORY_LINES),
+         "--eval_lines", str(TRAJECTORY_EVAL), "--max_steps", str(TRAJECTORY_STEPS),
+         "--dtype", "fp32"]))
+    a, b = runs["port-A"], runs["port-B"]
+    div = runs["analysis"]["divergence"]["port-A vs port-B"]
+    log(f"{phase}: port-A {a['steps']} steps in {a['train_s']} s, scores {a['scores']}; "
+        f"port-B {b['train_s']} s, scores {b['scores']}; step 0 losses "
+        f"{a['log'][0]['loss']:.6f} / {b['log'][0]['loss']:.6f}, gnorms "
+        f"{a['log'][0]['gnorm']:.6f} / {b['log'][0]['gnorm']:.6f}; divergence {div}")
+    finite = all(math.isfinite(r[k]) for leg in (a, b) for r in leg["log"]
+                 for k in ("loss", "gnorm"))
+    l0a, l0b = a["log"][0]["loss"], b["log"][0]["loss"]
+    if (not finite or len(a["log"]) != TRAJECTORY_STEPS or len(b["log"]) != TRAJECTORY_STEPS
+            or abs(l0a - l0b) > 0.01 * abs(l0a)):
+        raise SystemExit(f"{phase} phase: finite {finite}, steps {len(a['log'])} and "
+                         f"{len(b['log'])}, step 0 losses {l0a!r} and {l0b!r}")
+    return counts
+
+
+def analysis_tools_phases(root: str) -> dict:
+    """The analysis tools on the card, each a phase of its own, under
+    ``root``: unisrec_diag, warmstart_ab, unisrec_contract and
+    quality_trajectory. Returns their launch counts."""
+    t0 = time.perf_counter()
+    counts = {"unisrec_diag": diag_phase(), "warmstart_ab": warmstart_phase(root),
+              "unisrec_contract": contract_phase(root),
+              "quality_trajectory": trajectory_phase(root)}
+    log(f"analysis tools: {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def turnkey_phase(tmp: str) -> dict:
     """The port's ``turnkey_mind`` on the card from a zip of a MIND-style
     corpus (the planted corpus of ``synth_mind`` at 1,200 news and
@@ -4600,6 +4809,10 @@ def run(opts, names, smi: str, scale=None, launches=None, side_root=None) -> int
         counts["no_reduce_serve"] = serve_phase(corpus, nr_model, "no_reduce_serve", 12, 4)
         _check_d768("no_reduce_serve")
         torch.cuda.empty_cache()
+        # the analysis tools, small models beside the others' tails: no
+        # process of their own (the card's memory is the mesh ranks')
+        counts.update(analysis_tools_phases(tmp))
+        torch.cuda.empty_cache()
 
         def before_go():  # the other processes' work on the card ended
             counts.update(finish_side(side))
@@ -4616,6 +4829,10 @@ def run(opts, names, smi: str, scale=None, launches=None, side_root=None) -> int
                 ("table_eval",) if row["name"] == "lookup_score_fwd" else MESH_PHASES))
         if "w2_model" in row:  # a rank's heads over the model axis
             row["w2_model"]["launches"] = sum(row["launches_by_phase"][p] for p in TP_PHASES)
+        for tower, route in TOOL_ROUTES.items():  # the tools' shapes: their phases' launches
+            if route in row:
+                row[route]["launches"] = sum(row["launches_by_phase"].get(p, 0)
+                                             for p in TOOL_TOWERS[tower][7])
         if "int8" in row:  # the int8 route's share of lookup+score's launches
             row["int8"]["launches"] = sum(
                 n for (name, _, shape), n in CENSUS.counts.items()

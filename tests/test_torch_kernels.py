@@ -1647,3 +1647,71 @@ def test_offset_launches_are_slices_of_the_whole_launch_on_card(rng, op, dtype):
         assert torch.equal(got_dh != 0, keep)
         want = add_ln.add_ln_reference(x[rows], h[rows], g, b, 1e-5, rate, seed, rows_offset)
         assert (got.float() - want.float()).abs().max().item() <= _tol(dtype, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("L", [12, 24, 32])
+def test_fp32_mha_at_the_tiny_towers_heads_on_card(rng, L, rate):
+    """The fp32 mha kernels, forward and backward, at the tiny tower's 4
+    heads of Dh = 16 (the analysis tools' float32 runs: unisrec_diag's
+    titles of 12 tokens, the mid preset's titles of 32 and sapos of 24),
+    with and without dropout; a padded and a fully masked row; the dropout
+    mask bit for bit."""
+    dev = _card()
+    N, H, Dh, seed = 6, 4, 16, 2 ** 36 + L
+    qkv, mask, _ = _mha_inputs(rng, N=N, L=L, H=H, Dh=Dh)
+    mask[3, L // 2:] = 0
+    qkv = torch.as_tensor(qkv, device=dev)
+    mask = torch.as_tensor(mask, device=dev)
+    dout = torch.as_tensor(rng.normal(size=(N, L, H * Dh)).astype(np.float32), device=dev)
+    before = launch_counts()
+    out, stats = mha._launch_fwd(qkv, mask, H, 1, rate, seed, True)
+    want = mha.mha_reference(qkv, mask, H, 1, rate, seed)
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    assert (out - want).abs().max().item() <= _tol(torch.float32, want)
+    got = mha.mha_backward(qkv, mask, dout, H, rate, seed, 1, out, stats)
+    want = mha.mha_backward_reference(qkv, mask, dout, H, 1, rate, seed)
+    assert torch.isfinite(got).all()
+    _assert_mha_grad_close(got, want, H, torch.float32)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert (after["mha_fwd"], after["mha_bwd"]) == (before["mha_fwd"] + 1,
+                                                    before["mha_bwd"] + 1)
+    if rate:
+        keep = philox.keep_mask(philox.mha_bits(seed, N, H, L, dev), rate)
+        valid = mask.bool()
+        masked = ~valid & valid.any(-1, keepdim=True)
+        assert torch.equal(_mha_dropped(qkv, mask, H, rate, seed),
+                           ~keep | masked[:, None, None, :])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_fp32_add_ln_at_the_tiny_towers_width_on_card(rng, rate):
+    """The add_ln kernels in float32 at the tiny tower's D = 64 and
+    layer-norm eps 1e-5 (``PLMConfig.tiny``), over unisrec_diag's rows (480
+    titles of 12 tokens), forward and backward against the plain versions;
+    the backward's dropout mask bit for bit."""
+    dev = _card()
+    T, D, eps, seed = 480 * 12, 64, 1e-5, 2 ** 37 + 7
+    put = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+    x, h, dy = (put(rng.normal(size=(T, D))) for _ in range(3))
+    g, b = put(1 + 0.1 * rng.normal(size=D)), put(0.1 * rng.normal(size=D))
+    before = launch_counts()
+    got = add_ln.fused_dropout_add_ln(x, h, g, b, rate, eps, seed)
+    want = add_ln.add_ln_reference(x, h, g, b, eps, rate, seed)
+    assert got.dtype == torch.float32
+    assert (got - want).abs().max().item() <= _tol(torch.float32, want)
+    grads = add_ln.add_ln_backward(x, h, g, dy, eps, rate, seed)
+    wants = add_ln.add_ln_backward_reference(x, h, g, dy, eps, rate, seed)
+    for a, w in zip(grads, wants):
+        assert torch.isfinite(a).all()
+        assert (a.float() - w.float()).abs().max().item() <= _tol(torch.float32, w)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert (after["add_ln_fwd"], after["add_ln_bwd"]) == (before["add_ln_fwd"] + 1,
+                                                          before["add_ln_bwd"] + 1)
+    if rate:
+        keep = philox.keep_mask(philox.add_ln_bits(seed, T, D, dev), rate)
+        assert torch.equal(grads[1] != 0, keep)

@@ -520,7 +520,9 @@ def test_port_imports_nothing_of_jax():
     code = ("import sys\n"
             "import miner_tpu_torch.tools.synth_mind, miner_tpu_torch.tools.prepare_mind\n"
             "import miner_tpu_torch.tools.turnkey_mind, miner_tpu_torch.tools.scale_convergence\n"
-            "import miner_tpu_torch.tools.quality_run\n"
+            "import miner_tpu_torch.tools.quality_run, miner_tpu_torch.tools.warmstart_ab\n"
+            "import miner_tpu_torch.tools.unisrec_contract, miner_tpu_torch.tools.unisrec_diag\n"
+            "import miner_tpu_torch.tools.quality_trajectory\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'miner_tpu', 'tools')]\n"
             "print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
