@@ -264,8 +264,9 @@ Phases, each of which makes the script exit non-zero when it fails:
    variants, float32: the tiny tower's fp32 kernels at Dh = 16; finite
    losses, the deterministic variant's below ln 5); ``warmstart_ab
    --artifact domain`` for one seed on a 600-line planted corpus (the
-   donor Miner, its tower exported in the transformers format and
-   imported by the warm run, warm and cold finite); ``unisrec_contract
+   donor Miner, its eval after each epoch printed, its tower exported in
+   the transformers format and imported by the warm run, warm and cold
+   finite); ``unisrec_contract
    --plm_preset tiny --stage_c_baseline``, an epoch a stage on 1,200 news
    (the export holds every tensor of the model; the baseline at lr 0
    scores what stage A's model scored); ``quality_trajectory`` legs
@@ -4463,8 +4464,9 @@ def diag_phase() -> dict:
 def warmstart_phase(root: str) -> dict:
     """``warmstart_ab --artifact domain`` for one seed on the planted corpus
     of ANALYSIS_LINES lines (bf16, the kernels): the donor Miner on the
-    disjoint corpus, its tower exported in the transformers format, warm and
-    cold runs with finite metrics, the warm run's tower imported from it."""
+    disjoint corpus (its eval after each epoch printed and finite), its
+    tower exported in the transformers format, warm and cold runs with
+    finite metrics, the warm run's tower imported from it."""
     from miner_tpu_torch.tools import warmstart_ab
 
     phase = "warmstart_ab"
@@ -4472,10 +4474,14 @@ def warmstart_phase(root: str) -> dict:
     res, counts, _ = _tool_phase(phase, lambda: warmstart_ab.main(
         ["--out", out, "--artifact", "domain", "--seeds", "13",
          "--events", str(ANALYSIS_LINES), "--news", str(ANALYSIS_NEWS), "--eval_lines", "60"]))
+    log(f"{phase}:   donor (--seed 1, 2 epochs on the disjoint corpus): "
+        f"{warmstart_ab.donor_line(res['donor'])}")
     for label, scores, secs in res["rows"]:
         log(f"{phase}:   {label}: {scores} ({secs:.1f} s)")
     bad = [label for label, scores, _ in res["rows"]
            if not all(math.isfinite(v) for v in scores.values())]
+    if not res["donor"] or not math.isfinite(res["donor"][-1]["auc"]):
+        bad.append("donor")
     import glob
 
     warm = glob.glob(os.path.join(out, "warm-domain_13", "train", "*", "log", "all.log"))

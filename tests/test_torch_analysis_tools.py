@@ -18,8 +18,14 @@ package's ``tools/``.
   the loss and the gradient norm before the clip of a loop of the JAX
   pieces ``run_jax_leg`` calls (1e-5 relative); ``analyze`` gives JAX's
   report with the leg names mapped.
+- ``run_jax_warmstart_legs.py`` (the JAX package's arms and donor from
+  the port tool's corpus) builds, with JAX's ``Trainer`` recording, the
+  argvs the port's ``warmstart_ab`` builds for its donor and each seed's
+  warm and cold runs, on every shared key, the warm ones with the given
+  donor as ``--pretrained_embedding``.
 - Each tool's ``main`` runs end to end on ``--device cpu`` at the smallest
-  size; ``warmstart_ab`` writes no report unless asked.
+  size; ``warmstart_ab`` writes no report unless asked, prints its donor's
+  eval (trained or reused), and tallies learned arms with ``--tally``.
 """
 import dataclasses as dc
 import glob
@@ -149,6 +155,43 @@ def test_warmstart_argv_matches_jax(tmp_path, monkeypatch, jax_recorder, artifac
     assert [ns.mode for ns in port_seen] == (["pretrain"] if artifact == "contrastive"
                                              else ["train"]) + ["train"] * 4
     assert [bool(ns.pretrained_embedding) for ns in port_seen[1:]] == [True, False] * 2
+
+
+def test_jax_warmstart_legs_argv_matches_port(tmp_path, monkeypatch, jax_recorder):
+    """JAX's donor (``--train_donor``) and its arms from a given donor
+    (``--donor``), on the corpus the port's tool wrote: the port's argvs on
+    every shared key; the runs under their own directories."""
+    import run_jax_warmstart_legs as legs
+    from tools import warmstart_ab as jax_ws
+
+    out = str(tmp_path / "ws")
+    port_seen = []
+    monkeypatch.setattr(warmstart_ab, "run_cli", _fake_run(
+        lambda a: a.train_path, port_seen, lambda argv: port_parser().parse_args(argv)))
+    monkeypatch.setattr(warmstart_ab, "export_hf_checkpoint", lambda ckpt, d: d)
+    warmstart_ab.main(["--out", out, "--artifact", "domain", "--device", "cpu",
+                       "--seeds", "13", "14", *CORPUS])
+    monkeypatch.setattr(jax_ws, "export_hf_checkpoint", lambda ckpt, d: d)
+    donor = str(tmp_path / "donor")
+    res = legs.main(["--out", out, "--train_donor", "--seeds"])
+    assert res["hf_dir"] == os.path.join(out, "jax_hf_domain")
+    rows = legs.main(["--out", out, "--donor", donor, "--label", "x", "--seeds", "13", "14"])
+    assert [r[0] for r in rows["rows"]] == ["jax-x_warm seed=13", "jax_cold seed=13",
+                                            "jax-x_warm seed=14", "jax_cold seed=14"]
+    jax_seen = jax_recorder.seen
+    assert len(jax_seen) == len(port_seen) == 5
+    runs = ["domain_pre", "warm-domain_13", "cold_13", "warm-domain_14", "cold_14"]
+    jax_runs = ["jax_domain_pre", "jax-x_warm_13", "jax_cold_13", "jax-x_warm_14",
+                "jax_cold_14"]
+    for j, p, run, jax_run in zip(jax_seen, port_seen, runs, jax_runs):
+        keys, diff = _common(j, p, DEVICE | {"train_path", "pretrained_embedding"})
+        assert len(keys) > 50 and not diff, diff
+        assert p.train_path == os.path.join(out, run, "train")
+        assert j.train_path == os.path.join(out, jax_run, "train")
+        assert j.pretrained_embedding == (os.path.abspath(donor) if p.pretrained_embedding
+                                          else None)
+    assert jax_seen[0].train_news_path == os.path.join(out, "domain_data", "news.tsv")
+    assert jax_seen[1].train_news_path == os.path.join(out, "data", "news.tsv")
 
 
 def test_unisrec_contract_argv_matches_jax(tmp_path, monkeypatch, jax_recorder):
@@ -440,8 +483,10 @@ def test_analyze_matches_jax(tmp_path):
 
 # ---------------------------------------------------------------- mains
 def test_warmstart_main_on_cpu(tmp_path, monkeypatch, capsys):
-    """The domain artifact, one seed: the donor, its export (the donor's
-    tower bit for bit), warm and cold; no report written unless asked."""
+    """The domain artifact, one seed: the donor (its eval printed), its
+    export (the donor's tower bit for bit), warm and cold; no report written
+    unless asked; a second call reuses the donor and prints its eval again;
+    ``--tally`` counts the arms."""
     monkeypatch.setattr(port_trainer, "plm_config", _no_dropout_cfg(port_trainer.plm_config))
     monkeypatch.chdir(tmp_path)
     before = set(os.listdir(REPO))
@@ -449,6 +494,10 @@ def test_warmstart_main_on_cpu(tmp_path, monkeypatch, capsys):
                              "--seeds", "3", "--events", "24", "--news", "60",
                              "--eval_lines", "6", "--pretrain_epochs", "1", "--device", "cpu"])
     out = capsys.readouterr().out
+    assert len(res["donor"]) == 1  # one epoch
+    line = warmstart_ab.donor_line(res["donor"])
+    assert line.startswith(f"donor eval auc {res['donor'][0]['auc']:.4f}, group_auc ")
+    assert "domain pretrain done" in out and out.count(line) == 2  # and the table's header
     assert [r[0] for r in res["rows"]] == ["warm-domain seed=3", "cold seed=3"]
     assert "| warm-domain seed=3 |" in out and "| cold seed=3 |" in out
     assert all(0.0 <= r[1]["auc"] <= 1.0 for r in res["rows"])
@@ -464,6 +513,16 @@ def test_warmstart_main_on_cpu(tmp_path, monkeypatch, capsys):
            if k.startswith("news_encoder.plm.")}
     assert torch.equal(sd["bert.embeddings.word_embeddings.weight"],
                        plm["news_encoder.plm.embeddings.word_embeddings.weight"])
+    again = warmstart_ab.main(["--out", str(tmp_path / "ws"), "--artifact", "domain",
+                               "--events", "24", "--news", "60", "--eval_lines", "6",
+                               "--device", "cpu", "--arms"])
+    assert again["donor"] == res["donor"] and not again["rows"]
+    assert "domain pretrain reused" in capsys.readouterr().out
+    counts = warmstart_ab.main(["--tally", str(tmp_path / "ws")])
+    ws = str(tmp_path / "ws")
+    assert counts["groups"] == {f"{ws}/{label}": {3: row[1]["auc"]} for label, row in
+                                zip(("warm-domain", "cold"), res["rows"])}
+    assert list(counts["fisher"]) == [(f"{ws}/cold", f"{ws}/warm-domain")]
 
 
 def test_unisrec_contract_main_on_cpu(tmp_path, monkeypatch, capsys):
